@@ -5,16 +5,23 @@
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from deep_q_learning_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels from deep_q_learning_tpu_torch/csrc with nvcc,
+     one nvcc per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, and time both with CUDA events;
+     shapes the main paths give it, and time both with CUDA events;
   4. run the ``lunar_per`` slice at full width through ``Trainer``: 4
      supersteps (512 vector steps of 128 envs), then check that the TD
      kernels ran once per learner update, the loss is finite, the online
      net trained, the target followed by Polyak averaging, and a greedy
      evaluation returns finite returns; then one learner update on the
      card is held against the same update on the CPU;
-  5. print the kernels' record as one JSON line, then the result line.
+  5. run ``lunar_per_scaled(1024)`` with ``use_pallas_sampler=True`` at
+     full width through ``Trainer``: 2 supersteps (256 vector steps of
+     1024 envs), and check that the PER slot kernel and the TD kernels ran
+     once per learner update and no plain version ran;
+  6. drive the same configuration through the command line: ``train`` one
+     superstep with a checkpoint, ``train --resume`` one more, ``eval``;
+  7. print the kernels' record as one JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without printing a result where CUDA is absent.
@@ -24,12 +31,21 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)  # loss and td: the kernel sums in another order
 DQ_TOL = dict(rtol=1e-5, atol=1e-7)
 TD_SOURCE = "deep_q_learning_tpu_torch/csrc/td_loss.cu"
+PER_SOURCE = "deep_q_learning_tpu_torch/csrc/per_sample.cu"
 SUPERSTEPS = 4
+SCALED_SUPERSTEPS = 2
+SLOT_SHAPES = [(1024, 512, 1024), (128, 4096, 256)]  # (N, C, B): lunar_per_scaled, lunar_per
+SLOT_ULPS = 8  # random priorities: a slot may differ only within 8 ulps of a prefix
+REPO = Path(__file__).resolve().parent
+SCALED_SETS = ["use_pallas_sampler=true"]  # the CLI's overrides of lunar_per_scaled
 
 
 def card_line() -> str:
@@ -114,7 +130,63 @@ def check_td_kernels(torch, td_kernels):
     return err, times
 
 
-def run_slice(torch, td_kernels, card):
+def slot_inputs(torch, n, c, b, seed, dyadic):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dyadic:  # multiples of 1/64 with small totals: every sum is exact
+        p = torch.randint(1, 257, (n, c), generator=g, device="cuda").float() / 64
+        p = p * (torch.rand((n, c), generator=g, device="cuda") > 0.3)
+        p[0] = 0.0  # an all-zero row
+    else:
+        p = torch.rand((n, c), generator=g, device="cuda") ** 3
+    env = torch.randint(0, n, (b,), generator=g, device="cuda")
+    u = torch.rand((b,), generator=g, device="cuda")
+    return p.contiguous(), env, u
+
+
+def check_slot_kernel(torch, sample_kernels):
+    """Phase 3, K3: slot indices of the kernel against the plain version.
+    Dyadic priorities must match exactly (their count of mismatches is the
+    record's ``max_abs_err``); random ones may differ only where every
+    prefix between the two slots lies within 8 ulps of the row total of
+    the draw."""
+    dyadic_mismatches = 0
+    for n, c, b in SLOT_SHAPES:
+        for dyadic in (True, False):
+            p, env, u = slot_inputs(torch, n, c, b, seed=n + c, dyadic=dyadic)
+            got = sample_kernels.slot_select(p, env, u)
+            want = sample_kernels.slot_select_reference(p, env, u)
+            torch.cuda.synchronize()
+            bad = (got != want).nonzero().flatten().tolist()
+            if dyadic:
+                dyadic_mismatches += len(bad)
+                assert not bad, f"K3 dyadic ({n}, {c}, {b}): {len(bad)} slots differ"
+            else:
+                rows = p[env].double()
+                total = rows.sum(dim=1).float()
+                draw = u.double() * total.double()
+                cdf = torch.cumsum(rows, dim=1)
+                ulp = (torch.nextafter(total, torch.full_like(total, math.inf)) - total).double()
+                for i in bad:
+                    lo, hi = sorted((int(got[i]), int(want[i])))
+                    gap = float((cdf[i, lo:hi] - draw[i]).abs().max())
+                    assert gap <= SLOT_ULPS * float(ulp[i]), (n, c, b, i, gap)
+                assert len(bad) < 0.01 * b, (n, c, b, len(bad))
+            print(f"  K3 kernel vs plain (N, C, B)=({n}, {c}, {b}) "
+                  f"{'dyadic' if dyadic else 'random'}: {len(bad)} slots differ")
+    times = {}
+    for n, c, b in SLOT_SHAPES:
+        p, env, u = slot_inputs(torch, n, c, b, seed=7, dyadic=False)
+        times[(n, c, b)] = (
+            time_ms(torch, lambda: sample_kernels.slot_select(p, env, u)),
+            time_ms(torch, lambda: sample_kernels.slot_select_reference(p, env, u)),
+        )
+        k_ms, p_ms = times[(n, c, b)]
+        print(f"  per_slot_sample (N, C, B)=({n}, {c}, {b}): kernel {k_ms * 1e3:.2f} us/call, "
+              f"plain {p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} calls)")
+    return dyadic_mismatches, times
+
+
+def run_slice(torch, td_kernels, sample_kernels, card):
     """Phase 4: lunar_per at full width through the Trainer."""
     from deep_q_learning_tpu_torch.config import lunar_per
     from deep_q_learning_tpu_torch.train import Trainer
@@ -127,11 +199,13 @@ def run_slice(torch, td_kernels, card):
     torch.cuda.reset_peak_memory_stats()
 
     td_kernels.reset_counts()
+    sample_kernels.reset_counts()
     t0 = time.perf_counter()
     metrics = [trainer.step() for _ in range(SUPERSTEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(td_kernels.launches)
+    assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_per
 
     updates = sum(m.loss_count for m in metrics)
     loss_sum = sum(m.loss_sum for m in metrics)
@@ -160,7 +234,86 @@ def run_slice(torch, td_kernels, card):
     print(f"  lunar_per x{cfg.num_envs} envs: {env_steps} env steps in {seconds:.3f} s = "
           f"{env_steps / seconds:.1f} env-steps/s, peak memory {peak_mib:.1f} MiB "
           f"[{card}]")
+
+
+def run_scaled(torch, td_kernels, sample_kernels, card):
+    """Phase 5: lunar_per_scaled(1024) with the PER slot kernel, at full
+    width through the Trainer."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.config import lunar_per_scaled
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(lunar_per_scaled(1024), use_pallas_sampler=True)
+    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    per = trainer.runner.replay.priorities
+    assert per.shape == (1024, 512) and cfg.batch_size == 1024, (per.shape, cfg.batch_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.step() for _ in range(SCALED_SUPERSTEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+
+    updates = sum(m.loss_count for m in metrics)
+    loss_sum = sum(m.loss_sum for m in metrics)
+    env_steps = metrics[-1].env_steps * cfg.num_envs
+    assert env_steps == SCALED_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
+    assert updates > 0 and updates == trainer.runner.train.updates
+    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates,
+                        "per_slot_sample": updates}, (launches, updates)
+    assert not any(plain.values()), plain
+    assert math.isfinite(loss_sum), loss_sum
+    assert float(trainer.runner.replay.max_priority) > 0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
+    print(f"  updates {updates}, launches {launches}, episodes {metrics[-1].episodes}")
+    print(f"  lunar_per_scaled x{cfg.num_envs} envs, use_pallas_sampler: {env_steps} env steps "
+          f"in {seconds:.3f} s = {env_steps / seconds:.1f} env-steps/s, "
+          f"peak memory {peak_mib:.1f} MiB [{card}]")
     return launches
+
+
+def run_cli(card):
+    """Phase 6: train one superstep with a checkpoint, resume for one more,
+    then evaluate the last checkpoint, each as ``python -m
+    deep_q_learning_tpu_torch``."""
+    per_superstep = 128 * 1024
+    (REPO / "build").mkdir(exist_ok=True)
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "deep_q_learning_tpu_torch", *args],
+            cwd=REPO, capture_output=True, text=True, timeout=400,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"CLI {args[0]} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"  {args[0]}{' --resume' if '--resume' in args else ''}: {out} "
+              f"({time.perf_counter() - t0:.1f} s with start-up)")
+        return out
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as workdir:
+        common = ["--preset", "lunar_per_scaled", "--workdir", workdir]
+        for item in SCALED_SETS:
+            common += ["--set", item]
+        first = cli("train", *common, "--max-env-steps", str(per_superstep),
+                    "--checkpoint-every", "1", "--log-every", "1", "--quiet")
+        assert first["env_steps"] == per_superstep and first["updates"] > 0, first
+        resumed = cli("train", *common, "--resume", "--max-env-steps", str(2 * per_superstep),
+                      "--checkpoint-every", "1", "--log-every", "1", "--quiet")
+        assert resumed["env_steps"] == 2 * per_superstep, resumed
+        assert resumed["updates"] > first["updates"] and resumed["episodes"] >= first["episodes"]
+        report = cli("eval", *common)
+        assert report["step"] == 2 * per_superstep and report["episodes"] == 128, report
+        assert math.isfinite(report["return_mean"]) and report["length_mean"] > 0, report
+    print(f"  CLI train -> resume -> eval on the card: ok [{card}]")
 
 
 def check_learner_vs_cpu(torch, td_kernels):
@@ -197,6 +350,7 @@ def check_learner_vs_cpu(torch, td_kernels):
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -207,39 +361,54 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from deep_q_learning_tpu_torch.ops import build, td_kernels
+    from deep_q_learning_tpu_torch.ops import build, sample_kernels, td_kernels
 
     print("phase 2: build")
     t0 = time.perf_counter()
-    td_kernels._lib()
-    print(f"  td_loss.cu: nvcc {build.build_seconds.get('td_loss.cu', 0.0):.2f} s "
-          f"(0 = reused a build), load {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, together
+        for fut in [pool.submit(td_kernels._lib), pool.submit(sample_kernels._lib)]:
+            fut.result()
+    for source in ("td_loss.cu", "per_sample.cu"):
+        print(f"  {source}: nvcc {build.build_seconds.get(source, 0.0):.2f} s (0 = reused a build)")
+    print(f"  built and loaded in {time.perf_counter() - t0:.2f} s")
 
     print("phase 3: kernels vs plain on the card")
     err, times = check_td_kernels(torch, td_kernels)
+    err["per_slot_sample"], slot_times = check_slot_kernel(torch, sample_kernels)
 
     print("phase 4: lunar_per slice")
-    launches = run_slice(torch, td_kernels, card)
+    run_slice(torch, td_kernels, sample_kernels, card)
     check_learner_vs_cpu(torch, td_kernels)
     torch.cuda.synchronize()
 
-    replaces = {
-        "td_loss_fwd": "deep_q_learning_tpu/ops/td_kernels.py:48",
-        "td_loss_bwd": "deep_q_learning_tpu/ops/td_kernels.py:97",
+    print("phase 5: lunar_per_scaled(1024) with use_pallas_sampler")
+    launches = run_scaled(torch, td_kernels, sample_kernels, card)
+
+    print("phase 6: the command line on the card")
+    run_cli(card)
+
+    # ms at B=256 for the TD kernels (lunar_per) and at (1024, 512, 1024)
+    # for the slot kernel (lunar_per_scaled); launches from phase 5
+    timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]])
+    kernels = {
+        "td_loss_fwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:48"),
+        "td_loss_bwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:97"),
+        "per_slot_sample": (PER_SOURCE, "deep_q_learning_tpu/ops/sample_kernels.py:52"),
     }
     record = {"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": TD_SOURCE,
-            "replaces": replaces[name],
+            "source": source,
+            "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": err[name],
-            "ms": times[256][name][0],
-            "plain_ms": times[256][name][1],
+            "ms": timed[name][0],
+            "plain_ms": timed[name][1],
         }
-        for name in ("td_loss_fwd", "td_loss_bwd")
+        for name, (source, replaces) in kernels.items()
     ]}
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s [{card}]")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

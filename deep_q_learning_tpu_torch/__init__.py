@@ -5,11 +5,15 @@ it, and the tests hold each ported function against its JAX counterpart on
 the same inputs.  This package imports torch and numpy, never jax, flax or
 optax.
 
-What is ported so far is the ``lunar_per`` training slice on one device:
-the rigid LunarLander engine, the dueling Q-network, prioritized n-step
-replay, the double-DQN learner with the hand-written CUDA TD+huber kernel
-(``ops/td_kernels.py``, ``csrc/td_loss.cu``), the superstep, the evaluator
-and the ``Trainer``.  ROADMAP.md lists what is still to port.
+What is ported so far is single-device training of the rigid LunarLander
+presets (``lunar_per``, ``lunar_per_scaled``): the rigid engine, the
+dueling Q-network, prioritized n-step replay with the hand-written CUDA
+slot-sampling kernel (``ops/sample_kernels.py``, ``csrc/per_sample.cu``),
+the double-DQN learner with the hand-written CUDA TD+huber kernel
+(``ops/td_kernels.py``, ``csrc/td_loss.cu``), the superstep, the
+evaluator, the ``Trainer`` with full-runner checkpoints, and the command
+line (``python -m deep_q_learning_tpu_torch``).  ROADMAP.md lists what is
+still to port.
 """
 
 __version__ = "0.1.0"

@@ -34,5 +34,11 @@ _shared = _load_shared_config()
 DQNConfig = _shared.DQNConfig
 PRESETS = _shared.PRESETS
 lunar_per = _shared.lunar_per
+lunar_per_scaled = _shared.lunar_per_scaled
+config_to_dict = _shared.config_to_dict
+config_shape_mismatches = _shared.config_shape_mismatches
 
-__all__ = ["DQNConfig", "PRESETS", "lunar_per"]
+__all__ = [
+    "DQNConfig", "PRESETS", "lunar_per", "lunar_per_scaled",
+    "config_to_dict", "config_shape_mismatches",
+]

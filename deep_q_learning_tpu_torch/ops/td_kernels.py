@@ -103,7 +103,7 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 def _device_kind(device: torch.device) -> str:
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the TD kernel runs on cpu or cuda tensors, not {device}")
+        raise ValueError(f"the kernels run on cpu or cuda tensors, not {device}")
     return device.type
 
 

@@ -6,7 +6,10 @@ batch max, new transitions at the running max priority, priorities set to
 ``(|td| + ε)^α`` after each update.  Priorities are a dense ``(N, C)``
 array beside the slot-major ring; sampling is two-level: env rows ∝ row
 sums, then slots within each chosen row, both by counting cumulative sums
-below a uniform draw.
+below a uniform draw.  With ``use_pallas`` (the config's
+``use_pallas_sampler``) level 2 runs in the CUDA kernel of
+``ops/sample_kernels.py``, whose draw is ``u · sum(row)`` as in the JAX
+package's Pallas kernel; level 1, the draws and the weights stay here.
 
 The JAX package's one-hot priority update is a TPU workaround; here
 duplicate ``(env, slot)`` pairs resolve max-wins through set-to-0 and a
@@ -22,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from deep_q_learning_tpu_torch.envs.base import Transition
+from deep_q_learning_tpu_torch.ops.sample_kernels import slot_select
 from deep_q_learning_tpu_torch.replay.nstep import assemble_learn_batch, valid_slot_mask
 from deep_q_learning_tpu_torch.replay.uniform import (
     RingStorage,
@@ -74,11 +78,7 @@ class PrioritizedReplay:
         n_step: int = 1,
         truncation_bootstrap: bool = True,
     ):
-        if use_pallas:
-            raise NotImplementedError(
-                "the PER slot-sampling kernel (use_pallas_sampler) is not ported "
-                "yet; see ROADMAP.md, kernel K3"
-            )
+        self.use_pallas = use_pallas
         self.num_envs = num_envs
         self.capacity_per_env = capacity_per_env
         self.alpha = alpha
@@ -148,10 +148,13 @@ class PrioritizedReplay:
         env_idx = env_idx.clamp(max=self.num_envs - 1)
 
         # level 2: slot within each chosen row ∝ row priorities
-        row_cdfs = torch.cumsum(p[env_idx], dim=1)  # (B, C)
-        row_tot = row_cdfs[:, -1]
-        slot_idx = (row_cdfs < (u_slot * row_tot)[:, None]).sum(dim=1)
-        slot_idx = slot_idx.clamp(max=self.capacity_per_env - 1)
+        if self.use_pallas:
+            slot_idx = slot_select(p, env_idx, u_slot)
+        else:
+            row_cdfs = torch.cumsum(p[env_idx], dim=1)  # (B, C)
+            row_tot = row_cdfs[:, -1]
+            slot_idx = (row_cdfs < (u_slot * row_tot)[:, None]).sum(dim=1)
+            slot_idx = slot_idx.clamp(max=self.capacity_per_env - 1)
         p_sel = p[env_idx, slot_idx] / total.clamp(min=1e-12)
 
         batch = assemble_learn_batch(

@@ -2,14 +2,17 @@
 
 It builds the env, network, replay and superstep for one config on one
 explicit device, runs supersteps until the window is solved or the
-env-step budget is spent, and evaluates the greedy policy.  Checkpoints,
-``config.json`` and the JAX package's AOT cache are not ported yet
+env-step budget is spent, checkpoints the full runner into ``workdir``
+(with the resolved config beside it, as ``config.json``) and evaluates the
+greedy policy.  The JAX package's AOT cache is not ported, by design
 (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -18,9 +21,35 @@ import torch
 
 from deep_q_learning_tpu_torch.algos import build_superstep, make_optimizer
 from deep_q_learning_tpu_torch.algos.evaluate import EvalResult, build_evaluator
+from deep_q_learning_tpu_torch.config import config_shape_mismatches, config_to_dict
 from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
 from deep_q_learning_tpu_torch.models import QNetwork
 from deep_q_learning_tpu_torch.replay import make_replay
+from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+
+def _write_config_json(workdir: str, cfg) -> None:
+    """Keep the resolved config beside the checkpoints, so that eval and
+    resume can check that they rebuild the same shapes."""
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "config.json"), "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=1)
+
+
+def _check_config_json(workdir: str, cfg) -> None:
+    path = os.path.join(workdir, "config.json")
+    if not os.path.exists(path):
+        return
+    with open(path) as f:
+        saved = json.load(f)
+    bad = config_shape_mismatches(saved, cfg)
+    if bad:
+        detail = ", ".join(f"{k}: checkpoint={v[0]!r} vs current={v[1]!r}" for k, v in bad.items())
+        raise ValueError(
+            f"config mismatch vs {path}: the checkpoint was written with "
+            f"different shape-affecting fields ({detail}); repeat the same "
+            f"--preset/--set overrides used at train time"
+        )
 
 
 @dataclasses.dataclass
@@ -53,13 +82,14 @@ class Trainer:
     Everything runs in float32: TF32 is switched off for matmuls and cuDNN
     (process-wide), since the reference values are full float32."""
 
-    def __init__(self, cfg, device="cuda"):
+    def __init__(self, cfg, device="cuda", workdir: Optional[str] = None):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 "the PyTorch port runs in float32 only (compute_dtype='bfloat16' "
                 "is not ported; see ROADMAP.md)"
             )
         self.cfg = cfg
+        self.workdir = workdir
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -120,15 +150,20 @@ class Trainer:
         self,
         max_env_steps: int = 10_000_000,
         log_every: int = 10,
+        checkpoint_every: Optional[int] = None,
         eval_every: Optional[int] = None,
         verbose: bool = True,
     ) -> TrainResult:
         """Run supersteps until solved or the env-step budget is spent.
-        ``eval_every`` (in supersteps) interleaves greedy evaluation."""
+        With a ``workdir``, a checkpoint is saved every ``checkpoint_every``
+        supersteps and when the window is solved.  ``eval_every`` (in
+        supersteps) interleaves greedy evaluation."""
+        if self.runner is None:
+            self.init()
         cfg = self.cfg
         t0 = time.time()
         i = 0
-        last_steps, last_time = 0, t0
+        last_steps, last_time = self.runner.env_step * cfg.num_envs, t0
         while True:
             m = self.step()
             i += 1
@@ -161,6 +196,8 @@ class Trainer:
                         f"({sps/1e6:.3f}M steps/s)",
                         flush=True,
                     )
+            if self.workdir and (m.solved or (checkpoint_every and i % checkpoint_every == 0)):
+                self.save(step=env_steps)
             if m.solved or env_steps >= max_env_steps:
                 break
         return TrainResult(
@@ -179,3 +216,23 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         ev = self._evaluate(self.runner.train.online, generator)
         return EvalResult(*(x.cpu().numpy() for x in ev))
+
+    # --------------------------------------------------------- persistence
+    def save(self, step: int) -> str:
+        """Checkpoint the full runner as ``workdir/<step>.pt``."""
+        if not self.workdir:
+            raise ValueError("Trainer(workdir=...) is required for checkpointing")
+        if self.runner is None:
+            raise RuntimeError("call init() first")
+        _write_config_json(self.workdir, self.cfg)
+        return ckpt.save_checkpoint(self.workdir, self.runner, step)
+
+    def restore(self, step: Optional[int] = None):
+        """Load the checkpoint at ``step`` (the latest if None) from
+        ``workdir``, after checking ``config.json`` against this config."""
+        if not self.workdir:
+            raise ValueError("Trainer(workdir=...) is required for checkpointing")
+        _check_config_json(self.workdir, self.cfg)
+        template = self.runner if self.runner is not None else self._init_runner(self.cfg.seed)
+        self.runner = ckpt.restore_checkpoint(self.workdir, template, step)
+        return self

@@ -7,7 +7,10 @@ toolkit; ``--noconftest`` skips tests/conftest.py, which imports jax:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: loss and td rtol 1e-5, atol 1e-6 (the kernel reduces the loss
-in another order); dQ rtol 1e-5, atol 1e-7."""
+in another order); dQ rtol 1e-5, atol 1e-7.  PER slot sampling: exact on
+dyadic priorities (every sum exact in any order); on random priorities a
+slot may differ only where every prefix between the two slots lies within
+8 float32 ulps of the row total of the plain version's draw."""
 
 import dataclasses
 
@@ -15,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from deep_q_learning_tpu_torch.ops import td_kernels
+from deep_q_learning_tpu_torch.ops import sample_kernels, td_kernels
+from deep_q_learning_tpu_torch.ops.sample_kernels import slot_select, slot_select_reference
 from deep_q_learning_tpu_torch.ops.td_kernels import (
     td_loss_backward_reference,
     td_loss_bwd,
@@ -99,3 +103,51 @@ def test_learner_update_on_gpu_matches_cpu(cuda):
     torch.testing.assert_close(td_g, td_c, rtol=1e-4, atol=1e-5)
     for pc, pg in zip(ts_c.online.parameters(), ts_g.online.parameters()):
         torch.testing.assert_close(pg.detach().cpu(), pc.detach(), rtol=1e-4, atol=1e-6)
+
+
+def _slot_inputs(n, c, b, seed, dyadic, device):
+    rng = np.random.default_rng(seed)
+    if dyadic:
+        p = rng.integers(1, 257, (n, c)) / 64.0
+        p[rng.random((n, c)) < 0.3] = 0.0
+        p[0] = 0.0  # an all-zero row
+    else:
+        p = rng.random((n, c)) ** 3
+    env = rng.integers(0, n, b)
+    env[:2] = (-1, n)  # rows outside [0, N) select nothing
+    u = rng.random(b)
+    u[2:5] = (0.0, 1.5, 1.0)  # no mass; past the total; the total itself
+    return (
+        torch.tensor(p, dtype=torch.float32, device=device),
+        torch.tensor(env, dtype=torch.int64, device=device),
+        torch.tensor(u, dtype=torch.float32, device=device),
+    )
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+@pytest.mark.parametrize("n,c,b", [(1024, 512, 1024), (128, 4096, 256), (5, 200, 37)])
+def test_slot_kernel_matches_plain(cuda, n, c, b, dyadic):
+    p, env, u = _slot_inputs(n, c, b, seed=n + c + b, dyadic=dyadic, device=cuda)
+    sample_kernels.reset_counts()
+    got = slot_select(p, env, u)
+    want = slot_select_reference(p, env, u)
+    torch.cuda.synchronize()
+    assert sample_kernels.launches == {"per_slot_sample": 1}
+    assert sample_kernels.plain_calls == {"per_slot_sample": 0}
+    assert got.dtype == torch.int64 and got.shape == (b,)
+    assert int(got[0]) == int(got[1]) == int(got[2]) == 0
+    assert int(got[3]) == c - 1
+    if dyadic:
+        assert torch.equal(got, want)
+        return
+    rows = torch.where(
+        ((env >= 0) & (env < n))[:, None], p[env.clamp(0, n - 1)], 0.0
+    ).double().cpu().numpy()
+    total = rows.sum(axis=1).astype(np.float32)
+    draw = u.double().cpu().numpy() * total
+    cdf = np.cumsum(rows, axis=1)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    for i in np.flatnonzero(got != want):
+        lo, hi = sorted((got[i], want[i]))
+        assert np.abs(cdf[i, lo:hi] - draw[i]).max() <= 8 * np.spacing(total[i]), i
+    assert (got != want).mean() < 0.01

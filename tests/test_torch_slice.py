@@ -221,7 +221,8 @@ def test_absent_cuda_device_raises():
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, deep_q_learning_tpu_torch, deep_q_learning_tpu_torch.train; "
+        "import sys, deep_q_learning_tpu_torch, deep_q_learning_tpu_torch.train, "
+        "deep_q_learning_tpu_torch.__main__, deep_q_learning_tpu_torch.measure; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'deep_q_learning_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
