@@ -21,7 +21,17 @@ Phases (each raises on failure, so any failure exits non-zero):
      once per learner update and no plain version ran;
   6. drive the same configuration through the command line: ``train`` one
      superstep with a checkpoint, ``train --resume`` one more, ``eval``;
-  7. print the kernels' record as one JSON line, then the result line.
+  7. run ``lunar_jointed_per`` (the jointed 3-body lander, solver
+     iterations (120, 40)) at full width through ``Trainer``: 2 supersteps
+     of 16 vector steps of 128 envs, learning from 2048 stored
+     transitions; check the TD kernels ran once per learner update with no
+     plain call, the counters, a finite loss, the online net trained and
+     the target followed; print env-steps/s and the kernel launches of one
+     jointed vector step; a greedy evaluation cut at 4 frames; then one
+     jointed frame of 64 landers from a short flight near the ground
+     (touchdowns, contacts, crashes) on the card against the same frame on
+     the CPU;
+  8. print the kernels' record as one JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without printing a result where CUDA is absent.
@@ -46,6 +56,26 @@ SLOT_SHAPES = [(1024, 512, 1024), (128, 4096, 256)]  # (N, C, B): lunar_per_scal
 SLOT_ULPS = 8  # random priorities: a slot may differ only within 8 ulps of a prefix
 REPO = Path(__file__).resolve().parent
 SCALED_SETS = ["use_pallas_sampler=true"]  # the CLI's overrides of lunar_per_scaled
+# lunar_jointed_per cut in depth only: the width and the solver iterations
+# are the preset's (never below ~60 velocity iterations: the joints give way)
+JOINTED_CUTS = dict(steps_per_superstep=16, training_start=2048)
+JOINTED_SUPERSTEPS = 2
+JOINTED_EVAL_FRAMES = 4  # Trainer.evaluate's default runs max_steps_in_episode = 1000 frames
+FRAME_ENVS, FRAME_FLIGHT = 64, 30
+# one jointed frame, card vs CPU.  XLA, the CPU and the card round float32
+# differently in the last ulp, and the solver's iterations carry that far on
+# hard impacts; the CPU tests measure how far against a float64 evaluation
+# (tests/test_torch_lander_solver.py).  So: the CPU tests' tight tolerances on
+# at least 90 % of the lanes, and every lane within 4x the largest float32
+# error measured there.
+FRAME_TOL = {  # kind: (tight atol, tight rtol, every-lane atol)
+    "position": (1e-5, 0.0, 1.2e-4),
+    "velocity": (1e-4, 0.0, 3e-2),
+    "accumulator": (1e-5, 1e-4, 2e-2),
+    "obs": (1e-5, 0.0, 2e-3),
+    "reward": (1e-4, 0.0, 5e-2),
+}
+FRAME_TIGHT_SHARE = 0.9
 
 
 def card_line() -> str:
@@ -316,6 +346,163 @@ def run_cli(card):
     print(f"  CLI train -> resume -> eval on the card: ok [{card}]")
 
 
+def frame_launches(torch, trainer) -> int:
+    """Kernel launches of one vector step of the trainer's env on the card,
+    counted by torch.profiler."""
+    r = trainer.runner
+    actions = torch.zeros((trainer.cfg.num_envs,), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.env.step_env(r.generator, r.env_states, actions, trainer.env_params)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+
+
+def run_jointed(torch, td_kernels, sample_kernels, card):
+    """Phase 7: lunar_jointed_per at full width through the Trainer."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.config import lunar_jointed_per
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(lunar_jointed_per(), **JOINTED_CUTS)
+    assert (cfg.num_envs, cfg.hidden, cfg.batch_size, cfg.n_step, cfg.dueling) == (
+        128, (256, 256), 256, 3, True), cfg
+    assert (cfg.lander_engine, cfg.lander_vel_iters, cfg.lander_pos_iters) == ("jointed", 120, 40)
+    assert cfg.use_pallas and not cfg.use_pallas_sampler
+    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    assert trainer.runner.replay.priorities.shape == (128, 4096)
+    assert trainer.runner.env_states.solver_acc.c1.shape == (128, 4, 2)
+    online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
+    target0 = [p.detach().clone() for p in trainer.runner.train.target.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.step() for _ in range(JOINTED_SUPERSTEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(td_kernels.launches)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_jointed_per
+
+    updates = sum(m.loss_count for m in metrics)
+    loss_sum = sum(m.loss_sum for m in metrics)
+    vector_steps = JOINTED_SUPERSTEPS * cfg.steps_per_superstep
+    assert [m.env_steps for m in metrics] == [
+        cfg.steps_per_superstep * (i + 1) for i in range(JOINTED_SUPERSTEPS)]
+    assert trainer.runner.replay.total_adds == vector_steps
+    # learning starts once 2048 transitions are stored: at vector step 16
+    first = cfg.training_start // cfg.num_envs
+    assert updates == vector_steps - first + 1 == trainer.runner.train.updates, updates
+    assert trainer.runner.train.opt_state.count == updates
+    assert metrics[-1].episodes == sum(m.episodes_delta for m in metrics)
+    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, (launches, updates)
+    assert not any(plain.values()), plain
+    assert math.isfinite(loss_sum), loss_sum
+    online = [p.detach() for p in trainer.runner.train.online.parameters()]
+    target = [p.detach() for p in trainer.runner.train.target.parameters()]
+    moved_online = sum(float((p - p0).norm()) for p, p0 in zip(online, online0))
+    moved_target = sum(float((t - t0_).norm()) for t, t0_ in zip(target, target0))
+    gap = sum(float((t - p).norm()) for t, p in zip(target, online))
+    assert moved_online > 0 and 0 < moved_target < moved_online and gap > 0, (
+        moved_online, moved_target, gap)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    # each superstep also runs one frame for its pool of fresh episodes
+    frames = vector_steps + JOINTED_SUPERSTEPS
+    per_frame = frame_launches(torch, trainer)
+
+    ev = trainer.evaluate(seed=0, max_steps=JOINTED_EVAL_FRAMES)
+    assert ev.returns.shape == (128,) and all(math.isfinite(x) for x in ev.returns)
+    assert (ev.lengths <= JOINTED_EVAL_FRAMES).all()
+    print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
+    print(f"  updates {updates}, launches {launches}, episodes {metrics[-1].episodes}, "
+          f"greedy eval over {JOINTED_EVAL_FRAMES} frames: mean {float(ev.returns.mean()):.3f}")
+    print(f"  lunar_jointed_per x{cfg.num_envs} envs: {vector_steps * cfg.num_envs} env steps "
+          f"({frames} jointed frames with the reset pools) in {seconds:.3f} s = "
+          f"{vector_steps * cfg.num_envs / seconds:.1f} env-steps/s, "
+          f"{seconds / frames * 1e3:.1f} ms per jointed frame, peak memory {peak_mib:.1f} MiB "
+          f"[{card}]")
+    print(f"  kernel launches of one jointed vector step: {per_frame} "
+          f"(torch.profiler) [{card}]")
+    return launches
+
+
+def to_device(torch, obj, device):
+    """A state dataclass (nested dataclasses, tensors, None) on ``device``."""
+    import dataclasses
+
+    if obj is None:
+        return None
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    return dataclasses.replace(obj, **{
+        f.name: to_device(torch, getattr(obj, f.name), device) for f in dataclasses.fields(obj)
+    })
+
+
+def check_jointed_frame(torch, card):
+    """Phase 7: one jointed frame on the card against the same frame on the
+    CPU, from the same states, actions and dispersion draws."""
+    from deep_q_learning_tpu_torch.config import lunar_jointed_per
+    from deep_q_learning_tpu_torch.envs import make_env
+    from deep_q_learning_tpu_torch.envs.heuristic import heuristic_action, touchdown_states
+
+    cfg = lunar_jointed_per()
+    env, params = make_env(cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
+                           param_overrides=cfg.env_param_overrides())
+    assert params.jointed and (params.vel_iters, params.pos_iters) == (120, 40)
+    g = torch.Generator().manual_seed(11)
+    t0 = time.perf_counter()
+    obs, st = touchdown_states(env, params, FRAME_ENVS, g, FRAME_FLIGHT)
+    flight_s = time.perf_counter() - t0
+    on_ground = st.leg1 | st.leg2
+    assert on_ground.any() and (st.leg1 & st.leg2).any() and (~on_ground).any(), "coverage"
+    random = torch.randint(0, 4, (FRAME_ENVS,), generator=g, dtype=torch.int32)
+    actions = torch.where(torch.arange(FRAME_ENVS) % 2 == 0, heuristic_action(obs), random)
+    draws = torch.rand((FRAME_ENVS, 2), generator=g) * 2.0 - 1.0
+    cpu = env.step_env(None, st, actions, params, draws)
+    gpu = env.step_env(None, to_device(torch, st, "cuda"), actions.cuda(), params, draws.cuda())
+    torch.cuda.synchronize()
+    gpu = [to_device(torch, x, "cpu") for x in gpu]
+
+    c_st, g_st = cpu[1], gpu[1]
+    fields = [("obs", cpu[0], gpu[0]), ("reward", cpu[2], gpu[2])]
+    for name, kind in (("x", "position"), ("y", "position"), ("angle", "position"),
+                       ("vx", "velocity"), ("vy", "velocity"), ("omega", "velocity")):
+        fields.append((kind, getattr(c_st, name), getattr(g_st, name)))
+    for leg in ("leg1_body", "leg2_body"):
+        for name in ("cx", "cy", "a", "vx", "vy", "w"):
+            kind = "position" if name in ("cx", "cy", "a") else "velocity"
+            fields.append((kind, getattr(getattr(c_st, leg), name), getattr(getattr(g_st, leg), name)))
+    for name in ("j1", "j2", "c1", "c2"):
+        fields.append(("accumulator", getattr(c_st.solver_acc, name), getattr(g_st.solver_acc, name)))
+    past_tight = torch.zeros(FRAME_ENVS, dtype=torch.bool)
+    err = {}
+    for kind, want, got in fields:
+        tight, rtol, loose = FRAME_TOL[kind]
+        gap = (got.double() - want.double()).abs().reshape(FRAME_ENVS, -1)
+        err[kind] = max(err.get(kind, 0.0), float(gap.max()))
+        assert float(gap.max()) <= loose, (kind, float(gap.max()), loose)
+        past_tight |= (gap > tight + rtol * want.double().abs().reshape(FRAME_ENVS, -1)).any(1)
+    assert float(past_tight.float().mean()) <= 1 - FRAME_TIGHT_SHARE, int(past_tight.sum())
+    for name in ("leg1", "leg2", "wind_idx", "t"):
+        assert torch.equal(getattr(c_st, name), getattr(g_st, name)), name
+    for name in ("s1", "s2"):
+        assert torch.equal(getattr(c_st.solver_acc, name), getattr(g_st.solver_acc, name)), name
+    assert torch.equal(cpu[3], gpu[3]) and torch.equal(cpu[4], gpu[4]), "terminated, truncated"
+    # the sleep counter follows the end-of-step speeds: a lane at a threshold may flip
+    assert int((c_st.sleep != g_st.sleep).sum()) <= 1
+    print(f"  one jointed frame of {FRAME_ENVS} landers ({int(on_ground.sum())} on the ground, "
+          f"{int(cpu[3].sum())} finishing) after a {FRAME_FLIGHT}-frame flight on the CPU "
+          f"({flight_s:.1f} s): card vs CPU largest gaps {err}, "
+          f"{int(past_tight.sum())} lanes past the tight tolerances [{card}]")
+
+
 def check_learner_vs_cpu(torch, td_kernels):
     """One learner update through the kernel on the card against the plain
     path on the CPU, from the same weights and batch (rtol 1e-4)."""
@@ -387,9 +574,17 @@ def main() -> int:
     print("phase 6: the command line on the card")
     run_cli(card)
 
-    # ms at B=256 for the TD kernels (lunar_per) and at (1024, 512, 1024)
-    # for the slot kernel (lunar_per_scaled); launches from phase 5
+    print("phase 7: lunar_jointed_per, the jointed lander")
+    t0 = time.perf_counter()
+    jointed_launches = run_jointed(torch, td_kernels, sample_kernels, card)
+    check_jointed_frame(torch, card)
+    print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # ms at B=256 for the TD kernels (lunar_per, lunar_jointed_per) and at
+    # (1024, 512, 1024) for the slot kernel (lunar_per_scaled); launches of
+    # the TD kernels from phase 7, of the slot kernel from phase 5
     timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]])
+    launches = dict(launches, **jointed_launches)
     kernels = {
         "td_loss_fwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:48"),
         "td_loss_bwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:97"),

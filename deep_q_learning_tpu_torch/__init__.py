@@ -5,8 +5,11 @@ it, and the tests hold each ported function against its JAX counterpart on
 the same inputs.  This package imports torch and numpy, never jax, flax or
 optax.
 
-What is ported so far is single-device training of the rigid LunarLander
-presets (``lunar_per``, ``lunar_per_scaled``): the rigid engine, the
+What is ported so far is single-device training of the LunarLander
+presets on both lander engines: the jointed 3-body lander stepped by the
+Box2D sequential-impulse solver (``lunar_jointed_per``,
+``lunar_jointed_scaled``; ``envs/lander_solver.py``) and the rigid one
+(``lunar_per``, ``lunar_per_scaled``), the heuristic controller, the
 dueling Q-network, prioritized n-step replay with the hand-written CUDA
 slot-sampling kernel (``ops/sample_kernels.py``, ``csrc/per_sample.cu``),
 the double-DQN learner with the hand-written CUDA TD+huber kernel

@@ -86,9 +86,17 @@ def _not_ported(what: str, item: str) -> SystemExit:
 # ------------------------------------------------------------------ commands
 
 def cmd_presets(args: argparse.Namespace) -> int:
+    from deep_q_learning_tpu_torch.envs import make_env
+
     for name, factory in PRESETS.items():
         doc = (factory.__doc__ or "").strip().splitlines()[0]
-        print(f"{name:22s} {doc}")
+        cfg = factory()
+        try:
+            make_env(cfg.env_id, param_overrides=cfg.env_param_overrides())
+            status = "[runnable]"
+        except NotImplementedError:
+            status = f"[not ported: {cfg.env_id}]"
+        print(f"{name:22s} {status:30s} {doc}")
     if args.fields:
         print("\nconfig fields (override with --set key=value):")
         for f in dataclasses.fields(DQNConfig):

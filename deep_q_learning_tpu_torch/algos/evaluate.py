@@ -8,7 +8,7 @@ first episode ends, and ``truncated`` marks episodes the evaluator cut at
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -27,10 +27,15 @@ class EvalResult(NamedTuple):
 
 
 def build_evaluator(venv: VectorEnv, env_params: Any, max_steps: int) -> Callable:
-    """Returns ``evaluate(network, generator) -> EvalResult``."""
+    """Returns ``evaluate(network, generator, max_steps=None) -> EvalResult``;
+    a ``max_steps`` given to a call cuts its episodes sooner."""
+    default_max_steps = max_steps
 
     @torch.no_grad()
-    def evaluate(network: torch.nn.Module, generator: torch.Generator) -> EvalResult:
+    def evaluate(
+        network: torch.nn.Module, generator: torch.Generator, max_steps: Optional[int] = None
+    ) -> EvalResult:
+        max_steps = default_max_steps if max_steps is None else max_steps
         obs, states = venv.reset(generator, env_params)
         # finished envs are masked, so what they reset into does not matter:
         # reuse the start states as the reset pool instead of resetting anew

@@ -35,10 +35,13 @@ DQNConfig = _shared.DQNConfig
 PRESETS = _shared.PRESETS
 lunar_per = _shared.lunar_per
 lunar_per_scaled = _shared.lunar_per_scaled
+lunar_jointed_per = _shared.lunar_jointed_per
+lunar_jointed_scaled = _shared.lunar_jointed_scaled
 config_to_dict = _shared.config_to_dict
 config_shape_mismatches = _shared.config_shape_mismatches
 
 __all__ = [
     "DQNConfig", "PRESETS", "lunar_per", "lunar_per_scaled",
+    "lunar_jointed_per", "lunar_jointed_scaled",
     "config_to_dict", "config_shape_mismatches",
 ]

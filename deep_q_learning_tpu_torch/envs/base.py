@@ -28,7 +28,10 @@ class EnvParams:
 
 def tree_where(mask: torch.Tensor, fresh: Any, stepped: Any) -> Any:
     """Per-env select ``mask ? fresh : stepped`` over a tensor or a
-    dataclass of batched tensors."""
+    dataclass of batched tensors, nested dataclasses and ``None`` fields
+    (absent on both sides) included."""
+    if stepped is None:
+        return None
     if isinstance(stepped, torch.Tensor):
         m = mask.reshape(mask.shape + (1,) * (stepped.dim() - 1))
         return torch.where(m, fresh, stepped)

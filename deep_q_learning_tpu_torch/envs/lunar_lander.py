@@ -1,15 +1,18 @@
-"""LunarLander dynamics in batched PyTorch — the rigid engine of
-``deep_q_learning_tpu/envs/lunar_lander.py``.
+"""LunarLander dynamics in batched PyTorch — ``deep_q_learning_tpu/envs/lunar_lander.py``.
 
 The JAX module documents the fidelity contract (gym's geometry, terrain,
 observation, shaping reward, engine impulses with dispersion, the reset
 kick frame, Box2D's sleep rule) and carries the Box2D validation.  This
-module ports its rigid engine formula for formula, with a leading ``N``
-axis on every state field, and is held against the JAX env on matched
-states (``tests/test_torch_envs_lunar.py``), not against Box2D again.
+module ports both of its physics engines formula for formula, with a
+leading ``N`` axis on every state field, and is held against the JAX env
+on matched states (``tests/test_torch_envs_lunar.py``), not against Box2D
+again:
 
-The jointed engine (the Box2D sequential-impulse solver,
-``envs/lander_solver.py``) is not ported yet: ``jointed=True`` raises.
+  * ``jointed`` (``params.jointed``, the default): the hull and two legs on
+    motorized revolute joints, stepped by the Box2D sequential-impulse
+    solver of ``envs/lander_solver.py``;
+  * ``rigid``: one rigid body with two leg-tip contacts and the calibrated
+    joint-overload threshold ``J_CRASH``.
 
 Randomness: the reset draws (terrain heights, kick force, wind indices)
 and the per-frame dispersion draw come from the caller's generator, or
@@ -26,7 +29,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from deep_q_learning_tpu_torch.envs import lander_solver
 from deep_q_learning_tpu_torch.envs.base import EnvParams, Environment
+from deep_q_learning_tpu_torch.envs.lander_solver import AssemblyAcc, Body, _f32_product
 
 # ----------------------------- published spec constants --------------------
 FPS = 50.0
@@ -65,16 +70,10 @@ ANG_SLEEP_TOL = 0.0349
 SLEEP_FRAMES = 25
 SOLVER_ITERS = 4
 
-_NOT_PORTED = (
-    "the jointed lander engine (Box2D solver, deep_q_learning_tpu/envs/"
-    "lander_solver.py) is not ported to PyTorch yet — see ROADMAP.md, "
-    "'Slice D'; use lander_engine='rigid'"
-)
-
 
 @dataclasses.dataclass
 class LunarLanderState:
-    """Batched rigid-engine state; every field has a leading ``N`` axis."""
+    """Batched lander state; every field has a leading ``N`` axis."""
 
     x: torch.Tensor  # (N,) f32 hull body-origin position
     y: torch.Tensor
@@ -90,6 +89,11 @@ class LunarLanderState:
     sleep: torch.Tensor  # (N,) int32 consecutive below-tolerance frames
     wind_idx: torch.Tensor  # (N,) int32
     torque_idx: torch.Tensor  # (N,) int32
+    # jointed engine only (None in rigid mode): the two leg bodies of the
+    # 3-body assembly and the solver's warm-start accumulators
+    leg1_body: Optional[Body] = None
+    leg2_body: Optional[Body] = None
+    solver_acc: Optional[AssemblyAcc] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +105,16 @@ class LunarLanderParams(EnvParams):
     turbulence_power: float = 1.5
     dispersion_scale: float = 1.0  # scales engine dispersion noise (1 = spec)
     max_steps_in_episode: int = 1000
-    # engine selection, default as in the JAX params; only the rigid engine
-    # (jointed=False) is ported, and the jointed engine's solver settings
-    # (vel_iters, pos_iters, vel_tol) come with it
+    # physics engine: the jointed 3-body assembly (default) or the rigid body
     jointed: bool = True
+    # the jointed solver's iteration counts: gym passes (180, 60); presets
+    # may lower them, not below ~60 velocity iterations, where the joints
+    # give way under touchdown load (tests/test_lander_solver.py)
+    vel_iters: int = lander_solver.VEL_ITERS
+    pos_iters: int = lander_solver.POS_ITERS
+    # velocity-loop early exit on the accumulators' change; 0.0 (the
+    # fixed-count loop) in every preset
+    vel_tol: float = 0.0
 
 
 @dataclasses.dataclass
@@ -132,11 +142,6 @@ def sample_reset_draws(generator: torch.Generator, n: int) -> ResetDraws:
     )
 
 
-def _check_engine(params: LunarLanderParams) -> None:
-    if params.jointed:
-        raise NotImplementedError(_NOT_PORTED)
-
-
 def _terrain_height(terrain: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Piecewise-linear terrain height at world x (chunks span [0, W])."""
     chunk_w = W / (CHUNKS - 1)
@@ -154,45 +159,41 @@ def _wind_pattern(idx: torch.Tensor) -> torch.Tensor:
     return torch.tanh(torch.sin(0.02 * f) + torch.sin(math.pi * 0.01 * f))
 
 
-def _f32_product(a: float, b: float) -> float:
-    """``a * b`` rounded as a float32 product of float32 operands — the
-    value the JAX env gets from a float32 param times a Python constant."""
-    return float(np.float32(a) * np.float32(b))
-
-
 def state_from_numpy(state, device="cpu") -> LunarLanderState:
-    """Convert a rigid-engine ``deep_q_learning_tpu`` ``LunarLanderState``
-    whose fields are numpy arrays (batched ``(N,)`` or one instance) into a
-    batched :class:`LunarLanderState`."""
-    if getattr(state, "leg1_body", None) is not None:
-        raise NotImplementedError(_NOT_PORTED)
-
-    def col(name, dtype):
-        return torch.tensor(np.atleast_1d(np.asarray(getattr(state, name))), device=device).to(dtype)
-
+    """Convert a ``deep_q_learning_tpu`` ``LunarLanderState`` whose leaves
+    are numpy arrays (batched with a leading ``N`` axis, or one instance)
+    into a batched :class:`LunarLanderState`, the jointed engine's leg
+    bodies and solver accumulators included."""
     f32, i32 = torch.float32, torch.int32
+
+    def col(value, dtype, *trailing):
+        a = np.asarray(value).reshape(-1, *trailing)
+        return torch.tensor(a, device=device).to(dtype)
+
+    def body(b):
+        return Body(**{f.name: col(getattr(b, f.name), f32) for f in dataclasses.fields(Body)})
+
+    acc = state.solver_acc
+    jointed = state.leg1_body is not None
     return LunarLanderState(
-        x=col("x", f32),
-        y=col("y", f32),
-        vx=col("vx", f32),
-        vy=col("vy", f32),
-        angle=col("angle", f32),
-        omega=col("omega", f32),
-        leg1=col("leg1", torch.bool),
-        leg2=col("leg2", torch.bool),
-        terrain=torch.tensor(
-            np.asarray(state.terrain, np.float32).reshape(-1, CHUNKS), device=device
-        ),
-        prev_shaping=col("prev_shaping", f32),
-        t=col("t", i32),
-        sleep=col("sleep", i32),
-        wind_idx=col("wind_idx", i32),
-        torque_idx=col("torque_idx", i32),
+        **{name: col(getattr(state, name), f32)
+           for name in ("x", "y", "vx", "vy", "angle", "omega", "prev_shaping")},
+        **{name: col(getattr(state, name), i32) for name in ("t", "sleep", "wind_idx", "torque_idx")},
+        leg1=col(state.leg1, torch.bool),
+        leg2=col(state.leg2, torch.bool),
+        terrain=col(state.terrain, f32, CHUNKS),
+        leg1_body=body(state.leg1_body) if jointed else None,
+        leg2_body=body(state.leg2_body) if jointed else None,
+        solver_acc=AssemblyAcc(
+            j1=col(acc.j1, f32, 4), j2=col(acc.j2, f32, 4),
+            s1=col(acc.s1, i32), s2=col(acc.s2, i32),
+            c1=col(acc.c1, f32, 4, 2), c2=col(acc.c2, f32, 4, 2),
+        ) if jointed else None,
     )
 
 
 class LunarLander(Environment):
-    """Batched LunarLander, rigid engine."""
+    """Batched LunarLander, jointed or rigid engine (``params.jointed``)."""
 
     def default_params(self) -> LunarLanderParams:
         return LunarLanderParams()
@@ -212,7 +213,6 @@ class LunarLander(Environment):
         params: LunarLanderParams,
         draws: Optional[ResetDraws] = None,
     ):
-        _check_engine(params)
         if draws is None:
             draws = sample_reset_draws(generator, n)
         raw = draws.terrain
@@ -230,6 +230,14 @@ class LunarLander(Environment):
         def full(v, dtype=torch.float32):
             return torch.full((n,), v, dtype=dtype, device=device)
 
+        def make_leg(side):
+            # gym: position (initial_x - i*LEG_AWAY, initial_y), angle i*0.05;
+            # the joint then pulls the leg to the hull over the first frames
+            return Body(
+                cx=full(W / 2.0 - side * LEG_AWAY), cy=full(H), a=full(side * 0.05),
+                vx=full(0.0), vy=full(0.0), w=full(0.0),
+            )
+
         state = LunarLanderState(
             x=full(W / 2.0),
             y=full(H),
@@ -245,11 +253,15 @@ class LunarLander(Environment):
             sleep=full(0, torch.int32),
             wind_idx=draws.wind[:, 0].contiguous(),
             torque_idx=draws.wind[:, 1].contiguous(),
+            leg1_body=make_leg(-1.0) if params.jointed else None,
+            leg2_body=make_leg(1.0) if params.jointed else None,
+            solver_acc=lander_solver.zero_acc(n, device) if params.jointed else None,
         )
         # gym's reset ends with one nop physics frame that carries the
         # initial random force.  The action is a nop, so the frame's engine
         # dispersion has no effect and is passed as zeros.
-        state, _, _ = self._physics_step(
+        phys = self._physics_step_jointed if params.jointed else self._physics_step
+        state, _, _ = phys(
             state, full(0, torch.int32), params,
             disp=torch.zeros((n, 2), device=device), kick_force=draws.kick,
         )
@@ -480,6 +492,99 @@ class LunarLander(Environment):
         )
         return new_state, game_over, rest
 
+    # ----------------------------------------------- jointed 3-body physics
+    def _physics_step_jointed(self, state, action, params, disp, kick_force=None):
+        """One Box2D frame of the 3-body assembly: engine impulses on the
+        hull (hull mass and inertia; gym applies them before
+        ``world.Step``), then ``lander_solver.assembly_step``.
+        ``game_over`` is the hull touching the terrain, with no calibrated
+        threshold.  Returns ``(state', game_over, rest)``."""
+        dt = 1.0 / lander_solver.FPS
+        sin_a = torch.sin(state.angle)
+        cos_a = torch.cos(state.angle)
+        tip0, tip1 = sin_a, cos_a
+        side0, side1 = -cos_a, sin_a
+        d0, d1 = disp[:, 0], disp[:, 1]
+
+        comx, comy = lander_solver.hull_com(state.x, state.y, state.angle)
+        vx, vy, omega = state.vx, state.vy, state.omega
+        IMH, IIH = lander_solver.IMH, lander_solver.IIH
+
+        # wind/turbulence are forces on the hull (ApplyForceToCenter/Torque)
+        fx = torch.zeros_like(vx)
+        fy = torch.zeros_like(vx)
+        torque = torch.zeros_like(vx)
+        wind_idx, torque_idx = state.wind_idx, state.torque_idx
+        if params.enable_wind:
+            airborne = ~(state.leg1 | state.leg2)
+            fx = fx + torch.where(airborne, _wind_pattern(wind_idx) * params.wind_power, 0.0)
+            torque = torque + torch.where(
+                airborne, _wind_pattern(torque_idx) * params.turbulence_power, 0.0
+            )
+            wind_idx = wind_idx + airborne.to(torch.int32)
+            torque_idx = torque_idx + airborne.to(torch.int32)
+        if kick_force is not None:
+            fx = fx + kick_force[:, 0]
+            fy = fy + kick_force[:, 1]
+
+        # --- main engine impulse (the rigid engine's published geometry) ---
+        m_power = torch.where(action == 2, 1.0, 0.0)
+        k_main = MAIN_ENGINE_Y_LOCATION / SCALE + 2.0 * d0
+        ox_m = tip0 * k_main + side0 * d1
+        oy_m = -tip1 * k_main - side1 * d1
+        jmx = -ox_m * MAIN_ENGINE_POWER * m_power
+        jmy = -oy_m * MAIN_ENGINE_POWER * m_power
+        rmx = (state.x + ox_m) - comx
+        rmy = (state.y + oy_m) - comy
+        vx = vx + jmx * IMH
+        vy = vy + jmy * IMH
+        omega = omega + (rmx * jmy - rmy * jmx) * IIH
+
+        # --- side engines ---------------------------------------------------
+        s_power = torch.where((action == 1) | (action == 3), 1.0, 0.0)
+        direction = torch.where(action == 3, 1.0, torch.where(action == 1, -1.0, 0.0))
+        k_side = 3.0 * d1 + direction * SIDE_ENGINE_AWAY
+        ox_s = tip0 * d0 + side0 * k_side
+        oy_s = -tip1 * d0 - side1 * k_side
+        jsx = -ox_s * SIDE_ENGINE_POWER * s_power
+        jsy = -oy_s * SIDE_ENGINE_POWER * s_power
+        rsx = (state.x + ox_s - tip0 * 17.0 / SCALE) - comx
+        rsy = (state.y + oy_s + tip1 * SIDE_ENGINE_HEIGHT) - comy
+        vx = vx + jsx * IMH
+        vy = vy + jsy * IMH
+        omega = omega + (rsx * jsy - rsy * jsx) * IIH
+
+        hull = Body(cx=comx, cy=comy, a=state.angle, vx=vx, vy=vy, w=omega)
+        hull, leg1, leg2, touch1, touch2, hull_hit, still, acc = lander_solver.assembly_step(
+            hull, state.leg1_body, state.leg2_body, state.terrain, fx, fy, torque,
+            params.gravity, acc=state.solver_acc, dt=dt,
+            vel_iters=params.vel_iters, pos_iters=params.pos_iters, vel_tol=params.vel_tol,
+        )
+        x, y = lander_solver.hull_origin(hull.cx, hull.cy, hull.a)
+
+        sleep = torch.where(still, state.sleep + 1, 0).to(torch.int32)
+        rest = sleep >= lander_solver.SLEEP_FRAMES
+
+        new_state = dataclasses.replace(
+            state,
+            x=x,
+            y=y,
+            vx=hull.vx,
+            vy=hull.vy,
+            angle=hull.a,
+            omega=hull.w,
+            leg1=touch1,
+            leg2=touch2,
+            leg1_body=leg1,
+            leg2_body=leg2,
+            solver_acc=acc,
+            sleep=sleep,
+            wind_idx=wind_idx,
+            torque_idx=torque_idx,
+            t=state.t + 1,
+        )
+        return new_state, hull_hit, rest
+
     # ------------------------------------------------------------------ step
     def step_env(
         self,
@@ -489,12 +594,12 @@ class LunarLander(Environment):
         params: LunarLanderParams,
         draws: Optional[torch.Tensor] = None,
     ):
-        _check_engine(params)
         if draws is None:
             draws = _uniform(generator, (action.shape[0], 2), -1.0, 1.0)
         # dispersion is drawn every frame (gym draws before the engine gate)
         disp = draws / SCALE * params.dispersion_scale
-        new_state, game_over, rest = self._physics_step(state, action, params, disp)
+        phys = self._physics_step_jointed if params.jointed else self._physics_step
+        new_state, game_over, rest = phys(state, action, params, disp)
 
         m_power = torch.where(action == 2, 1.0, 0.0)
         s_power = torch.where((action == 1) | (action == 3), 1.0, 0.0)

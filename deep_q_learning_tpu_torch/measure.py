@@ -1,7 +1,7 @@
 """Device-side measurements behind PERF.md, on one CUDA GPU.
 
     python -m deep_q_learning_tpu_torch.measure [--preset lunar_per_scaled]
-        [--set key=value ...]
+        [--set key=value ...] [--env-only]
 
 1. Device time of each kernel and of its plain version at the main paths'
    shapes: 100 calls captured in one CUDA graph, replayed 50 times between
@@ -10,6 +10,10 @@
    phase (spans wrapped around the env step, replay and optimizer calls),
    kernel launches, and the device's busy share of the wall time; then the
    wall time and env-steps/s of the next two supersteps, unprofiled.
+
+With ``--env-only``, neither: the preset's env alone, at its env count,
+steps random actions from fresh resets; the wall time of each frame, then
+one frame under ``torch.profiler`` (kernel launches, device busy share).
 
 Every line names the card and its power limit.  Without CUDA it exits
 non-zero: a CPU run measures nothing this script reports.
@@ -126,7 +130,8 @@ def profile_superstep(cfg, card: str) -> None:
         getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("phase/")
     )
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     frames = cfg.steps_per_superstep
     print(f"profiled superstep: wall {wall * 1e3:.1f} ms, {m.loss_count} updates, "
           f"device busy {device_us_total / 1e3:.1f} ms ({100 * device_us_total / 1e6 / wall:.1f} %), "
@@ -150,10 +155,58 @@ def profile_superstep(cfg, card: str) -> None:
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
 
 
+ENV_FRAMES = 4
+
+
+def env_frames(cfg, card: str) -> None:
+    from deep_q_learning_tpu_torch.envs import make_env
+
+    env, params = make_env(cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
+                           param_overrides=cfg.env_param_overrides())
+    n = cfg.num_envs
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = env.reset_env(g, n, params)
+    torch.cuda.synchronize()
+    print(f"reset of {n} envs (one physics frame): {(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+
+    def frame():
+        nonlocal st
+        actions = torch.randint(0, env.num_actions, (n,), generator=g, device="cuda",
+                                dtype=torch.int32)
+        _, st, *_ = env.step_env(g, st, actions, params)
+
+    walls = []
+    for _ in range(ENV_FRAMES):
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"env-only vector steps of {n} envs: {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms "
+          f"= {n / min(walls):.1f} env-steps/s at the fastest [{card}]")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+               for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    print(f"profiled vector step: wall {wall * 1e3:.1f} ms, {launches} kernel launches "
+          f"({wall * 1e6 / max(launches, 1):.2f} us of wall each), device busy {busy / 1e3:.1f} ms "
+          f"({100 * busy / 1e6 / wall:.1f} %) [{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m deep_q_learning_tpu_torch.measure")
     ap.add_argument("--preset", default="lunar_per_scaled")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
+    ap.add_argument("--env-only", action="store_true",
+                    help="time the preset's env alone instead of kernels and a superstep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: torch.cuda.is_available() is False; this needs a GPU", file=sys.stderr)
@@ -163,8 +216,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card)
+    cfg = build_config(args.preset, args.set)
+    if args.env_only:
+        env_frames(cfg, card)
+        return 0
     kernel_device_times(card)
-    profile_superstep(build_config(args.preset, args.set), card)
+    profile_superstep(cfg, card)
     return 0
 
 

@@ -209,12 +209,13 @@ class Trainer:
             history=self.history,
         )
 
-    def evaluate(self, seed: int = 0) -> EvalResult:
-        """Greedy eval: true per-episode returns, as numpy arrays."""
+    def evaluate(self, seed: int = 0, max_steps: Optional[int] = None) -> EvalResult:
+        """Greedy eval: true per-episode returns, as numpy arrays.  Episodes
+        are cut at the env's ``max_steps_in_episode``, or at ``max_steps``."""
         if self.runner is None:
             raise RuntimeError("call init() first")
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        ev = self._evaluate(self.runner.train.online, generator)
+        ev = self._evaluate(self.runner.train.online, generator, max_steps)
         return EvalResult(*(x.cpu().numpy() for x in ev))
 
     # --------------------------------------------------------- persistence
