@@ -8,7 +8,13 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build the CUDA kernels from deep_q_learning_tpu_torch/csrc with nvcc,
      one nvcc per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it, and time both with CUDA events;
+     shapes the main paths give it (the TD kernels at B = 256, 1024, 4096,
+     300 and 37, both targets, the clip case, rows that are not 16-byte
+     aligned; the backward writing q_both's (2B, A) gradient), check that
+     the TD forward's loss is bitwise stable over 100 calls at B = 4096 and
+     its ticket counter is 0 after a CUDA-graph replay; time kernel and
+     plain version with CUDA events, and print each kernel's bound, its
+     share of it, and its launches per superstep on each preset;
   4. run the ``lunar_per`` slice at full width through ``Trainer``: 4
      supersteps (512 vector steps of 128 envs), then check that the TD
      kernels ran once per learner update, the loss is finite, the online
@@ -31,7 +37,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      jointed frame of 64 landers from a short flight near the ground
      (touchdowns, contacts, crashes) on the card against the same frame on
      the CPU;
-  8. print the kernels' record as one JSON line, then the result line.
+  8. print the kernels' record as one JSON line (with each kernel's bound,
+     ``bound_ms``), then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without printing a result where CUDA is absent.
@@ -50,6 +57,10 @@ LOSS_TOL = dict(rtol=1e-5, atol=1e-6)  # loss and td: the kernel sums in another
 DQ_TOL = dict(rtol=1e-5, atol=1e-7)
 TD_SOURCE = "deep_q_learning_tpu_torch/csrc/td_loss.cu"
 PER_SOURCE = "deep_q_learning_tpu_torch/csrc/per_sample.cu"
+TD_SHAPES = [(256, 4), (1024, 4), (4096, 4), (300, 4), (37, 2)]
+# B of lunar_per and lunar_jointed_per, lunar_per_scaled(1024), lunar_per_scaled(4096)
+TD_TIMED = (256, 1024, 4096)
+TD_STABLE_B, TD_STABLE_CALLS = 4096, 100
 SUPERSTEPS = 4
 SCALED_SUPERSTEPS = 2
 SLOT_SHAPES = [(1024, 512, 1024), (128, 4096, 256)]  # (N, C, B): lunar_per_scaled, lunar_per
@@ -87,10 +98,13 @@ def card_line() -> str:
 
 
 def td_inputs(torch, b, a, seed, reward_shift=0.0):
+    """The TD kernels' inputs as the learner gives them: ``q_s`` and
+    ``q_next_online`` are the two halves of one (2B, A) ``q_both``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    q_both = randn(2 * b, a)
     return [
-        randn(b, a), randn(b, a), randn(b, a),
+        q_both[:b], q_both[b:], randn(b, a),
         torch.randint(0, a, (b,), generator=g, device="cuda", dtype=torch.int32),
         randn(b) + reward_shift,
         0.97 * (torch.rand(b, generator=g, device="cuda") > 0.3).float(),
@@ -114,49 +128,108 @@ def time_ms(torch, fn, iters=TIMED_CALLS, warmup=50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_td_kernels(torch, td_kernels):
+def misaligned(torch, t):
+    """A contiguous copy of ``t`` whose rows are not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_td_case(torch, td_kernels, args, a, double, err):
+    """K1 and K2 against their plain versions on ``args``; K2 writes the
+    (2B, A) gradient of q_both, zero past row B."""
+    b = args[0].shape[0]
+    loss, td = td_kernels.td_loss_fwd(*args, 1.0, double)
+    ref_loss, ref_td = td_kernels.td_loss_reference(*args, 1.0, double)
+    torch.testing.assert_close(loss, ref_loss, **LOSS_TOL)
+    torch.testing.assert_close(td, ref_td, **LOSS_TOL)
+    g = torch.rand((), device=args[0].device) + 0.5
+    dq = td_kernels.td_loss_bwd(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+    ref_dq = td_kernels.td_loss_backward_reference(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+    torch.testing.assert_close(dq, ref_dq, **DQ_TOL)
+    assert dq.shape == (2 * b, a) and not dq[b:].any()
+    err["td_loss_fwd"] = max(
+        err["td_loss_fwd"], float((loss - ref_loss).abs()), float((td - ref_td).abs().max())
+    )
+    err["td_loss_bwd"] = max(err["td_loss_bwd"], float((dq - ref_dq).abs().max()))
+    return td
+
+
+def check_td_determinism(torch, td_kernels):
+    """K1 at B = 4096 (16 blocks and the last block's sum): 100 calls give a
+    bitwise identical loss and td, and after a CUDA-graph replay the ticket
+    counter is back at 0 and the result is the same again."""
+    args = td_inputs(torch, TD_STABLE_B, 4, seed=5)
+    loss0, td0 = td_kernels.td_loss_fwd(*args, 1.0, True)
+    for _ in range(TD_STABLE_CALLS):
+        loss, td = td_kernels.td_loss_fwd(*args, 1.0, True)
+        assert torch.equal(loss, loss0) and torch.equal(td, td0), "K1 is not bitwise stable"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        td_kernels.td_loss_fwd(*args, 1.0, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [td_kernels.td_loss_fwd(*args, 1.0, True) for _ in range(10)]
+    graph.replay()
+    torch.cuda.synchronize()
+    _, ticket = td_kernels.fwd_scratch(args[0].device)
+    assert int(ticket) == 0, int(ticket)
+    assert all(torch.equal(lo, loss0) and torch.equal(t, td0) for lo, t in outs)
+    print(f"  K1 B={TD_STABLE_B}: {TD_STABLE_CALLS} calls and a graph replay bitwise equal, "
+          f"ticket counter 0")
+
+
+def check_td_kernels(torch, td_kernels, per_superstep, card):
     """Phase 3: kernel vs plain on the card; returns per-kernel records."""
+    from deep_q_learning_tpu_torch.measure import bound_text
+
     err = {"td_loss_fwd": 0.0, "td_loss_bwd": 0.0}
-    cases = [((b, a), double, 0.0) for (b, a) in [(256, 4), (1024, 4), (37, 2)]
-             for double in (True, False)] + [((256, 4), True, 100.0)]
+    cases = [((b, a), double, 0.0) for (b, a) in TD_SHAPES for double in (True, False)]
+    cases += [((256, 4), True, 100.0), ((4096, 4), True, 100.0)]
     for i, ((b, a), double, shift) in enumerate(cases):
         args = td_inputs(torch, b, a, seed=i, reward_shift=shift)
-        loss, td = td_kernels.td_loss_fwd(*args, 1.0, double)
-        ref_loss, ref_td = td_kernels.td_loss_reference(*args, 1.0, double)
-        torch.testing.assert_close(loss, ref_loss, **LOSS_TOL)
-        torch.testing.assert_close(td, ref_td, **LOSS_TOL)
+        assert td_kernels.float4_rows(a, *args[:3]) == (a == 4)
+        td = check_td_case(torch, td_kernels, args, a, double, err)
         if shift:
             assert float(td.abs().min()) > 1.0, "the clip case must be past delta"
-        g = torch.rand((), device="cuda") + 0.5
-        dq = td_kernels.td_loss_bwd(td, args[3], args[6], g, a, 1.0)
-        ref_dq = td_kernels.td_loss_backward_reference(td, args[3], args[6], g, a, 1.0)
-        torch.testing.assert_close(dq, ref_dq, **DQ_TOL)
-        err["td_loss_fwd"] = max(
-            err["td_loss_fwd"], float((loss - ref_loss).abs()), float((td - ref_td).abs().max())
-        )
-        err["td_loss_bwd"] = max(err["td_loss_bwd"], float((dq - ref_dq).abs().max()))
         print(f"  kernel vs plain B={b} A={a} double={double} shift={shift}: ok")
+    for b in (256, 4096):
+        args = td_inputs(torch, b, 4, seed=b)
+        args[:3] = [misaligned(torch, t) for t in args[:3]]
+        assert not td_kernels.float4_rows(4, *args[:3])
+        check_td_case(torch, td_kernels, args, 4, True, err)
+        print(f"  kernel vs plain B={b} A=4, rows not 16-byte aligned (scalar path): ok")
+    check_td_determinism(torch, td_kernels)
     torch.cuda.synchronize()
 
     times = {}
-    for b in (256, 1024):
+    for b in TD_TIMED:
         args = td_inputs(torch, b, 4, seed=99)
         loss, td = td_kernels.td_loss_fwd(*args, 1.0, True)
         g = torch.ones((), device="cuda")
+        rows = 2 * b
         times[b] = {
             "td_loss_fwd": (
                 time_ms(torch, lambda: td_kernels.td_loss_fwd(*args, 1.0, True)),
                 time_ms(torch, lambda: td_kernels.td_loss_reference(*args, 1.0, True)),
+                td_kernels.td_loss_fwd_work(b, 4),
             ),
             "td_loss_bwd": (
-                time_ms(torch, lambda: td_kernels.td_loss_bwd(td, args[3], args[6], g, 4, 1.0)),
+                time_ms(torch, lambda: td_kernels.td_loss_bwd(
+                    td, args[3], args[6], g, 4, 1.0, out_rows=rows)),
                 time_ms(torch, lambda: td_kernels.td_loss_backward_reference(
-                    td, args[3], args[6], g, 4, 1.0)),
+                    td, args[3], args[6], g, 4, 1.0, out_rows=rows)),
+                td_kernels.td_loss_bwd_work(b, 4, rows),
             ),
         }
-        for name, (k_ms, p_ms) in times[b].items():
+        for name, (k_ms, p_ms, work) in times[b].items():
             print(f"  {name} B={b} A=4: kernel {k_ms * 1e3:.2f} us/call, "
-                  f"plain {p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} calls)")
+                  f"plain {p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} calls); "
+                  f"{bound_text(work, k_ms * 1e3)}; launches per superstep "
+                  f"{per_superstep[name]} [{card}]")
     return err, times
 
 
@@ -173,12 +246,14 @@ def slot_inputs(torch, n, c, b, seed, dyadic):
     return p.contiguous(), env, u
 
 
-def check_slot_kernel(torch, sample_kernels):
+def check_slot_kernel(torch, sample_kernels, per_superstep, card):
     """Phase 3, K3: slot indices of the kernel against the plain version.
     Dyadic priorities must match exactly (their count of mismatches is the
     record's ``max_abs_err``); random ones may differ only where every
     prefix between the two slots lies within 8 ulps of the row total of
     the draw."""
+    from deep_q_learning_tpu_torch.measure import bound_text
+
     dyadic_mismatches = 0
     for n, c, b in SLOT_SHAPES:
         for dyadic in (True, False):
@@ -209,10 +284,13 @@ def check_slot_kernel(torch, sample_kernels):
         times[(n, c, b)] = (
             time_ms(torch, lambda: sample_kernels.slot_select(p, env, u)),
             time_ms(torch, lambda: sample_kernels.slot_select_reference(p, env, u)),
+            sample_kernels.per_slot_sample_work(p, env),
         )
-        k_ms, p_ms = times[(n, c, b)]
+        k_ms, p_ms, work = times[(n, c, b)]
         print(f"  per_slot_sample (N, C, B)=({n}, {c}, {b}): kernel {k_ms * 1e3:.2f} us/call, "
-              f"plain {p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} calls)")
+              f"plain {p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} calls); "
+              f"{bound_text(work, k_ms * 1e3)}; launches per superstep "
+              f"{per_superstep['per_slot_sample']} [{card}]")
     return dyadic_mismatches, times
 
 
@@ -560,8 +638,12 @@ def main() -> int:
     print(f"  built and loaded in {time.perf_counter() - t0:.2f} s")
 
     print("phase 3: kernels vs plain on the card")
-    err, times = check_td_kernels(torch, td_kernels)
-    err["per_slot_sample"], slot_times = check_slot_kernel(torch, sample_kernels)
+    from deep_q_learning_tpu_torch.measure import launches_per_superstep
+
+    per_superstep = launches_per_superstep()
+    err, times = check_td_kernels(torch, td_kernels, per_superstep, card)
+    err["per_slot_sample"], slot_times = check_slot_kernel(
+        torch, sample_kernels, per_superstep, card)
 
     print("phase 4: lunar_per slice")
     run_slice(torch, td_kernels, sample_kernels, card)
@@ -580,9 +662,12 @@ def main() -> int:
     check_jointed_frame(torch, card)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
-    # ms at B=256 for the TD kernels (lunar_per, lunar_jointed_per) and at
-    # (1024, 512, 1024) for the slot kernel (lunar_per_scaled); launches of
-    # the TD kernels from phase 7, of the slot kernel from phase 5
+    # ms and bound at B=256 for the TD kernels (lunar_per, lunar_jointed_per)
+    # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);
+    # launches of the TD kernels from phase 7, of the slot kernel from phase 5.
+    # No single PyTorch call computes any of the three: library_ms is null
+    from deep_q_learning_tpu_torch.ops import bound_by, bound_us
+
     timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]])
     launches = dict(launches, **jointed_launches)
     kernels = {
@@ -600,6 +685,9 @@ def main() -> int:
             "max_abs_err": err[name],
             "ms": timed[name][0],
             "plain_ms": timed[name][1],
+            "bound_ms": bound_us(timed[name][2]) / 1e3,
+            "bound_by": bound_by(timed[name][2]),
+            "library_ms": None,
         }
         for name, (source, replaces) in kernels.items()
     ]}

@@ -2,8 +2,8 @@
 
 The JAX package beside it is the reference: module paths and names mirror
 it, and the tests hold each ported function against its JAX counterpart on
-the same inputs.  This package imports torch and numpy, never jax, flax or
-optax.
+the same inputs.  This package imports torch and numpy, never jax, flax,
+optax or any module of the JAX package.
 
 What is ported so far is single-device training of the LunarLander
 presets on both lander engines: the jointed 3-body lander stepped by the

@@ -22,9 +22,12 @@
 //     so a slot is bitwise the same from run to run;
 //   * each thread walks its chunk again from its offset and counts the
 //     prefixes below the draw; a shared-memory tree adds the counts.
-// What bounds it on the card: launch latency.  At the main path's shapes
-// (N, C, B) = (1024, 512, 1024) it reads B rows of C floats (2 MB, mostly
-// from L2) and does O(B*C) adds.
+// What bounds it on the card: latency, not bytes.  A call needs the distinct
+// rows its draws select (at most N*C*4 bytes) and 20 bytes a draw: at the
+// main path's shapes (N, C, B) = (1024, 512, 1024) the draws touch ~63 % of
+// the rows, 1.3 MB, 0.4 us at 3.35 TB/s, and O(B*C) adds.  The time goes to
+// the chain inside a block: two passes over the row, a 256-wide scan with
+// 16 barriers and a tree with 8 more.
 //
 // Plain C interface (no PyTorch headers), built by nvcc and loaded with
 // ctypes (ops/build.py).  The launcher returns cudaGetLastError().

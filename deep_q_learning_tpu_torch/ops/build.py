@@ -46,10 +46,10 @@ def find_nvcc() -> str:
 
 
 @functools.cache
-def load_library(source_name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source_name>`` if its build is missing or stale, and
-    load it.  Cached per process."""
-    source = CSRC_DIR / source_name
+def load_library(source_name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
+    """Compile ``csrc/<source_name>`` (or ``<csrc_dir>/<source_name>``) if
+    its build is missing or stale, and load it.  Cached per process."""
+    source = csrc_dir / source_name
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib_path = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     if not lib_path.exists():

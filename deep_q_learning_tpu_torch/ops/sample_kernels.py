@@ -15,7 +15,9 @@ rows), the draws, the valid-slot mask and the ``p_sel`` gather stay outside,
 in ``replay/prioritized.py``, as they do in the JAX package.
 
 Indices are int64 in and out, as the port's ``SampleInfo`` holds them, so no
-conversion runs around the call.
+conversion runs around the call.  :func:`per_slot_sample_work` gives the
+bytes and operations a call needs on its inputs (``ops.bound_us`` turns
+them into the least time the card could take).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches, and
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -40,6 +43,19 @@ def reset_counts() -> None:
     for counts in (launches, plain_calls):
         for name in counts:
             counts[name] = 0
+
+
+def per_slot_sample_work(priorities: torch.Tensor, env_idx: torch.Tensor) -> Tuple[int, int]:
+    """``(bytes, operations)`` a call needs on these inputs: each distinct row
+    that ``env_idx`` selects (at most N; an index outside ``[0, N)`` selects
+    none) read once, and per draw its index and ``u`` read and its slot
+    written (20 bytes); about ``4·C`` operations a draw (the row's sum, the
+    prefix sums, the compares and the count)."""
+    n, c = priorities.shape
+    valid = env_idx[(env_idx >= 0) & (env_idx < n)]
+    rows = int(torch.unique(valid).numel())
+    b = env_idx.shape[0]
+    return 4 * rows * c + 20 * b, b * (4 * c + 1)
 
 
 def slot_select_reference(

@@ -1,5 +1,5 @@
-"""Fused TD target + huber loss: the CUDA kernel (``csrc/td_loss.cu``), its
-plain PyTorch version, and the autograd function around them.
+"""Fused TD target + huber loss: the CUDA kernels (``csrc/td_loss.cu``), their
+plain PyTorch versions, and the autograd function around them.
 
 Replaces ``deep_q_learning_tpu/ops/td_kernels.py``: the Pallas forward
 kernel ``_fwd_kernel`` (``pl.pallas_call`` at ``td_kernels.py:148``) and
@@ -11,9 +11,16 @@ backward kernel ``_bwd_kernel`` (``td_kernels.py:187``) of its custom VJP.
     loss = Σ w · huber_δ(td) / B
     dQ(s, a) = −w · clip(td, −δ, δ) · g / B at the taken action, else 0
 
-On the card the kernel is bound by launch latency alone: it moves a few KB
-(``3·B·A + 4·B`` floats in, ``B + 1`` out at B = 256, A = 4).  See the
-source for the design.
+On the card the kernels are bound by launch latency, not bytes:
+:func:`td_loss_fwd_work` and :func:`td_loss_bwd_work` give the bytes and
+operations a call needs, and ``ops.bound_us`` the least time they allow
+(a few ns against about a microsecond per launch).  See the source for the
+design.
+
+:class:`FusedTDLoss` takes the learner's whole ``q_both = Q([s; s'])``
+(2B, A) and its backward kernel writes the gradient of all of it, zero on
+the stopped ``s'`` half, so autograd runs nothing between the kernel and
+the network's backward.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches, and
@@ -24,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,6 +45,22 @@ def reset_counts() -> None:
     for counts in (launches, plain_calls):
         for name in counts:
             counts[name] = 0
+
+
+def td_loss_fwd_work(b: int, a: int) -> Tuple[int, int]:
+    """``(bytes, operations)`` the forward needs at (B, A): three Q matrices
+    and four (B,) vectors read once, ``td`` and the loss written once; about
+    ``2A + 12`` float operations a row (argmax and select, target, huber,
+    weight, sum)."""
+    return 4 * (3 * b * a + 4 * b) + 4 * (b + 1), b * (2 * a + 12) + 1
+
+
+def td_loss_bwd_work(b: int, a: int, out_rows: Optional[int] = None) -> Tuple[int, int]:
+    """``(bytes, operations)`` the backward needs: ``td``, ``weights``,
+    ``action`` and ``g`` read once, ``out_rows`` rows of dQ written once;
+    about ``5 + A`` operations a row (clip, two products, the select)."""
+    rows = b if out_rows is None else out_rows
+    return 4 * (3 * b + 1) + 4 * rows * a, b * (5 + a) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -66,13 +89,18 @@ def td_loss_reference(
 
 
 def td_loss_backward_reference(
-    td, action, weights, g, num_actions: int, delta: float = 1.0
+    td, action, weights, g, num_actions: int, delta: float = 1.0,
+    out_rows: Optional[int] = None,
 ) -> torch.Tensor:
-    """The kernel's backward in plain PyTorch: ``dQ(s, ·)`` of shape (B, A)."""
+    """The kernel's backward in plain PyTorch: ``dQ`` of shape
+    (``out_rows``, A), ``out_rows`` >= B (default B); rows past B are zero."""
     b = td.shape[0]
     col = torch.arange(num_actions, device=td.device)[None, :]
     coeff = -torch.clamp(td, -delta, delta) * weights * (g / b)
-    return torch.where(col == action[:, None], coeff[:, None], 0.0)
+    dq = torch.where(col == action[:, None], coeff[:, None], 0.0)
+    if out_rows is None or out_rows == b:
+        return dq
+    return torch.cat([dq, dq.new_zeros((out_rows - b, num_actions))])
 
 
 # ---------------------------------------------------------------------------
@@ -83,10 +111,12 @@ def td_loss_backward_reference(
 def _lib() -> ctypes.CDLL:
     lib = load_library("td_loss.cu")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.td_loss_fwd.argtypes = [ptr] * 9 + [i32, i32, f32, i32, ptr]
+    lib.td_loss_fwd.argtypes = [ptr] * 10 + [i32, ptr, i32, i32, f32, i32, i32, ptr]
     lib.td_loss_fwd.restype = i32
-    lib.td_loss_bwd.argtypes = [ptr] * 5 + [i32, i32, f32, ptr]
+    lib.td_loss_bwd.argtypes = [ptr] * 5 + [i32, i32, i32, f32, i32, ptr]
     lib.td_loss_bwd.restype = i32
+    lib.td_loss_fwd_rows_per_block.argtypes = []
+    lib.td_loss_fwd_rows_per_block.restype = i32
     return lib
 
 
@@ -111,6 +141,31 @@ def _launch(fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed with CUDA error {err}")
+
+
+def float4_rows(num_actions: int, *tensors: torch.Tensor) -> bool:
+    """Whether the kernels take rows of ``tensors`` as one float4 each: four
+    actions and every row 16-byte aligned.  Else they take the scalar path."""
+    return num_actions == 4 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# the forward's cross-block scratch, one (partials f32, ticket i32) per device
+_fwd_scratch: dict = {}
+
+
+def fwd_scratch(device: torch.device, blocks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's per-block partial sums and its ticket counter on
+    ``device``: made with ``torch.zeros`` at first use, the partials grown
+    when a larger batch needs more blocks.  The last block of every launch
+    sets the counter back to 0, so launches that share them run in order on
+    one stream."""
+    partials, ticket = _fwd_scratch.get(device, (None, None))
+    if ticket is None:
+        ticket = torch.zeros((), dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < blocks:
+        partials = torch.zeros((max(blocks, 64),), dtype=torch.float32, device=device)
+    _fwd_scratch[device] = (partials, ticket)
+    return partials, ticket
 
 
 def td_loss_fwd(
@@ -138,28 +193,36 @@ def td_loss_fwd(
             delta, double,
         )
     lib = _lib()
+    partials, ticket = fwd_scratch(device, -(-b // lib.td_loss_fwd_rows_per_block()))
     loss = torch.empty((), dtype=torch.float32, device=device)
     td = torch.empty((b,), dtype=torch.float32, device=device)
+    vec4 = float4_rows(a, q_s, q_next_online, q_next_target)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _launch(
             lib.td_loss_fwd,
             q_s.data_ptr(), q_next_online.data_ptr(), q_next_target.data_ptr(),
             action.data_ptr(), reward.data_ptr(), bootstrap.data_ptr(),
-            weights.data_ptr(), loss.data_ptr(), td.data_ptr(),
-            b, a, float(delta), int(double), stream,
+            weights.data_ptr(), loss.data_ptr(), td.data_ptr(), partials.data_ptr(),
+            partials.numel(), ticket.data_ptr(), b, a, float(delta), int(double),
+            int(vec4), stream,
         )
     launches["td_loss_fwd"] += 1
     return loss, td
 
 
 def td_loss_bwd(
-    td, action, weights, g, num_actions: int, delta: float = 1.0
+    td, action, weights, g, num_actions: int, delta: float = 1.0,
+    out_rows: Optional[int] = None,
 ) -> torch.Tensor:
-    """Backward: ``dQ(s, ·)`` (B, A) from ``td``, ``action``, ``weights``
-    and the loss cotangent ``g`` (a 0-dim f32 tensor, read on the device)."""
+    """Backward: ``dQ`` (``out_rows``, A) from ``td``, ``action``,
+    ``weights`` and the loss cotangent ``g`` (a 0-dim f32 tensor, read on
+    the device).  ``out_rows`` >= B (default B); rows past B are zero."""
     device = td.device
     (b,) = td.shape
+    rows = b if out_rows is None else out_rows
+    if rows < b:
+        raise ValueError(f"out_rows {rows} is below the batch {b}")
     for name, t, dtype, shape in (
         ("td", td, torch.float32, (b,)),
         ("action", action, torch.int32, (b,)),
@@ -169,58 +232,65 @@ def td_loss_bwd(
         _check(name, t, dtype, shape, device)
     if _device_kind(device) == "cpu":
         plain_calls["td_loss_bwd"] += 1
-        return td_loss_backward_reference(td, action, weights, g, num_actions, delta)
+        return td_loss_backward_reference(
+            td, action, weights, g, num_actions, delta, out_rows=rows
+        )
     lib = _lib()
-    dq = torch.empty((b, num_actions), dtype=torch.float32, device=device)
+    dq = torch.empty((rows, num_actions), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _launch(
             lib.td_loss_bwd,
             td.data_ptr(), action.data_ptr(), weights.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), b, num_actions, float(delta), stream,
+            dq.data_ptr(), b, num_actions, rows, float(delta),
+            int(float4_rows(num_actions, dq)), stream,
         )
     launches["td_loss_bwd"] += 1
     return dq
 
 
 class FusedTDLoss(torch.autograd.Function):
-    """``(loss, td)``, differentiable in ``q_s`` only: the targets are
-    stopped, and ``td`` is marked non-differentiable."""
+    """``(loss, td)`` from the online net's ``q_both`` (2B, A) = Q([s; s'])
+    and the rest of the batch: rows ``[:b]`` are Q(s, ·) and rows ``[b:]``
+    Q_online(s', ·), both handed to the forward kernel as contiguous views.
+    Differentiable in ``q_both``: the backward kernel writes its whole
+    gradient, zero on rows ``[b:]`` (stopped, as in the JAX package), so no
+    slice backward runs.  ``td`` is marked non-differentiable."""
 
     @staticmethod
-    def forward(ctx, q_s, q_next_online, q_next_target, action, reward, bootstrap,
+    def forward(ctx, q_both, b: int, q_next_target, action, reward, bootstrap,
                 weights, delta: float, double: bool):
         loss, td = td_loss_fwd(
-            q_s, q_next_online, q_next_target, action, reward, bootstrap, weights,
+            q_both[:b], q_both[b:], q_next_target, action, reward, bootstrap, weights,
             delta, double,
         )
         ctx.save_for_backward(td, action, weights)
         ctx.delta = delta
-        ctx.num_actions = q_s.shape[1]
+        ctx.q_shape = tuple(q_both.shape)
         ctx.mark_non_differentiable(td)
         return loss, td
 
     @staticmethod
     def backward(ctx, g_loss, g_td):
         td, action, weights = ctx.saved_tensors
-        dq = td_loss_bwd(td, action, weights, g_loss, ctx.num_actions, ctx.delta)
+        rows, num_actions = ctx.q_shape
+        dq = td_loss_bwd(td, action, weights, g_loss, num_actions, ctx.delta, out_rows=rows)
         return dq, None, None, None, None, None, None, None, None
 
 
 def build_fused_loss_fn(double: bool = True, huber_delta: float = 1.0):
     """Drop-in for ``algos.losses.build_loss_fn`` (huber only) that routes the
     TD and loss math through :class:`FusedTDLoss`.  The network forwards stay
-    ordinary ``nn.Linear`` layers: one online forward over ``[s; s']`` with
-    the ``s'`` half detached, and one target forward."""
+    ordinary ``nn.Linear`` layers: one online forward over ``[s; s']``,
+    whose output goes to the fused loss whole, and one target forward."""
 
     def loss_fn(online, target, batch, weights):
         b = batch.obs.shape[0]
         q_both = online(torch.cat([batch.obs, batch.next_obs], dim=0))
-        q_s, q_next_online = q_both[:b], q_both[b:].detach()
         with torch.no_grad():
             q_next_target = target(batch.next_obs)
         return FusedTDLoss.apply(
-            q_s, q_next_online, q_next_target, batch.action, batch.reward,
+            q_both, b, q_next_target, batch.action, batch.reward,
             batch.bootstrap, weights, huber_delta, double,
         )
 

@@ -7,7 +7,8 @@ toolkit; ``--noconftest`` skips tests/conftest.py, which imports jax:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: loss and td rtol 1e-5, atol 1e-6 (the kernel reduces the loss
-in another order); dQ rtol 1e-5, atol 1e-7.  PER slot sampling: exact on
+in another order); dQ rtol 1e-5, atol 1e-7; the forward's loss is bitwise
+the same from call to call.  PER slot sampling: exact on
 dyadic priorities (every sum exact in any order); on random priorities a
 slot may differ only where every prefix between the two slots lies within
 8 float32 ulps of the row total of the plain version's draw."""
@@ -49,21 +50,84 @@ def _inputs(b, a, seed, device):
     ]
 
 
-@pytest.mark.parametrize("double", [True, False])
-@pytest.mark.parametrize("shape", [(256, 4), (1024, 4), (37, 2)])
-def test_td_kernel_matches_plain(cuda, shape, double):
-    b, a = shape
-    args = _inputs(b, a, seed=b + a, device=cuda)
+TD_SHAPES = [(256, 4), (1024, 4), (4096, 4), (300, 4), (37, 2)]
+
+
+def _check_td(args, a, double):
+    """The kernels against the plain versions on ``args``; the backward
+    writes (2B, A) rows, as the learner's q_both."""
+    b = args[0].shape[0]
     loss, td = td_loss_fwd(*args, 1.0, double)
     ref_loss, ref_td = td_loss_reference(*args, 1.0, double)
     torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(td, ref_td, rtol=1e-5, atol=1e-6)
-    g = torch.tensor(0.7, device=cuda)
-    dq = td_loss_bwd(td, args[3], args[6], g, a, 1.0)
-    torch.testing.assert_close(
-        dq, td_loss_backward_reference(td, args[3], args[6], g, a, 1.0), rtol=1e-5, atol=1e-7
-    )
+    g = torch.tensor(0.7, device=args[0].device)
+    dq = td_loss_bwd(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+    want = td_loss_backward_reference(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+    torch.testing.assert_close(dq, want, rtol=1e-5, atol=1e-7)
+    assert not dq[b:].any()
     torch.cuda.synchronize()
+    return td
+
+
+@pytest.mark.parametrize("double", [True, False])
+@pytest.mark.parametrize("shape", TD_SHAPES)
+def test_td_kernel_matches_plain(cuda, shape, double):
+    b, a = shape
+    args = _inputs(b, a, seed=b + a, device=cuda)
+    td_kernels.reset_counts()
+    _check_td(args, a, double)
+    assert td_kernels.launches == {"td_loss_fwd": 1, "td_loss_bwd": 1}
+    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    partials, ticket = td_kernels.fwd_scratch(cuda)
+    assert int(ticket) == 0, "the last block resets the ticket counter"
+
+
+@pytest.mark.parametrize("b", [256, 4096])
+def test_td_kernel_clip_case(cuda, b):
+    """|td| past delta everywhere: the gradient saturates at w·delta/B."""
+    args = _inputs(b, 4, seed=7, device=cuda)
+    args[4] = args[4] + 100.0
+    td = _check_td(args, 4, True)
+    assert float(td.abs().min()) > 1.0
+
+
+@pytest.mark.parametrize("b", [256, 4096])
+def test_td_kernel_scalar_path_on_misaligned_rows(cuda, b):
+    """Rows that are not 16-byte aligned take the scalar path."""
+    args = _inputs(b, 4, seed=11, device=cuda)
+    for i in range(3):
+        flat = torch.empty(b * 4 + 1, device=cuda)
+        view = flat[1:].view(b, 4)
+        view.copy_(args[i])
+        args[i] = view
+    assert args[0].is_contiguous() and not td_kernels.float4_rows(4, *args[:3])
+    _check_td(args, 4, True)
+
+
+def test_td_kernel_loss_is_bitwise_stable(cuda):
+    """100 forward calls at B = 4096 (16 blocks and the last-block sum) give
+    the same loss and td bit for bit; after a CUDA-graph replay of 10 calls
+    the ticket counter is back at 0 and the result is the same again."""
+    args = _inputs(4096, 4, seed=3, device=cuda)
+    loss0, td0 = td_loss_fwd(*args, 1.0, True)
+    for _ in range(100):
+        loss, td = td_loss_fwd(*args, 1.0, True)
+        assert torch.equal(loss, loss0) and torch.equal(td, td0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        td_loss_fwd(*args, 1.0, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [td_loss_fwd(*args, 1.0, True) for _ in range(10)]
+    graph.replay()
+    torch.cuda.synchronize()
+    _, ticket = td_kernels.fwd_scratch(cuda)
+    assert int(ticket) == 0
+    for loss, td in outs:
+        assert torch.equal(loss, loss0) and torch.equal(td, td0)
 
 
 def test_learner_update_on_gpu_matches_cpu(cuda):
