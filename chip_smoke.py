@@ -6,15 +6,22 @@
 Phases (each raises on failure, so any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from deep_q_learning_tpu_torch/csrc with nvcc,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together; print each kernel's
+     registers and shared memory from ptxas, and fail on a spill;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it (the TD kernels at B = 256, 1024, 4096,
      300 and 37, both targets, the clip case, rows that are not 16-byte
      aligned; the backward writing q_both's (2B, A) gradient), check that
      the TD forward's loss is bitwise stable over 100 calls at B = 4096 and
-     its ticket counter is 0 after a CUDA-graph replay; time kernel and
-     plain version with CUDA events, and print each kernel's bound, its
-     share of it, and its launches per superstep on each preset;
+     its ticket counter is 0 after a CUDA-graph replay; the PER slot kernel
+     at (N, C, B) = (1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096),
+     (5, 37, 64) on rows that are not 16-byte aligned and (3, 20000, 64)
+     (the chunk loop), on dyadic and random priorities, the edge cases (u =
+     0, 1.0 and 1.5, an all-zero row, rows outside [0, N)) on every path,
+     and its slots bitwise stable over 100 calls and a CUDA-graph replay;
+     time kernel and plain version with CUDA events, and print each
+     kernel's bound, its share of it, and its launches per superstep on
+     each preset;
   4. run the ``lunar_per`` slice at full width through ``Trainer``: 4
      supersteps (512 vector steps of 128 envs), then check that the TD
      kernels ran once per learner update, the loss is finite, the online
@@ -63,8 +70,23 @@ TD_TIMED = (256, 1024, 4096)
 TD_STABLE_B, TD_STABLE_CALLS = 4096, 100
 SUPERSTEPS = 4
 SCALED_SUPERSTEPS = 2
-SLOT_SHAPES = [(1024, 512, 1024), (128, 4096, 256)]  # (N, C, B): lunar_per_scaled, lunar_per
+# (N, C, B): lunar_per_scaled(1024), lunar_per, lunar_per_scaled(4096) (C = 2^19 / 4096),
+# then C % 4 != 0 on misaligned rows (the scalar path) and C past 1024 * 16 (the chunk loop)
+SLOT_SHAPES = [(1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096), (5, 37, 64), (3, 20000, 64)]
+SLOT_TIMED = SLOT_SHAPES[:3]
+SLOT_MISALIGNED = (5, 37, 64)
+# the kernel's plan at each shape: threads per draw, values a thread, float4 loads, chunks
+SLOT_PLANS = {
+    (1024, 512, 1024): (32, 16, True, 1),
+    (128, 4096, 256): (256, 16, True, 1),
+    (4096, 128, 4096): (32, 4, True, 1),
+    (5, 37, 64): (32, 4, False, 1),
+    (3, 20000, 64): (1024, 16, True, 2),
+}
+SLOT_EDGE_C = (200, 37, 300, 4096, 20000)  # the edge cases on every path: V = 8, 4 scalar, 12, block, chunks
+SLOT_STABLE_CALLS = 100
 SLOT_ULPS = 8  # random priorities: a slot may differ only within 8 ulps of a prefix
+SLOT_SHARE_DRAWS = 1024  # ... and in under 1 % of at least this many draws, in calls of B
 REPO = Path(__file__).resolve().parent
 SCALED_SETS = ["use_pallas_sampler=true"]  # the CLI's overrides of lunar_per_scaled
 # lunar_jointed_per cut in depth only: the width and the solver iterations
@@ -246,40 +268,107 @@ def slot_inputs(torch, n, c, b, seed, dyadic):
     return p.contiguous(), env, u
 
 
+def slot_mismatches(torch, p, env, u, got, want, dyadic):
+    """How many draws' slots differ; fails unless dyadic priorities match
+    exactly and random ones differ only where every prefix between the two
+    slots lies within 8 ulps of the row total of the draw."""
+    n, c = p.shape
+    b = env.shape[0]
+    bad = (got != want).nonzero().flatten().tolist()
+    if dyadic:
+        assert not bad, f"K3 dyadic ({n}, {c}, {b}): {len(bad)} slots differ"
+        return len(bad)
+    rows = p[env].double()
+    total = rows.sum(dim=1).float()
+    draw = u.double() * total.double()
+    cdf = torch.cumsum(rows, dim=1)
+    ulp = (torch.nextafter(total, torch.full_like(total, math.inf)) - total).double()
+    for i in bad:
+        lo, hi = sorted((int(got[i]), int(want[i])))
+        gap = float((cdf[i, lo:hi] - draw[i]).abs().max())
+        assert gap <= SLOT_ULPS * float(ulp[i]), (n, c, b, i, gap)
+    return len(bad)
+
+
+def check_slot_edges(torch, sample_kernels, c):
+    """The CPU tests' edge cases against the Pallas kernel, on the card
+    against the plain version at C = ``c``: leading zero slots with u = 0,
+    an all-zero row, u = 1.0 and 1.5, rows -1 and N."""
+    g = torch.Generator().manual_seed(c)
+    p = torch.randint(1, 257, (4, c), generator=g).float() / 64
+    p[0, :17] = 0.0  # leading zero slots
+    p[2] = 0.0  # an all-zero row
+    p = p.cuda()
+    env = torch.tensor([0, 0, 2, 2, 1, 3, 1, -1, 4, 3, 0], device="cuda")
+    u = torch.tensor([0.0, 0.5, 0.0, 0.7, 1.5, 1.0, 0.999999, 0.3, 0.3, 1e-7, 0.25],
+                     device="cuda")
+    got = sample_kernels.slot_select(p, env, u).tolist()
+    assert got == sample_kernels.slot_select_reference(p, env, u).tolist(), (c, got)
+    assert got[0] == 0 and got[2] == got[3] == 0, got  # u = 0; the all-zero row
+    assert got[4] == c - 1 and got[5] == c - 1, got  # past the total, at it: clamped
+    assert got[7] == got[8] == 0, got  # no row
+
+
+def check_slot_determinism(torch, sample_kernels, n, c, b):
+    """100 calls give bitwise the same slots, and so do 10 calls replayed
+    from a CUDA graph."""
+    p, env, u = slot_inputs(torch, n, c, b, seed=3, dyadic=False)
+    slots0 = sample_kernels.slot_select(p, env, u)
+    for _ in range(SLOT_STABLE_CALLS):
+        assert torch.equal(sample_kernels.slot_select(p, env, u), slots0), "K3 is not bitwise stable"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sample_kernels.slot_select(p, env, u)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [sample_kernels.slot_select(p, env, u) for _ in range(10)]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, slots0) for o in outs), "K3 differs after a graph replay"
+
+
 def check_slot_kernel(torch, sample_kernels, per_superstep, card):
     """Phase 3, K3: slot indices of the kernel against the plain version.
     Dyadic priorities must match exactly (their count of mismatches is the
     record's ``max_abs_err``); random ones may differ only where every
     prefix between the two slots lies within 8 ulps of the row total of
-    the draw."""
+    the draw, and in under 1 % of at least 1024 draws (at B = 64 one draw
+    would be 1.6 %).  Then the edge cases on every path, the slots' bitwise
+    stability, and the times."""
     from deep_q_learning_tpu_torch.measure import bound_text
 
     dyadic_mismatches = 0
     for n, c, b in SLOT_SHAPES:
         for dyadic in (True, False):
-            p, env, u = slot_inputs(torch, n, c, b, seed=n + c, dyadic=dyadic)
-            got = sample_kernels.slot_select(p, env, u)
-            want = sample_kernels.slot_select_reference(p, env, u)
-            torch.cuda.synchronize()
-            bad = (got != want).nonzero().flatten().tolist()
-            if dyadic:
-                dyadic_mismatches += len(bad)
-                assert not bad, f"K3 dyadic ({n}, {c}, {b}): {len(bad)} slots differ"
-            else:
-                rows = p[env].double()
-                total = rows.sum(dim=1).float()
-                draw = u.double() * total.double()
-                cdf = torch.cumsum(rows, dim=1)
-                ulp = (torch.nextafter(total, torch.full_like(total, math.inf)) - total).double()
-                for i in bad:
-                    lo, hi = sorted((int(got[i]), int(want[i])))
-                    gap = float((cdf[i, lo:hi] - draw[i]).abs().max())
-                    assert gap <= SLOT_ULPS * float(ulp[i]), (n, c, b, i, gap)
-                assert len(bad) < 0.01 * b, (n, c, b, len(bad))
+            # random: the share of mismatches over at least SLOT_SHARE_DRAWS draws
+            calls = 1 if dyadic else -(-SLOT_SHARE_DRAWS // b)
+            differ = 0
+            for k in range(calls):
+                p, env, u = slot_inputs(torch, n, c, b, seed=n + c + k, dyadic=dyadic)
+                if (n, c, b) == SLOT_MISALIGNED:
+                    p = misaligned(torch, p)
+                plan = sample_kernels.slot_plan(p)
+                assert tuple(plan.values()) == SLOT_PLANS[(n, c, b)], ((n, c, b), plan)
+                got = sample_kernels.slot_select(p, env, u)
+                want = sample_kernels.slot_select_reference(p, env, u)
+                torch.cuda.synchronize()
+                differ += slot_mismatches(torch, p, env, u, got, want, dyadic)
+            assert differ < 0.01 * calls * b, ((n, c, b), differ, calls * b)
+            dyadic_mismatches += differ if dyadic else 0
             print(f"  K3 kernel vs plain (N, C, B)=({n}, {c}, {b}) "
-                  f"{'dyadic' if dyadic else 'random'}: {len(bad)} slots differ")
+                  f"{'dyadic' if dyadic else 'random'}, plan {plan}: {differ} of {calls * b} "
+                  f"slots differ")
+    for c in SLOT_EDGE_C:
+        check_slot_edges(torch, sample_kernels, c)
+    print(f"  K3 edge cases (u = 0, 1.0, 1.5, an all-zero row, rows -1 and N) at C = "
+          f"{SLOT_EDGE_C}: equal to the plain version")
+    for n, c, b in SLOT_TIMED:
+        check_slot_determinism(torch, sample_kernels, n, c, b)
+    print(f"  K3 at {SLOT_TIMED}: {SLOT_STABLE_CALLS} calls and a graph replay bitwise equal")
     times = {}
-    for n, c, b in SLOT_SHAPES:
+    for n, c, b in SLOT_TIMED:
         p, env, u = slot_inputs(torch, n, c, b, seed=7, dyadic=False)
         times[(n, c, b)] = (
             time_ms(torch, lambda: sample_kernels.slot_select(p, env, u)),
@@ -635,6 +724,10 @@ def main() -> int:
             fut.result()
     for source in ("td_loss.cu", "per_sample.cu"):
         print(f"  {source}: nvcc {build.build_seconds.get(source, 0.0):.2f} s (0 = reused a build)")
+        for kernel, use in build.ptxas_summary(build.ptxas_reports.get(source, "")).items():
+            print(f"    {kernel}: {use['registers']} registers, {use['smem']} B shared, "
+                  f"spills {use['spill_stores']} B stored, {use['spill_loads']} B loaded (ptxas)")
+            assert use["spill_stores"] == use["spill_loads"] == 0, (kernel, use)
     print(f"  built and loaded in {time.perf_counter() - t0:.2f} s")
 
     print("phase 3: kernels vs plain on the card")

@@ -10,9 +10,9 @@
    the share of it the kernel reaches, and the kernel's launches per steady
    superstep on each preset that runs it.  With ``--baseline CHECKOUT``
    (another checkout of the port, e.g. an earlier commit unpacked with
-   ``git archive``), its TD kernels are timed too, in turns with this
-   tree's.  Then the kernel launches of one learner update
-   (``torch.profiler``).
+   ``git archive``), its TD kernels and its PER slot kernel are timed too,
+   each built from that checkout's own source, in turns with this tree's.
+   Then the kernel launches of one learner update (``torch.profiler``).
 2. One steady superstep of the preset under ``torch.profiler``: host ms by
    phase (spans wrapped around the env step, replay and optimizer calls),
    kernel launches, and the device's busy share of the wall time; then the
@@ -43,6 +43,9 @@ GRAPH_CALLS, GRAPH_REPLAYS = 100, 50
 # the TD kernels' batch on lunar_per / lunar_jointed_per, lunar_per_scaled(1024)
 # and lunar_per_scaled(4096)
 TD_BATCHES = (256, 1024, 4096)
+# the PER slot kernel's (N, C, B) on lunar_per_scaled(1024), lunar_per and
+# lunar_per_scaled(4096) (C = 2^19 / 4096) with use_pallas_sampler=true
+SLOT_SHAPES = ((1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096))
 
 
 def card_line() -> str:
@@ -115,14 +118,15 @@ def td_inputs(b: int, g: torch.Generator):
 
 
 @functools.cache
-def load_baseline_td_kernels(checkout: Path):
-    """``ops/td_kernels.py`` of another checkout of the port (an earlier
-    commit unpacked with ``git archive``), with its kernels built from that
-    checkout's ``csrc/td_loss.cu``, to time beside this one in one process."""
+def load_baseline(checkout: Path, name: str):
+    """``ops/<name>.py`` (``td_kernels`` or ``sample_kernels``) of another
+    checkout of the port (an earlier commit unpacked with ``git archive``),
+    with its kernels built from that checkout's ``csrc/``, to time beside
+    this one in one process."""
     from deep_q_learning_tpu_torch.ops import build
 
-    path = checkout / "deep_q_learning_tpu_torch" / "ops" / "td_kernels.py"
-    spec = importlib.util.spec_from_file_location("baseline_td_kernels", path)
+    path = checkout / "deep_q_learning_tpu_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"baseline_{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     module.load_library = functools.partial(
@@ -137,15 +141,27 @@ def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
     per_superstep = launches_per_superstep()
     print(f"kernel launches per steady superstep, by preset: {per_superstep}")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for n, c, b in [(1024, 512, 1024), (128, 4096, 256)]:
+    base_sk = load_baseline(baseline, "sample_kernels") if baseline is not None else None
+    for n, c, b in SLOT_SHAPES:
         p = torch.rand((n, c), generator=g, device="cuda") ** 3
         env = torch.randint(0, n, (b,), generator=g, device="cuda")
         u = torch.rand((b,), generator=g, device="cuda")
         k = device_us(lambda: sk.slot_select(p, env, u))
         r = device_us(lambda: sk.slot_select_reference(p, env, u))
         print(f"per_slot_sample (N, C, B)=({n}, {c}, {b}): device {k:.2f} us kernel, "
-              f"{r:.2f} us plain; {bound_text(sk.per_slot_sample_work(p, env), k)} [{card}]")
-    base = load_baseline_td_kernels(baseline) if baseline is not None else None
+              f"{r:.2f} us plain; {bound_text(sk.per_slot_sample_work(p, env), k)}; "
+              f"plan {sk.slot_plan(p)} [{card}]")
+        if base_sk is None:
+            continue
+        differ = int((base_sk.slot_select(p, env, u) != sk.slot_select(p, env, u)).sum())
+        b0, t0, t1, b1 = [
+            device_us(lambda: (base_sk if which == "baseline" else sk).slot_select(p, env, u))
+            for which in ("baseline", "tree", "tree", "baseline")
+        ]
+        print(f"  ({n}, {c}, {b}) per_slot_sample: baseline {b0:.2f}, {b1:.2f} us; this tree "
+              f"{t0:.2f}, {t1:.2f} us (device, in turns); {differ} of {b} slots differ from "
+              f"the baseline's [{card}]")
+    base = load_baseline(baseline, "td_kernels") if baseline is not None else None
     for b in TD_BATCHES:
         args = (*td_inputs(b, g), 1.0, True)
         loss, td = tk.td_loss_fwd(*args)
@@ -188,7 +204,7 @@ def learner_update_profile(td_module=None, b: int = 256):
     ``lunar_per`` learner update (forward, fused TD loss, backward, adam,
     Polyak) at batch ``b`` on the card, after three warm-up updates,
     counted by ``torch.profiler``.  ``td_module`` (another checkout's
-    ``ops/td_kernels.py``, from :func:`load_baseline_td_kernels`) supplies
+    ``ops/td_kernels.py``, from :func:`load_baseline`) supplies
     the fused loss in place of this tree's."""
     import dataclasses
     from unittest import mock
@@ -242,7 +258,7 @@ def learner_launches(card: str, baseline: Optional[Path] = None) -> None:
     if baseline is None:
         return
     base_launches, base_kernels, base_ops = learner_update_profile(
-        load_baseline_td_kernels(baseline))
+        load_baseline(baseline, "td_kernels"))
     print(f"  with the baseline's fused loss: {base_launches} kernel launches; {base_ops} [{card}]")
     for name in sorted(set(kernels) | set(base_kernels)):
         if kernels.get(name, 0) != base_kernels.get(name, 0):
@@ -369,8 +385,8 @@ def main(argv=None) -> int:
                     help="time the kernels and count a learner update's launches, "
                          "without the superstep")
     ap.add_argument("--baseline", type=Path, metavar="CHECKOUT",
-                    help="also time the TD kernels of another checkout of the port, "
-                         "in turns with this tree's")
+                    help="also time the TD and PER slot kernels of another checkout of "
+                         "the port, in turns with this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: torch.cuda.is_available() is False; this needs a GPU", file=sys.stderr)

@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,11 +25,12 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# seconds spent in nvcc by this process, by source file name
+# seconds spent in nvcc by this process, and ptxas's report, by source file name
 build_seconds: dict = {}
+ptxas_reports: dict = {}
 
 
 def find_nvcc() -> str:
@@ -68,4 +70,32 @@ def load_library(source_name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
                 )
             os.replace(out, lib_path)  # atomic: a concurrent loader sees all or nothing
         build_seconds[source_name] = time.perf_counter() - t0
+        ptxas_reports[source_name] = proc.stdout + proc.stderr
     return ctypes.CDLL(str(lib_path))
+
+
+def ptxas_summary(report: str) -> dict:
+    """``{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}`` from
+    a ``-Xptxas -v`` report; a kernel is named by its function and its
+    template arguments (``slot_warp_kernel<4,1>``)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"[a-z_]+_kernel", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = (base.group(0) if base else mangled) + (f"<{','.join(args)}>" if args else "")
+            out[name] = {"registers": 0, "smem": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, spills.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[name]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out

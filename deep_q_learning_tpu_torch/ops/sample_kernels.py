@@ -17,7 +17,10 @@ in ``replay/prioritized.py``, as they do in the JAX package.
 Indices are int64 in and out, as the port's ``SampleInfo`` holds them, so no
 conversion runs around the call.  :func:`per_slot_sample_work` gives the
 bytes and operations a call needs on its inputs (``ops.bound_us`` turns
-them into the least time the card could take).
+them into the least time the card could take).  The kernel gives each draw
+a warp (C <= 512) or a block (larger C) that reads its row once into
+registers; :func:`slot_plan` says which, for given priorities.  See the
+source for the design.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches, and
@@ -77,7 +80,20 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.per_slot_sample.argtypes = [ptr] * 4 + [i32, i32, i32, ptr]
     lib.per_slot_sample.restype = i32
+    lib.per_slot_sample_plan.argtypes = [i32, ptr, ctypes.POINTER(i32)]
+    lib.per_slot_sample_plan.restype = i32
     return lib
+
+
+def slot_plan(priorities: torch.Tensor) -> dict:
+    """How the kernel runs on these priorities (N, C) on the card:
+    ``threads`` per draw (32: a warp, eight draws a block; more: a block),
+    ``values`` each thread holds, ``vec`` (float4 loads; False where C % 4
+    != 0 or the rows are not 16-byte aligned) and the ``chunks`` of the row
+    a block walks (1: one pass)."""
+    plan = (ctypes.c_int * 4)()
+    _launch(_lib().per_slot_sample_plan, priorities.shape[1], priorities.data_ptr(), plan)
+    return dict(threads=plan[0], values=plan[1], vec=bool(plan[2]), chunks=plan[3])
 
 
 def slot_select(

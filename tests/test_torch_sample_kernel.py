@@ -10,7 +10,9 @@ Tolerances:
   with ``torch.sum`` and ``torch.cumsum``.  A draw within a few ulps of a
   prefix may then fall on the other side of it.  A mismatch is allowed only
   where every prefix between the two slots lies within 8 float32 ulps of
-  the row total of the reference's draw.
+  the row total of the reference's draw, and in under 1 % of at least 1024
+  draws (at C = 20000 the float32 prefix sums of either side miss the exact
+  count in a few draws of a thousand).
 * The whole sampler: indices exact, importance weights rtol 1e-6.
 """
 
@@ -33,6 +35,7 @@ from deep_q_learning_tpu_torch.ops.sample_kernels import slot_select, slot_selec
 from deep_q_learning_tpu_torch.replay import PrioritizedReplay
 
 ULPS = 8
+SHARE_DRAWS = 1024  # random priorities: the share of mismatches is over at least this many draws
 
 
 def pallas_slots(priorities, env_idx, u_slot):
@@ -73,7 +76,10 @@ def u_slot_of(key, b):
     return np.asarray(jax.random.uniform(slot_key, (b,), jnp.float32))
 
 
-@pytest.mark.parametrize("n,c,b", [(128, 4096, 256), (1024, 512, 1024), (5, 200, 37)])
+# (N, C, B) of lunar_per, lunar_per_scaled(1024) and lunar_per_scaled(4096) with the
+# sampler on; then the kernel's scalar path (C % 4 != 0) and its chunk loop (C > 16384)
+@pytest.mark.parametrize("n,c,b", [(128, 4096, 256), (1024, 512, 1024), (5, 200, 37),
+                                   (4096, 128, 4096), (5, 37, 64), (3, 20000, 64)])
 def test_plain_matches_pallas_exactly_on_dyadic_priorities(n, c, b):
     p = dyadic_priorities(np.random.default_rng(n + c + b), n, c)
     p[1] = 0.0  # an all-zero row
@@ -89,12 +95,15 @@ def test_plain_matches_pallas_exactly_on_dyadic_priorities(n, c, b):
     assert len(set(got.tolist())) > 1
 
 
-@pytest.mark.parametrize("n,c,b", [(128, 4096, 256), (1024, 512, 1024), (7, 200, 37)])
+@pytest.mark.parametrize("n,c,b", [(128, 4096, 256), (1024, 512, 1024), (7, 200, 37),
+                                   (5, 37, 64), (3, 20000, 64)])
 def test_plain_matches_pallas_within_ulps_on_random_priorities(n, c, b):
     rng = np.random.default_rng(c)
     p = (rng.random((n, c)) ** 3).astype(np.float32)
-    env_idx = rng.integers(0, n, b)
-    u = rng.random(b).astype(np.float32)
+    # ceil(SHARE_DRAWS / b) batches of b draws in one call: each draw stands alone
+    draws = -(-SHARE_DRAWS // b) * b
+    env_idx = rng.integers(0, n, draws)
+    u = rng.random(draws).astype(np.float32)
     want = pallas_slots(p, env_idx, u)
     got = port_slots(p, env_idx, u)
     rows = p[env_idx].astype(np.float64)
