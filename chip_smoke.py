@@ -44,7 +44,17 @@ Phases (each raises on failure, so any failure exits non-zero):
      jointed frame of 64 landers from a short flight near the ground
      (touchdowns, contacts, crashes) on the card against the same frame on
      the CPU;
-  8. print the kernels' record as one JSON line (with each kernel's bound,
+  8. classic control on the card: ``cartpole_vector``, ``acrobot_vector`` and
+     ``mountain_car_vector`` at full width through ``Trainer``, cut in depth
+     only (``CLASSIC_RUNS``): check the counters (env steps; updates equal
+     to the trained frames times ``updates_per_step``), a finite loss,
+     completed episodes, that the online net trained, that no kernel ran
+     (all three run the plain TD loss, ``use_pallas=False``), and that the
+     cheap auto-reset ran: no reset pool, one ``reset_batch`` draw a frame;
+     print env-steps/s and the kernel launches per vector step of a steady
+     8-step superstep (``torch.profiler``); then one vector step of each env on
+     the card against the same step on the CPU, from the same states;
+  9. print the kernels' record as one JSON line (with each kernel's bound,
      ``bound_ms``), then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
@@ -109,6 +119,22 @@ FRAME_TOL = {  # kind: (tight atol, tight rtol, every-lane atol)
     "reward": (1e-4, 0.0, 5e-2),
 }
 FRAME_TIGHT_SHARE = 0.9
+# phase 8, each preset at its full width, cut in depth only:
+#   cartpole_vector: 4096 envs, 3 supersteps of 64 vector steps; the learner
+#     starts at vector step 3 (training_start 10,000);
+#   acrobot_vector: 128 envs, 4 supersteps of 128 vector steps; a random
+#     policy's episode lasts the 500-step limit, so 512 steps end one per env;
+#   mountain_car_vector: 128 envs, 2 supersteps of 128 vector steps, with
+#     training_start cut to 16,384 (of 50,000) so that the learner runs.
+CLASSIC_RUNS = {  # preset: (supersteps, config cuts)
+    "cartpole_vector": (3, {}),
+    "acrobot_vector": (4, {}),
+    "mountain_car_vector": (2, {"training_start": 16_384}),
+}
+# one vector step card vs CPU, as the CPU tests hold the port to JAX
+# (tests/test_torch_envs_classic.py): CartPole and MountainCar 1e-6; Acrobot's
+# four RK4 stages of trigonometry carry the ulps of sin/cos further
+CLASSIC_TOL = {"CartPole-v1": 1e-6, "MountainCar-v0": 1e-6, "Acrobot-v1": 1e-5}
 
 
 def card_line() -> str:
@@ -670,6 +696,127 @@ def check_jointed_frame(torch, card):
           f"{int(past_tight.sum())} lanes past the tight tolerances [{card}]")
 
 
+def count_calls(obj, name: str, counts: dict) -> None:
+    """Count the calls of ``obj.name`` in ``counts[name]``."""
+    fn = getattr(obj, name)
+    counts[name] = 0
+
+    def counted(*args, **kwargs):
+        counts[name] += 1
+        return fn(*args, **kwargs)
+
+    setattr(obj, name, counted)
+
+
+LAUNCH_STEPS = 8  # the vector steps of the superstep whose launches are counted
+
+
+def steady_launches(torch, cfg) -> float:
+    """Kernel launches per vector step of a steady superstep of ``cfg`` (every
+    frame trains), counted by torch.profiler on a second trainer whose
+    supersteps are LAUNCH_STEPS long: the profiler's cost grows with the
+    events it records."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    short = dataclasses.replace(cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0)
+    trainer = Trainer(short, device="cuda").init(seed=1)
+    trainer.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        m = trainer.step()
+        torch.cuda.synchronize()
+    assert m.loss_count == LAUNCH_STEPS * cfg.updates_per_step
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))) / LAUNCH_STEPS
+
+
+def run_classic(torch, td_kernels, sample_kernels, preset, card):
+    """Phase 8: one classic-control preset at full width through the Trainer."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.config import PRESETS
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    supersteps, cuts = CLASSIC_RUNS[preset]
+    cfg = dataclasses.replace(PRESETS[preset](), **cuts)
+    assert cfg.replay == "uniform" and not cfg.use_pallas and not cfg.use_pallas_sampler
+    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    assert trainer.env.batch_reset_cheap
+    calls = {}
+    count_calls(trainer.venv, "fresh_pool", calls)
+    count_calls(trainer.env, "reset_batch", calls)
+    online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
+    torch.cuda.synchronize()
+
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.step() for _ in range(supersteps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+
+    vector_steps = supersteps * cfg.steps_per_superstep
+    env_steps = vector_steps * cfg.num_envs
+    assert [m.env_steps for m in metrics] == [
+        cfg.steps_per_superstep * (i + 1) for i in range(supersteps)]
+    assert trainer.runner.replay.total_adds == vector_steps
+    first = -(-cfg.training_start // cfg.num_envs)  # the first vector step that trains
+    updates = sum(m.loss_count for m in metrics)
+    assert updates == (vector_steps - first + 1) * cfg.updates_per_step > 0, updates
+    assert updates == trainer.runner.train.updates == trainer.runner.train.opt_state.count
+    assert not any(launches.values()) and not any(plain.values()), (launches, plain)
+    assert all(math.isfinite(m.loss_sum) for m in metrics)
+    assert metrics[-1].episodes > 0
+    assert metrics[-1].episodes == sum(m.episodes_delta for m in metrics)
+    assert calls == {"fresh_pool": 0, "reset_batch": vector_steps}, calls
+    online = [p.detach() for p in trainer.runner.train.online.parameters()]
+    assert sum(float((p - p0).norm()) for p, p0 in zip(online, online0)) > 0
+    per_step = steady_launches(torch, cfg)
+    print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
+    print(f"  {preset} x{cfg.num_envs} envs: {env_steps} env steps in {seconds:.3f} s = "
+          f"{env_steps / seconds:.1f} env-steps/s, {updates} updates, "
+          f"{metrics[-1].episodes} episodes, window {metrics[-1].window_mean:.3f}; "
+          f"{per_step:.1f} kernel launches per vector step (torch.profiler, a steady "
+          f"{LAUNCH_STEPS}-step superstep) [{card}]")
+    return trainer
+
+
+def check_classic_step(torch, trainer, card):
+    """Phase 8: one vector step of the trainer's env on the card against the
+    same step on the CPU, from the trainer's states and random actions."""
+    env, params = trainer.env, trainer.env_params
+    st = trainer.runner.env_states
+    n = trainer.cfg.num_envs
+    g = torch.Generator().manual_seed(5)
+    actions = torch.randint(0, env.num_actions, (n,), generator=g, dtype=torch.int32)
+    cpu = env.step_env(None, to_device(torch, st, "cpu"), actions, params)
+    gpu = [to_device(torch, x, "cpu") for x in env.step_env(None, st, actions.cuda(), params)]
+    tol = CLASSIC_TOL[trainer.cfg.env_id]
+    import dataclasses
+
+    gaps = {"obs": float((gpu[0] - cpu[0]).abs().max())}
+    for f in dataclasses.fields(cpu[1]):
+        want, got = getattr(cpu[1], f.name), getattr(gpu[1], f.name)
+        if want.dtype == torch.int32:
+            assert torch.equal(want, got), f.name
+            continue
+        if f.name.startswith("theta"):  # an angle next to ±pi may wrap either way
+            want, got = torch.stack([want.cos(), want.sin()]), torch.stack([got.cos(), got.sin()])
+        gaps[f.name] = float((got - want).abs().max())
+    assert max(gaps.values()) <= tol, (gaps, tol)
+    same = (gpu[3] == cpu[3]) & (gpu[4] == cpu[4])
+    assert torch.equal(gpu[2][same], cpu[2][same]), "reward"
+    flipped = int((~same).sum())
+    assert flipped <= 1, flipped  # a lane at a threshold may flip
+    print(f"  one vector step of {n} {trainer.cfg.env_id} envs card vs CPU: largest gaps {gaps} "
+          f"(tolerance {tol}), {flipped} flags differ [{card}]")
+
+
 def check_learner_vs_cpu(torch, td_kernels):
     """One learner update through the kernel on the card against the plain
     path on the CPU, from the same weights and batch (rtol 1e-4)."""
@@ -754,6 +901,15 @@ def main() -> int:
     jointed_launches = run_jointed(torch, td_kernels, sample_kernels, card)
     check_jointed_frame(torch, card)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    print("phase 8: classic control on the card")
+    t0 = time.perf_counter()
+    for preset in CLASSIC_RUNS:
+        t1 = time.perf_counter()
+        trainer = run_classic(torch, td_kernels, sample_kernels, preset, card)
+        check_classic_step(torch, trainer, card)
+        print(f"  {preset} took {time.perf_counter() - t1:.1f} s")
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # ms and bound at B=256 for the TD kernels (lunar_per, lunar_jointed_per)
     # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);

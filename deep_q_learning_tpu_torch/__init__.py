@@ -5,12 +5,14 @@ it, and the tests hold each ported function against its JAX counterpart on
 the same inputs.  This package imports torch and numpy, never jax, flax,
 optax or any module of the JAX package.
 
-What is ported so far is single-device training of the LunarLander
-presets on both lander engines: the jointed 3-body lander stepped by the
-Box2D sequential-impulse solver (``lunar_jointed_per``,
-``lunar_jointed_scaled``; ``envs/lander_solver.py``) and the rigid one
-(``lunar_per``, ``lunar_per_scaled``), the heuristic controller, the
-dueling Q-network, prioritized n-step replay with the hand-written CUDA
+What is ported so far is single-device training of every preset: the
+classic-control envs (CartPole, Acrobot, MountainCar, with uniform replay
+and a per-frame auto-reset draw) and LunarLander on both engines, the
+jointed 3-body lander stepped by the Box2D sequential-impulse solver
+(``lunar_jointed_per``, ``lunar_jointed_scaled``;
+``envs/lander_solver.py``) and the rigid one (``lunar_per``,
+``lunar_per_scaled``), the heuristic controller, the dueling Q-network,
+uniform and prioritized n-step replay with the hand-written CUDA
 slot-sampling kernel (``ops/sample_kernels.py``, ``csrc/per_sample.cu``),
 the double-DQN learner with the hand-written CUDA TD+huber kernel
 (``ops/td_kernels.py``, ``csrc/td_loss.cu``), the superstep, the

@@ -12,9 +12,10 @@ Commands:
   eval --preset P --workdir D        greedy-evaluate a saved checkpoint
 
 Not ported yet, and refused with a message that names the ROADMAP item:
-``hpo`` (H), ``train --distributed`` (I), ``eval --rollout-dir/--render``
-(G).  ``train --aot-cache`` is refused too: the AOT cache is not ported, by
-design.
+``hpo`` (H), ``train --distributed`` (I), ``eval --rollout-dir``,
+``--rollouts`` and ``--render`` (G).  ``train --aot-cache`` is refused too:
+the AOT cache is not ported, by design.  ``--quiet`` is accepted by every
+command, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -91,12 +92,8 @@ def cmd_presets(args: argparse.Namespace) -> int:
     for name, factory in PRESETS.items():
         doc = (factory.__doc__ or "").strip().splitlines()[0]
         cfg = factory()
-        try:
-            make_env(cfg.env_id, param_overrides=cfg.env_param_overrides())
-            status = "[runnable]"
-        except NotImplementedError:
-            status = f"[not ported: {cfg.env_id}]"
-        print(f"{name:22s} {status:30s} {doc}")
+        make_env(cfg.env_id, param_overrides=cfg.env_param_overrides())  # every env is ported
+        print(f"{name:22s} {'[runnable]':30s} {doc}")
     if args.fields:
         print("\nconfig fields (override with --set key=value):")
         for f in dataclasses.fields(DQNConfig):
@@ -142,8 +139,8 @@ def cmd_train(args: argparse.Namespace) -> int:
 
 
 def cmd_eval(args: argparse.Namespace) -> int:
-    if args.rollout_dir or args.render:
-        raise _not_ported("eval --rollout-dir/--render (utils/visualize.py)", "item G")
+    if args.rollout_dir or args.rollouts is not None or args.render:
+        raise _not_ported("eval --rollout-dir/--rollouts/--render (utils/visualize.py)", "item G")
     import numpy as np
 
     from deep_q_learning_tpu_torch.train import Trainer
@@ -188,10 +185,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         p.add_argument("--seed", type=int, default=None)
         p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+        p.add_argument("--quiet", action="store_true")
 
     p = sub.add_parser("train", help="train a preset")
     common(p)
-    p.add_argument("--quiet", action="store_true")
     p.add_argument("--max-env-steps", type=int, default=10_000_000)
     p.add_argument("--workdir", type=str, default=None)
     p.add_argument("--log-every", type=int, default=10, metavar="SUPERSTEPS")
@@ -211,10 +208,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--workdir", type=str, required=True)
     p.add_argument("--step", type=int, default=None, help="checkpoint step (default latest)")
     p.add_argument("--rollout-dir", type=str, default=None, help="not ported yet")
+    p.add_argument("--rollouts", type=int, default=None, metavar="N", help="not ported yet")
     p.add_argument("--render", choices=("gif", "mp4"), default=None, help="not ported yet")
     p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("hpo", help="not ported yet")
+    p.add_argument("--quiet", action="store_true")
     p.set_defaults(fn=cmd_hpo)
 
     args, unknown = ap.parse_known_args(argv)

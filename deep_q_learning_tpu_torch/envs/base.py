@@ -44,6 +44,12 @@ def tree_where(mask: torch.Tensor, fresh: Any, stepped: Any) -> Any:
     )
 
 
+def uniform(generator: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
+    """Float32 uniform on ``[lo, hi)``, drawn on the generator's device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u * (hi - lo) + lo
+
+
 class Environment:
     """Abstract batched environment.
 

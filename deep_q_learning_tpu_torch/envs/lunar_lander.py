@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from deep_q_learning_tpu_torch.envs import lander_solver
-from deep_q_learning_tpu_torch.envs.base import EnvParams, Environment
+from deep_q_learning_tpu_torch.envs.base import EnvParams, Environment, uniform
 from deep_q_learning_tpu_torch.envs.lander_solver import AssemblyAcc, Body, _f32_product
 
 # ----------------------------- published spec constants --------------------
@@ -126,15 +126,10 @@ class ResetDraws:
     wind: torch.Tensor  # (N, 2) int32 on [-9999, 9999): wind, torque index
 
 
-def _uniform(generator: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return u * (hi - lo) + lo
-
-
 def sample_reset_draws(generator: torch.Generator, n: int) -> ResetDraws:
     return ResetDraws(
-        terrain=_uniform(generator, (n, CHUNKS + 1), 0.0, H / 2.0),
-        kick=_uniform(generator, (n, 2), -INITIAL_RANDOM, INITIAL_RANDOM),
+        terrain=uniform(generator, (n, CHUNKS + 1), 0.0, H / 2.0),
+        kick=uniform(generator, (n, 2), -INITIAL_RANDOM, INITIAL_RANDOM),
         wind=torch.randint(
             -9999, 9999, (n, 2), generator=generator, device=generator.device,
             dtype=torch.int32,
@@ -595,7 +590,7 @@ class LunarLander(Environment):
         draws: Optional[torch.Tensor] = None,
     ):
         if draws is None:
-            draws = _uniform(generator, (action.shape[0], 2), -1.0, 1.0)
+            draws = uniform(generator, (action.shape[0], 2), -1.0, 1.0)
         # dispersion is drawn every frame (gym draws before the engine gate)
         disp = draws / SCALE * params.dispersion_scale
         phys = self._physics_step_jointed if params.jointed else self._physics_step

@@ -6,13 +6,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+from deep_q_learning_tpu_torch.envs.acrobot import Acrobot
 from deep_q_learning_tpu_torch.envs.base import Environment
+from deep_q_learning_tpu_torch.envs.cartpole import CartPole
 from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLander
+from deep_q_learning_tpu_torch.envs.mountain_car import MountainCar
 from deep_q_learning_tpu_torch.envs.wrappers import TimeFractionObs
 
-_ENVS = {"LunarLander-v2": LunarLander}
-# ids the JAX package has and the port does not have yet (ROADMAP.md)
-_NOT_PORTED = ("Acrobot-v1", "CartPole-v1", "MountainCar-v0")
+_ENVS = {
+    "Acrobot-v1": Acrobot,
+    "CartPole-v1": CartPole,
+    "LunarLander-v2": LunarLander,
+    "MountainCar-v0": MountainCar,
+}
 
 
 def make_env(
@@ -24,11 +30,6 @@ def make_env(
     """Build an env (optionally wrapped with ``TimeFractionObs``) and its
     params.  ``param_overrides`` fields the params do not have are ignored,
     so config-level knobs can be passed whatever the env."""
-    if env_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{env_id} is not ported to PyTorch yet; see ROADMAP.md, "
-            "'Modules to port'"
-        )
     if env_id not in _ENVS:
         raise ValueError(f"unknown env_id {env_id!r}; have {sorted(_ENVS)}")
     env: Environment = _ENVS[env_id]()
@@ -43,3 +44,7 @@ def make_env(
         if applicable:
             params = dataclasses.replace(params, **applicable)
     return env, params
+
+
+def available_envs():
+    return sorted(_ENVS)

@@ -36,6 +36,11 @@ class WrappedEnv(Environment):
     def reset_env(self, generator, n, params, draws=None):
         return self.env.reset_env(generator, n, params, draws)
 
+    def reset_batch(self, generator, n, params):
+        # the wrapped env's own auto-reset draw, with this wrapper's obs
+        _, states = self.env.reset_batch(generator, n, params)
+        return self.get_obs(states, params), states
+
     def step_env(self, generator, state, action, params, draws=None):
         return self.env.step_env(generator, state, action, params, draws)
 

@@ -14,7 +14,8 @@
    each built from that checkout's own source, in turns with this tree's.
    Then the kernel launches of one learner update (``torch.profiler``).
 2. One steady superstep of the preset under ``torch.profiler``: host ms by
-   phase (spans wrapped around the env step, replay and optimizer calls),
+   phase (spans wrapped around the env step, the reset pool or the cheap
+   per-frame reset, the replay and optimizer calls),
    kernel launches, and the device's busy share of the wall time; then the
    wall time and env-steps/s of the next two supersteps, unprofiled.
 
@@ -266,8 +267,12 @@ def learner_launches(card: str, baseline: Optional[Path] = None) -> None:
                   f"this tree {kernels.get(name, 0)}")
 
 
+# the reset runs as one pool per superstep (fresh_pool: the lander) or, for
+# cheap resets (classic control), as a draw inside every venv.step
+# (env.reset_batch, a span nested in venv.step's)
 PHASES = {
     "venv": ("fresh_pool", "step"),
+    "env": ("reset_batch",),
     "replay": ("add", "sample_with_info", "update_priorities"),
     "optimizer": ("apply",),
 }

@@ -155,53 +155,63 @@ class Trainer:
         verbose: bool = True,
     ) -> TrainResult:
         """Run supersteps until solved or the env-step budget is spent.
-        With a ``workdir``, a checkpoint is saved every ``checkpoint_every``
-        supersteps and when the window is solved.  ``eval_every`` (in
-        supersteps) interleaves greedy evaluation."""
+
+        As in the JAX package, the solve, the budget and the checkpoint are
+        decided only at log points (every ``log_every`` supersteps), so a
+        run stops at the same env step in both.  With a ``workdir``, a
+        checkpoint is saved at every log point that is also a multiple of
+        ``checkpoint_every``, and once more after a solve.  ``eval_every``
+        (in supersteps) interleaves greedy evaluation at log points."""
         if self.runner is None:
             self.init()
         cfg = self.cfg
         t0 = time.time()
+        solved = False
         i = 0
         last_steps, last_time = self.runner.env_step * cfg.num_envs, t0
         while True:
             m = self.step()
             i += 1
+            if i % log_every:
+                continue
             env_steps = m.env_steps * cfg.num_envs
-            if i % log_every == 0:
-                now = time.time()
-                sps = (env_steps - last_steps) / max(now - last_time, 1e-9)
-                last_steps, last_time = env_steps, now
-                rec = {
-                    "superstep": i,
-                    "env_steps": env_steps,
-                    "episodes": m.episodes,
-                    "window_mean": m.window_mean,
-                    "epsilon": m.epsilon,
-                    "loss": m.loss_sum / max(m.loss_count, 1),
-                    "updates": m.loss_count,
-                    "steps_per_s": sps,
-                    "wall_s": now - t0,
-                }
-                if eval_every and i % eval_every == 0:
-                    ev = self.evaluate(seed=i)
-                    rec["eval_mean"] = float(np.mean(ev.returns))
-                    rec["eval_truncated"] = int(np.sum(ev.truncated))
-                self.history.append(rec)
-                if verbose:
-                    print(
-                        f"[{rec['wall_s']:7.1f}s] steps {env_steps/1e6:8.2f}M "
-                        f"episodes {rec['episodes']:7d} window {m.window_mean:8.2f} "
-                        f"eps {m.epsilon:.3f} loss {rec['loss']:.4f} "
-                        f"({sps/1e6:.3f}M steps/s)",
-                        flush=True,
-                    )
-            if self.workdir and (m.solved or (checkpoint_every and i % checkpoint_every == 0)):
+            now = time.time()
+            sps = (env_steps - last_steps) / max(now - last_time, 1e-9)
+            last_steps, last_time = env_steps, now
+            rec = {
+                "superstep": i,
+                "env_steps": env_steps,
+                "episodes": m.episodes,
+                "window_mean": m.window_mean,
+                "epsilon": m.epsilon,
+                "loss": m.loss_sum / max(m.loss_count, 1),
+                "updates": m.loss_count,
+                "steps_per_s": sps,
+                "wall_s": now - t0,
+            }
+            if eval_every and i % eval_every == 0:
+                ev = self.evaluate(seed=i)
+                rec["eval_mean"] = float(np.mean(ev.returns))
+                rec["eval_truncated"] = int(np.sum(ev.truncated))
+            self.history.append(rec)
+            if verbose:
+                print(
+                    f"[{rec['wall_s']:7.1f}s] steps {env_steps/1e6:8.2f}M "
+                    f"episodes {rec['episodes']:7d} window {m.window_mean:8.2f} "
+                    f"eps {m.epsilon:.3f} loss {rec['loss']:.4f} "
+                    f"({sps/1e6:.3f}M steps/s)",
+                    flush=True,
+                )
+            solved = m.solved
+            if self.workdir and checkpoint_every and i % checkpoint_every == 0:
                 self.save(step=env_steps)
-            if m.solved or env_steps >= max_env_steps:
+            if solved or env_steps >= max_env_steps:
                 break
+        env_steps = m.env_steps * cfg.num_envs
+        if solved and self.workdir:
+            self.save(step=env_steps)
         return TrainResult(
-            solved=m.solved,
+            solved=solved,
             env_steps=env_steps,
             episodes=m.episodes,
             wall_time_s=time.time() - t0,

@@ -55,6 +55,8 @@ def test_presets_listing(capsys):
     (["train", "--preset", "lunar_per", "--distributed"], "item I"),
     (["train", "--preset", "lunar_per", "--aot-cache", "x"], "by design"),
     (["eval", "--preset", "lunar_per", "--workdir", "x", "--rollout-dir", "y"], "item G"),
+    (["eval", "--preset", "lunar_per", "--workdir", "x", "--rollouts", "2"], "item G"),
+    (["hpo", "--preset", "lunar_per", "--quiet"], "item H"),
 ])
 def test_options_not_ported_are_refused(argv, item):
     with pytest.raises(SystemExit, match=item):
@@ -84,13 +86,13 @@ def test_cli_train_resume_eval_roundtrip(tmp_path, capsys):
     assert [h["env_steps"] for h in hist] == [64, 128]
     assert sorted(p.name for p in Path(wd).iterdir()) == ["128.pt", "64.pt", "config.json"]
 
-    assert main(["train", *TINY, "--resume", "--max-env-steps", "192",
+    assert main(["train", *TINY, "--resume", "--max-env-steps", "192", "--log-every", "1",
                  "--checkpoint-every", "1", "--workdir", wd, "--quiet"]) == 0
     resumed = _last_json(capsys)
     assert resumed["env_steps"] == 192 and resumed["updates"] == 6
     assert resumed["episodes"] >= first["episodes"]
 
-    assert main(["eval", *TINY, "--workdir", wd]) == 0
+    assert main(["eval", *TINY, "--workdir", wd, "--quiet"]) == 0
     report = _last_json(capsys)
     assert report["step"] == 192 and report["episodes"] == 10 and report["length_mean"] > 0
 
@@ -107,3 +109,42 @@ def test_module_runs_as_a_program():
     )
     assert proc.returncode == 0, proc.stderr
     assert "lunar_per_scaled" in proc.stdout
+
+
+@pytest.mark.parametrize("argv,trains", [
+    # the classic group: CartPole seeds until two solve (seed 1 misses here),
+    # then Acrobot and MountainCar at seed 0, which solve
+    (["--group", "classic"], [("cartpole_vector", 0, 42_000_000), ("cartpole_vector", 1, 42_000_000),
+                              ("cartpole_vector", 2, 42_000_000), ("acrobot_vector", 0, 4_000_000),
+                              ("mountain_car_vector", 0, 13_000_000)]),
+    # --preset/--seeds: every seed, at the preset's budget
+    (["--preset", "cartpole_vector", "--seeds", "0,2,3"],
+     [("cartpole_vector", s, 42_000_000) for s in (0, 2, 3)]),
+])
+def test_solves_drive_the_cli(argv, trains, tmp_path, monkeypatch):
+    """``solves.py`` runs ``train`` at the CLI's default ``--log-every`` with
+    a greedy evaluation every 10 supersteps, and ``eval`` of each solve."""
+    from deep_q_learning_tpu_torch import solves
+
+    calls = []
+
+    def fake_cli(args, log, device):
+        calls.append(args)
+        assert device == "cpu" and "--log-every" not in args
+        if args[0] == "eval":
+            return {"step": 10, "return_mean": 500.0}
+        seed = int(args[args.index("--seed") + 1])
+        with open(args[args.index("--history-out") + 1], "w") as f:
+            f.write(json.dumps({"window_mean": 480.0, "eval_mean": 490.0}) + "\n")
+        return {"solved": seed != 1, "env_steps": 10, "wall_time_s": 2.0}
+
+    monkeypatch.setattr(solves, "cli", fake_cli)
+    assert solves.main([*argv, "--device", "cpu", "--out", str(tmp_path)]) == 0
+    got = [(a[a.index("--preset") + 1], int(a[a.index("--seed") + 1]),
+            int(a[a.index("--max-env-steps") + 1])) for a in calls if a[0] == "train"]
+    assert got == trains
+    assert all(a[a.index("--eval-every") + 1] == "10" for a in calls if a[0] == "train")
+    summary = [json.loads(line) for line in open(tmp_path / "summary.jsonl")]
+    assert [(r["preset"], r["seed"]) for r in summary] == [t[:2] for t in trains]
+    assert all(r["card"] == "cpu" and r["env_steps_per_s"] == 5.0 for r in summary)
+    assert [r["greedy_eval"] is not None for r in summary] == [r["solved"] for r in summary]

@@ -341,3 +341,39 @@ def test_jointed_frame_on_gpu_matches_cpu(cuda):
     for f in ("leg1", "leg2"):
         assert torch.equal(getattr(c, f), getattr(gpu, f))
     assert torch.equal(c_term, g_term.cpu())
+
+
+# one vector step card vs CPU: the CPU tests' atol 1e-6 for CartPole and
+# MountainCar; Acrobot's RK4 of sin/cos 1e-5 (angles through cos and sin)
+CLASSIC_TOL = {"CartPole-v1": 1e-6, "MountainCar-v0": 1e-6, "Acrobot-v1": 1e-5}
+
+
+@pytest.mark.parametrize("env_id", list(CLASSIC_TOL))
+def test_classic_env_step_on_gpu_matches_cpu(cuda, env_id):
+    """One vector step of 4096 envs after 40 random steps from fresh
+    resets, on the GPU and on the CPU from the same states and actions;
+    flags equal except at most one lane at a threshold."""
+    from deep_q_learning_tpu_torch.envs import make_env
+
+    env, p = make_env(env_id)
+    n = 4096
+    g = torch.Generator().manual_seed(9)
+    _, st = env.reset_env(g, n, p)
+    for _ in range(40):
+        actions = torch.randint(0, env.num_actions, (n,), generator=g, dtype=torch.int32)
+        _, st, *_ = env.step_env(None, st, actions, p)
+    actions = torch.randint(0, env.num_actions, (n,), generator=g, dtype=torch.int32)
+    cpu = env.step_env(None, st, actions, p)
+    on_gpu = dataclasses.replace(st, **{f.name: getattr(st, f.name).to(cuda)
+                                        for f in dataclasses.fields(st)})
+    gpu = env.step_env(None, on_gpu, actions.to(cuda), p)
+    tol = CLASSIC_TOL[env_id]
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], atol=tol, rtol=0)
+    for f in dataclasses.fields(cpu[1]):
+        want, got = getattr(cpu[1], f.name), getattr(gpu[1], f.name).cpu()
+        if f.name.startswith("theta"):
+            want, got = torch.stack([want.cos(), want.sin()]), torch.stack([got.cos(), got.sin()])
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    same = (gpu[3].cpu() == cpu[3]) & (gpu[4].cpu() == cpu[4])
+    assert int((~same).sum()) <= 1
+    assert torch.equal(gpu[2].cpu()[same], cpu[2][same])

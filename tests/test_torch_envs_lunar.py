@@ -205,8 +205,12 @@ def test_jointed_engine_and_other_envs_raise():
     obs, st = env.reset_env(torch.Generator().manual_seed(0), 2, params)  # the default engine
     assert obs.shape == (2, 8) and torch.isfinite(obs).all()
     assert st.leg1_body.cx.shape == (2,) and st.solver_acc.c1.shape == (2, 4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("CartPole-v1")
+    for env_id, obs_shape, actions in (("CartPole-v1", (4,), 2), ("Acrobot-v1", (6,), 3),
+                                       ("MountainCar-v0", (2,), 3)):
+        env, p = make_env(env_id)
+        assert env.obs_shape(p) == obs_shape and env.num_actions == actions
+        obs, _ = env.reset_env(torch.Generator().manual_seed(0), 2, p)
+        assert obs.shape == (2, *obs_shape)
     with pytest.raises(ValueError):
         make_env("Pong-v0")
     _, params = make_env("LunarLander-v2", True, 1000, {"jointed": False, "vel_iters": 9})

@@ -15,7 +15,7 @@ import torch
 
 from deep_q_learning_tpu.envs.heuristic import heuristic_action as jax_heuristic
 from deep_q_learning_tpu_torch.__main__ import main
-from deep_q_learning_tpu_torch.config import lunar_jointed_per, lunar_jointed_scaled
+from deep_q_learning_tpu_torch.config import PRESETS, lunar_jointed_per, lunar_jointed_scaled
 from deep_q_learning_tpu_torch.envs.heuristic import heuristic_action, touchdown_states
 from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLander, LunarLanderParams
 from deep_q_learning_tpu_torch.ops import td_kernels
@@ -105,21 +105,20 @@ def test_jointed_resume_is_bitwise(tmp_path):
 def test_cli_trains_and_evaluates_lunar_jointed_per(tmp_path, capsys):
     assert main(["presets"]) == 0
     listing = {line.split()[0]: line for line in capsys.readouterr().out.splitlines()}
-    for name in ("lunar_jointed_per", "lunar_jointed_scaled", "lunar_per"):
+    for name in PRESETS:
         assert "[runnable]" in listing[name], listing[name]
-    assert "[not ported" in listing["cartpole_vector"]
 
     args = ["--preset", "lunar_jointed_per", "--device", "cpu", "--set", "num_envs=8",
             "--set", "steps_per_superstep=8", "--set", "hidden=16,16", "--set", "batch_size=16",
             "--set", "buffer_capacity=256", "--set", "training_start=32",
             "--set", "return_window=4", "--set", "max_steps_in_episode=20"]
     wd = str(tmp_path / "run")
-    assert main(["train", *args, "--max-env-steps", "64", "--checkpoint-every", "1",
-                 "--workdir", wd, "--quiet"]) == 0
+    assert main(["train", *args, "--max-env-steps", "64", "--log-every", "1",
+                 "--checkpoint-every", "1", "--workdir", wd, "--quiet"]) == 0
     first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert first["env_steps"] == 64 and first["updates"] == 5
-    assert main(["train", *args, "--resume", "--max-env-steps", "128", "--workdir", wd,
-                 "--quiet"]) == 0
+    assert main(["train", *args, "--resume", "--max-env-steps", "128", "--log-every", "1",
+                 "--workdir", wd, "--quiet"]) == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["updates"] == 13
     assert main(["eval", *args, "--workdir", wd]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
