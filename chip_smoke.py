@@ -21,7 +21,14 @@ Phases (each raises on failure, so any failure exits non-zero):
      and its slots bitwise stable over 100 calls and a CUDA-graph replay;
      time kernel and plain version with CUDA events, and print each
      kernel's bound, its share of it, and its launches per superstep on
-     each preset;
+     each preset; then the member axis of a population: the TD kernels at
+     (M, B, A) = (8, 256, 4), (10, 256, 4), (8, 1024, 4) and (3, 37, 4) on
+     rows that are not 16-byte aligned, each member equal bitwise to its own
+     unbatched call, and at M = 1 on every shape above; the forward bitwise
+     stable over 100 calls at M = 8 and its ticket counter 0 after a graph
+     replay; the PER slot kernel over every member's rows at (M·N, C, M·B) =
+     (1024, 4096, 2048) in one launch, equal to 8 per-member calls; and
+     their times beside their bounds;
   4. run the ``lunar_per`` slice at full width through ``Trainer``: 4
      supersteps (512 vector steps of 128 envs), then check that the TD
      kernels ran once per learner update, the loss is finite, the online
@@ -54,8 +61,16 @@ Phases (each raises on failure, so any failure exits non-zero):
      print env-steps/s and the kernel launches per vector step of a steady
      8-step superstep (``torch.profiler``); then one vector step of each env on
      the card against the same step on the CPU, from the same states;
-  9. print the kernels' record as one JSON line (with each kernel's bound,
-     ``bound_ms``), then the result line.
+  9. a population at full width: ``lunar_per`` with 8 members of 128 rigid
+     landers, dueling (256, 256), PER (128, 4096) a member, batch 256 and
+     ``use_pallas_sampler=True`` through ``PopulationTrainer``, cut in depth
+     only (``POP_CUTS``): each kernel launched once per update round for all
+     members and no plain call, every member's counters exact and its loss
+     finite, a greedy evaluation of every member; one population learner
+     update card vs CPU; aggregate env-steps/s, launches per vector step
+     and peak memory; then the command line's ``hpo --population 4``;
+then print the kernels' record as one JSON line (with each kernel's bound,
+``bound_ms``), then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without printing a result where CUDA is absent.
@@ -104,6 +119,22 @@ SCALED_SETS = ["use_pallas_sampler=true"]  # the CLI's overrides of lunar_per_sc
 JOINTED_CUTS = dict(steps_per_superstep=16, training_start=2048)
 JOINTED_SUPERSTEPS = 2
 JOINTED_EVAL_FRAMES = 4  # Trainer.evaluate's default runs max_steps_in_episode = 1000 frames
+# the member axis of the TD kernels: (M, B, A), and (M, B) on misaligned rows
+TD_MEMBER_SHAPES = [(8, 256, 4), (10, 256, 4), (8, 1024, 4)]
+TD_MEMBER_MISALIGNED = (3, 37, 4)
+TD_MEMBER_TIMED = (8, 256, 4)  # lunar_per, 8 members
+TD_MEMBER_STABLE = (8, 1024, 4)  # 4 blocks a member: the ticket over the grid
+# the PER slot kernel over every member's rows: M, N, C, B of lunar_per, 8 members
+SLOT_MEMBERS = (8, 128, 4096, 256)
+# phase 9: lunar_per, 8 members, cut in depth only: 2 supersteps of 32 vector
+# steps, the learner from 2048 stored transitions a member (vector step 16)
+POP_MEMBERS = 8
+POP_CUTS = dict(steps_per_superstep=32, training_start=2048, use_pallas_sampler=True)
+POP_SUPERSTEPS = 2
+POP_EVAL_ENVS, POP_EVAL_FRAMES = 16, 64
+# the CLI's search: 8 trials in rounds of 4, 2 supersteps (32,768 env steps) a trial
+HPO_ARGS = ["--preset", "lunar_per", "--space", "lunar", "--population", "4", "--trials", "8",
+            "--steps-per-trial", "32768", "--set", "max_steps_in_episode=200"]
 FRAME_ENVS, FRAME_FLIGHT = 64, 30
 # one jointed frame, card vs CPU.  XLA, the CPU and the card round float32
 # differently in the last ulp, and the solver's iterations carry that far on
@@ -279,6 +310,161 @@ def check_td_kernels(torch, td_kernels, per_superstep, card):
                   f"{bound_text(work, k_ms * 1e3)}; launches per superstep "
                   f"{per_superstep[name]} [{card}]")
     return err, times
+
+
+def td_member_inputs(torch, m, b, a, seed):
+    """The TD kernels' inputs with a member axis, as a population's learner
+    gives them: ``q_s`` and ``q_next_online`` the halves of one (M, 2B, A)
+    ``q_both``, read in place through the member stride."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    q_both = randn(m, 2 * b, a)
+    return [
+        q_both[:, :b], q_both[:, b:], randn(m, b, a),
+        torch.randint(0, a, (m, b), generator=g, device="cuda", dtype=torch.int32),
+        randn(m, b),
+        0.97 * (torch.rand((m, b), generator=g, device="cuda") > 0.3).float(),
+        torch.rand((m, b), generator=g, device="cuda") + 0.1,
+    ]
+
+
+def check_td_members(torch, td_kernels, err):
+    """K1/K2 with a member axis against their plain versions, and each
+    member bitwise equal to its own unbatched call; the unbatched shapes
+    again as M = 1; K1 at M = 8 bitwise over 100 calls and its ticket 0
+    after a CUDA-graph replay."""
+    cases = [(shape, False) for shape in TD_MEMBER_SHAPES] + [(TD_MEMBER_MISALIGNED, True)]
+    for i, ((m, b, a), skew) in enumerate(cases):
+        args = td_member_inputs(torch, m, b, a, seed=100 + i)
+        if skew:  # member rows off 16-byte alignment: the scalar path
+            flat = torch.empty(m * 2 * b * a + 1, device="cuda")
+            q_both = flat[1:].view(m, 2 * b, a)
+            q_both.copy_(torch.cat([args[0], args[1]], dim=1))
+            args[:2] = [q_both[:, :b], q_both[:, b:]]
+            args[2] = misaligned(torch, args[2])
+        assert td_kernels.float4_rows(a, *args[:3]) == (a == 4 and not skew)
+        loss, td = td_kernels.td_loss_fwd(*args, 1.0, True)
+        ref_loss, ref_td = td_kernels.td_loss_reference(*args, 1.0, True)
+        torch.testing.assert_close(loss, ref_loss, **LOSS_TOL)
+        torch.testing.assert_close(td, ref_td, **LOSS_TOL)
+        g = torch.rand((m,), device="cuda") + 0.5
+        dq = td_kernels.td_loss_bwd(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+        ref_dq = td_kernels.td_loss_backward_reference(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+        torch.testing.assert_close(dq, ref_dq, **DQ_TOL)
+        assert dq.shape == (m, 2 * b, a) and not dq[:, b:].any()
+        for k in range(m):  # a member's result does not depend on the others
+            one_loss, one_td = td_kernels.td_loss_fwd(
+                *[x[k].contiguous() for x in args], 1.0, True)
+            one_dq = td_kernels.td_loss_bwd(one_td, args[3][k].contiguous(), args[6][k].contiguous(),
+                                            g[k].contiguous(), a, 1.0, out_rows=2 * b)
+            assert torch.equal(one_loss, loss[k]) and torch.equal(one_td, td[k]), (m, b, k)
+            assert torch.equal(one_dq, dq[k]), (m, b, k)
+        err["td_loss_fwd"] = max(err["td_loss_fwd"], float((loss - ref_loss).abs().max()),
+                                 float((td - ref_td).abs().max()))
+        err["td_loss_bwd"] = max(err["td_loss_bwd"], float((dq - ref_dq).abs().max()))
+        print(f"  kernel vs plain (M, B, A)=({m}, {b}, {a}){' misaligned' if skew else ''}: ok, "
+              f"each member bitwise its own call")
+    for i, (b, a) in enumerate(TD_SHAPES):  # M = 1 of every unbatched shape
+        args = td_inputs(torch, b, a, seed=200 + i)
+        loss, td = td_kernels.td_loss_fwd(*args, 1.0, True)
+        loss1, td1 = td_kernels.td_loss_fwd(*[x[None] for x in args], 1.0, True)
+        g = torch.rand((), device="cuda") + 0.5
+        dq = td_kernels.td_loss_bwd(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+        dq1 = td_kernels.td_loss_bwd(td1, args[3][None], args[6][None], g[None], a, 1.0, out_rows=2 * b)
+        assert torch.equal(loss1[0], loss) and torch.equal(td1[0], td) and torch.equal(dq1[0], dq)
+    print(f"  M = 1 at B, A = {TD_SHAPES}: bitwise the unbatched call")
+
+    m, b, a = TD_MEMBER_STABLE
+    args = td_member_inputs(torch, m, b, a, seed=5)
+    loss0, td0 = td_kernels.td_loss_fwd(*args, 1.0, True)
+    for _ in range(TD_STABLE_CALLS):
+        loss, td = td_kernels.td_loss_fwd(*args, 1.0, True)
+        assert torch.equal(loss, loss0) and torch.equal(td, td0), "K1 with members is not bitwise stable"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        td_kernels.td_loss_fwd(*args, 1.0, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [td_kernels.td_loss_fwd(*args, 1.0, True) for _ in range(10)]
+    graph.replay()
+    torch.cuda.synchronize()
+    _, ticket = td_kernels.fwd_scratch(args[0].device)
+    assert int(ticket) == 0, int(ticket)
+    assert all(torch.equal(lo, loss0) and torch.equal(t, td0) for lo, t in outs)
+    print(f"  K1 (M, B)=({m}, {b}): {TD_STABLE_CALLS} calls and a graph replay bitwise equal, "
+          f"ticket counter 0")
+
+
+def time_td_members(torch, td_kernels, card):
+    """K1/K2 at a population's (M, B, A): kernel and plain times and work."""
+    from deep_q_learning_tpu_torch.measure import bound_text
+
+    m, b, a = TD_MEMBER_TIMED
+    args = td_member_inputs(torch, m, b, a, seed=99)
+    _, td = td_kernels.td_loss_fwd(*args, 1.0, True)
+    g = torch.ones((m,), device="cuda")
+    times = {
+        "td_loss_fwd": (
+            time_ms(torch, lambda: td_kernels.td_loss_fwd(*args, 1.0, True)),
+            time_ms(torch, lambda: td_kernels.td_loss_reference(*args, 1.0, True)),
+            td_kernels.td_loss_fwd_work(b, a, members=m),
+        ),
+        "td_loss_bwd": (
+            time_ms(torch, lambda: td_kernels.td_loss_bwd(td, args[3], args[6], g, a, 1.0,
+                                                          out_rows=2 * b)),
+            time_ms(torch, lambda: td_kernels.td_loss_backward_reference(
+                td, args[3], args[6], g, a, 1.0, out_rows=2 * b)),
+            td_kernels.td_loss_bwd_work(b, a, 2 * b, members=m),
+        ),
+    }
+    for name, (k_ms, p_ms, work) in times.items():
+        print(f"  {name} (M, B, A)=({m}, {b}, {a}): kernel {k_ms * 1e3:.2f} us/call, "
+              f"plain {p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} calls); "
+              f"{bound_text(work, k_ms * 1e3)} [{card}]")
+    return times
+
+
+def check_slot_members(torch, sample_kernels, card):
+    """K3 over every member's rows in one launch against M per-member calls
+    (bitwise: each draw reads its own row) and the plain version (exact on
+    dyadic priorities); its time beside its bound."""
+    from deep_q_learning_tpu_torch.measure import bound_text
+
+    m, n, c, b = SLOT_MEMBERS
+    mismatches = 0
+    for dyadic in (True, False):
+        p, _, _ = slot_inputs(torch, m * n, c, 1, seed=11 + dyadic, dyadic=dyadic)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        env = torch.randint(0, n, (m, b), generator=g, device="cuda")
+        u = torch.rand((m, b), generator=g, device="cuda")
+        sample_kernels.reset_counts()
+        got = sample_kernels.slot_select_members(p, env, u)
+        assert sample_kernels.launches == {"per_slot_sample": 1}, sample_kernels.launches
+        each = torch.stack([sample_kernels.slot_select(p[k * n:(k + 1) * n].contiguous(), env[k],
+                                                       u[k].contiguous()) for k in range(m)])
+        assert torch.equal(got, each), "one launch over the members differs from per-member calls"
+        want = sample_kernels.slot_select_reference(
+            p, (env + torch.arange(m, device="cuda")[:, None] * n).reshape(-1), u.reshape(-1))
+        if dyadic:
+            assert torch.equal(got.reshape(-1), want), "K3 over the members vs plain, dyadic"
+        else:
+            mismatches = int((got.reshape(-1) != want).sum())
+            assert mismatches < 0.01 * m * b, mismatches
+    flat_env = (env + torch.arange(m, device="cuda")[:, None] * n).reshape(-1)
+    flat_u = u.reshape(-1)
+    times = (
+        time_ms(torch, lambda: sample_kernels.slot_select_members(p, env, u)),
+        time_ms(torch, lambda: sample_kernels.slot_select_reference(p, flat_env, flat_u)),
+        sample_kernels.per_slot_sample_work(p, flat_env),
+    )
+    k_ms, p_ms, work = times
+    print(f"  K3 over {m} members (M·N, C, M·B)=({m * n}, {c}, {m * b}): one launch equal to {m} "
+          f"per-member calls; {mismatches} of {m * b} random draws differ from plain; kernel "
+          f"{k_ms * 1e3:.2f} us/call, plain {p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} "
+          f"calls); {bound_text(work, k_ms * 1e3)} [{card}]")
+    return times
 
 
 def slot_inputs(torch, n, c, b, seed, dyadic):
@@ -850,6 +1036,182 @@ def check_learner_vs_cpu(torch, td_kernels):
     print("  learner update on the card vs the CPU plain path: ok")
 
 
+def run_population(torch, td_kernels, sample_kernels, card):
+    """Phase 9: lunar_per, 8 members at full width, through PopulationTrainer."""
+    import dataclasses
+
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.parallel import PopulationTrainer
+
+    cfg = dataclasses.replace(lunar_per(), **POP_CUTS)
+    assert (cfg.num_envs, cfg.hidden, cfg.batch_size, cfg.dueling, cfg.capacity_per_env) == (
+        128, (256, 256), 256, True, 4096), cfg
+    assert cfg.use_pallas and cfg.replay == "prioritized" and cfg.train_every == 1
+    m = POP_MEMBERS
+    trainer = PopulationTrainer(cfg, m, eval_envs=POP_EVAL_ENVS, device="cuda")
+    runner = trainer.init(seed=0)
+    assert runner.replay.priorities.shape == (m * 128, 4096), runner.replay.priorities.shape
+    assert runner.train.online.trunk[0].weight.shape == (m, 256, 9)
+    online0 = [p.detach().clone() for p in runner.train.online.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(POP_SUPERSTEPS):
+        runner, met = trainer.step(runner)
+        metrics.append(met)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+
+    vector_steps = POP_SUPERSTEPS * cfg.steps_per_superstep
+    rounds = vector_steps - cfg.training_start // cfg.num_envs + 1  # vector steps 16..64
+    assert [mt.env_steps for mt in metrics] == [
+        cfg.steps_per_superstep * (i + 1) for i in range(POP_SUPERSTEPS)]
+    assert runner.replay.total_adds == vector_steps
+    counts = sum(mt.loss_count for mt in metrics)
+    assert counts.tolist() == [rounds] * m, counts
+    assert runner.train.updates == [rounds] * m == runner.train.opt_state.count
+    assert launches == {"td_loss_fwd": rounds, "td_loss_bwd": rounds,
+                        "per_slot_sample": rounds}, (launches, rounds)
+    assert not any(plain.values()), plain
+    loss_sum = sum(mt.loss_sum for mt in metrics)
+    assert np.isfinite(loss_sum).all(), loss_sum
+    assert (metrics[-1].episodes == sum(mt.episodes_delta for mt in metrics)).all()
+    assert (runner.replay.max_priority > 0).all()
+    moved = [float((p.detach() - p0).flatten(1).norm(dim=1).min()) for p, p0 in
+             zip(runner.train.online.parameters(), online0)]
+    assert min(moved) > 0, moved  # every member's every layer trained
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    env_steps = vector_steps * cfg.num_envs * m
+
+    ev = trainer.evaluate(runner, seed=0, max_steps=POP_EVAL_FRAMES)
+    assert ev.returns.shape == (m, POP_EVAL_ENVS) and np.isfinite(ev.returns).all()
+    per_step, busy = population_launches(torch, trainer, cfg)
+    print(f"  supersteps: {[(mt.env_steps, mt.loss_count.tolist()) for mt in metrics]}")
+    print(f"  {m} members: updates {runner.train.updates}, launches {launches}, losses "
+          f"{np.round(loss_sum / np.maximum(counts, 1), 5).tolist()}, episodes "
+          f"{metrics[-1].episodes.tolist()}; greedy eval over {POP_EVAL_FRAMES} frames: means "
+          f"{np.round(ev.returns.mean(axis=1), 2).tolist()}")
+    print(f"  lunar_per population {m} x {cfg.num_envs} envs: {env_steps} env steps in "
+          f"{seconds:.3f} s = {env_steps / seconds:.1f} aggregate env-steps/s, "
+          f"{per_step:.1f} kernel launches per vector step and the device busy "
+          f"{100 * busy:.1f} % of the wall (torch.profiler, a steady {LAUNCH_STEPS}-step "
+          f"superstep), peak memory {peak_mib:.1f} MiB [{card}]")
+    return launches
+
+
+def population_launches(torch, trainer, cfg):
+    """Kernel launches per vector step of a steady population superstep
+    (every frame trains), and the device's busy share of its wall time,
+    from torch.profiler on a second population whose supersteps are
+    LAUNCH_STEPS long."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.parallel import PopulationTrainer
+
+    short = dataclasses.replace(cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0)
+    pop = PopulationTrainer(short, trainer.num_members, eval_envs=1, device="cuda")
+    runner, _ = pop.step(pop.init(seed=1))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        runner, met = pop.step(runner)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    assert met.loss_count.tolist() == [LAUNCH_STEPS] * trainer.num_members
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return launches / LAUNCH_STEPS, busy_us / 1e6 / wall
+
+
+def check_population_update_vs_cpu(torch):
+    """One population learner update (8 members, lunar_per's learner, the
+    fused TD loss, a closed gate on member 5) on the card against the plain
+    path on the CPU, from the same weights and batch: rtol 1e-4, each
+    member's parameters atol a tenth of its learning rate (Adam's first
+    step moves an element by lr · g / (|g| + 1e-8), which for |g| near 1e-8
+    depends on the gradient's last bits, and the card sums in another
+    order)."""
+    from deep_q_learning_tpu_torch.algos import build_update_step, init_train_state, make_optimizer
+    from deep_q_learning_tpu_torch.algos.dqn import MemberHyperParams
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.models import MemberQNetwork
+    from deep_q_learning_tpu_torch.replay.nstep import LearnBatch
+
+    cfg = lunar_per()
+    m, b = POP_MEMBERS, cfg.batch_size
+    g = torch.Generator().manual_seed(8)
+    batch = dict(
+        obs=torch.randn((m, b, 9), generator=g),
+        action=torch.randint(0, 4, (m, b), generator=g, dtype=torch.int32),
+        reward=torch.randn((m, b), generator=g), next_obs=torch.randn((m, b, 9), generator=g),
+        bootstrap=0.97 * (torch.rand((m, b), generator=g) > 0.2).float(),
+    )
+    weights = torch.rand((m, b), generator=g) + 0.1
+    mask = [k != 5 for k in range(m)]
+    out = []
+    for device in ("cpu", "cuda"):
+        net = MemberQNetwork(m, 9, 4, hidden=cfg.hidden, generators=[
+            torch.Generator().manual_seed(k) for k in range(m)])
+        opt = make_optimizer(cfg)
+        ts = init_train_state(net.to(device), opt)
+        hyper = MemberHyperParams.from_config(cfg, m, device)
+        hyper.learning_rate = torch.linspace(1e-4, 1e-3, m, device=device)
+        lb = LearnBatch(**{k: v.to(device) for k, v in batch.items()})
+        ts, loss, td = build_update_step(opt, cfg)(ts, lb, weights.to(device), hyper, mask)
+        out.append((loss.cpu(), td.cpu(), [p.detach().cpu() for p in ts.online.parameters()],
+                    [p.detach().cpu() for p in ts.target.parameters()], ts.opt_state.count))
+    (lc, tdc, pc, tc, cc), (lg, tdg, pg, tg, cg) = out
+    assert cc == cg == [int(k) for k in mask]
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(tdg, tdc, rtol=1e-4, atol=1e-5)
+    lrs = torch.linspace(1e-4, 1e-3, m).tolist()
+    for a, c in zip(pg + tg, pc + tc):
+        for k, lr in enumerate(lrs):
+            torch.testing.assert_close(a[k], c[k], rtol=1e-4, atol=lr / 10)
+    init = MemberQNetwork(m, 9, 4, hidden=cfg.hidden, generators=[
+        torch.Generator().manual_seed(k) for k in range(m)])
+    assert all(torch.equal(p[5], q[5]) for p, q in zip(pg, init.parameters())), "closed gate moved"
+    print(f"  population learner update ({m} members, member 5's gate closed) on the card vs the "
+          f"CPU plain path: ok")
+
+
+def run_hpo_cli(card):
+    """Phase 9: ``python -m deep_q_learning_tpu_torch hpo --population 4`` on
+    the card: 8 trials in two rounds, a history line each and the result."""
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        history = Path(tmp) / "hpo.jsonl"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "deep_q_learning_tpu_torch", "hpo", *HPO_ARGS,
+             "--history-out", str(history), "--quiet"],
+            cwd=REPO, capture_output=True, text=True, timeout=400,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"CLI hpo exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        lines = [json.loads(line) for line in open(history)]
+    assert len(lines) == 8, lines
+    assert all(math.isfinite(rec["objective"]) for rec in lines), lines
+    assert set(result) == {"best_objective", "best_params"}, result
+    assert result["best_objective"] == max(rec["objective"] for rec in lines), result
+    print(f"  CLI hpo {' '.join(HPO_ARGS)}: {len(lines)} trials, objectives "
+          f"{[round(rec['objective'], 2) for rec in lines]}, best {result['best_objective']:.2f} "
+          f"({time.perf_counter() - t0:.1f} s with start-up) [{card}]")
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -884,6 +1246,11 @@ def main() -> int:
     err, times = check_td_kernels(torch, td_kernels, per_superstep, card)
     err["per_slot_sample"], slot_times = check_slot_kernel(
         torch, sample_kernels, per_superstep, card)
+    member_err = {"td_loss_fwd": 0.0, "td_loss_bwd": 0.0}
+    check_td_members(torch, td_kernels, member_err)
+    member_times = time_td_members(torch, td_kernels, card)
+    member_times["per_slot_sample"] = check_slot_members(torch, sample_kernels, card)
+    member_err["per_slot_sample"] = 0  # dyadic priorities: exact
 
     print("phase 4: lunar_per slice")
     run_slice(torch, td_kernels, sample_kernels, card)
@@ -911,10 +1278,20 @@ def main() -> int:
         print(f"  {preset} took {time.perf_counter() - t1:.1f} s")
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
+    print("phase 9: a lunar_per population of 8 members")
+    t0 = time.perf_counter()
+    population_launches_run = run_population(torch, td_kernels, sample_kernels, card)
+    check_population_update_vs_cpu(torch)
+    run_hpo_cli(card)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+
     # ms and bound at B=256 for the TD kernels (lunar_per, lunar_jointed_per)
     # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);
     # launches of the TD kernels from phase 7, of the slot kernel from phase 5.
-    # No single PyTorch call computes any of the three: library_ms is null
+    # The same kernels with a member axis ("[members]"): ms and bound at
+    # phase 9's shapes, (8, 256, 4) and (1024, 4096, 2048), launches from
+    # phase 9.  No single PyTorch call computes any of the three: library_ms
+    # is null
     from deep_q_learning_tpu_torch.ops import bound_by, bound_us
 
     timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]])
@@ -924,20 +1301,23 @@ def main() -> int:
         "td_loss_bwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:97"),
         "per_slot_sample": (PER_SOURCE, "deep_q_learning_tpu/ops/sample_kernels.py:52"),
     }
+    runs = [("", launches, err, timed), ("[members]", population_launches_run, member_err,
+                                         member_times)]
     record = {"kernels": [
         {
-            "name": name,
+            "name": name + suffix,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": err[name],
-            "ms": timed[name][0],
-            "plain_ms": timed[name][1],
-            "bound_ms": bound_us(timed[name][2]) / 1e3,
-            "bound_by": bound_by(timed[name][2]),
+            "launches": run_launches[name],
+            "max_abs_err": run_err[name],
+            "ms": run_timed[name][0],
+            "plain_ms": run_timed[name][1],
+            "bound_ms": bound_us(run_timed[name][2]) / 1e3,
+            "bound_by": bound_by(run_timed[name][2]),
             "library_ms": None,
         }
+        for suffix, run_launches, run_err, run_timed in runs
         for name, (source, replaces) in kernels.items()
     ]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s [{card}]")

@@ -10,10 +10,13 @@ Commands:
                                      --resume keep and continue full-runner
                                      checkpoints
   eval --preset P --workdir D        greedy-evaluate a saved checkpoint
+  hpo --preset P [--population Q]    GP-UCB hyperparameter search; with
+                                     --population, Q candidates a round
+                                     train as one population
 
 Not ported yet, and refused with a message that names the ROADMAP item:
-``hpo`` (H), ``train --distributed`` (I), ``eval --rollout-dir``,
-``--rollouts`` and ``--render`` (G).  ``train --aot-cache`` is refused too:
+``train --distributed`` (I), ``eval --rollout-dir``, ``--rollouts`` and
+``--render`` (G).  ``train --aot-cache`` is refused too:
 the AOT cache is not ported, by design.  ``--quiet`` is accepted by every
 command, as in the JAX package.
 """
@@ -161,7 +164,49 @@ def cmd_eval(args: argparse.Namespace) -> int:
 
 
 def cmd_hpo(args: argparse.Namespace) -> int:
-    raise _not_ported("hpo (population training and the GP-UCB search)", "item H")
+    from deep_q_learning_tpu_torch.hpo.bayesopt import SPACES, make_dqn_objective, optimize
+
+    cfg = build_config(args.preset, args.set or [])
+    space = SPACES[args.space]
+    if args.population > 1:
+        from deep_q_learning_tpu_torch.hpo.bayesopt import (
+            make_population_objective,
+            optimize_batched,
+        )
+
+        result = optimize_batched(
+            make_population_objective(
+                cfg,
+                env_steps_per_trial=args.steps_per_trial,
+                train_seed=args.seed if args.seed is not None else 0,
+                device=args.device,
+            ),
+            space=space,
+            num_trials=args.trials,
+            batch_q=args.population,
+            seed=args.seed if args.seed is not None else 1000,
+            verbose=not args.quiet,
+        )
+    else:
+        objective = make_dqn_objective(
+            cfg,
+            env_steps_per_trial=args.steps_per_trial,
+            train_seed=args.seed,
+            device=args.device,
+        )
+        result = optimize(
+            objective,
+            space=space,
+            num_trials=args.trials,
+            seed=args.seed if args.seed is not None else 1000,
+            verbose=not args.quiet,
+        )
+    print(json.dumps({"best_objective": result.best_objective, "best_params": result.best_params}))
+    if args.history_out:
+        with open(args.history_out, "w") as f:
+            for t in result.trials:
+                f.write(json.dumps({"objective": t.objective, "params": t.params}) + "\n")
+    return 0
 
 
 # --------------------------------------------------------------------- main
@@ -212,13 +257,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--render", choices=("gif", "mp4"), default=None, help="not ported yet")
     p.set_defaults(fn=cmd_eval)
 
-    p = sub.add_parser("hpo", help="not ported yet")
-    p.add_argument("--quiet", action="store_true")
+    p = sub.add_parser("hpo", help="Bayesian hyperparameter search")
+    common(p)
+    p.add_argument("--trials", type=int, default=20)  # ref: 20 runs
+    p.add_argument(
+        "--space", choices=("reference", "lunar"), default="reference",
+        help="search space: the reference's exact bounds, or the runtime-only lunar space",
+    )
+    p.add_argument("--steps-per-trial", type=int, default=2_000_000)
+    p.add_argument(
+        "--population", type=int, default=1, metavar="Q",
+        help="evaluate Q candidates per GP round as ONE population "
+        "(candidates sharing static fields train together on the device)",
+    )
+    p.add_argument("--history-out", type=str, default=None, metavar="JSONL")
     p.set_defaults(fn=cmd_hpo)
 
-    args, unknown = ap.parse_known_args(argv)
-    if unknown and args.cmd != "hpo":  # hpo's own options are refused with it
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = ap.parse_args(argv)
     return args.fn(args)
 
 

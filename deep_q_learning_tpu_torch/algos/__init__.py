@@ -1,5 +1,6 @@
 from deep_q_learning_tpu_torch.algos.dqn import (
     HyperParams,
+    MemberHyperParams,
     Optimizer,
     TrainState,
     build_update_step,
@@ -13,5 +14,6 @@ from deep_q_learning_tpu_torch.algos.losses import build_loss_fn, huber, td_targ
 from deep_q_learning_tpu_torch.algos.superstep import (
     RunnerState,
     SuperstepMetrics,
+    build_population_superstep,
     build_superstep,
 )

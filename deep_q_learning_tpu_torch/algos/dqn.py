@@ -12,6 +12,14 @@ and init defaults"):
     with decay 0.9.
 The learning rate and the clip norm are read from :class:`HyperParams` at
 every update, as ``optax.inject_hyperparams`` allows in the JAX package.
+
+A population of M learners (``parallel/population.py``) runs the same
+functions on member-stacked state: :class:`MemberHyperParams`, networks
+with a leading member axis (``models.MemberQNetwork``), and a ``mask`` of
+the members whose train gate is open.  Every reduction is per member (the
+clip's global norm, Adam's bias correction from each member's own count),
+and a member whose gate is closed keeps its parameters, moments, count
+and target, as under ``jax.vmap`` a closed ``lax.cond`` is a select.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,13 +74,71 @@ class HyperParams:
         )
 
 
+# the cadence fields: host ints, as the train and sync gates are host decisions
+CADENCE_FIELDS = ("train_every", "training_start", "target_sync_every", "target_replace_episodes")
+
+
+@dataclasses.dataclass
+class MemberHyperParams:
+    """The runtime hyperparameters of M population members: each float field
+    an (M,) float32 tensor on the device, each cadence field a tuple of M
+    host ints (:data:`CADENCE_FIELDS`).  Field names are
+    :class:`HyperParams`'s."""
+
+    gamma: torch.Tensor
+    eps_start: torch.Tensor
+    eps_min: torch.Tensor
+    eps_decay: torch.Tensor
+    eps_decay_steps: torch.Tensor
+    learning_rate: torch.Tensor
+    max_grad_norm: torch.Tensor
+    target_tau: torch.Tensor
+    per_beta: torch.Tensor
+    train_every: Tuple[int, ...]
+    training_start: Tuple[int, ...]
+    target_sync_every: Tuple[int, ...]
+    target_replace_episodes: Tuple[int, ...]
+
+    @classmethod
+    def from_config(cls, cfg, members: int, device) -> "MemberHyperParams":
+        """The config's values, the same for every member."""
+        h = HyperParams.from_config(cfg)
+        return cls(**{
+            f.name: (getattr(h, f.name),) * members if f.name in CADENCE_FIELDS
+            else torch.full((members,), getattr(h, f.name), dtype=torch.float32, device=device)
+            for f in dataclasses.fields(HyperParams)
+        })
+
+
+def _member_view(x, like: torch.Tensor):
+    """A per-member (M,) tensor ``x`` viewed to broadcast over a
+    member-stacked ``like`` (M, ...); anything else as it is."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1 and like.dim() > 1:
+        return x.view((-1,) + (1,) * (like.dim() - 1))
+    return x
+
+
+def _masked_writer(mask: Optional[Sequence[bool]], device) -> Callable:
+    """``write(buffer, value)`` storing ``value`` in place, only in the
+    members whose ``mask`` is True (everywhere if ``mask`` is None)."""
+    if mask is None or all(mask):
+        return lambda buf, value: buf.copy_(value)
+    keep = torch.tensor([bool(k) for k in mask], device=device)
+    return lambda buf, value: buf.copy_(torch.where(_member_view(keep, buf), value, buf))
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in float32, as optax computes it."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
 # ---------------------------------------------------------------------------
 # Optimizer (optax semantics)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class OptState:
-    count: int  # updates applied (optax's int32 count)
+    count: int  # updates applied (optax's int32 count); a list of M for members
     mu: List[torch.Tensor]  # first moments (adam/adamw)
     nu: List[torch.Tensor]  # second moments (adam/adamw/rmsprop)
 
@@ -94,9 +160,10 @@ class Optimizer:
         self.name = name
         self.clip = clip
 
-    def init(self, params: List[torch.Tensor]) -> OptState:
+    def init(self, params: List[torch.Tensor], members: Optional[int] = None) -> OptState:
+        """Zero moments; a count, or one for each of ``members``."""
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
-        return OptState(count=0, mu=zeros(), nu=zeros())
+        return OptState(count=0 if members is None else [0] * members, mu=zeros(), nu=zeros())
 
     @torch.no_grad()
     def apply(
@@ -104,26 +171,52 @@ class Optimizer:
         grads: List[torch.Tensor],
         state: OptState,
         params: List[torch.Tensor],
-        learning_rate: float,
-        max_grad_norm: float = math.inf,
+        learning_rate,
+        max_grad_norm=math.inf,
+        mask: Optional[Sequence[bool]] = None,
     ) -> None:
-        """Update ``params`` and ``state`` in place from ``grads``."""
+        """Update ``params`` and ``state`` in place from ``grads``.
+
+        With ``mask`` (M bools) the parameters are member-stacked: the clip's
+        global norm is each member's over all its leaves, ``learning_rate``
+        and ``max_grad_norm`` are (M,) tensors, ``state.count`` is a list of
+        M counts that bias-correct each member's Adam moments, and a member
+        whose mask is False keeps its parameters, moments and count."""
         grads = list(grads)
+        write = _masked_writer(mask, params[0].device)
+        per = _member_view
         if self.clip:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            grads = [torch.where(norm < max_grad_norm, g, g / norm * max_grad_norm) for g in grads]
-        state.count += 1
+            if mask is None:
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            else:
+                norm = torch.sqrt(sum((g * g).flatten(1).sum(dim=1) for g in grads))
+            grads = [
+                torch.where(per(norm, g) < per(max_grad_norm, g), g,
+                            g / per(norm, g) * per(max_grad_norm, g))
+                for g in grads
+            ]
+        if mask is None:
+            state.count += 1
+        else:
+            state.count = [c + bool(k) for c, k in zip(state.count, mask)]
         if self.name in ("adam", "adamw"):
             b1, b2 = ADAM_B1, ADAM_B2
             for m, g in zip(state.mu, grads):
-                m.copy_((1 - b1) * g + b1 * m)
+                write(m, (1 - b1) * g + b1 * m)
             for v, g in zip(state.nu, grads):
-                v.copy_((1 - b2) * (g * g) + b2 * v)
-            # bias corrections in float32, as optax computes decay**count
-            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(state.count))
-            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(state.count))
+                write(v, (1 - b2) * (g * g) + b2 * v)
+            # bias corrections in float32, as optax computes decay**count; a
+            # member whose gate is closed gets its next count's (discarded)
+            if mask is None:
+                bc1, bc2 = _bias_correction(b1, state.count), _bias_correction(b2, state.count)
+            else:
+                counts = [max(c, 1) for c in state.count]
+                bc1, bc2 = (
+                    torch.tensor([_bias_correction(d, c) for c in counts], device=params[0].device)
+                    for d in (b1, b2)
+                )
             updates = [
-                (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+                (m / per(bc1, m)) / (torch.sqrt(v / per(bc2, v)) + EPS)
                 for m, v in zip(state.mu, state.nu)
             ]
             if self.name == "adamw":
@@ -131,12 +224,12 @@ class Optimizer:
         elif self.name == "rmsprop":
             d = RMSPROP_DECAY
             for v, g in zip(state.nu, grads):
-                v.copy_((1 - d) * (g * g) + d * v)
+                write(v, (1 - d) * (g * g) + d * v)
             updates = [torch.rsqrt(v + EPS) * g for v, g in zip(state.nu, grads)]
         else:  # sgd
             updates = grads
         for p, u in zip(params, updates):
-            p.add_(-learning_rate * u)
+            write(p, p + -per(learning_rate, u) * u)
 
 
 def make_optimizer(cfg) -> Optimizer:
@@ -156,19 +249,21 @@ class TrainState:
     online: torch.nn.Module
     target: torch.nn.Module
     opt_state: OptState
-    updates: int
+    updates: int  # a list of M for member-stacked networks
 
 
 def init_train_state(network: torch.nn.Module, optimizer: Optimizer) -> TrainState:
     """Train state around an initialised ``network``; the target is a copy
-    that takes no gradients."""
+    that takes no gradients.  A member-stacked network (``members``
+    attribute) gets one count a member."""
     target = copy.deepcopy(network)
     target.requires_grad_(False)
+    members = getattr(network, "members", None)
     return TrainState(
         online=network,
         target=target,
-        opt_state=optimizer.init(list(network.parameters())),
-        updates=0,
+        opt_state=optimizer.init(list(network.parameters()), members),
+        updates=0 if members is None else [0] * members,
     )
 
 
@@ -180,14 +275,19 @@ def epsilon_by_schedule(cfg, env_steps: float, episodes, hyper: Optional[HyperPa
     """Exploration rate from progress counters.  ``linear_step`` uses the
     host-side step count and returns a float; ``exp_episode`` uses the
     device-side episode count (a tensor), rescaled by ``num_envs`` to keep
-    the reference's per-env decay rate, and returns a tensor."""
+    the reference's per-env decay rate, and returns a tensor.  With
+    :class:`MemberHyperParams` (and ``episodes`` (M,)) both return an (M,)
+    float32 tensor, each member's from its own values and episodes."""
     h = hyper if hyper is not None else HyperParams.from_config(cfg)
     if cfg.eps_schedule == "exp_episode":
         per_env_episodes = episodes.to(torch.float32) / cfg.num_envs
         eps = h.eps_start * h.eps_decay**per_env_episodes
         return torch.clamp(eps, min=h.eps_min)
     elif cfg.eps_schedule == "linear_step":
-        frac = min(max(env_steps / h.eps_decay_steps, 0.0), 1.0)
+        if isinstance(h.eps_decay_steps, torch.Tensor):
+            frac = torch.clamp(env_steps / h.eps_decay_steps, 0.0, 1.0)
+        else:
+            frac = min(max(env_steps / h.eps_decay_steps, 0.0), 1.0)
         return h.eps_start + frac * (h.eps_min - h.eps_start)
     raise ValueError(f"unknown eps_schedule {cfg.eps_schedule!r}")
 
@@ -250,19 +350,30 @@ def build_update_step(optimizer: Optimizer, cfg) -> Callable:
         batch: LearnBatch,
         weights: torch.Tensor,
         hyper: Optional[HyperParams] = None,
+        mask: Optional[Sequence[bool]] = None,
     ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
+        """With ``mask`` (M bools): member-stacked ``ts``, batch (every leaf
+        (M, B, ...)), ``weights`` (M, B) and :class:`MemberHyperParams`;
+        only the members whose mask is True change.  Returns ``loss`` (M,)
+        and ``td`` (M, B) for every member."""
         h = hyper if hyper is not None else HyperParams.from_config(cfg)
         params = list(ts.online.parameters())
         loss, td = loss_fn(ts.online, ts.target, batch, weights)
-        grads = torch.autograd.grad(loss, params)
-        optimizer.apply(grads, ts.opt_state, params, h.learning_rate, h.max_grad_norm)
+        # members are independent: the gradient of their summed losses is
+        # each member's own
+        grads = torch.autograd.grad(loss if mask is None else loss.sum(), params)
+        optimizer.apply(grads, ts.opt_state, params, h.learning_rate, h.max_grad_norm, mask)
         if cfg.target_tau is not None:
             # Polyak soft target update every gradient step
             tau = h.target_tau
+            write = _masked_writer(mask, params[0].device)
             with torch.no_grad():
                 for t, p in zip(ts.target.parameters(), params):
-                    t.copy_((1.0 - tau) * t + tau * p)
-        ts.updates += 1
+                    write(t, (1.0 - _member_view(tau, t)) * t + _member_view(tau, t) * p)
+        if mask is None:
+            ts.updates += 1
+        else:
+            ts.updates = [u + bool(k) for u, k in zip(ts.updates, mask)]
         return ts, loss.detach(), td
 
     return update
@@ -271,10 +382,17 @@ def build_update_step(optimizer: Optimizer, cfg) -> Callable:
 @torch.no_grad()
 def sync_target(ts: TrainState, do_sync=True) -> TrainState:
     """Hard target copy.  ``do_sync`` may be a device bool tensor, so the
-    copy can be conditional without reading it back to the host."""
+    copy can be conditional without reading it back to the host.  For
+    member-stacked networks it is one decision a member: an (M,) bool
+    tensor, or a sequence of M host bools."""
+    if isinstance(do_sync, (list, tuple)):
+        write = _masked_writer(do_sync, next(ts.online.parameters()).device)
+        for t, p in zip(ts.target.parameters(), ts.online.parameters()):
+            write(t, p)
+        return ts
     for t, p in zip(ts.target.parameters(), ts.online.parameters()):
         if isinstance(do_sync, torch.Tensor):
-            t.copy_(torch.where(do_sync, p, t))
+            t.copy_(torch.where(_member_view(do_sync, t), p, t))
         elif do_sync:
             t.copy_(p)
     return ts

@@ -10,6 +10,10 @@
 The JAX builders take ``apply_fn(params, x)``; in the port the networks
 are modules, so a loss function takes the online and target networks
 themselves: ``loss_fn(online, target, batch, weights) -> (loss, td)``.
+
+A population's member-stacked networks (``models.MemberQNetwork``) and
+batch (every leaf with a leading member axis M) give ``loss`` (M,) and
+``td`` (M, B): every reduction runs over the last axis.
 """
 
 from __future__ import annotations
@@ -29,17 +33,17 @@ def huber(err: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
 
 
 def td_targets(
-    q_next_online: torch.Tensor,  # (B, A) Q(s', .) under the online net
-    q_next_target: torch.Tensor,  # (B, A) Q(s', .) under the target net
-    reward: torch.Tensor,  # (B,) n-step return G
-    bootstrap: torch.Tensor,  # (B,) gamma^K · nonterminal
+    q_next_online: torch.Tensor,  # ([M,] B, A) Q(s', .) under the online net
+    q_next_target: torch.Tensor,  # ([M,] B, A) Q(s', .) under the target net
+    reward: torch.Tensor,  # ([M,] B) n-step return G
+    bootstrap: torch.Tensor,  # ([M,] B) gamma^K · nonterminal
     double: bool = True,
 ) -> torch.Tensor:
     """Scalar targets ``G + bootstrap · boot``: double DQN bootstraps from
     ``Q_target(s', argmax_a Q_online(s', a))``, else ``max_a Q_target``."""
     if double:
         best = torch.argmax(q_next_online, dim=-1)
-        boot = torch.take_along_dim(q_next_target, best[:, None], dim=-1)[:, 0]
+        boot = torch.take_along_dim(q_next_target, best[..., None], dim=-1)[..., 0]
     else:
         boot = q_next_target.max(dim=-1).values
     return reward + bootstrap * boot
@@ -62,16 +66,16 @@ def build_loss_fn(
         online: Callable, target: Callable, batch: LearnBatch, weights: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         # one online forward over [s; s']
-        b = batch.obs.shape[0]
-        q_both = online(torch.cat([batch.obs, batch.next_obs], dim=0))
-        q_s, q_next_online = q_both[:b], q_both[b:].detach()
+        b = batch.obs.shape[-2]
+        q_both = online(torch.cat([batch.obs, batch.next_obs], dim=-2))
+        q_s, q_next_online = q_both[..., :b, :], q_both[..., b:, :].detach()
         with torch.no_grad():
             q_next_target = target(batch.next_obs)
 
         targets = td_targets(
             q_next_online, q_next_target, batch.reward, batch.bootstrap, double
         )
-        q_taken = torch.take_along_dim(q_s, batch.action.long()[:, None], dim=-1)[:, 0]
+        q_taken = torch.take_along_dim(q_s, batch.action.long()[..., None], dim=-1)[..., 0]
         if ref_terminal_quirk:
             targets = torch.where(batch.bootstrap > 0, targets, q_taken + batch.reward)
 
@@ -80,6 +84,6 @@ def build_loss_fn(
             per_sample = huber(td_err, huber_delta)
         else:
             per_sample = 0.5 * td_err**2
-        return torch.mean(weights * per_sample), td_err.detach()
+        return torch.mean(weights * per_sample, dim=-1), td_err.detach()
 
     return loss_fn

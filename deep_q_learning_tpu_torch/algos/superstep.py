@@ -11,6 +11,17 @@ host knows without reading the device (``env_step``, the replay cursor and
 fill), the sample runs only on frames that train, and nothing in the
 per-frame loop reads a device value back.  Metrics are read once, at the
 end of the superstep.
+
+:func:`build_population_superstep` runs M learners in lockstep, where the
+JAX package ``jax.vmap``s this superstep: one vector env of M·N envs
+(member ``m``'s at rows ``m·N``), member-stacked networks, one replay of
+M members, and per-member hyperparameters.  Its loop shares this module's
+per-frame helpers.  Each member's train and sync gates are host decisions
+as here; a member whose gate is closed is left as it was (``mask``
+arguments in ``algos/dqn.py`` and the replays), as a closed ``lax.cond``
+under ``vmap`` is a select.  The members draw their random numbers from
+one generator, in lockstep, so each member's draws depend on which frames
+any member trains, not only its own.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch
 
 from deep_q_learning_tpu_torch.algos.dqn import (
     HyperParams,
+    MemberHyperParams,
     TrainState,
     build_update_step,
     epsilon_by_schedule,
@@ -38,7 +50,9 @@ from deep_q_learning_tpu_torch.envs.base import Transition, VectorEnv
 @dataclasses.dataclass
 class RunnerState:
     """Everything the training loop owns.  Host counters are ints; the
-    others live on the device."""
+    others live on the device.  A population's runner has a leading member
+    axis M on the episode counters and the window, (M, N) running returns
+    and lengths, and :class:`MemberHyperParams`."""
 
     train: TrainState
     hyper: HyperParams
@@ -58,7 +72,8 @@ class RunnerState:
 
 @dataclasses.dataclass
 class SuperstepMetrics:
-    """Read back once per superstep, as Python numbers."""
+    """Read back once per superstep, as Python numbers; a population's as
+    numpy arrays (M,), all but ``env_steps``."""
 
     env_steps: int  # VECTOR steps so far (aggregate = env_steps * num_envs)
     episodes: int
@@ -82,16 +97,50 @@ def _scatter_completed_returns(
     window: each finisher's slot is its rank among finishers (env order)
     past the cursor.  Only the last ``W`` finishers can survive the ring, and
     their slots are unique, so they are written directly; the others go to
-    a spare slot past the end that is then dropped.  No host sync."""
-    w = window.shape[0]
+    a spare slot past the end that is then dropped.  No host sync.  With a
+    leading member axis (``window`` (M, W), ``done`` (M, N)), each member's
+    window from its own envs, with a spare slot a member."""
+    w = window.shape[-1]
     done_i = done.to(torch.int64)
-    rank = torch.cumsum(done_i, dim=0) - 1  # rank among finished, in env order
-    num_done = done_i.sum()
-    sel = done & (rank >= num_done - w)
-    slot = torch.where(sel, (cursor + rank) % w, w)
-    padded = torch.cat([window, window.new_zeros(1)])
-    padded.scatter_(0, slot, returns)
-    return padded[:w], (cursor + num_done) % w, torch.clamp(filled + num_done, max=w)
+    rank = torch.cumsum(done_i, dim=-1) - 1  # rank among finished, in env order
+    num_done = done_i.sum(dim=-1)
+    sel = done & (rank >= (num_done - w)[..., None])
+    slot = torch.where(sel, (cursor[..., None] + rank) % w, w)
+    padded = torch.cat([window, window.new_zeros(window.shape[:-1] + (1,))], dim=-1)
+    padded.scatter_(-1, slot, returns)
+    return padded[..., :w], (cursor + num_done) % w, torch.clamp(filled + num_done, max=w)
+
+
+def _act_and_step(r: RunnerState, venv, env_params, replay, q_values, eps, fresh):
+    """One vector step of ``r``: ε-greedy actions from ``q_values`` (one row
+    an env), the env step with auto-reset, the replay write, and the episode
+    accounting.  Returns the episodes that ended and the sum of their
+    returns, per member for a population."""
+    actions = epsilon_greedy(r.generator, q_values, eps)
+    r.obs, r.env_states, tr = venv.step(
+        r.generator, r.env_states, actions, env_params, prev_obs=r.obs, fresh=fresh
+    )
+    replay.add(r.replay, tr)
+
+    done = (tr.terminated | tr.truncated).view(r.ep_return.shape)
+    ep_return = r.ep_return + tr.reward.view(r.ep_return.shape)
+    r.return_window, r.window_cursor, r.window_filled = _scatter_completed_returns(
+        r.return_window, r.window_cursor, r.window_filled, done, ep_return
+    )
+    num_done = done.sum(dim=-1)
+    r.episodes = r.episodes + num_done
+    r.ep_return = torch.where(done, 0.0, ep_return)
+    r.ep_length = torch.where(done, 0, r.ep_length + 1).to(torch.int32)
+    return num_done, torch.where(done, ep_return, 0.0).sum(dim=-1)
+
+
+def _window_mean(r: RunnerState) -> torch.Tensor:
+    """Mean of the returns in the window (-inf while it is empty)."""
+    return torch.where(
+        r.window_filled > 0,
+        r.return_window.sum(dim=-1) / torch.clamp(r.window_filled, min=1),
+        -math.inf,
+    )
 
 
 def _seeds(seed: int, n: int):
@@ -194,30 +243,13 @@ def build_superstep(
         ret_delta = torch.zeros((), device=device)
 
         for _ in range(cfg.steps_per_superstep):
-            # --- actor: ε-greedy -------------------------------------------
+            # --- actor, env step, replay write, episode accounting ----------
             eps = epsilon_by_schedule(cfg, r.env_step * num_envs, r.episodes, r.hyper)
             with torch.no_grad():
                 q_values = r.train.online(r.obs)
-            actions = epsilon_greedy(r.generator, q_values, eps)
-
-            # --- env step with auto-reset, replay write ----------------------
-            r.obs, r.env_states, tr = venv.step(
-                r.generator, r.env_states, actions, env_params, prev_obs=r.obs, fresh=fresh
-            )
-            replay.add(r.replay, tr)
-
-            # --- episode accounting -----------------------------------------
-            done = tr.terminated | tr.truncated
-            ep_return = r.ep_return + tr.reward
-            r.return_window, r.window_cursor, r.window_filled = _scatter_completed_returns(
-                r.return_window, r.window_cursor, r.window_filled, done, ep_return
-            )
-            num_done = done.sum()
-            r.episodes = r.episodes + num_done
-            ret_delta = ret_delta + torch.where(done, ep_return, 0.0).sum()
+            num_done, ret_done = _act_and_step(r, venv, env_params, replay, q_values, eps, fresh)
+            ret_delta = ret_delta + ret_done
             ep_delta = ep_delta + num_done
-            r.ep_return = torch.where(done, 0.0, ep_return)
-            r.ep_length = torch.where(done, 0, r.ep_length + 1).to(torch.int32)
 
             # --- learner ----------------------------------------------------
             r.env_step += 1
@@ -227,11 +259,7 @@ def build_superstep(
                 loss_count += cfg.updates_per_step
             _maybe_sync(r)
 
-        window_mean = torch.where(
-            r.window_filled > 0,
-            r.return_window.sum() / torch.clamp(r.window_filled, min=1),
-            -math.inf,
-        )
+        window_mean = _window_mean(r)
         eps = epsilon_by_schedule(cfg, r.env_step * num_envs, r.episodes, r.hyper)
         # the one device->host read of the superstep
         episodes, ep_d, ret_d, loss_s, mean, filled, eps_v = torch.stack([
@@ -257,3 +285,162 @@ def build_superstep(
         return r, metrics
 
     return init_runner, superstep
+
+
+def build_population_superstep(
+    venv: VectorEnv,
+    env_params: Any,
+    network: torch.nn.Module,
+    optimizer,
+    replay,
+    cfg,
+    device,
+    members: int,
+) -> Tuple[Callable, Callable]:
+    """Build ``(init_population, population_step)`` for ``members`` learners
+    of ``cfg`` in lockstep: ``venv`` holds ``members · cfg.num_envs`` envs,
+    ``network`` is a ``models.MemberQNetwork`` and ``replay`` a replay built
+    with ``members``.
+
+    ``init_population(seed) -> RunnerState``: member ``m``'s network is
+    initialised as a single learner's from the ``m``-th seed derived from
+    ``seed``, and every member starts with its own buffer, counters and the
+    config's hyperparameters.  ``population_step(runner) -> (runner,
+    SuperstepMetrics)`` advances ``runner`` in place; each metric but
+    ``env_steps`` is an (M,) array."""
+    device = torch.device(device)
+    update = build_update_step(optimizer, cfg)
+    num_envs = venv.num_envs // members
+    threshold = math.inf if cfg.solve_threshold is None else cfg.solve_threshold
+    cadence = {}  # host cadence tuples as device tensors, made once each
+
+    def as_tensor(values) -> torch.Tensor:
+        if values not in cadence:
+            cadence[values] = torch.tensor(values, dtype=torch.int64, device=device)
+        return cadence[values]
+
+    def init_population(seed: int) -> RunnerState:
+        seeds = _seeds(seed, members + 1)
+        online = copy.deepcopy(network).to("cpu")
+        online.reset_parameters(
+            [torch.Generator().manual_seed(_seeds(s, 2)[0]) for s in seeds[:members]]
+        )
+        train = init_train_state(online.to(device), optimizer)
+        generator = torch.Generator(device=device).manual_seed(seeds[-1])
+        obs, env_states = venv.reset(generator, env_params)
+        rows = venv.num_envs
+        example = Transition(
+            obs=obs,
+            action=torch.zeros((rows,), dtype=torch.int32, device=device),
+            reward=torch.zeros((rows,), device=device),
+            next_obs=obs,
+            terminated=torch.zeros((rows,), dtype=torch.bool, device=device),
+            truncated=torch.zeros((rows,), dtype=torch.bool, device=device),
+        )
+        zero = torch.zeros((members,), dtype=torch.int64, device=device)
+        return RunnerState(
+            train=train,
+            hyper=MemberHyperParams.from_config(cfg, members, device),
+            env_states=env_states,
+            obs=obs,
+            replay=replay.init(example),
+            generator=generator,
+            env_step=0,
+            episodes=zero.clone(),
+            last_sync_episodes=zero.clone(),
+            ep_return=torch.zeros((members, num_envs), device=device),
+            ep_length=torch.zeros((members, num_envs), dtype=torch.int32, device=device),
+            return_window=torch.zeros((members, cfg.return_window), device=device),
+            window_cursor=zero.clone(),
+            window_filled=zero.clone(),
+        )
+
+    def _maybe_train(r: RunnerState):
+        """``cfg.updates_per_step`` updates of the members whose cadence and
+        warm-up gate allow; ``(loss sum (M,), mask)``, or None if no gate is
+        open."""
+        h = r.hyper
+        stored = r.replay.filled * num_envs
+        mask = [r.env_step % k == 0 and stored >= start
+                for k, start in zip(h.train_every, h.training_start)]
+        if not any(mask):
+            return None
+        loss_sum = None
+        for _ in range(cfg.updates_per_step):
+            batch, info, weights = replay.sample_with_info(
+                r.replay, r.generator, cfg.batch_size, gamma=h.gamma, beta=h.per_beta
+            )
+            _, loss, td = update(r.train, batch, weights, h, mask)
+            replay.update_priorities(r.replay, info, td, mask)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        if not all(mask):
+            loss_sum = torch.where(torch.tensor(mask, device=device), loss_sum, 0.0)
+        return loss_sum, mask
+
+    def _maybe_sync(r: RunnerState) -> None:
+        """Each member's hard target sync on its own cadence; with
+        ``target_tau`` set the update step does a Polyak update instead."""
+        if cfg.target_tau is not None:
+            return
+        if cfg.target_sync_mode == "steps":
+            mask = [r.env_step % k == 0 for k in r.hyper.target_sync_every]
+            if any(mask):
+                sync_target(r.train, mask)
+        elif cfg.target_sync_mode == "episodes":
+            k = as_tensor(r.hyper.target_replace_episodes)
+            do_sync = (r.episodes // k) > (r.last_sync_episodes // k)
+            sync_target(r.train, do_sync)
+            r.last_sync_episodes = torch.where(do_sync, r.episodes, r.last_sync_episodes)
+        else:
+            raise ValueError(f"unknown target_sync_mode {cfg.target_sync_mode!r}")
+
+    def population_step(r: RunnerState) -> Tuple[RunnerState, SuperstepMetrics]:
+        fresh = None if venv.env.batch_reset_cheap else venv.fresh_pool(r.generator, env_params)
+        loss_sum = torch.zeros((members,), device=device)
+        loss_count = np.zeros((members,), dtype=np.int64)
+        ep_delta = torch.zeros((members,), dtype=torch.int64, device=device)
+        ret_delta = torch.zeros((members,), device=device)
+
+        for _ in range(cfg.steps_per_superstep):
+            eps = epsilon_by_schedule(cfg, r.env_step * num_envs, r.episodes, r.hyper)
+            with torch.no_grad():
+                q_values = r.train.online(r.obs.view(members, num_envs, -1))
+            num_done, ret_done = _act_and_step(
+                r, venv, env_params, replay, q_values.view(members * num_envs, -1),
+                eps.repeat_interleave(num_envs), fresh,
+            )
+            ret_delta = ret_delta + ret_done
+            ep_delta = ep_delta + num_done
+
+            r.env_step += 1
+            trained = _maybe_train(r)
+            if trained is not None:
+                loss_sum = loss_sum + trained[0]
+                loss_count += np.asarray(trained[1]) * cfg.updates_per_step
+            _maybe_sync(r)
+
+        eps = epsilon_by_schedule(cfg, r.env_step * num_envs, r.episodes, r.hyper)
+        # the one device->host read of the superstep
+        episodes, ep_d, ret_d, loss_s, mean, filled, eps_v = torch.stack([
+            r.episodes.to(torch.float64),
+            ep_delta.to(torch.float64),
+            ret_delta.to(torch.float64),
+            loss_sum.to(torch.float64),
+            _window_mean(r).to(torch.float64),
+            r.window_filled.to(torch.float64),
+            eps.to(torch.float64),
+        ]).cpu().numpy()
+        metrics = SuperstepMetrics(
+            env_steps=r.env_step,
+            episodes=episodes.astype(np.int64),
+            episodes_delta=ep_d.astype(np.int64),
+            return_sum_delta=ret_d,
+            loss_sum=loss_s,
+            loss_count=loss_count,
+            window_mean=mean,
+            epsilon=eps_v,
+            solved=(filled >= cfg.return_window) & (mean >= threshold),
+        )
+        return r, metrics
+
+    return init_population, population_step

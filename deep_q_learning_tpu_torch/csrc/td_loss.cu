@@ -13,6 +13,14 @@
 // Backward (targets are stopped):
 //   dQ(s, a) = -w * clip(td, -delta, delta) * g / B at the taken action, 0 elsewhere.
 //
+// A population of M learners (parallel/population.py) adds a leading member
+// axis to every operand, as the Pallas batching rule lifts vmap's member axis
+// into the TPU kernels' grid: Q (M, B, A), the vectors (M, B), loss and g (M,).
+// The member is the grid's y index; one learner is the case M = 1.  The
+// forward reads Q(s) and Q_online(s') in place from the learner's q_both
+// (M, 2B, A), whose halves are not contiguous across members, through one
+// member stride (q_stride, in floats) shared by the two.
+//
 // What bounds it on the card: launch latency, not bytes.  The forward moves
 // 12*B*A + 20*B + 4 bytes (17 KB at B = 256, A = 4: 5 ns at 3.35 TB/s) and
 // the backward 12*B + 4 + 4*R*A for R output rows; a launch on this card
@@ -31,7 +39,10 @@
 //     an integer ticket (one atomic with acquire-release order, no full
 //     fence); the last block's first warp adds the partials, lane i those
 //     at i, i + 32, ..., then a shuffle tree, writes the loss and sets the
-//     ticket counter back to 0 for the next launch.  Float sums keep an
+//     ticket counter back to 0 for the next launch.  With members there is
+//     one ticket over the whole grid: the last block of all sums each
+//     member's partials in turn, in the same order as for one learner, so a
+//     member's loss does not depend on M.  Float sums keep an
 //     order fixed by the grid, so the loss is bitwise the same from run to
 //     run; the only atomic is the integer ticket.  The
 //     scratch and the counter are the wrapper's, one pair per device, so
@@ -97,21 +108,27 @@ td_loss_fwd_kernel(const float* __restrict__ q_s, const float* __restrict__ q_ne
                    const float* __restrict__ reward, const float* __restrict__ bootstrap,
                    const float* __restrict__ weights, float* __restrict__ loss,
                    float* __restrict__ td, float* __restrict__ partials,
-                   unsigned int* __restrict__ ticket, int B, int A, float delta, int dbl,
-                   int vec4) {
+                   unsigned int* __restrict__ ticket, int B, int A, long long q_stride,
+                   float delta, int dbl, int vec4) {
+  const int member = blockIdx.y;
   const int b = blockIdx.x * kThreads + threadIdx.x;
+  // this member's operands: the q_both halves at its stride, the rest packed
+  const size_t first = static_cast<size_t>(member) * B;
+  const float* m_q_s = q_s + member * q_stride;
+  const float* m_q_next_online = q_next_online + member * q_stride;
+  const float* m_q_next_target = q_next_target + first * A;
   float contrib = 0.0f;
   if (b < B) {
-    const int act = action[b];
-    const float g_ret = reward[b];
-    const float boot_factor = bootstrap[b];
-    const float w = weights[b];
+    const int act = action[first + b];
+    const float g_ret = reward[first + b];
+    const float boot_factor = bootstrap[first + b];
+    const float w = weights[first + b];
     float m = 0.0f, boot = 0.0f;
     float q_taken = 0.0f;  // an action outside [0, A) selects 0, as the one-hot gather
     if (vec4) {
-      const float4 s = reinterpret_cast<const float4*>(q_s)[b];
-      const float4 no = reinterpret_cast<const float4*>(q_next_online)[b];
-      const float4 nt = reinterpret_cast<const float4*>(q_next_target)[b];
+      const float4 s = reinterpret_cast<const float4*>(m_q_s)[b];
+      const float4 no = reinterpret_cast<const float4*>(m_q_next_online)[b];
+      const float4 nt = reinterpret_cast<const float4*>(m_q_next_target)[b];
       take_action(0, s.x, no.x, nt.x, act, dbl, m, boot, q_taken);
       take_action(1, s.y, no.y, nt.y, act, dbl, m, boot, q_taken);
       take_action(2, s.z, no.z, nt.z, act, dbl, m, boot, q_taken);
@@ -120,13 +137,13 @@ td_loss_fwd_kernel(const float* __restrict__ q_s, const float* __restrict__ q_ne
       const size_t row = static_cast<size_t>(b) * A;
 #pragma unroll 4
       for (int a = 0; a < A; ++a) {
-        take_action(a, q_s[row + a], q_next_online[row + a], q_next_target[row + a], act,
-                    dbl, m, boot, q_taken);
+        take_action(a, m_q_s[row + a], m_q_next_online[row + a], m_q_next_target[row + a],
+                    act, dbl, m, boot, q_taken);
       }
     }
     const float y = __fadd_rn(g_ret, __fmul_rn(boot_factor, boot));
     const float t = __fsub_rn(y, q_taken);
-    td[b] = t;
+    td[first + b] = t;
     const float abs_t = fabsf(t);
     const float quad = fminf(abs_t, delta);
     const float per = __fadd_rn(__fmul_rn(__fmul_rn(0.5f, quad), quad),
@@ -143,90 +160,100 @@ td_loss_fwd_kernel(const float* __restrict__ q_s, const float* __restrict__ q_ne
   if (threadIdx.x >= 32) return;
   const float partial = warp_sum(lane < kWarps ? warp_sums[lane] : 0.0f);
   const float count = static_cast<float>(B);
-  if (gridDim.x == 1) {
-    if (lane == 0) loss[0] = __fdiv_rn(partial, count);
+  if (gridDim.x == 1) {  // one block a member: its sum is the member's
+    if (lane == 0) loss[member] = __fdiv_rn(partial, count);
     return;
   }
-  // several blocks: publish the partial, take a ticket; the last block sums
+  // several blocks a member: publish the partial, take a ticket over the
+  // whole grid; the last block of all sums every member's partials
   unsigned int last = 0;
   if (lane == 0) {
-    partials[blockIdx.x] = partial;
-    last = fetch_add_acq_rel(ticket, 1u) == gridDim.x - 1;  // release: the partial first
+    partials[member * gridDim.x + blockIdx.x] = partial;
+    // release: the partial first
+    last = fetch_add_acq_rel(ticket, 1u) == gridDim.x * gridDim.y - 1;
   }
   if (!__shfl_sync(kFullMask, last, 0)) return;
   __syncwarp();
-  // lane i adds partials i, i + 32, ... in order, then the fixed tree: the
-  // order depends on the grid alone
-  float sum = 0.0f;
-  for (unsigned i = lane; i < gridDim.x; i += 32) sum = __fadd_rn(sum, __ldcg(partials + i));
-  sum = warp_sum(sum);
-  if (lane == 0) {
-    loss[0] = __fdiv_rn(sum, count);
-    *ticket = 0u;
+  // for each member, lane i adds its partials i, i + 32, ... in order, then
+  // the fixed tree: the order depends on the blocks a member has alone
+  for (unsigned mm = 0; mm < gridDim.y; ++mm) {
+    const float* mine = partials + mm * gridDim.x;
+    float sum = 0.0f;
+    for (unsigned i = lane; i < gridDim.x; i += 32) sum = __fadd_rn(sum, __ldcg(mine + i));
+    sum = warp_sum(sum);
+    if (lane == 0) loss[mm] = __fdiv_rn(sum, count);
   }
+  if (lane == 0) *ticket = 0u;
 }
 
 __global__ void __launch_bounds__(kThreads)
 td_loss_bwd_kernel(const float* __restrict__ td, const int* __restrict__ action,
                    const float* __restrict__ weights, const float* __restrict__ g,
                    float* __restrict__ dq, int B, int A, int rows, float delta, int vec4) {
+  const int member = blockIdx.y;
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= rows) return;
+  const size_t first = static_cast<size_t>(member) * B;
   float coeff = 0.0f;
   int act = -1;  // rows past B (the stopped s' half) are zero
   if (r < B) {
-    act = action[r];
-    const float t = td[r];
-    const float w = weights[r];
-    const float g_loss = g[0];
+    act = action[first + r];
+    const float t = td[first + r];
+    const float w = weights[first + r];
+    const float g_loss = g[member];
     const float clipped = fminf(fmaxf(t, -delta), delta);
     coeff = __fmul_rn(__fmul_rn(-clipped, w), __fdiv_rn(g_loss, static_cast<float>(B)));
   }
+  const size_t out_row = static_cast<size_t>(member) * rows + r;
   if (vec4) {
     float4 out;
     out.x = act == 0 ? coeff : 0.0f;
     out.y = act == 1 ? coeff : 0.0f;
     out.z = act == 2 ? coeff : 0.0f;
     out.w = act == 3 ? coeff : 0.0f;
-    reinterpret_cast<float4*>(dq)[r] = out;
+    reinterpret_cast<float4*>(dq)[out_row] = out;
   } else {
-    float* row = dq + static_cast<size_t>(r) * A;
+    float* row = dq + out_row * A;
     for (int a = 0; a < A; ++a) row[a] = a == act ? coeff : 0.0f;
   }
 }
 
 }  // namespace
 
-// partials holds n_partials floats; the forward needs one per block.
+// M members of B rows each; q_s and q_next_online of member m start at
+// m * q_stride floats, the other operands are packed (M, B[, A]).  partials
+// holds n_partials floats; the forward needs one per block.
 extern "C" int td_loss_fwd(const void* q_s, const void* q_next_online,
                            const void* q_next_target, const void* action,
                            const void* reward, const void* bootstrap,
                            const void* weights, void* loss, void* td, void* partials,
-                           int n_partials, void* ticket, int B, int A, float delta,
-                           int dbl, int vec4, void* stream) {
+                           int n_partials, void* ticket, int B, int A, int M,
+                           long long q_stride, float delta, int dbl, int vec4, void* stream) {
   const int blocks = (B + kThreads - 1) / kThreads;
-  if (B <= 0 || A <= 0 || (vec4 && A != 4) || (blocks > 1 && n_partials < blocks)) {
+  if (B <= 0 || A <= 0 || M <= 0 || M > 65535 || (vec4 && (A != 4 || q_stride % 4)) ||
+      (blocks > 1 && n_partials < blocks * M)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  td_loss_fwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  td_loss_fwd_kernel<<<dim3(blocks, M), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q_s), static_cast<const float*>(q_next_online),
       static_cast<const float*>(q_next_target), static_cast<const int*>(action),
       static_cast<const float*>(reward), static_cast<const float*>(bootstrap),
       static_cast<const float*>(weights), static_cast<float*>(loss),
       static_cast<float*>(td), static_cast<float*>(partials),
-      static_cast<unsigned int*>(ticket), B, A, delta, dbl, vec4);
+      static_cast<unsigned int*>(ticket), B, A, q_stride, delta, dbl, vec4);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq has rows >= B rows of A floats; rows past B are written as zeros.
+// dq has M members of rows >= B rows of A floats; rows past B are written as
+// zeros; g holds one cotangent a member.
 extern "C" int td_loss_bwd(const void* td, const void* action, const void* weights,
-                           const void* g, void* dq, int B, int A, int rows, float delta,
-                           int vec4, void* stream) {
-  if (B <= 0 || A <= 0 || rows < B || (vec4 && A != 4)) {
+                           const void* g, void* dq, int B, int A, int rows, int M,
+                           float delta, int vec4, void* stream) {
+  if (B <= 0 || A <= 0 || rows < B || M <= 0 || M > 65535 || (vec4 && A != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = (rows + kThreads - 1) / kThreads;
-  td_loss_bwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  td_loss_bwd_kernel<<<dim3(blocks, M), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(td), static_cast<const int*>(action),
       static_cast<const float*>(weights), static_cast<const float*>(g),
       static_cast<float*>(dq), B, A, rows, delta, vec4);

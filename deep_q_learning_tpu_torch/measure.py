@@ -4,7 +4,8 @@
         [--set key=value ...] [--env-only | --kernels-only] [--baseline CHECKOUT]
 
 1. Device time of each kernel and of its plain version at the main paths'
-   shapes: 100 calls captured in one CUDA graph, replayed 50 times between
+   shapes, and with a population's member axis (``lunar_per``'s at 8
+   members): 100 calls captured in one CUDA graph, replayed 50 times between
    CUDA events, so the host's enqueue cost drops out.  Beside each: its
    bound (``ops.bound_us`` of the bytes and operations the call needs) and
    the share of it the kernel reaches, and the kernel's launches per steady
@@ -47,6 +48,10 @@ TD_BATCHES = (256, 1024, 4096)
 # the PER slot kernel's (N, C, B) on lunar_per_scaled(1024), lunar_per and
 # lunar_per_scaled(4096) (C = 2^19 / 4096) with use_pallas_sampler=true
 SLOT_SHAPES = ((1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096))
+# a lunar_per population of 8 members: the TD kernels at (M, B, A) and the
+# PER slot kernel over every member's rows, (M, N, C, B)
+MEMBER_TD = (8, 256, 4)
+MEMBER_SLOT = (8, 128, 4096, 256)
 
 
 def card_line() -> str:
@@ -162,6 +167,34 @@ def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
         print(f"  ({n}, {c}, {b}) per_slot_sample: baseline {b0:.2f}, {b1:.2f} us; this tree "
               f"{t0:.2f}, {t1:.2f} us (device, in turns); {differ} of {b} slots differ from "
               f"the baseline's [{card}]")
+    m, n, c, b = MEMBER_SLOT
+    p = torch.rand((m * n, c), generator=g, device="cuda") ** 3
+    env = torch.randint(0, n, (m, b), generator=g, device="cuda")
+    u = torch.rand((m, b), generator=g, device="cuda")
+    flat_env = (env + torch.arange(m, device="cuda")[:, None] * n).reshape(-1)
+    k = device_us(lambda: sk.slot_select_members(p, env, u))
+    r = device_us(lambda: sk.slot_select_reference(p, flat_env, u.reshape(-1)))
+    print(f"per_slot_sample over {m} members (M·N, C, M·B)=({m * n}, {c}, {m * b}): device "
+          f"{k:.2f} us kernel, {r:.2f} us plain; {bound_text(sk.per_slot_sample_work(p, flat_env), k)} "
+          f"[{card}]")
+    m, b, a = MEMBER_TD
+    q_both = torch.randn((m, 2 * b, a), generator=g, device="cuda")
+    args = (q_both[:, :b], q_both[:, b:], torch.randn((m, b, a), generator=g, device="cuda"),
+            torch.randint(0, a, (m, b), generator=g, device="cuda", dtype=torch.int32),
+            *(torch.rand((m, b), generator=g, device="cuda") for _ in range(3)), 1.0, True)
+    _, td = tk.td_loss_fwd(*args)
+    ones = torch.ones((m,), device="cuda")
+    fwd = device_us(lambda: tk.td_loss_fwd(*args))
+    bwd = device_us(lambda: tk.td_loss_bwd(td, args[3], args[6], ones, a, 1.0, out_rows=2 * b))
+    print(f"td_loss_fwd (M, B, A)=({m}, {b}, {a}): device {fwd:.2f} us kernel, "
+          f"{device_us(lambda: tk.td_loss_reference(*args)):.2f} us plain; "
+          f"{bound_text(tk.td_loss_fwd_work(b, a, members=m), fwd)} [{card}]")
+    plain_bwd = device_us(lambda: tk.td_loss_backward_reference(
+        td, args[3], args[6], ones, a, 1.0, out_rows=2 * b))
+    print(f"td_loss_bwd (M, B, A)=({m}, {b}, {a}) -> ({m}, {2 * b}, {a}): device {bwd:.2f} us "
+          f"kernel, {plain_bwd:.2f} us plain; "
+          f"{bound_text(tk.td_loss_bwd_work(b, a, 2 * b, members=m), bwd)} [{card}]")
+
     base = load_baseline(baseline, "td_kernels") if baseline is not None else None
     for b in TD_BATCHES:
         args = (*td_inputs(b, g), 1.0, True)

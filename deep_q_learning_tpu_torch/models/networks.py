@@ -8,6 +8,11 @@ deviations, scaled to variance ``1 / fan_in``) and zero biases.  Layer
 names follow the flax module (``trunk_{i}``, ``value``, ``advantage``,
 ``q``), and :meth:`QNetwork.from_flax_params` loads a flax parameter dict.
 The network runs in float32.
+
+:class:`MemberQNetwork` is M such networks of one shape for a population
+(``parallel/population.py``): each layer holds an (M, out, in) weight and
+an (M, out) bias, and a forward is one ``torch.baddbmm`` a layer over
+(M, rows, in) inputs, where the JAX package ``jax.vmap``s the network.
 """
 
 from __future__ import annotations
@@ -114,5 +119,97 @@ class QNetwork(nn.Module):
             for name, layer in net.flax_layers():
                 kernel = np.asarray(p[name]["kernel"], np.float32)
                 layer.weight.copy_(torch.tensor(kernel.T))
+                layer.bias.copy_(torch.tensor(np.asarray(p[name]["bias"], np.float32)))
+        return net
+
+
+class MemberLinear(nn.Module):
+    """M ``nn.Linear`` layers of one shape: ``weight`` (M, out, in), ``bias``
+    (M, out); ``x`` (M, rows, in) -> (M, rows, out)."""
+
+    def __init__(self, members: int, n_in: int, n_out: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((members, n_out, n_in), device=device))
+        self.bias = nn.Parameter(torch.empty((members, n_out), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.baddbmm(self.bias[:, None, :], x, self.weight.transpose(1, 2))
+
+
+class MemberQNetwork(nn.Module):
+    """M independent :class:`QNetwork` s with stacked parameters.  The
+    parameters come in the order of one network's, each with a leading
+    member axis, so an optimizer handles them leaf by leaf with per-member
+    reductions."""
+
+    def __init__(
+        self,
+        members: int,
+        obs_dim: int,
+        num_actions: int,
+        hidden: Sequence[int] = (256, 256),
+        dueling: bool = True,
+        device=None,
+        generators: Optional[Sequence[torch.Generator]] = None,
+    ):
+        super().__init__()
+        self.members = members
+        self.obs_dim = obs_dim
+        self.num_actions = num_actions
+        self.hidden = tuple(hidden)
+        self.dueling = dueling
+        widths = (obs_dim,) + self.hidden
+        self.trunk = nn.ModuleList(
+            MemberLinear(members, widths[i], widths[i + 1], device)
+            for i in range(len(self.hidden))
+        )
+        if dueling:
+            self.value = MemberLinear(members, widths[-1], 1, device)
+            self.advantage = MemberLinear(members, widths[-1], num_actions, device)
+        else:
+            self.q = MemberLinear(members, widths[-1], num_actions, device)
+        self.reset_parameters(generators)
+
+    flax_layers = QNetwork.flax_layers
+
+    def reset_parameters(self, generators: Optional[Sequence[torch.Generator]] = None) -> None:
+        """Member ``m`` initialised as ``QNetwork.reset_parameters(generators[m])``
+        initialises one network: its layers in order from its own generator."""
+        gens = list(generators) if generators is not None else [None] * self.members
+        if len(gens) != self.members:
+            raise ValueError(f"{len(gens)} generators for {self.members} members")
+        with torch.no_grad():
+            for m, generator in enumerate(gens):
+                for _, layer in self.flax_layers():
+                    lecun_normal_(layer.weight[m], generator)
+            for _, layer in self.flax_layers():
+                layer.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (M, rows, obs_dim) -> Q-values (M, rows, num_actions)."""
+        for layer in self.trunk:
+            x = torch.relu(layer(x))
+        if self.dueling:
+            val = self.value(x)
+            adv = self.advantage(x)
+            return val + adv - adv.mean(dim=-1, keepdim=True)
+        return self.q(x)
+
+    @classmethod
+    def from_flax_params(cls, params: Mapping, device=None) -> "MemberQNetwork":
+        """Stacked networks from a member-stacked flax ``QNetwork`` parameter
+        dict (as ``jax.vmap(network.init)`` gives: every leaf with a leading
+        member axis, ``kernel`` (M, in, out)); numpy leaves."""
+        p = params.get("params", params)
+        n_trunk = sum(1 for k in p if k.startswith("trunk_"))
+        members, obs_dim, _ = np.shape(p["trunk_0"]["kernel"])
+        hidden = tuple(np.shape(p[f"trunk_{i}"]["bias"])[1] for i in range(n_trunk))
+        dueling = "value" in p
+        head = p["advantage"] if dueling else p["q"]
+        net = cls(members, obs_dim, np.shape(head["bias"])[1], hidden, dueling, device=device)
+        with torch.no_grad():
+            for name, layer in net.flax_layers():
+                kernel = np.asarray(p[name]["kernel"], np.float32)
+                layer.weight.copy_(torch.tensor(kernel.transpose(0, 2, 1)))
                 layer.bias.copy_(torch.tensor(np.asarray(p[name]["bias"], np.float32)))
         return net

@@ -22,6 +22,11 @@ a warp (C <= 512) or a block (larger C) that reads its row once into
 registers; :func:`slot_plan` says which, for given priorities.  See the
 source for the design.
 
+A population of M learners keeps its members' priorities as one (M·N, C)
+array, member ``m``'s rows at ``m·N``: :func:`slot_select_members` draws
+every member's slots in one launch of the same kernel, where ``jax.vmap``
+lifts the member axis into the Pallas kernel's grid.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches, and
 ``plain_calls`` counts calls that took the plain version.
@@ -72,6 +77,23 @@ def slot_select_reference(
     draw = u_slot * rows.sum(dim=1)
     count = (torch.cumsum(rows, dim=1) < draw[:, None]).sum(dim=1)
     return count.clamp(max=c - 1)
+
+
+def slot_select_members(
+    priorities: torch.Tensor, env_idx: torch.Tensor, u_slot: torch.Tensor
+) -> torch.Tensor:
+    """Every member's slots in one call of :func:`slot_select`:
+    ``slot_idx`` (M, B) int64 from ``priorities`` f32 (M·N, C) (member
+    ``m``'s rows at ``m·N``), ``env_idx`` int64 (M, B) of rows within each
+    member and ``u_slot`` f32 (M, B).  An index outside ``[0, N)`` selects
+    no row, as in a member's own call."""
+    members, b = env_idx.shape
+    n = priorities.shape[0] // members
+    if priorities.shape[0] != members * n:
+        raise ValueError(f"priorities has {priorities.shape[0]} rows, not a multiple of {members}")
+    offset = torch.arange(members, device=env_idx.device)[:, None] * n
+    flat = torch.where((env_idx >= 0) & (env_idx < n), env_idx + offset, -1)
+    return slot_select(priorities, flat.reshape(-1), u_slot.reshape(-1)).view(members, b)
 
 
 @functools.cache

@@ -1,0 +1,220 @@
+"""Population training: M independent learners train in lockstep on one
+device (``deep_q_learning_tpu/parallel/population.py``).
+
+The JAX package ``jax.vmap``s its superstep over the runner state, so M
+members, each with its own γ, ε schedule, learning rate, cadences, replay
+buffer and network init, train in one compiled program.  Here the member is
+an explicit leading axis of the learner's state (``models.MemberQNetwork``,
+the replay's ``members`` form, ``algos.dqn.MemberHyperParams``), and
+``algos.superstep.build_population_superstep`` steps one vector env of M·N
+envs: each vector step is one set of launches for all members, where one
+learner's is one set for N envs.  The TD kernels take the member axis as
+their grid's second dimension, and the PER slot kernel runs over every
+member's rows in one launch (``ops/``).
+
+Notes (as in the JAX package):
+  * Static config (shapes, network, replay kind, schedule and sync modes)
+    is shared by all members; run one population per static config.
+  * A member whose train gate is closed is left as it was.  The learner's
+    launches run whenever any member trains, so a member's cost per vector
+    step tracks the most update-heavy member's.
+  * Device memory: M full runner states (M replay buffers).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deep_q_learning_tpu_torch.algos import make_optimizer
+from deep_q_learning_tpu_torch.algos.dqn import CADENCE_FIELDS
+from deep_q_learning_tpu_torch.algos.evaluate import EvalResult, build_evaluator
+from deep_q_learning_tpu_torch.algos.superstep import build_population_superstep
+from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
+from deep_q_learning_tpu_torch.models import MemberQNetwork
+from deep_q_learning_tpu_torch.replay import make_replay
+from deep_q_learning_tpu_torch.train import resolve_device
+
+
+def _build(cfg, num_members: int, device):
+    """``(init_population, population_step, network, env, env_params)``."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "the PyTorch port runs in float32 only (compute_dtype='bfloat16' "
+            "is not ported; see ROADMAP.md)"
+        )
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32, as Trainer
+    torch.backends.cudnn.allow_tf32 = False
+    env, env_params = make_env(
+        cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
+        param_overrides=cfg.env_param_overrides(),
+    )
+    (obs_dim,) = env.obs_shape(env_params)
+    network = MemberQNetwork(
+        num_members, obs_dim, env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling
+    )
+    init_population, population_step = build_population_superstep(
+        VectorEnv(env, cfg.num_envs * num_members), env_params, network,
+        make_optimizer(cfg), make_replay(cfg, members=num_members), cfg, device, num_members,
+    )
+    return init_population, population_step, network, env, env_params
+
+
+def build_population(
+    cfg, num_members: int, device="cuda"
+) -> Tuple[Callable, Callable, torch.nn.Module]:
+    """Build ``(init_population, population_step, network)`` on ``device``.
+
+    ``init_population(seed) -> runner``: every member with its own network
+    init, env states, buffer and counters; ``population_step(runner) ->
+    (runner, metrics)`` runs one superstep of every member (in place), each
+    metric but ``env_steps`` an (M,) array.  ``network`` is the
+    ``MemberQNetwork`` the members' weights are copies of."""
+    return _build(cfg, num_members, device)[:3]
+
+
+def set_population_hyper(runner, **overrides):
+    """Per-member runtime hyperparameters.
+
+    Each override is a scalar (broadcast to all members) or a length-M
+    array or list (one value a member); names follow
+    :class:`~deep_q_learning_tpu_torch.algos.dqn.HyperParams`.  The float
+    fields go to the device as float32 and the cadence fields stay host
+    ints, truncated as the JAX package's int32 casts truncate."""
+    hyper = runner.hyper
+    num_members = len(hyper.train_every)
+    valid = {f.name for f in dataclasses.fields(hyper)}
+    unknown = set(overrides) - valid
+    if unknown:
+        raise ValueError(f"not runtime hyperparams: {sorted(unknown)} (have {sorted(valid)})")
+    new = {}
+    for k, v in overrides.items():
+        arr = np.asarray(v, np.int32 if k in CADENCE_FIELDS else np.float32)
+        if arr.ndim == 0:
+            arr = np.full((num_members,), arr)
+        if arr.shape != (num_members,):
+            raise ValueError(f"{k}: expected scalar or shape ({num_members},), got {arr.shape}")
+        if k in CADENCE_FIELDS:
+            new[k] = tuple(int(x) for x in arr)
+        else:
+            new[k] = torch.tensor(arr, device=getattr(hyper, k).device)
+    runner.hyper = dataclasses.replace(hyper, **new)
+    return runner
+
+
+class PopulationTrainer:
+    """Reusable M-member population: built once, ``run`` many times, with
+    fresh member state on each call (an HPO loop reuses one build for the
+    whole search)."""
+
+    def __init__(self, cfg, num_members: int, eval_envs: int = 32, device="cuda"):
+        self.cfg = cfg
+        self.num_members = num_members
+        self.eval_envs = eval_envs
+        self._init, self._step, _, env, env_params = _build(cfg, num_members, device)
+        # the eval env is the training env's engine (VERDICT r3 weak #2 of
+        # the JAX package: a rigid-engine population scored on the jointed one)
+        self._eval_env_params = env_params
+        self._evaluate = build_evaluator(
+            VectorEnv(env, eval_envs * num_members), env_params, env_params.max_steps_in_episode
+        )
+
+    def init(self, seed: int = 0):
+        """Fresh member state from ``seed``."""
+        return self._init(seed)
+
+    def step(self, runner):
+        """One superstep of every member: ``(runner, metrics)``."""
+        return self._step(runner)
+
+    def evaluate(self, runner, seed: int = 0, max_steps: Optional[int] = None) -> EvalResult:
+        """Greedy evaluation of every member's policy, ``eval_envs`` episodes
+        each, all M·E envs at once; numpy arrays (M, E)."""
+        m, e = self.num_members, self.eval_envs
+        online = runner.train.online
+
+        def policy(obs: torch.Tensor) -> torch.Tensor:
+            return online(obs.view(m, e, -1)).view(m * e, -1)
+
+        generator = torch.Generator(device=runner.obs.device).manual_seed(seed)
+        ev = self._evaluate(policy, generator, max_steps)
+        return EvalResult(*(x.view(m, e).cpu().numpy() for x in ev))
+
+    def run(
+        self,
+        max_env_steps: int,
+        hyper_overrides: Optional[Dict[str, Any]] = None,
+        seed: int = 0,
+        eval_after: bool = True,
+        verbose: bool = False,
+    ) -> Dict[str, np.ndarray]:
+        """Train M fresh members to an env-step budget; per-member results.
+
+        Returns ``{"window_mean": (M,), "episodes": (M,), "env_steps": int,
+        "eval_mean": (M,), "eval_truncated": (M,)}`` (the last two with
+        ``eval_after``): ``eval_mean`` is the true greedy eval return per
+        member, ``eval_truncated`` its count of evaluator-cut episodes (a
+        nonzero count makes ``eval_mean`` a partial lower bound)."""
+        cfg = self.cfg
+        runner = self.init(seed)
+        if hyper_overrides:
+            runner = set_population_hyper(runner, **hyper_overrides)
+        steps_per_call = cfg.steps_per_superstep * cfg.num_envs
+        num_calls = max(1, -(-max_env_steps // steps_per_call))
+        for i in range(num_calls):
+            runner, metrics = self.step(runner)
+            if verbose and (i + 1) % 10 == 0:
+                wm = metrics.window_mean
+                print(
+                    f"[population] superstep {i + 1}/{num_calls} window "
+                    f"min/med/max = {wm.min():.1f}/{np.median(wm):.1f}/{wm.max():.1f}",
+                    flush=True,
+                )
+        out: Dict[str, Any] = {
+            "window_mean": metrics.window_mean,
+            "episodes": metrics.episodes,
+            "env_steps": metrics.env_steps * cfg.num_envs,
+        }
+        if eval_after:
+            ev = self.evaluate(runner, seed=seed + 1)
+            out["eval_mean"] = ev.returns.mean(axis=1)
+            out["eval_truncated"] = ev.truncated.sum(axis=1)
+        return out
+
+
+def train_population(
+    cfg,
+    num_members: int,
+    max_env_steps: int,
+    hyper_overrides: Optional[Dict[str, Any]] = None,
+    seed: int = 0,
+    eval_after: bool = True,
+    eval_envs: int = 32,
+    verbose: bool = False,
+    device="cuda",
+) -> Dict[str, np.ndarray]:
+    """One-shot convenience wrapper over :class:`PopulationTrainer`."""
+    trainer = PopulationTrainer(cfg, num_members, eval_envs=eval_envs, device=device)
+    return trainer.run(
+        max_env_steps,
+        hyper_overrides=hyper_overrides,
+        seed=seed,
+        eval_after=eval_after,
+        verbose=verbose,
+    )
+
+
+def candidate_overrides(candidates) -> Dict[str, np.ndarray]:
+    """Stack a list of per-member hyperparameter dicts (all with the same
+    keys) into the array-valued mapping ``train_population`` expects."""
+    if not candidates:
+        raise ValueError("no candidates")
+    keys = set(candidates[0])
+    for c in candidates:
+        if set(c) != keys:
+            raise ValueError("candidates must share the same hyperparam keys")
+    return {k: np.asarray([c[k] for c in candidates]) for k in sorted(keys)}

@@ -11,13 +11,15 @@ from deep_q_learning_tpu_torch.replay.prioritized import (
 )
 
 
-def make_replay(cfg, num_envs=None):
-    """Replay buffer from config (uniform | prioritized)."""
+def make_replay(cfg, num_envs=None, members=None):
+    """Replay buffer from config (uniform | prioritized); with ``members``,
+    the buffers of that many population members, each of the config's
+    size."""
     n = num_envs if num_envs is not None else cfg.num_envs
     cap = max(1, cfg.buffer_capacity // n)
     common = dict(
         gamma=cfg.gamma, n_step=cfg.n_step,
-        truncation_bootstrap=cfg.truncation_bootstrap,
+        truncation_bootstrap=cfg.truncation_bootstrap, members=members,
     )
     if cfg.replay == "uniform":
         return UniformReplay(n, cap, **common)

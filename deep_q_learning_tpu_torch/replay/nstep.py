@@ -7,6 +7,10 @@ window in time order:
     G         = sum_{k<K} gamma^k r_{t+k}     K = steps until first stop (<= n)
     bootstrap = gamma^K * nonterminal_at_stop
     batch     = (s_t, a_t, G, s_{t+K}, bootstrap)
+
+A population's sampler gathers every member's batch in one call, with
+``gamma`` one value a row (each member's own, in float32 as the JAX package
+traces it), and :func:`split_members` gives the batch its member axis.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ def assemble_learn_batch(
     storage,  # RingStorage (replay/uniform.py)
     env_idx: torch.Tensor,  # (B,) int64
     slot_idx: torch.Tensor,  # (B,) int64
-    gamma: float,
+    gamma,  # float, or a (B,) float32 tensor: one discount a row
     n_step: int,
     truncation_bootstrap: bool,
 ) -> LearnBatch:
@@ -73,8 +77,11 @@ def assemble_learn_batch(
         torch.cat([torch.ones((b, 1), device=device), 1.0 - stop[:, :-1]], dim=1), dim=1
     )
 
-    discounts = gamma ** offsets.to(torch.float32)
-    g = torch.sum(alive * discounts[None, :] * rewards, dim=1)
+    if isinstance(gamma, torch.Tensor):
+        discounts = gamma[:, None] ** offsets.to(torch.float32)
+    else:
+        discounts = (gamma ** offsets.to(torch.float32))[None, :]
+    g = torch.sum(alive * discounts * rewards, dim=1)
 
     k = torch.sum(alive, dim=1)  # number of included steps
     last_off = (k - 1.0).to(torch.int64)
@@ -96,3 +103,11 @@ def assemble_learn_batch(
         next_obs=storage.next_obs[last_slot, env_idx],
         bootstrap=bootstrap,
     )
+
+
+def split_members(batch: LearnBatch, members: int) -> LearnBatch:
+    """A batch of M·B rows, member ``m``'s at ``m·B``, as (M, B, ...) leaves."""
+    return LearnBatch(**{
+        f.name: getattr(batch, f.name).view((members, -1) + getattr(batch, f.name).shape[1:])
+        for f in dataclasses.fields(batch)
+    })

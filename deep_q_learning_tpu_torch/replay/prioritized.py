@@ -15,21 +15,34 @@ The JAX package's one-hot priority update is a TPU workaround; here
 duplicate ``(env, slot)`` pairs resolve max-wins through set-to-0 and a
 ``scatter_reduce`` with ``amax`` (the JAX package's large-N branch).  The
 max priority stays a device scalar, so no step reads it back to the host.
+
+With ``members`` M (a population), the priorities of M members are one
+(M·N, C) array beside the shared storage, member ``m``'s rows at ``m·N``,
+and ``max_priority`` is (M,).  Each member samples B from its own rows:
+level 1 over its N row sums, level 2 for all members in one call of the
+slot kernel (``slot_select_members``), importance weights normalised by
+its own batch max; a priority update changes only the members whose train
+gate is open.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from deep_q_learning_tpu_torch.envs.base import Transition
-from deep_q_learning_tpu_torch.ops.sample_kernels import slot_select
-from deep_q_learning_tpu_torch.replay.nstep import assemble_learn_batch, valid_slot_mask
+from deep_q_learning_tpu_torch.ops.sample_kernels import slot_select, slot_select_members
+from deep_q_learning_tpu_torch.replay.nstep import (
+    assemble_learn_batch,
+    split_members,
+    valid_slot_mask,
+)
 from deep_q_learning_tpu_torch.replay.uniform import (
     RingStorage,
     alloc_storage,
+    member_rows,
     write_row,
 )
 
@@ -37,8 +50,8 @@ from deep_q_learning_tpu_torch.replay.uniform import (
 @dataclasses.dataclass
 class PrioritizedReplayState:
     storage: RingStorage  # slot-major packed leaves — see replay/uniform.py
-    priorities: torch.Tensor  # (N, C) f32, already exponentiated by alpha
-    max_priority: torch.Tensor  # () f32 (pre-alpha magnitude)
+    priorities: torch.Tensor  # (N, C) f32, already exponentiated by alpha; (M·N, C) for members
+    max_priority: torch.Tensor  # () f32 (pre-alpha magnitude); (M,) for members
     cursor: int
     total_adds: int
 
@@ -56,12 +69,13 @@ class PrioritizedReplayState:
 
 
 class SampleInfo(NamedTuple):
-    env_idx: torch.Tensor  # (B,) int64
-    slot_idx: torch.Tensor  # (B,) int64
+    env_idx: torch.Tensor  # (B,) int64; for members (M, B) storage rows
+    slot_idx: torch.Tensor  # (B,) int64; for members (M, B)
 
 
 class PrioritizedReplay:
-    """Proportional-PER ring buffer (same write path as uniform)."""
+    """Proportional-PER ring buffer (same write path as uniform); with
+    ``members`` M, the buffers of M population members."""
 
     kind = "prioritized"
 
@@ -77,6 +91,7 @@ class PrioritizedReplay:
         gamma: float = 0.99,
         n_step: int = 1,
         truncation_bootstrap: bool = True,
+        members: Optional[int] = None,
     ):
         self.use_pallas = use_pallas
         self.num_envs = num_envs
@@ -88,15 +103,17 @@ class PrioritizedReplay:
         self.gamma = gamma
         self.n_step = n_step
         self.truncation_bootstrap = truncation_bootstrap
+        self.members = members
+        self.rows = num_envs * (members or 1)
 
     def init(self, example: Transition) -> PrioritizedReplayState:
-        if example.obs.shape[0] != self.num_envs:
-            raise ValueError(f"example must hold num_envs={self.num_envs} rows")
+        if example.obs.shape[0] != self.rows:
+            raise ValueError(f"example must hold {self.rows} env rows")
         device = example.obs.device
         return PrioritizedReplayState(
             storage=alloc_storage(example, self.capacity_per_env),
-            priorities=torch.zeros((self.num_envs, self.capacity_per_env), device=device),
-            max_priority=torch.ones((), device=device),
+            priorities=torch.zeros((self.rows, self.capacity_per_env), device=device),
+            max_priority=torch.ones(() if self.members is None else (self.members,), device=device),
             cursor=0,
             total_adds=0,
         )
@@ -107,8 +124,10 @@ class PrioritizedReplay:
         """Write one vector step in place; new transitions enter at the max
         priority."""
         write_row(state.storage, state.cursor, transition)
+        new_p = state.max_priority**self.alpha
         state.priorities[:, state.cursor].copy_(
-            (state.max_priority**self.alpha).expand(self.num_envs)
+            new_p.expand(self.num_envs) if self.members is None
+            else new_p.repeat_interleave(self.num_envs)  # each member's own
         )
         state.cursor = (state.cursor + 1) % self.capacity_per_env
         state.total_adds += 1
@@ -126,7 +145,12 @@ class PrioritizedReplay:
         """Two-level proportional sampling; returns ``(batch, info, weights)``.
 
         ``uniforms``: optional ``(u_env, u_slot)``, each ``(B,)`` on
-        ``[0, 1)``, used instead of drawing from ``generator``."""
+        ``[0, 1)``, used instead of drawing from ``generator``.  With
+        members: ``gamma`` and ``beta`` are (M,) float32 tensors (each
+        member's, required), ``uniforms`` (M, B) each, and the batch, the
+        info and the weights are (M, B, ...)."""
+        if self.members is not None:
+            return self._sample_members(state, generator, batch_size, gamma, beta, uniforms)
         p_all = state.priorities
         device = p_all.device
         # zero the newest n-1 slots so n-step windows never cross the cursor
@@ -169,20 +193,74 @@ class PrioritizedReplay:
         w = w / w.max().clamp(min=1e-12)
         return batch, SampleInfo(env_idx, slot_idx), w
 
+    def _sample_members(self, state, generator, batch_size, gamma, beta, uniforms):
+        """Each member's two-level sample from its own N rows, as a member's
+        own replay under ``jax.vmap``; level 2 for all members in one call."""
+        members, n, b = self.members, self.num_envs, batch_size
+        device = state.priorities.device
+        mask = valid_slot_mask(
+            self.capacity_per_env, state.cursor, state.filled, self.n_step, device
+        )
+        p = state.priorities * mask[None, :].to(torch.float32)  # (M·N, C)
+        if uniforms is None:
+            uniforms = (
+                torch.rand((members, b), generator=generator, device=device),
+                torch.rand((members, b), generator=generator, device=device),
+            )
+        u_env, u_slot = uniforms
+
+        # level 1, per member: env rows ∝ row sums
+        row_cdf = torch.cumsum(p.sum(dim=1).view(members, n), dim=1)  # (M, N)
+        total = row_cdf[:, -1:]  # (M, 1)
+        env_idx = (row_cdf[:, None, :] < (u_env * total)[:, :, None]).sum(dim=2)
+        env_idx = env_idx.clamp(max=n - 1)
+        rows = member_rows(env_idx, n)  # (M, B) storage rows
+
+        # level 2: slot within each chosen row ∝ row priorities
+        if self.use_pallas:
+            slot_idx = slot_select_members(p, env_idx, u_slot)
+        else:
+            row_cdfs = torch.cumsum(p[rows], dim=2)  # (M, B, C)
+            slot_idx = (row_cdfs < (u_slot * row_cdfs[..., -1])[..., None]).sum(dim=2)
+            slot_idx = slot_idx.clamp(max=self.capacity_per_env - 1)
+        p_sel = p[rows, slot_idx] / total.clamp(min=1e-12)
+
+        batch = assemble_learn_batch(
+            state.storage, rows.reshape(-1), slot_idx.reshape(-1),
+            gamma.repeat_interleave(b), self.n_step, self.truncation_bootstrap,
+        )
+        # importance weights per member, normalised by its own batch max
+        n_valid = float(state.filled * n)
+        w = (1.0 / (n_valid * p_sel).clamp(min=1e-12)) ** beta[:, None]
+        w = w / w.max(dim=1, keepdim=True).values.clamp(min=1e-12)
+        return split_members(batch, members), SampleInfo(rows, slot_idx), w
+
     def update_priorities(
         self,
         state: PrioritizedReplayState,
         info: SampleInfo,
         td_errors: torch.Tensor,
+        mask: Optional[Sequence[bool]] = None,
     ) -> PrioritizedReplayState:
         """Set the sampled priorities to ``(|td| + ε)^α`` in place; duplicate
-        pairs in one batch (the same transition) resolve max-wins."""
+        pairs in one batch (the same transition) resolve max-wins.  With
+        members (``td_errors`` (M, B)), only the members whose ``mask`` is
+        True (all if None) change their priorities and max priority."""
         mag = td_errors.abs() + self.eps
         new_p = mag**self.alpha
         flat = state.priorities.view(-1)
         idx = info.env_idx * self.capacity_per_env + info.slot_idx
-        flat.index_fill_(0, idx, 0.0)
-        flat.scatter_reduce_(0, idx, new_p, reduce="amax")
+        keep = None
+        if mask is not None and not all(mask):
+            # a closed gate writes each sampled priority back as it was
+            keep = torch.tensor([bool(k) for k in mask], device=flat.device)
+            new_p = torch.where(keep[:, None], new_p, flat[idx])
+        flat.index_fill_(0, idx.reshape(-1), 0.0)
+        flat.scatter_reduce_(0, idx.reshape(-1), new_p.reshape(-1), reduce="amax")
         # decaying high-water mark (max_decay=1.0: the classic monotone max)
-        state.max_priority = torch.maximum(state.max_priority * self.max_decay, mag.max())
+        if self.members is None:
+            state.max_priority = torch.maximum(state.max_priority * self.max_decay, mag.max())
+            return state
+        new_max = torch.maximum(state.max_priority * self.max_decay, mag.max(dim=1).values)
+        state.max_priority = new_max if keep is None else torch.where(keep, new_max, state.max_priority)
         return state

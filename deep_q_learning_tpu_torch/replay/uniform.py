@@ -8,6 +8,10 @@ is a single gather (``replay/nstep.py``).
 
 The port updates the buffers in place.  The cursor and fill counters are
 Python ints: the host knows them without reading the device.
+
+A population of M members (``members=M``) keeps one storage of M·N env
+rows, member ``m``'s at ``m·N``: the members add in lockstep, so they share
+the cursor and the fill, and each samples B transitions from its own rows.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Optional
 import torch
 
 from deep_q_learning_tpu_torch.envs.base import Transition
-from deep_q_learning_tpu_torch.replay.nstep import assemble_learn_batch
+from deep_q_learning_tpu_torch.replay.nstep import assemble_learn_batch, split_members
 
 # packed-aux lane indices (RingStorage.aux trailing axis)
 AUX_REWARD, AUX_ACTION, AUX_TERM, AUX_TRUNC = 0, 1, 2, 3
@@ -63,6 +67,12 @@ def pack_aux(transition: Transition) -> torch.Tensor:
     )
 
 
+def member_rows(env_idx: torch.Tensor, num_envs: int) -> torch.Tensor:
+    """Storage rows of (M, B) env indices within each member's N rows."""
+    offset = torch.arange(env_idx.shape[0], device=env_idx.device)[:, None] * num_envs
+    return env_idx + offset
+
+
 def write_row(storage: RingStorage, cursor: int, transition: Transition) -> None:
     """Write one vector step at slot ``cursor``, in place."""
     storage.obs[cursor].copy_(transition.obs)
@@ -93,7 +103,8 @@ class ReplayState:
 
 
 class UniformReplay:
-    """Uniform-sampling per-env ring buffer."""
+    """Uniform-sampling per-env ring buffer; with ``members`` M, the buffers
+    of M population members of ``num_envs`` envs each."""
 
     kind = "uniform"
 
@@ -104,6 +115,7 @@ class UniformReplay:
         gamma: float = 0.99,
         n_step: int = 1,
         truncation_bootstrap: bool = True,
+        members: Optional[int] = None,
     ):
         if capacity_per_env < 1:
             raise ValueError("capacity_per_env must be >= 1")
@@ -114,11 +126,13 @@ class UniformReplay:
         self.gamma = gamma
         self.n_step = n_step
         self.truncation_bootstrap = truncation_bootstrap
+        self.members = members
+        self.rows = num_envs * (members or 1)
 
     def init(self, example: Transition) -> ReplayState:
-        if example.obs.shape[0] != self.num_envs:
+        if example.obs.shape[0] != self.rows:
             raise ValueError(
-                f"example leaves must be batched (num_envs={self.num_envs}), "
+                f"example leaves must be batched ({self.rows} env rows), "
                 f"got obs shape {tuple(example.obs.shape)}"
             )
         return ReplayState(
@@ -143,21 +157,28 @@ class UniformReplay:
     ):
         """``(LearnBatch, None, ones)``.  Slots are drawn in age order so the
         n-step window never crosses the write cursor; ``beta`` is ignored
-        (uniform sampling has unit weights)."""
+        (uniform sampling has unit weights).  With members: B draws from
+        each member's rows, ``gamma`` (M,) float32 (each member's, required),
+        and every leaf (M, B, ...)."""
         device = state.storage.aux.device
-        env_idx = torch.randint(
-            0, self.num_envs, (batch_size,), generator=generator, device=device
-        )
+        shape = (batch_size,) if self.members is None else (self.members, batch_size)
+        env_idx = torch.randint(0, self.num_envs, shape, generator=generator, device=device)
         max_rank = max(state.filled - (self.n_step - 1), 1)
-        rank = torch.randint(0, max_rank, (batch_size,), generator=generator, device=device)
+        rank = torch.randint(0, max_rank, shape, generator=generator, device=device)
         start = (state.cursor - state.filled) % self.capacity_per_env
         slot_idx = (start + rank) % self.capacity_per_env
+        if self.members is None:
+            batch = assemble_learn_batch(
+                state.storage, env_idx, slot_idx,
+                self.gamma if gamma is None else gamma,
+                self.n_step, self.truncation_bootstrap,
+            )
+            return batch, None, torch.ones((batch_size,), device=device)
         batch = assemble_learn_batch(
-            state.storage, env_idx, slot_idx,
-            self.gamma if gamma is None else gamma,
-            self.n_step, self.truncation_bootstrap,
+            state.storage, member_rows(env_idx, self.num_envs).reshape(-1), slot_idx.reshape(-1),
+            gamma.repeat_interleave(batch_size), self.n_step, self.truncation_bootstrap,
         )
-        return batch, None, torch.ones((batch_size,), device=device)
+        return split_members(batch, self.members), None, torch.ones(shape, device=device)
 
-    def update_priorities(self, state: ReplayState, info, td_errors) -> ReplayState:
+    def update_priorities(self, state: ReplayState, info, td_errors, mask=None) -> ReplayState:
         return state  # uniform replay has no priorities

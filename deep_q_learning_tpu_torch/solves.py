@@ -4,6 +4,7 @@ env-step budget is spent, at the CLI's default ``--log-every 10``.
 
     python -m deep_q_learning_tpu_torch.solves [--group classic|lunar] [--out DIR]
     python -m deep_q_learning_tpu_torch.solves --preset P --seeds 4,5,6 [--device cpu]
+    python -m deep_q_learning_tpu_torch.solves --population 10 [--seeds 0] [--out DIR]
 
 ``classic``: ``cartpole_vector`` at seeds 0, 1, 2, 3 in turn (42M env steps
 each) until two have solved; ``acrobot_vector`` at seed 0 (4M), and seed 1
@@ -22,6 +23,15 @@ power limit.  Without CUDA the first ``train`` fails and so does this.
 ``--preset P --seeds S,...`` runs those seeds of one preset of a group, all
 of them, at the preset's budget: a solve rate over more seeds.  ``--device
 cpu`` runs on the host instead (the summary's card is then ``cpu``).
+
+``--population M``: ``lunar_per`` (or ``--preset``, one of ``POPULATION``)
+as one population of M members with the preset's hyperparameters and
+member seeds derived from the first of ``--seeds`` (default 0), through
+``PopulationTrainer``, until every member's window has reached the solve
+threshold or the budget per member is spent.  Each member's env steps at
+its first solved superstep, then a greedy evaluation of every member (20
+episodes each) go to ``DIR/<preset>_population<M>.json``, with the members'
+windows every 10 supersteps and the aggregate env-steps/s.
 """
 
 from __future__ import annotations
@@ -42,6 +52,10 @@ GROUPS = {
     ],
     "lunar": [("lunar_per_scaled", 63_000_000, (0,), 1)],
 }
+# --population: preset -> budget per member (the JAX package's 10-member
+# lunar_per population reached window 200 at 4.21M-7.09M env steps a member)
+POPULATION = {"lunar_per": 8_000_000}
+POPULATION_EVAL_ENVS = 20
 
 
 def card_line() -> str:
@@ -88,20 +102,94 @@ def solve(preset: str, seed: int, budget: int, out: Path, card: str, device: str
     }
 
 
+def population(preset: str, members: int, seed: int, out: Path, card: str, device: str) -> dict:
+    """One population of ``members`` of ``preset`` to the solve threshold or
+    the budget; per-member steps to solve and greedy evaluation."""
+    import time
+
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.config import PRESETS
+    from deep_q_learning_tpu_torch.parallel import PopulationTrainer
+
+    cfg, budget = PRESETS[preset](), POPULATION[preset]
+    trainer = PopulationTrainer(cfg, members, eval_envs=POPULATION_EVAL_ENVS, device=device)
+    runner = trainer.init(seed)
+    per_superstep = cfg.steps_per_superstep * cfg.num_envs
+    solved_at = [None] * members
+    curve = []
+    t0 = time.time()
+    path = out / f"{preset}_population{members}.json"
+    for i in range(1, -(-budget // per_superstep) + 1):
+        runner, m = trainer.step(runner)
+        for k in np.flatnonzero(m.solved):
+            if solved_at[k] is None:
+                solved_at[k] = i * per_superstep
+        if i % 10 == 0:
+            curve.append({"env_steps": i * per_superstep, "wall_s": time.time() - t0,
+                          "window_mean": m.window_mean.tolist()})
+            print(json.dumps(curve[-1]), flush=True)
+            with open(path, "w") as f:  # the run so far, should it be cut
+                json.dump({"preset": preset, "members": members, "curve": curve}, f)
+        if all(s is not None for s in solved_at):
+            break
+    wall = time.time() - t0
+    ev = trainer.evaluate(runner, seed=seed + 1)
+    rec = {
+        "preset": preset,
+        "members": members,
+        "seed": seed,
+        "budget_per_member": budget,
+        "env_steps_per_member": i * per_superstep,
+        "aggregate_env_steps": i * per_superstep * members,
+        "wall_s": wall,
+        "aggregate_env_steps_per_s": i * per_superstep * members / wall,
+        "threshold": cfg.solve_threshold,
+        "solved": sum(s is not None for s in solved_at),
+        "steps_to_solve": solved_at,
+        "final_window_mean": m.window_mean.tolist(),
+        "eval_mean": ev.returns.mean(axis=1).tolist(),
+        "eval_returns": ev.returns.tolist(),
+        "eval_truncated": ev.truncated.sum(axis=1).tolist(),
+        "card": card,
+        "curve": curve,
+    }
+    with open(path, "w") as f:
+        json.dump(rec, f)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m deep_q_learning_tpu_torch.solves")
     ap.add_argument("--group", choices=sorted(GROUPS), default="classic")
     ap.add_argument("--out", type=Path, default=Path("runs/solves"))
-    ap.add_argument("--preset", choices=sorted(p for g in GROUPS.values() for p, *_ in g),
+    ap.add_argument("--preset", choices=sorted({p for g in GROUPS.values() for p, *_ in g}
+                                               | set(POPULATION)),
                     help="with --seeds: run these seeds of this preset, every one")
     ap.add_argument("--seeds", type=lambda s: tuple(int(x) for x in s.split(",")))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--population", type=int, metavar="M",
+                    help="train M members of --preset (default lunar_per) as one population")
     args = ap.parse_args(argv)
+    if args.population:
+        preset = args.preset or "lunar_per"
+        if preset not in POPULATION:
+            ap.error(f"--population runs {sorted(POPULATION)}")
+        args.out.mkdir(parents=True, exist_ok=True)
+        card = card_line() if args.device.startswith("cuda") else args.device
+        print(card, flush=True)
+        rec = population(preset, args.population, (args.seeds or (0,))[0], args.out, card,
+                         args.device)
+        print(json.dumps({k: v for k, v in rec.items() if k not in ("curve", "eval_returns")}))
+        return 0
     runs = GROUPS[args.group]
     if args.preset:
         if not args.seeds:
             ap.error("--preset needs --seeds")
-        budget = {p: b for g in GROUPS.values() for p, b, *_ in g}[args.preset]
+        budgets = {p: b for g in GROUPS.values() for p, b, *_ in g}
+        if args.preset not in budgets:
+            ap.error(f"--preset {args.preset} runs with --population")
+        budget = budgets[args.preset]
         runs = [(args.preset, budget, args.seeds, len(args.seeds))]
     args.out.mkdir(parents=True, exist_ok=True)
     card = card_line() if args.device.startswith("cuda") else args.device

@@ -1,7 +1,9 @@
 """The port's CLI (``python -m deep_q_learning_tpu_torch``): config
-overrides, the presets listing, the options it refuses, and a tiny
+overrides, the presets listing, the options it refuses, a tiny
 train -> resume -> eval round trip on ``--device cpu`` (as
-``tests/test_cli.py`` drives the JAX package's CLI)."""
+``tests/test_cli.py`` drives the JAX package's CLI), and ``hpo``, whose
+first round of parameters comes from the seed alone and so equals the JAX
+CLI's."""
 
 import dataclasses
 import json
@@ -9,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from deep_q_learning_tpu.__main__ import build_config as jax_build_config
@@ -51,12 +54,12 @@ def test_presets_listing(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["hpo", "--preset", "lunar_per", "--trials", "2"], "item H"),
+    (["train", "--preset", "lunar_per", "--distributed", "--quiet"], "item I"),
     (["train", "--preset", "lunar_per", "--distributed"], "item I"),
     (["train", "--preset", "lunar_per", "--aot-cache", "x"], "by design"),
     (["eval", "--preset", "lunar_per", "--workdir", "x", "--rollout-dir", "y"], "item G"),
     (["eval", "--preset", "lunar_per", "--workdir", "x", "--rollouts", "2"], "item G"),
-    (["hpo", "--preset", "lunar_per", "--quiet"], "item H"),
+    (["eval", "--preset", "lunar_per", "--workdir", "x", "--render", "gif"], "item G"),
 ])
 def test_options_not_ported_are_refused(argv, item):
     with pytest.raises(SystemExit, match=item):
@@ -148,3 +151,38 @@ def test_solves_drive_the_cli(argv, trains, tmp_path, monkeypatch):
     assert [(r["preset"], r["seed"]) for r in summary] == [t[:2] for t in trains]
     assert all(r["card"] == "cpu" and r["env_steps_per_s"] == 5.0 for r in summary)
     assert [r["greedy_eval"] is not None for r in summary] == [r["solved"] for r in summary]
+
+
+HPO_SETS = ["--set", "num_envs=8", "--set", "steps_per_superstep=8", "--set", "hidden=16,16",
+            "--set", "batch_size=16", "--set", "buffer_capacity=512", "--set", "training_start=32",
+            "--set", "return_window=8", "--set", "max_steps_in_episode=20"]
+
+
+@pytest.mark.parametrize("population", [1, 2])
+def test_cli_hpo_writes_the_history_and_the_jax_first_round(population, tmp_path, capsys,
+                                                            monkeypatch):
+    """``hpo`` on the CPU: one history line a trial and the final JSON line.
+    The first round's parameters come from the seed's ``rng.rand`` alone, so
+    they equal the JAX CLI's (whose objective is stubbed here: only the
+    parameters are compared)."""
+    from deep_q_learning_tpu.__main__ import main as jax_main
+    from deep_q_learning_tpu.hpo import bayesopt as jax_bo
+
+    argv = ["hpo", "--preset", "lunar_per", "--space", "lunar", "--trials", "4",
+            "--population", str(population), "--steps-per-trial", "128", "--seed", "3",
+            "--quiet", *HPO_SETS]
+    assert main([*argv, "--device", "cpu", "--history-out", str(tmp_path / "port.jsonl")]) == 0
+    result = _last_json(capsys)
+    ours = [json.loads(line) for line in open(tmp_path / "port.jsonl")]
+    assert len(ours) == 4 and all(np.isfinite(t["objective"]) for t in ours)
+    assert result["best_objective"] == max(t["objective"] for t in ours)
+
+    def stub(*args, **kwargs):
+        return lambda c: [0.0] * len(c) if isinstance(c, list) else 0.0
+
+    monkeypatch.setattr(jax_bo, "make_population_objective", stub)
+    monkeypatch.setattr(jax_bo, "make_dqn_objective", stub)
+    assert jax_main([*argv, "--history-out", str(tmp_path / "jax.jsonl")]) == 0
+    theirs = [json.loads(line) for line in open(tmp_path / "jax.jsonl")]
+    first = population if population > 1 else 4  # optimize: its random init trials
+    assert [t["params"] for t in ours[:first]] == [t["params"] for t in theirs[:first]]

@@ -1,8 +1,9 @@
 """The port's configuration (``deep_q_learning_tpu_torch/config.py``) against
 the JAX package's (``deep_q_learning_tpu/config.py``): the port keeps its
 own copy of the schema and presets, and the two must stay equal, field for
-field and preset for preset.  Importing the port and its CLI must load no
-module of the JAX package and no jax."""
+field and preset for preset.  Importing the port, its CLI and its
+population and hpo modules must load no module of the JAX package and no
+jax."""
 
 import dataclasses
 import subprocess
@@ -62,6 +63,7 @@ def test_shape_affecting_fields_and_mismatches_agree():
 def test_import_loads_nothing_of_the_jax_package():
     code = (
         "import sys, deep_q_learning_tpu_torch, deep_q_learning_tpu_torch.__main__\n"
+        "import deep_q_learning_tpu_torch.parallel, deep_q_learning_tpu_torch.hpo\n"
         "from pathlib import Path\n"
         "jax_pkg = (Path.cwd() / 'deep_q_learning_tpu').resolve()\n"
         "bad = [name for name, m in list(sys.modules.items())\n"

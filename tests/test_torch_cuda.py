@@ -13,7 +13,10 @@ dyadic priorities (every sum exact in any order); on random priorities a
 slot may differ only where every prefix between the two slots lies within
 8 float32 ulps of the row total of the plain version's draw, and in under
 1 % of at least 1024 draws; the slots are bitwise the same from call to
-call."""
+call.  With a population's member axis: each member's loss, td and dQ
+bitwise its own unbatched call, and one slot launch over every member's
+rows bitwise M per-member calls; a population learner update on the GPU
+vs the CPU at rtol 1e-4."""
 
 import dataclasses
 
@@ -169,6 +172,145 @@ def test_learner_update_on_gpu_matches_cpu(cuda):
     torch.testing.assert_close(td_g, td_c, rtol=1e-4, atol=1e-5)
     for pc, pg in zip(ts_c.online.parameters(), ts_g.online.parameters()):
         torch.testing.assert_close(pg.detach().cpu(), pc.detach(), rtol=1e-4, atol=1e-6)
+
+
+def _member_inputs(m, b, a, seed, device):
+    """Member-axis inputs as a population's learner gives them: ``q_s`` and
+    ``q_next_online`` the halves of one (M, 2B, A) ``q_both``."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=device)  # noqa: E731
+    q_both = f(m, 2 * b, a)
+    return [
+        q_both[:, :b], q_both[:, b:], f(m, b, a),
+        torch.tensor(rng.integers(0, a, (m, b)).astype(np.int32), device=device),
+        f(m, b),
+        torch.tensor((0.97 * (rng.random((m, b)) > 0.3)).astype(np.float32), device=device),
+        f(m, b).abs() + 0.1,
+    ]
+
+
+@pytest.mark.parametrize("m,b,a", [(8, 256, 4), (10, 256, 4), (8, 1024, 4), (3, 37, 4), (2, 300, 2)])
+def test_td_kernel_member_axis_matches_plain(cuda, m, b, a):
+    """One launch each way for M members: against the plain versions, and
+    each member bitwise equal to its own unbatched call."""
+    args = _member_inputs(m, b, a, seed=m * b + a, device=cuda)
+    td_kernels.reset_counts()
+    loss, td = td_loss_fwd(*args, 1.0, True)
+    g = torch.rand((m,), device=cuda) + 0.5
+    dq = td_loss_bwd(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+    assert td_kernels.launches == {"td_loss_fwd": 1, "td_loss_bwd": 1}
+    ref_loss, ref_td = td_loss_reference(*args, 1.0, True)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(td, ref_td, rtol=1e-5, atol=1e-6)
+    want = td_loss_backward_reference(td, args[3], args[6], g, a, 1.0, out_rows=2 * b)
+    torch.testing.assert_close(dq, want, rtol=1e-5, atol=1e-7)
+    assert dq.shape == (m, 2 * b, a) and not dq[:, b:].any()
+    for k in range(m):
+        one_loss, one_td = td_loss_fwd(*[x[k].contiguous() for x in args], 1.0, True)
+        one_dq = td_loss_bwd(one_td, args[3][k], args[6][k], g[k].contiguous(), a, 1.0,
+                             out_rows=2 * b)
+        assert torch.equal(one_loss, loss[k]) and torch.equal(one_td, td[k])
+        assert torch.equal(one_dq, dq[k])
+    _, ticket = td_kernels.fwd_scratch(cuda)
+    assert int(ticket) == 0
+
+
+def test_td_kernel_member_loss_is_bitwise_stable(cuda):
+    """M = 8 members of 4 blocks each (one ticket over the grid): 100 calls
+    and a CUDA-graph replay give the same loss and td bit for bit, and the
+    ticket counter is back at 0."""
+    args = _member_inputs(8, 1024, 4, seed=4, device=cuda)
+    loss0, td0 = td_loss_fwd(*args, 1.0, True)
+    for _ in range(100):
+        loss, td = td_loss_fwd(*args, 1.0, True)
+        assert torch.equal(loss, loss0) and torch.equal(td, td0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        td_loss_fwd(*args, 1.0, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [td_loss_fwd(*args, 1.0, True) for _ in range(10)]
+    graph.replay()
+    torch.cuda.synchronize()
+    _, ticket = td_kernels.fwd_scratch(cuda)
+    assert int(ticket) == 0
+    assert all(torch.equal(lo, loss0) and torch.equal(t, td0) for lo, t in outs)
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_slot_kernel_over_members_equals_separate_calls(cuda, dyadic):
+    """lunar_per's PER at 8 members, (M·N, C, M·B) = (1024, 4096, 2048): one
+    launch over every member's rows gives bitwise the slots of 8 calls on
+    each member's own (N, C) rows."""
+    m, n, c, b = 8, 128, 4096, 256
+    p, _, _ = _slot_inputs(m * n, c, 8, seed=21, dyadic=dyadic, device=cuda)
+    rng = np.random.default_rng(22)
+    env = torch.tensor(rng.integers(0, n, (m, b)), device=cuda)
+    u = torch.tensor(rng.random((m, b)).astype(np.float32), device=cuda)
+    sample_kernels.reset_counts()
+    got = sample_kernels.slot_select_members(p, env, u)
+    assert sample_kernels.launches == {"per_slot_sample": 1}
+    each = torch.stack([slot_select(p[k * n:(k + 1) * n].contiguous(), env[k], u[k].contiguous())
+                        for k in range(m)])
+    assert torch.equal(got, each)
+    if dyadic:
+        flat = (env + torch.arange(m, device=cuda)[:, None] * n).reshape(-1)
+        assert torch.equal(got.reshape(-1), slot_select_reference(p, flat, u.reshape(-1)))
+
+
+def test_population_update_on_gpu_matches_cpu(cuda):
+    """One population learner update (3 members, lunar_per's learner at batch
+    256, per-member learning rates, member 1's gate closed) on the GPU
+    against the CPU: rtol 1e-4; member 1 unchanged on both.  Each member's
+    parameters atol a tenth of its learning rate: Adam's first step moves
+    an element by lr · g / (|g| + 1e-8), so where |g| is within a few 1e-8
+    of 0 the step depends on the gradient's last bits, and the GPU sums the
+    batch in another order than the CPU."""
+    from deep_q_learning_tpu_torch.algos import build_update_step, init_train_state, make_optimizer
+    from deep_q_learning_tpu_torch.algos.dqn import MemberHyperParams
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.models import MemberQNetwork
+    from deep_q_learning_tpu_torch.replay.nstep import LearnBatch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, m, b = lunar_per(), 3, 256
+    rng = np.random.default_rng(1)
+    batch = dict(
+        obs=rng.standard_normal((m, b, 9)), action=rng.integers(0, 4, (m, b)),
+        reward=rng.standard_normal((m, b)), next_obs=rng.standard_normal((m, b, 9)),
+        bootstrap=0.97 * (rng.random((m, b)) > 0.2),
+    )
+    weights = rng.random((m, b)) + 0.1
+    lrs = [1e-4, 3e-4, 1e-3]
+    results = []
+    for device in ("cpu", cuda):
+        net = MemberQNetwork(m, 9, 4, hidden=cfg.hidden,
+                             generators=[torch.Generator().manual_seed(k) for k in range(m)])
+        init = [p.detach().clone() for p in net.parameters()]
+        opt = make_optimizer(cfg)
+        ts = init_train_state(net.to(device), opt)
+        hyper = MemberHyperParams.from_config(cfg, m, device)
+        hyper.learning_rate = torch.tensor(lrs, device=device)
+        lb = LearnBatch(**{
+            k: torch.tensor(v, dtype=torch.int32 if k == "action" else torch.float32, device=device)
+            for k, v in batch.items()
+        })
+        td_kernels.reset_counts()
+        ts, loss, td = build_update_step(opt, cfg)(
+            ts, lb, torch.tensor(weights, dtype=torch.float32, device=device), hyper,
+            [True, False, True])
+        results.append((ts, loss.cpu(), td.cpu()))
+    assert td_kernels.launches == {"td_loss_fwd": 1, "td_loss_bwd": 1}
+    (ts_c, loss_c, td_c), (ts_g, loss_g, td_g) = results
+    assert ts_g.opt_state.count == ts_c.opt_state.count == [1, 0, 1]
+    torch.testing.assert_close(loss_g, loss_c, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(td_g, td_c, rtol=1e-4, atol=1e-5)
+    for pc, pg, p0 in zip(ts_c.online.parameters(), ts_g.online.parameters(), init):
+        for k, lr in enumerate(lrs):
+            torch.testing.assert_close(pg[k].detach().cpu(), pc[k].detach(), rtol=1e-4, atol=lr / 10)
+        assert torch.equal(pg[1].detach().cpu(), p0[1])
 
 
 def _slot_inputs(n, c, b, seed, dyadic, device):

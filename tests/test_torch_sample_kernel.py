@@ -14,6 +14,10 @@ Tolerances:
   draws (at C = 20000 the float32 prefix sums of either side miss the exact
   count in a few draws of a thousand).
 * The whole sampler: indices exact, importance weights rtol 1e-6.
+* A population's members: one call over every member's rows (M·N, C)
+  against the Pallas sampler vmapped over the members, each member's
+  slot uniforms from its own key: exact on dyadic priorities; and equal to
+  M separate calls.
 """
 
 import functools
@@ -31,7 +35,11 @@ from deep_q_learning_tpu.ops.sample_kernels import _slot_kernel, prioritized_sam
 from deep_q_learning_tpu.replay import PrioritizedReplay as JaxPER
 from deep_q_learning_tpu_torch.envs.base import Transition
 from deep_q_learning_tpu_torch.ops import sample_kernels
-from deep_q_learning_tpu_torch.ops.sample_kernels import slot_select, slot_select_reference
+from deep_q_learning_tpu_torch.ops.sample_kernels import (
+    slot_select,
+    slot_select_members,
+    slot_select_reference,
+)
 from deep_q_learning_tpu_torch.replay import PrioritizedReplay
 
 ULPS = 8
@@ -203,3 +211,35 @@ def test_sampler_with_kernel_matches_jax_pallas_sampler(adds, b):
         np.testing.assert_array_equal(
             getattr(batch_t, name).numpy(), np.asarray(getattr(batch_j, name))
         )
+
+
+@pytest.mark.parametrize("m,n,c,b", [(3, 5, 200, 37), (2, 16, 512, 64), (3, 4, 37, 16)])
+def test_members_in_one_call_match_vmapped_pallas(m, n, c, b):
+    rng = np.random.default_rng(m * n + c)
+    p = np.stack([dyadic_priorities(rng, n, c) for _ in range(m)])
+    p[1, 2] = 0.0  # an all-zero row
+    keys = jax.random.split(jax.random.PRNGKey(c), m)
+    env_j, slot_j, _ = jax.vmap(lambda pk, k: prioritized_sample_pallas(pk, k, b, interpret=True))(
+        jnp.asarray(p), keys)
+    u = np.stack([u_slot_of(k, b) for k in keys])
+    env = torch.tensor(np.asarray(env_j), dtype=torch.int64)
+    flat_p = torch.tensor(p.reshape(m * n, c))
+    sample_kernels.reset_counts()
+    got = slot_select_members(flat_p, env, torch.tensor(u))
+    assert sample_kernels.plain_calls == {"per_slot_sample": 1}
+    np.testing.assert_array_equal(got.numpy(), np.asarray(slot_j))
+    each = [port_slots(p[k], np.asarray(env_j)[k], u[k]) for k in range(m)]
+    np.testing.assert_array_equal(got.numpy(), np.stack(each))
+
+
+def test_members_keep_rows_outside_a_member_empty():
+    """An index outside [0, N) of a member selects no row, not a row of
+    the next member."""
+    p = torch.tensor(dyadic_priorities(np.random.default_rng(1), 6, 40, zero_frac=0.0))
+    env = torch.tensor([[-1, 3, 1], [3, -1, 0]])
+    u = torch.full((2, 3), 0.6)
+    got = slot_select_members(p, env, u)
+    assert got[0, 0] == 0 and got[1, 0] == 0 and got[1, 1] == 0
+    assert got[0, 1] == port_slots(p[:3].numpy(), np.array([3]), np.array([0.6], np.float32))[0]
+    with pytest.raises(ValueError, match="multiple"):
+        slot_select_members(p[:5], env, u)

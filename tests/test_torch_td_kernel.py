@@ -7,6 +7,10 @@ loss function around it is held to ``build_pallas_loss_fn`` through the
 network's parameters.  Batches of 300 and 512 rows cover the shapes that
 take several blocks of the CUDA forward kernel.
 
+A population's member axis (``q_both`` (M, 2B, A), one loss a member) is
+held to ``jax.vmap`` of the Pallas kernel in interpret mode and of its
+``jax.grad``, as the JAX population runs it.
+
 Tolerances: loss and td rtol 1e-5 (float32, different summation order for
 the loss); dQ and parameter gradients vs ``jax.grad`` rtol 1e-4, as
 tests/test_td_kernel.py holds the Pallas kernel to the jnp path.  The CUDA
@@ -204,3 +208,51 @@ def test_cpu_learner_update_runs_no_slice_backward():
     assert td_kernels.plain_calls == {"td_loss_fwd": 1, "td_loss_bwd": 1}
     assert ops.get("aten::addmm", 0) > 0, "the profiler saw the update"
     assert "aten::slice_backward" not in ops, ops
+
+
+@pytest.mark.parametrize("m,b,a", [(3, 37, 4), (2, 300, 4), (4, 64, 2)])
+@pytest.mark.parametrize("double", [True, False])
+def test_member_axis_matches_vmapped_pallas(m, b, a, double):
+    """``FusedTDLoss`` on a member-stacked ``q_both`` against the Pallas
+    kernel vmapped over the members (the batching rule lifts the member
+    into its grid) and the vmapped ``jax.grad``; one plain call each way
+    for all members."""
+    xs = [_inputs(b, a, seed=100 * m + b + k) for k in range(m)]
+    x = {k: np.stack([xi[k] for xi in xs]) for k in ORDER}
+    args = [jnp.asarray(x[k]) for k in ORDER]
+    loss_j, td_j = jax.vmap(lambda *z: fused_td_loss(*z, 1.0, double, True))(*args)
+    dq_j = jax.vmap(jax.grad(lambda q, *z: fused_td_loss(q, *z, 1.0, double, True)[0]))(*args)
+
+    q_s, q_no, *rest = _torch(x)
+    q_both = torch.cat([q_s, q_no], dim=1).requires_grad_(True)
+    td_kernels.reset_counts()
+    loss, td = FusedTDLoss.apply(q_both, b, *rest, 1.0, double)
+    (dq,) = torch.autograd.grad(loss.sum(), q_both)
+    assert td_kernels.plain_calls == {"td_loss_fwd": 1, "td_loss_bwd": 1}
+    assert loss.shape == (m,) and td.shape == (m, b) and dq.shape == (m, 2 * b, a)
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(loss_j), rtol=1e-5)
+    np.testing.assert_allclose(td.numpy(), np.asarray(td_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(dq[:, :b].numpy(), np.asarray(dq_j), rtol=1e-4, atol=1e-7)
+    assert not dq[:, b:].any(), "each member's s' half is stopped"
+
+
+def test_member_axis_wrapper_checks():
+    """The member axis: the halves of one q_both are taken in place (each
+    member's rows contiguous, one member stride), other layouts refused;
+    work grows with the members."""
+    x = {k: np.stack([_inputs(16, 4, seed=k2)[k] for k2 in range(2)]) for k in ORDER}
+    q_s, q_no, q_nt, action, reward, bootstrap, weights = _torch(x)
+    q_both = torch.cat([q_s, q_no], dim=1)
+    loss, td = td_loss_fwd(q_both[:, :16], q_both[:, 16:], q_nt, action, reward, bootstrap, weights)
+    assert loss.shape == (2,) and td.shape == (2, 16)
+    with pytest.raises(ValueError, match="member stride"):
+        td_loss_fwd(q_both[:, :16], q_no, q_nt, action, reward, bootstrap, weights)
+    with pytest.raises(ValueError, match="contiguous"):
+        td_loss_fwd(q_s.transpose(1, 2).contiguous().transpose(1, 2), q_no, q_nt, action, reward,
+                    bootstrap, weights)
+    with pytest.raises(ValueError, match="shape"):
+        td_loss_fwd(q_s, q_no, q_nt, action[:1], reward, bootstrap, weights)
+    assert td_kernels.td_loss_fwd_work(256, 4, members=8) == tuple(
+        8 * w for w in td_kernels.td_loss_fwd_work(256, 4))
+    assert td_kernels.td_loss_bwd_work(256, 4, 512, members=8) == tuple(
+        8 * w for w in td_kernels.td_loss_bwd_work(256, 4, 512))
