@@ -69,6 +69,23 @@ Phases (each raises on failure, so any failure exits non-zero):
      finite, a greedy evaluation of every member; one population learner
      update card vs CPU; aggregate env-steps/s, launches per vector step
      and peak memory; then the command line's ``hpo --population 4``;
+ 10. runs over ranks and rollouts: first the kernels at a rank's shapes
+     (K1/K2 at B = 128, K3 at (64, 8192, 128)) against their plain versions
+     and timed; (a) world size 1 on NCCL: one superstep of
+     ``DistributedTrainer`` equal bitwise to ``Trainer``'s, ``lunar_per``
+     at full width with the PER slot kernel cut in depth only
+     (``DIST_SETS``: 2 supersteps of 32 vector steps, learning from 2048
+     stored transitions), each kernel launched once per update round and no
+     plain call, a profiled steady superstep (launches per vector step,
+     busy share, the ``grad_all_reduce`` span), then the same through
+     ``train --distributed`` with checkpoints and ``--resume`` in processes
+     of their own; (b) two gloo ranks sharing the card (CUDA tensors), 64
+     landers and a batch of 128 each: learners bitwise equal, each rank's
+     kernels launched once per update round, the combined counters as in
+     (a); (c) ``multihost_ddqn`` at full width (8192 landers) for 2
+     supersteps of 16 vector steps; (d) ``dryrun_multichip(2)`` on the
+     card; (e) ``eval --rollout-dir --rollouts 2 --render gif`` of phase
+     6's checkpoint (a figure it cannot draw is reported, not written);
 then print the kernels' record as one JSON line (with each kernel's bound,
 ``bound_ms``), then the result line.
 
@@ -78,6 +95,7 @@ without printing a result where CUDA is absent.
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -688,12 +706,12 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
     return launches
 
 
-def run_cli(card):
+def run_cli(card, workdir):
     """Phase 6: train one superstep with a checkpoint, resume for one more,
     then evaluate the last checkpoint, each as ``python -m
-    deep_q_learning_tpu_torch``."""
+    deep_q_learning_tpu_torch``; the checkpoints stay in ``workdir`` for
+    phase 10."""
     per_superstep = 128 * 1024
-    (REPO / "build").mkdir(exist_ok=True)
 
     def cli(*args):
         t0 = time.perf_counter()
@@ -708,20 +726,19 @@ def run_cli(card):
               f"({time.perf_counter() - t0:.1f} s with start-up)")
         return out
 
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as workdir:
-        common = ["--preset", "lunar_per_scaled", "--workdir", workdir]
-        for item in SCALED_SETS:
-            common += ["--set", item]
-        first = cli("train", *common, "--max-env-steps", str(per_superstep),
-                    "--checkpoint-every", "1", "--log-every", "1", "--quiet")
-        assert first["env_steps"] == per_superstep and first["updates"] > 0, first
-        resumed = cli("train", *common, "--resume", "--max-env-steps", str(2 * per_superstep),
-                      "--checkpoint-every", "1", "--log-every", "1", "--quiet")
-        assert resumed["env_steps"] == 2 * per_superstep, resumed
-        assert resumed["updates"] > first["updates"] and resumed["episodes"] >= first["episodes"]
-        report = cli("eval", *common)
-        assert report["step"] == 2 * per_superstep and report["episodes"] == 128, report
-        assert math.isfinite(report["return_mean"]) and report["length_mean"] > 0, report
+    common = ["--preset", "lunar_per_scaled", "--workdir", workdir]
+    for item in SCALED_SETS:
+        common += ["--set", item]
+    first = cli("train", *common, "--max-env-steps", str(per_superstep),
+                "--checkpoint-every", "1", "--log-every", "1", "--quiet")
+    assert first["env_steps"] == per_superstep and first["updates"] > 0, first
+    resumed = cli("train", *common, "--resume", "--max-env-steps", str(2 * per_superstep),
+                  "--checkpoint-every", "1", "--log-every", "1", "--quiet")
+    assert resumed["env_steps"] == 2 * per_superstep, resumed
+    assert resumed["updates"] > first["updates"] and resumed["episodes"] >= first["episodes"]
+    report = cli("eval", *common)
+    assert report["step"] == 2 * per_superstep and report["episodes"] == 128, report
+    assert math.isfinite(report["return_mean"]) and report["length_mean"] > 0, report
     print(f"  CLI train -> resume -> eval on the card: ok [{card}]")
 
 
@@ -907,16 +924,9 @@ def steady_launches(torch, cfg) -> float:
     from deep_q_learning_tpu_torch.train import Trainer
 
     short = dataclasses.replace(cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0)
-    trainer = Trainer(short, device="cuda").init(seed=1)
-    trainer.step()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        m = trainer.step()
-        torch.cuda.synchronize()
-    assert m.loss_count == LAUNCH_STEPS * cfg.updates_per_step
-    return sum(e.count for e in prof.key_averages()
-               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))) / LAUNCH_STEPS
+    steady = profile_steady(torch, Trainer(short, device="cuda").init(seed=1), LAUNCH_STEPS)
+    assert steady["updates"] == LAUNCH_STEPS * cfg.updates_per_step
+    return steady["launches_per_step"]
 
 
 def run_classic(torch, td_kernels, sample_kernels, preset, card):
@@ -1211,6 +1221,392 @@ def run_hpo_cli(card):
           f"{[round(rec['objective'], 2) for rec in lines]}, best {result['best_objective']:.2f} "
           f"({time.perf_counter() - t0:.1f} s with start-up) [{card}]")
 
+# phase 10: runs over ranks and rollouts.  (a) and (b) run lunar_per at full
+# width (128 landers, dueling (256, 256), PER (128, 4096), batch 256) with the
+# PER slot kernel, cut in depth only: supersteps of 32 vector steps, learning
+# from 2048 stored transitions (vector step 16), so vector steps 16..64 of two
+# supersteps train
+DIST_SETS = ["use_pallas_sampler=true", "steps_per_superstep=32", "training_start=2048"]
+DIST_SUPERSTEPS = 2
+DIST_ROUNDS = DIST_SUPERSTEPS * 32 - 2048 // 128 + 1
+DIST_RANKS = 2  # (b): two gloo ranks that share the one card
+# (c) multihost_ddqn at full width (8192 rigid landers, uniform replay 2^19);
+# its training_start of 20,000 transitions opens at vector step 3
+MULTIHOST_CUTS = dict(steps_per_superstep=16)
+MULTIHOST_SUPERSTEPS = 2
+ROLLOUTS = 2
+# runs `python -m deep_q_learning_tpu_torch` in a process of its own and then
+# prints that process's kernel launches and plain calls
+CLI_COUNTS = (
+    "import json, sys\n"
+    "from deep_q_learning_tpu_torch.__main__ import main\n"
+    "from deep_q_learning_tpu_torch.ops import sample_kernels, td_kernels\n"
+    "rc = main(sys.argv[1:])\n"
+    "print(json.dumps({'launches': {**td_kernels.launches, **sample_kernels.launches},\n"
+    "                  'plain': {**td_kernels.plain_calls, **sample_kernels.plain_calls}}))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def dist_config():
+    from deep_q_learning_tpu_torch.__main__ import build_config
+
+    return build_config("lunar_per", DIST_SETS)
+
+
+def learner_digest(train) -> str:
+    """sha256 of the online and target weights, Adam's moments and count."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in [*train.online.parameters(), *train.target.parameters(), *train.opt_state.mu,
+              *train.opt_state.nu]:
+        h.update(t.detach().cpu().numpy().tobytes())
+    h.update(str(train.opt_state.count).encode())
+    return h.hexdigest()
+
+
+def profile_steady(torch, trainer, steps):
+    """Launches per vector step, the device's busy share of the wall and the
+    host time of the ``grad_all_reduce`` span per update, from torch.profiler
+    over one steady superstep of ``steps`` vector steps (after one to warm)."""
+    trainer.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        m = trainer.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "grad_all_reduce")
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    span = [e for e in events if e.key == "grad_all_reduce" and
+            e.device_type == torch.autograd.DeviceType.CPU]
+    span_us = span[0].cpu_time_total / max(m.loss_count, 1) if span else 0.0
+    return {"launches_per_step": launches / steps, "busy": busy_us / 1e6 / wall,
+            "all_reduce_us_per_update": span_us, "wall_per_update_us": wall * 1e6 / max(m.loss_count, 1),
+            "updates": m.loss_count}
+
+
+def all_reduce_us(torch, network, calls=200):
+    """Host µs per call of the update's gradient all-reduce
+    (``algos.dqn.all_reduce_mean`` over the default group) on gradients of
+    ``network``'s shapes, the card synchronised once after ``calls`` calls:
+    every rank calls it as often."""
+    import torch.distributed as dist
+
+    from deep_q_learning_tpu_torch.algos.dqn import all_reduce_mean
+
+    grads = [torch.randn_like(p) for p in network.parameters()]
+    loss = torch.zeros((), device=grads[0].device)
+    for _ in range(10):
+        all_reduce_mean(grads, loss, dist.group.WORLD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        all_reduce_mean(grads, loss, dist.group.WORLD)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def gloo_lunar_rank(shard, n, port):
+    """Phase 10 (b): one of two gloo ranks that share the card, on lunar_per
+    split in two (64 landers and a batch of 128 a rank)."""
+    import dataclasses
+
+    import torch
+
+    from deep_q_learning_tpu_torch.ops import sample_kernels, td_kernels
+    from deep_q_learning_tpu_torch.parallel import distributed_init
+    from deep_q_learning_tpu_torch.train import DistributedTrainer
+
+    distributed_init(f"localhost:{port}", n, shard, backend="gloo", device="cuda")
+    cfg = dist_config()
+    trainer = DistributedTrainer(cfg, device="cuda").init(seed=0)
+    assert trainer.device == torch.device("cuda", 0), trainer.device
+    # each rank's replay holds buffer_capacity transitions over its own envs,
+    # as a JAX shard's does: (64, 2^19 / 64) rows of priorities
+    assert trainer.runner.replay.priorities.shape == RANK_SLOT[:2], trainer.runner.replay.priorities.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.step() for _ in range(DIST_SUPERSTEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {
+        "metrics": [dataclasses.asdict(m) for m in metrics],
+        "updates": trainer.runner.train.updates,
+        "launches": dict(td_kernels.launches, **sample_kernels.launches),
+        "plain": dict(td_kernels.plain_calls, **sample_kernels.plain_calls),
+        "digest": learner_digest(trainer.runner.train),
+        "seconds": seconds,
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "all_reduce_us": all_reduce_us(torch, trainer.runner.train.online),
+    }
+    short = dataclasses.replace(cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0)
+    steady = DistributedTrainer(short, device="cuda").init(seed=1)
+    if shard == 0:
+        out["steady"] = profile_steady(torch, steady, LAUNCH_STEPS)
+    else:
+        steady.step()
+        steady.step()
+    return out
+
+
+def run_cli_counts(*args):
+    """``python -m deep_q_learning_tpu_torch`` in a process of its own: its
+    JSON summary and its kernel launches and plain calls."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_COUNTS, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=400)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CLI {args[0]} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    lines = proc.stdout.strip().splitlines()
+    return json.loads(lines[-2]), json.loads(lines[-1]), lines[:-2], time.perf_counter() - t0
+
+
+def run_distributed(torch, td_kernels, sample_kernels, card, cli_workdir):
+    """Phase 10: (a) world size 1 on NCCL, in this process and through the
+    command line; (b) two gloo ranks sharing the card; (c) multihost_ddqn at
+    full width; (d) dryrun_multichip(2); (e) eval --rollout-dir on phase 6's
+    checkpoint.  Returns (b)'s rank-0 kernel launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from deep_q_learning_tpu_torch.config import multihost_ddqn
+    from deep_q_learning_tpu_torch.parallel import distributed_init, dryrun_multichip, spawn_ranks
+    from deep_q_learning_tpu_torch.train import DistributedTrainer, Trainer
+
+    cfg = dist_config()
+    zero = {"td_loss_fwd": 0, "td_loss_bwd": 0, "per_slot_sample": 0}
+
+    # (a) in this process: world size 1 on NCCL
+    t_a = time.perf_counter()
+    distributed_init(device="cuda")
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    short = dataclasses.replace(cfg, steps_per_superstep=2, training_start=0)
+    single, ranked = Trainer(short, device="cuda").init(seed=0), DistributedTrainer(
+        short, device="cuda").init(seed=0)
+    m_single, m_ranked = single.step(), ranked.step()
+    assert m_single == m_ranked and m_ranked.loss_count == 2, (m_single, m_ranked)
+    assert learner_digest(single.runner.train) == learner_digest(ranked.runner.train)
+    print("  (a) world size 1 on NCCL: a superstep of 2 updates equals Trainer's bitwise "
+          "(weights, target, Adam moments and count, metrics)")
+    # env-steps/s of Trainer and of DistributedTrainer on the same cut, in turns
+    turns = []
+    for kind in (Trainer, DistributedTrainer, DistributedTrainer, Trainer):
+        t = kind(cfg, device="cuda").init(seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIST_SUPERSTEPS):
+            t.step()
+        torch.cuda.synchronize()
+        turns.append((kind.__name__, DIST_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
+                      / (time.perf_counter() - t0)))
+    print(f"  (a) env-steps/s in turns on the same cut: "
+          f"{', '.join(f'{name} {rate:.1f}' for name, rate in turns)} [{card}]")
+    steady_single = profile_steady(torch, Trainer(dataclasses.replace(
+        cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0), device="cuda").init(seed=1),
+        LAUNCH_STEPS)
+    print(f"  (a) Trainer's steady superstep on the same cut: "
+          f"{steady_single['launches_per_step']:.1f} launches per vector step, device busy "
+          f"{100 * steady_single['busy']:.1f} % of the wall [{card}]")
+    trainer = DistributedTrainer(cfg, device="cuda").init(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.step() for _ in range(DIST_SUPERSTEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    env_steps = metrics[-1].env_steps * cfg.num_envs
+    assert env_steps == DIST_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
+    assert sum(m.loss_count for m in metrics) == trainer.runner.train.updates == DIST_ROUNDS
+    assert launches == dict.fromkeys(zero, DIST_ROUNDS) and plain == zero, (launches, plain)
+    peak_a = torch.cuda.max_memory_allocated() / 2**20
+    reduce_a = all_reduce_us(torch, trainer.runner.train.online)
+    steady_a = profile_steady(torch, DistributedTrainer(dataclasses.replace(
+        cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0), device="cuda").init(seed=1),
+        LAUNCH_STEPS)
+    print(f"  (a) lunar_per x128, world size 1 (NCCL): {env_steps} env steps in {seconds:.3f} s = "
+          f"{env_steps / seconds:.1f} env-steps/s, {DIST_ROUNDS} update rounds, launches "
+          f"{launches}, peak memory {peak_a:.1f} MiB; steady superstep: "
+          f"{steady_a['launches_per_step']:.1f} launches per vector step, device busy "
+          f"{100 * steady_a['busy']:.1f} % of the wall, grad_all_reduce "
+          f"{steady_a['all_reduce_us_per_update']:.1f} us of host time per update of "
+          f"{steady_a['wall_per_update_us']:.1f} us wall per vector step "
+          f"({100 * steady_a['all_reduce_us_per_update'] / steady_a['wall_per_update_us']:.1f} %) "
+          f"under the profiler; all_reduce_mean alone {reduce_a:.1f} us a call [{card}]")
+
+    # (a) through the command line: train with checkpoints, then resume
+    common = ["--preset", "lunar_per", "--distributed", "--quiet", "--log-every", "1"]
+    for item in DIST_SETS:
+        common += ["--set", item]
+    per_superstep = cfg.steps_per_superstep * cfg.num_envs
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as wd:
+        first, counts, _, took = run_cli_counts(
+            "train", *common, "--workdir", wd, "--checkpoint-every", "1",
+            "--max-env-steps", str(DIST_SUPERSTEPS * per_superstep))
+        assert first["env_steps"] == env_steps and first["updates"] == DIST_ROUNDS, first
+        assert first["world_size"] == 1, first
+        assert counts == {"launches": dict.fromkeys(zero, DIST_ROUNDS), "plain": zero}, counts
+        assert sorted(p.name for p in Path(wd).iterdir()) == [
+            str(per_superstep), str(2 * per_superstep), "config.json"]
+        print(f"  (a) CLI train --distributed: {first}, kernels {counts['launches']} "
+              f"({took:.1f} s with start-up)")
+        resumed, counts, _, took = run_cli_counts(
+            "train", *common, "--workdir", wd, "--resume",
+            "--max-env-steps", str((DIST_SUPERSTEPS + 1) * per_superstep))
+        more = cfg.steps_per_superstep
+        assert resumed["env_steps"] == env_steps + per_superstep, resumed
+        assert resumed["updates"] == DIST_ROUNDS + more, resumed
+        assert counts == {"launches": dict.fromkeys(zero, more), "plain": zero}, counts
+        print(f"  (a) CLI train --distributed --resume: {resumed}, kernels {counts['launches']} "
+              f"({took:.1f} s with start-up)")
+    print(f"  (a) took {time.perf_counter() - t_a:.1f} s")
+
+    # (b) two gloo ranks on cuda:0, CUDA tensors
+    t_b = time.perf_counter()
+    ranks = spawn_ranks(gloo_lunar_rank, DIST_RANKS, timeout_s=300)
+    for r in ranks:
+        assert r["updates"] == DIST_ROUNDS, r["updates"]
+        assert r["launches"] == dict.fromkeys(zero, DIST_ROUNDS) and r["plain"] == zero, r
+        assert r["metrics"] == ranks[0]["metrics"]
+    assert ranks[0]["digest"] == ranks[1]["digest"], "the two ranks' learners differ"
+    assert [m["env_steps"] for m in ranks[0]["metrics"]] == [m.env_steps for m in metrics]
+    assert [m["loss_count"] for m in ranks[0]["metrics"]] == [
+        DIST_RANKS * m.loss_count for m in metrics]
+    steady_b = ranks[0]["steady"]
+    seconds_b = max(r["seconds"] for r in ranks)
+    print(f"  (b) {DIST_RANKS} gloo ranks sharing the card, 64 landers and batch 128 a rank: "
+          f"{env_steps} env steps in {seconds_b:.3f} s = {env_steps / seconds_b:.1f} env-steps/s, "
+          f"{DIST_ROUNDS} update rounds and each kernel launched {DIST_ROUNDS} times on each "
+          f"rank, learners bitwise equal, peak memory {[round(r['peak_mib'], 1) for r in ranks]} "
+          f"MiB; rank 0's steady superstep: {steady_b['launches_per_step']:.1f} launches per "
+          f"vector step, device busy {100 * steady_b['busy']:.1f} % of the wall, grad_all_reduce "
+          f"{steady_b['all_reduce_us_per_update']:.1f} us of host time per update of "
+          f"{steady_b['wall_per_update_us']:.1f} us under the profiler; all_reduce_mean alone "
+          f"{[round(r['all_reduce_us'], 1) for r in ranks]} us a call "
+          f"({time.perf_counter() - t_b:.1f} s) [{card}]")
+
+    # (c) multihost_ddqn at full width, world size 1
+    t_c = time.perf_counter()
+    mh = dataclasses.replace(multihost_ddqn(), **MULTIHOST_CUTS)
+    assert (mh.num_envs, mh.buffer_capacity, mh.hidden, mh.batch_size, mh.replay) == (
+        8192, 1 << 19, (256, 256), 256, "uniform"), mh
+    trainer = DistributedTrainer(mh, device="cuda").init(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    t0 = time.perf_counter()
+    metrics_c = [trainer.step() for _ in range(MULTIHOST_SUPERSTEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps_c = MULTIHOST_SUPERSTEPS * mh.steps_per_superstep
+    rounds_c = steps_c - (-(-mh.training_start // mh.num_envs)) + 1
+    assert metrics_c[-1].env_steps == steps_c
+    assert sum(m.loss_count for m in metrics_c) == trainer.runner.train.updates == rounds_c
+    assert dict(td_kernels.launches, **sample_kernels.launches) == zero  # use_pallas is off
+    peak_c = torch.cuda.max_memory_allocated() / 2**20
+    steady_c = profile_steady(torch, DistributedTrainer(dataclasses.replace(
+        mh, steps_per_superstep=LAUNCH_STEPS, training_start=0), device="cuda").init(seed=1),
+        LAUNCH_STEPS)
+    print(f"  (c) multihost_ddqn x{mh.num_envs}, world size 1 (NCCL): {steps_c * mh.num_envs} env "
+          f"steps in {seconds:.3f} s = {steps_c * mh.num_envs / seconds:.1f} env-steps/s, "
+          f"{rounds_c} updates (the plain TD loss), peak memory {peak_c:.1f} MiB; steady "
+          f"superstep: {steady_c['launches_per_step']:.1f} launches per vector step, device busy "
+          f"{100 * steady_c['busy']:.1f} % of the wall ({time.perf_counter() - t_c:.1f} s) "
+          f"[{card}]")
+    dist.destroy_process_group()
+
+    # (d) the flagship structure over two gloo ranks on the card
+    t_d = time.perf_counter()
+    reports = dryrun_multichip(DIST_RANKS, device="cuda")
+    for r in reports:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+        assert r["launches"] == dict.fromkeys(zero, r["updates"]) and r["updates"] > 0, r
+        assert r["plain_calls"] == zero, r
+    print(f"  (d) dryrun_multichip({DIST_RANKS}): {reports[0]['metrics']}, each rank's kernels "
+          f"{reports[0]['launches']}, learners bitwise equal ({time.perf_counter() - t_d:.1f} s)")
+
+    # (e) greedy rollouts of phase 6's checkpoint
+    t_e = time.perf_counter()
+    rollout_dir = Path(cli_workdir) / "rollouts"
+    args = ["eval", "--preset", "lunar_per_scaled", "--workdir", cli_workdir, "--quiet",
+            "--rollout-dir", str(rollout_dir), "--rollouts", str(ROLLOUTS), "--render", "gif"]
+    for item in SCALED_SETS:
+        args += ["--set", item]
+    report, _, lines, took = run_cli_counts(*args)
+    assert len(report["rollouts"]) == ROLLOUTS, report
+    for i, roll in enumerate(report["rollouts"]):
+        assert math.isfinite(roll["return"]) and roll["length"] > 0, roll
+        assert (rollout_dir / f"rollout_{i}.npz").exists()
+    for line in lines:
+        print(f"  (e) {line}")
+    print(f"  (e) eval --rollout-dir, {ROLLOUTS} rollouts: returns "
+          f"{[round(r['return'], 2) for r in report['rollouts']]}, lengths "
+          f"{[r['length'] for r in report['rollouts']]}, files "
+          f"{sorted(p.name for p in rollout_dir.iterdir())} ({took:.1f} s with start-up)")
+    print(f"  (e) took {time.perf_counter() - t_e:.1f} s")
+    return ranks[0]["launches"]
+
+
+def check_rank_shapes(torch, td_kernels, sample_kernels, card):
+    """K1/K2 at B = 128 and K3 at (64, 8192, 128), the shapes of a rank of
+    phase 10 (b): against their plain versions, then timed beside their
+    bounds."""
+    from deep_q_learning_tpu_torch.measure import bound_text
+
+    err = {"td_loss_fwd": 0.0, "td_loss_bwd": 0.0}
+    for double in (True, False):
+        check_td_case(torch, td_kernels, td_inputs(torch, 128, 4, seed=128), 4, double, err)
+    n, c, b = RANK_SLOT
+    p, env, u = slot_inputs(torch, n, c, b, seed=64, dyadic=True)
+    assert torch.equal(sample_kernels.slot_select(p, env, u),
+                       sample_kernels.slot_select_reference(p, env, u)), "K3 differs (dyadic)"
+    p, env, u = slot_inputs(torch, n, c, b, seed=65, dyadic=False)
+    differ = slot_mismatches(torch, p, env, u, sample_kernels.slot_select(p, env, u),
+                             sample_kernels.slot_select_reference(p, env, u), dyadic=False)
+    err["per_slot_sample"] = 0  # dyadic priorities: exact
+    args = td_inputs(torch, 128, 4, seed=99)
+    _, td = td_kernels.td_loss_fwd(*args, 1.0, True)
+    g = torch.ones((), device="cuda")
+    p, env, u = slot_inputs(torch, n, c, b, seed=7, dyadic=False)
+    times = {
+        "td_loss_fwd": (time_ms(torch, lambda: td_kernels.td_loss_fwd(*args, 1.0, True)),
+                        time_ms(torch, lambda: td_kernels.td_loss_reference(*args, 1.0, True)),
+                        td_kernels.td_loss_fwd_work(128, 4)),
+        "td_loss_bwd": (time_ms(torch, lambda: td_kernels.td_loss_bwd(
+                            td, args[3], args[6], g, 4, 1.0, out_rows=256)),
+                        time_ms(torch, lambda: td_kernels.td_loss_backward_reference(
+                            td, args[3], args[6], g, 4, 1.0, out_rows=256)),
+                        td_kernels.td_loss_bwd_work(128, 4, 256)),
+        "per_slot_sample": (time_ms(torch, lambda: sample_kernels.slot_select(p, env, u)),
+                            time_ms(torch, lambda: sample_kernels.slot_select_reference(p, env, u)),
+                            sample_kernels.per_slot_sample_work(p, env)),
+    }
+    for name, (k_ms, p_ms, work) in times.items():
+        print(f"  {name} at a rank's shape ({'B=128' if name != 'per_slot_sample' else RANK_SLOT}): "
+              f"kernel {k_ms * 1e3:.2f} us/call, plain {p_ms * 1e3:.2f} us/call (CUDA events, "
+              f"{TIMED_CALLS} calls); {bound_text(work, k_ms * 1e3)} [{card}]")
+    print(f"  K1/K2 at B=128 vs plain: ok; K3 at {RANK_SLOT}: dyadic exact, random {differ} of "
+          f"{b} slots differ")
+    return err, times
+
+
+RANK_SLOT = (64, 8192, 128)  # a rank of phase 10 (b): its PER rows and its batch
+
 
 def main() -> int:
     started = time.perf_counter()
@@ -1261,7 +1657,9 @@ def main() -> int:
     launches = run_scaled(torch, td_kernels, sample_kernels, card)
 
     print("phase 6: the command line on the card")
-    run_cli(card)
+    (REPO / "build").mkdir(exist_ok=True)
+    cli_workdir = tempfile.mkdtemp(dir=REPO / "build")
+    run_cli(card, cli_workdir)
 
     print("phase 7: lunar_jointed_per, the jointed lander")
     t0 = time.perf_counter()
@@ -1285,6 +1683,13 @@ def main() -> int:
     run_hpo_cli(card)
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    print("phase 10: runs over ranks and rollouts")
+    t0 = time.perf_counter()
+    rank_err, rank_times = check_rank_shapes(torch, td_kernels, sample_kernels, card)
+    rank_launches = run_distributed(torch, td_kernels, sample_kernels, card, cli_workdir)
+    shutil.rmtree(cli_workdir, ignore_errors=True)
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+
     # ms and bound at B=256 for the TD kernels (lunar_per, lunar_jointed_per)
     # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);
     # launches of the TD kernels from phase 7, of the slot kernel from phase 5.
@@ -1301,8 +1706,12 @@ def main() -> int:
         "td_loss_bwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:97"),
         "per_slot_sample": (PER_SOURCE, "deep_q_learning_tpu/ops/sample_kernels.py:52"),
     }
+    # The kernels at a rank's shapes in phase 10 (b) ("[rank]": K1/K2 at
+    # B = 128, K3 at (64, 8192, 128)): ms and bound at those shapes, launches
+    # of rank 0 there.
     runs = [("", launches, err, timed), ("[members]", population_launches_run, member_err,
-                                         member_times)]
+                                         member_times), ("[rank]", rank_launches, rank_err,
+                                                         rank_times)]
     record = {"kernels": [
         {
             "name": name + suffix,

@@ -31,6 +31,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deep_q_learning_tpu_torch.algos.losses import build_loss_fn
 from deep_q_learning_tpu_torch.replay.nstep import LearnBatch
@@ -320,10 +321,32 @@ def epsilon_greedy(
 # Gradient update
 # ---------------------------------------------------------------------------
 
-def build_update_step(optimizer: Optimizer, cfg) -> Callable:
+def all_reduce_mean(
+    grads: Sequence[torch.Tensor], loss: torch.Tensor, group
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The gradients and the loss averaged over the ranks of ``group``, as
+    ``lax.pmean`` does: one ``all_reduce(SUM)`` of a flat buffer that holds
+    every gradient and the loss, then a division by the world size.  Every
+    rank gets the same buffer, so a replicated learner stays bitwise
+    replicated.  The profiler sees it as the span ``grad_all_reduce``."""
+    with torch.profiler.record_function("grad_all_reduce"):
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+        dist.all_reduce(flat, group=group)
+        flat /= dist.get_world_size(group)
+    parts = torch.split(flat, [g.numel() for g in grads] + [1])
+    return [p.view_as(g) for p, g in zip(parts, grads)], parts[-1].view(())
+
+
+def build_update_step(optimizer: Optimizer, cfg, group=None) -> Callable:
     """Returns ``update(ts, batch, weights, hyper) -> (ts, loss, td)``, which
     applies one gradient step to ``ts`` in place.  ``cfg.use_pallas`` routes
-    the TD and loss math through the CUDA kernel (``ops/td_kernels.py``)."""
+    the TD and loss math through the CUDA kernel (``ops/td_kernels.py``).
+
+    With a process ``group`` (the ranks of ``parallel/distributed.py``), the
+    gradients and the loss are averaged over its ranks before the
+    optimizer's clip (:func:`all_reduce_mean`), so every rank clips and
+    steps on the same gradients; the TD errors, which go back to the local
+    priorities, stay local.  Without one the update is a single learner's."""
     if cfg.ref_terminal_quirk and cfg.n_step != 1:
         raise ValueError("ref_terminal_quirk reproduces 1-step semantics; set n_step=1")
     if cfg.use_pallas:
@@ -362,6 +385,10 @@ def build_update_step(optimizer: Optimizer, cfg) -> Callable:
         # members are independent: the gradient of their summed losses is
         # each member's own
         grads = torch.autograd.grad(loss if mask is None else loss.sum(), params)
+        if group is not None:
+            if mask is not None:
+                raise ValueError("a population does not run under a process group")
+            grads, loss = all_reduce_mean(grads, loss, group)
         optimizer.apply(grads, ts.opt_state, params, h.learning_rate, h.max_grad_norm, mask)
         if cfg.target_tau is not None:
             # Polyak soft target update every gradient step

@@ -29,10 +29,11 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deep_q_learning_tpu_torch.algos.dqn import (
     HyperParams,
@@ -84,6 +85,31 @@ class SuperstepMetrics:
     window_mean: float  # mean of the last W completed returns (-inf if none)
     epsilon: float
     solved: bool  # window full and mean >= threshold
+
+
+# How one rank's metrics combine over the ranks of a process group, as the
+# JAX package's ``_reduce_metrics`` does over the mesh: the lockstep
+# counters by max, the episode, return and loss tallies by sum, the window
+# means by their mean, and ``solved`` by min (only when every rank's window
+# clears the threshold).  The order is the packed vector's.
+METRIC_REDUCTIONS = {
+    "env_steps": max, "loss_count": sum, "episodes": sum, "episodes_delta": sum,
+    "return_sum_delta": sum, "loss_sum": sum, "window_mean": lambda xs: sum(xs) / len(xs),
+    "epsilon": max, "solved": min,
+}
+
+
+def reduce_metrics(local: torch.Tensor, group) -> List[float]:
+    """Every rank's packed metrics (float64, in the order of
+    :data:`METRIC_REDUCTIONS`) combined over the ranks of ``group``.  One
+    collective: each rank puts its values in its own row of a (world,
+    fields) buffer of zeros and one ``all_reduce(SUM)`` gathers the rows
+    (adding zeros is exact); each rank then reduces the rows on the host in
+    rank order, so every rank gets the same numbers."""
+    rows = local.new_zeros((dist.get_world_size(group), local.numel()))
+    rows[dist.get_rank(group)] = local
+    dist.all_reduce(rows, group=group)
+    return [reduce(col) for reduce, col in zip(METRIC_REDUCTIONS.values(), zip(*rows.tolist()))]
 
 
 def _scatter_completed_returns(
@@ -147,6 +173,42 @@ def _seeds(seed: int, n: int):
     return [int(s) for s in np.random.SeedSequence(seed).generate_state(n)]
 
 
+def _read_metrics(r: RunnerState, loss_sum, loss_count: int, ep_delta, ret_delta, eps, cfg,
+                  group) -> SuperstepMetrics:
+    """The superstep's metrics, in its one device->host read; with a
+    process ``group``, combined over its ranks (:func:`reduce_metrics`)."""
+    threshold = math.inf if cfg.solve_threshold is None else cfg.solve_threshold
+    device = r.episodes.device
+    mean = _window_mean(r).to(torch.float64)
+    tallies = torch.stack([
+        r.episodes.to(torch.float64),
+        ep_delta.to(torch.float64),
+        ret_delta.to(torch.float64),
+        loss_sum.to(torch.float64),
+        mean,
+        torch.as_tensor(eps, dtype=torch.float64, device=device),
+        ((r.window_filled >= cfg.return_window) & (mean >= threshold)).to(torch.float64),
+    ])
+    if group is None:
+        env_steps, count = r.env_step, loss_count
+        episodes, ep_d, ret_d, loss_s, mean_v, eps_v, solved = tallies.tolist()
+    else:
+        counts = torch.tensor([r.env_step, loss_count], dtype=torch.float64).to(device)
+        env_steps, count, episodes, ep_d, ret_d, loss_s, mean_v, eps_v, solved = reduce_metrics(
+            torch.cat([counts, tallies]), group)
+    return SuperstepMetrics(
+        env_steps=int(env_steps),
+        episodes=int(episodes),
+        episodes_delta=int(ep_d),
+        return_sum_delta=ret_d,
+        loss_sum=loss_s,
+        loss_count=int(count),
+        window_mean=mean_v,
+        epsilon=eps_v,
+        solved=bool(solved),
+    )
+
+
 def build_superstep(
     venv: VectorEnv,
     env_params: Any,
@@ -155,21 +217,34 @@ def build_superstep(
     replay,
     cfg,
     device,
+    group=None,
 ) -> Tuple[Callable, Callable]:
     """Build ``(init_runner, superstep)``.
 
-    ``init_runner(seed) -> RunnerState`` initialises a copy of ``network``
-    (flax init from a CPU generator, so the weights for a seed are the same
-    on every device) and everything else on ``device``.
+    ``init_runner(seed, shard=0) -> RunnerState`` initialises a copy of
+    ``network`` (flax init from a CPU generator, so the weights for a seed
+    are the same on every device and every shard) and everything else on
+    ``device``, from a generator of its own for each ``shard``.
     ``superstep(runner) -> (runner, SuperstepMetrics)`` advances ``runner``
-    in place."""
-    device = torch.device(device)
-    update = build_update_step(optimizer, cfg)
-    num_envs = venv.num_envs
-    threshold = math.inf if cfg.solve_threshold is None else cfg.solve_threshold
+    in place.
 
-    def init_runner(seed: int) -> RunnerState:
-        net_seed, run_seed = _seeds(seed, 2)
+    With a process ``group`` this is the body of one rank of
+    ``parallel/distributed.py``: ``venv`` holds the rank's envs and ``cfg``
+    its local config.  Gradients are averaged over the ranks in the update;
+    the warm-up gate and ``linear_step`` ε count global env steps (local
+    steps times ``num_envs`` times the world size), as the JAX package's
+    ``num_shards`` makes them; ``episodes``-mode target syncs decide on the
+    episode count summed over the ranks; and the metrics come back combined
+    over the ranks.  ``exp_episode`` ε stays per rank: the local episode
+    count over the local ``num_envs``, as the JAX shard body computes it."""
+    device = torch.device(device)
+    update = build_update_step(optimizer, cfg, group)
+    num_envs = venv.num_envs
+    global_envs = num_envs * (1 if group is None else dist.get_world_size(group))
+
+    def init_runner(seed: int, shard: int = 0) -> RunnerState:
+        seeds = _seeds(seed, 2 + shard)
+        net_seed, run_seed = seeds[0], seeds[1 + shard]
         online = copy.deepcopy(network).to("cpu")
         online.reset_parameters(torch.Generator().manual_seed(net_seed))
         train = init_train_state(online.to(device), optimizer)
@@ -205,7 +280,7 @@ def build_superstep(
         """``cfg.updates_per_step`` updates when the cadence and the warmup
         gate (in stored transitions) allow; returns their loss sum or None."""
         h = r.hyper
-        if r.env_step % h.train_every or r.replay.filled * num_envs < h.training_start:
+        if r.env_step % h.train_every or r.replay.filled * global_envs < h.training_start:
             return None
         loss_sum = None
         for _ in range(cfg.updates_per_step):
@@ -226,11 +301,17 @@ def build_superstep(
             if r.env_step % r.hyper.target_sync_every == 0:
                 sync_target(r.train)
         elif cfg.target_sync_mode == "episodes":
-            # the episode count lives on the device: decide there
+            # the episode count lives on the device: decide there; under a
+            # group on the count summed over the ranks, so that every rank
+            # syncs on the same frames (and keeps the global count)
+            episodes = r.episodes
+            if group is not None:
+                episodes = episodes.clone()
+                dist.all_reduce(episodes, group=group)
             k = r.hyper.target_replace_episodes
-            do_sync = (r.episodes // k) > (r.last_sync_episodes // k)
+            do_sync = (episodes // k) > (r.last_sync_episodes // k)
             sync_target(r.train, do_sync)
-            r.last_sync_episodes = torch.where(do_sync, r.episodes, r.last_sync_episodes)
+            r.last_sync_episodes = torch.where(do_sync, episodes, r.last_sync_episodes)
         else:
             raise ValueError(f"unknown target_sync_mode {cfg.target_sync_mode!r}")
 
@@ -244,7 +325,7 @@ def build_superstep(
 
         for _ in range(cfg.steps_per_superstep):
             # --- actor, env step, replay write, episode accounting ----------
-            eps = epsilon_by_schedule(cfg, r.env_step * num_envs, r.episodes, r.hyper)
+            eps = epsilon_by_schedule(cfg, r.env_step * global_envs, r.episodes, r.hyper)
             with torch.no_grad():
                 q_values = r.train.online(r.obs)
             num_done, ret_done = _act_and_step(r, venv, env_params, replay, q_values, eps, fresh)
@@ -259,30 +340,8 @@ def build_superstep(
                 loss_count += cfg.updates_per_step
             _maybe_sync(r)
 
-        window_mean = _window_mean(r)
-        eps = epsilon_by_schedule(cfg, r.env_step * num_envs, r.episodes, r.hyper)
-        # the one device->host read of the superstep
-        episodes, ep_d, ret_d, loss_s, mean, filled, eps_v = torch.stack([
-            r.episodes.to(torch.float64),
-            ep_delta.to(torch.float64),
-            ret_delta.to(torch.float64),
-            loss_sum.to(torch.float64),
-            window_mean.to(torch.float64),
-            r.window_filled.to(torch.float64),
-            torch.as_tensor(eps, dtype=torch.float64, device=device),
-        ]).tolist()
-        metrics = SuperstepMetrics(
-            env_steps=r.env_step,
-            episodes=int(episodes),
-            episodes_delta=int(ep_d),
-            return_sum_delta=ret_d,
-            loss_sum=loss_s,
-            loss_count=loss_count,
-            window_mean=mean,
-            epsilon=eps_v,
-            solved=filled >= cfg.return_window and mean >= threshold,
-        )
-        return r, metrics
+        eps = epsilon_by_schedule(cfg, r.env_step * global_envs, r.episodes, r.hyper)
+        return r, _read_metrics(r, loss_sum, loss_count, ep_delta, ret_delta, eps, cfg, group)
 
     return init_runner, superstep
 

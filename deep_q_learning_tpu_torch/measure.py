@@ -42,12 +42,14 @@ from typing import Optional
 import torch
 
 GRAPH_CALLS, GRAPH_REPLAYS = 100, 50
-# the TD kernels' batch on lunar_per / lunar_jointed_per, lunar_per_scaled(1024)
-# and lunar_per_scaled(4096)
-TD_BATCHES = (256, 1024, 4096)
-# the PER slot kernel's (N, C, B) on lunar_per_scaled(1024), lunar_per and
-# lunar_per_scaled(4096) (C = 2^19 / 4096) with use_pallas_sampler=true
-SLOT_SHAPES = ((1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096))
+# the TD kernels' batch on a rank of lunar_per over 2 ranks, lunar_per /
+# lunar_jointed_per, lunar_per_scaled(1024) and lunar_per_scaled(4096)
+TD_BATCHES = (128, 256, 1024, 4096)
+# the PER slot kernel's (N, C, B) on lunar_per_scaled(1024), lunar_per,
+# lunar_per_scaled(4096) (C = 2^19 / 4096) and a rank of lunar_per over 2
+# ranks (each rank's replay holds 2^19 over its 64 envs), with
+# use_pallas_sampler=true
+SLOT_SHAPES = ((1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096), (64, 8192, 128))
 # a lunar_per population of 8 members: the TD kernels at (M, B, A) and the
 # PER slot kernel over every member's rows, (M, N, C, B)
 MEMBER_TD = (8, 256, 4)

@@ -10,6 +10,7 @@ it.  A build takes seconds: no PyTorch headers are involved.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -56,22 +57,32 @@ def load_library(source_name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            out = Path(tmp) / lib_path.name
-            proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {source} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(out, lib_path)  # atomic: a concurrent loader sees all or nothing
-        build_seconds[source_name] = time.perf_counter() - t0
-        ptxas_reports[source_name] = proc.stdout + proc.stderr
+        # one build at a time: processes that start together (the ranks of a
+        # run that share a checkout) wait here and then find the library;
+        # the kernel releases the lock if its holder dies
+        with open(BUILD_DIR / f"{lib_path.stem}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib_path.exists():
+                _build(source, source_name, lib_path)
     return ctypes.CDLL(str(lib_path))
+
+
+def _build(source: Path, source_name: str, lib_path: Path) -> None:
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = Path(tmp) / lib_path.name
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {source} (exit {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(out, lib_path)  # atomic: a loader sees all or nothing
+    build_seconds[source_name] = time.perf_counter() - t0
+    ptxas_reports[source_name] = proc.stdout + proc.stderr
 
 
 def ptxas_summary(report: str) -> dict:

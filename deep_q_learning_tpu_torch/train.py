@@ -4,8 +4,10 @@ It builds the env, network, replay and superstep for one config on one
 explicit device, runs supersteps until the window is solved or the
 env-step budget is spent, checkpoints the full runner into ``workdir``
 (with the resolved config beside it, as ``config.json``) and evaluates the
-greedy policy.  The JAX package's AOT cache is not ported, by design
-(ROADMAP.md).
+greedy policy.  :class:`DistributedTrainer` runs the same loop on one rank
+of a process group: envs split over the ranks, the learner replicated and
+its gradients all-reduced (``parallel/distributed.py``).  The JAX
+package's AOT cache is not ported, by design (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deep_q_learning_tpu_torch.algos import build_superstep, make_optimizer
 from deep_q_learning_tpu_torch.algos.evaluate import EvalResult, build_evaluator
@@ -28,18 +31,24 @@ from deep_q_learning_tpu_torch.replay import make_replay
 from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
 
 
-def _write_config_json(workdir: str, cfg) -> None:
-    """Keep the resolved config beside the checkpoints, so that eval and
-    resume can check that they rebuild the same shapes."""
+def _write_config_json(workdir: str, cfg, **extra) -> None:
+    """Keep the resolved config (and ``extra`` keys) beside the
+    checkpoints, so that eval and resume can check that they rebuild the
+    same shapes."""
     os.makedirs(workdir, exist_ok=True)
-    with open(os.path.join(workdir, "config.json"), "w") as f:
-        json.dump(config_to_dict(cfg), f, indent=1)
+    path = os.path.join(workdir, "config.json")
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(dict(config_to_dict(cfg), **extra), f, indent=1)
+    os.replace(tmp, path)
 
 
-def _check_config_json(workdir: str, cfg) -> None:
+def _check_config_json(workdir: str, cfg) -> dict:
+    """The saved config (empty without one); raises where its
+    shape-affecting fields differ from ``cfg``'s."""
     path = os.path.join(workdir, "config.json")
     if not os.path.exists(path):
-        return
+        return {}
     with open(path) as f:
         saved = json.load(f)
     bad = config_shape_mismatches(saved, cfg)
@@ -50,6 +59,7 @@ def _check_config_json(workdir: str, cfg) -> None:
             f"different shape-affecting fields ({detail}); repeat the same "
             f"--preset/--set overrides used at train time"
         )
+    return saved
 
 
 @dataclasses.dataclass
@@ -76,23 +86,27 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-class Trainer:
-    """Build-once, step-many trainer for one config on one device.
+def _float32_only(cfg) -> None:
+    """Everything runs in float32: TF32 is switched off for matmuls and
+    cuDNN (process-wide), since the reference values are full float32."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "the PyTorch port runs in float32 only (compute_dtype='bfloat16' "
+            "is not ported; see ROADMAP.md)"
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    Everything runs in float32: TF32 is switched off for matmuls and cuDNN
-    (process-wide), since the reference values are full float32."""
+
+class Trainer:
+    """Build-once, step-many trainer for one config on one device, in
+    float32."""
 
     def __init__(self, cfg, device="cuda", workdir: Optional[str] = None):
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "the PyTorch port runs in float32 only (compute_dtype='bfloat16' "
-                "is not ported; see ROADMAP.md)"
-            )
+        _float32_only(cfg)
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.env, self.env_params = make_env(
             cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
             param_overrides=cfg.env_param_overrides(),
@@ -246,4 +260,104 @@ class Trainer:
         _check_config_json(self.workdir, self.cfg)
         template = self.runner if self.runner is not None else self._init_runner(self.cfg.seed)
         self.runner = ckpt.restore_checkpoint(self.workdir, template, step)
+        return self
+
+    def save_pickle_compat(self, directory: str) -> None:
+        """The learner in the reference's on-disk format: ``params.pickle``
+        and ``opt_state.pickle`` (``utils/checkpoint.py``)."""
+        if self.runner is None:
+            raise RuntimeError("call init() first")
+        ckpt.save_params_pickle(
+            directory, *ckpt.to_reference_format(self.runner.train, self.optimizer)
+        )
+
+
+class DistributedTrainer(Trainer):
+    """:class:`Trainer` on one rank of a process group (the default group
+    if ``group`` is None; ``parallel.distributed_init`` makes it): this
+    rank's share of the envs and of the batch, its own replay and
+    generator, and the learner replicated on every rank, its gradients
+    all-reduced.  ``device="cuda"`` puts the rank on
+    ``parallel.rank_device``'s card.
+
+    Every rank runs the same ``train`` loop on metrics combined over the
+    ranks, so all decide the same log points, checkpoints and stop; only
+    rank 0 prints.  ``evaluate`` evaluates the replicated learner and gives
+    the same result on every rank.  Checkpoints are step directories
+    (``utils/checkpoint.py``); ``config.json`` records the world size, and
+    a restore under another world size raises."""
+
+    def __init__(self, cfg, device="cuda", workdir: Optional[str] = None, group=None):
+        from deep_q_learning_tpu_torch.parallel.distributed import build_distributed_superstep
+        from deep_q_learning_tpu_torch.parallel.mesh import rank_device
+
+        _float32_only(cfg)
+        self.cfg = cfg
+        self.workdir = workdir
+        self.group = group
+        self.device = rank_device(resolve_device(device))
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self._init_runner, self._superstep, self.network = build_distributed_superstep(
+            cfg, self.device, group
+        )
+        self.world_size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.optimizer = make_optimizer(cfg)
+        self.env, self.env_params = make_env(
+            cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
+            param_overrides=cfg.env_param_overrides(),
+        )
+        self._evaluate = build_evaluator(
+            VectorEnv(self.env, 128), self.env_params, self.env_params.max_steps_in_episode
+        )
+        self.runner = None
+        self.history: List[Dict[str, float]] = []
+
+    def train(
+        self,
+        max_env_steps: int = 10_000_000,
+        log_every: int = 10,
+        checkpoint_every: Optional[int] = None,
+        verbose: bool = True,
+    ) -> TrainResult:
+        """:meth:`Trainer.train`'s loop and cadence on combined metrics."""
+        return super().train(
+            max_env_steps, log_every, checkpoint_every, verbose=verbose and self.rank == 0
+        )
+
+    def _barrier(self) -> None:
+        """Wait for every rank (a collective the host waits on, whatever
+        the backend)."""
+        token = torch.zeros((1,), device=self.device)
+        dist.all_reduce(token, group=self.group)
+        token.item()
+
+    def save(self, step: int) -> str:
+        """Checkpoint into ``workdir/<step>/``: the learner once, a shard a
+        rank.  Every rank calls it and returns once all have written."""
+        if not self.workdir:
+            raise ValueError("DistributedTrainer(workdir=...) is required for checkpointing")
+        if self.runner is None:
+            raise RuntimeError("call init() first")
+        if self.rank == 0:
+            _write_config_json(self.workdir, self.cfg, world_size=self.world_size)
+        out = ckpt.save_sharded_checkpoint(self.workdir, self.runner, step, self.rank)
+        self._barrier()
+        return out
+
+    def restore(self, step: Optional[int] = None):
+        """Load this rank's runner from ``workdir/<step>/`` (the latest if
+        None), after checking ``config.json``: the same shapes, and the same
+        world size."""
+        if not self.workdir:
+            raise ValueError("DistributedTrainer(workdir=...) is required for checkpointing")
+        saved = _check_config_json(self.workdir, self.cfg)
+        if saved.get("world_size", self.world_size) != self.world_size:
+            raise ValueError(
+                f"the checkpoint in {self.workdir} was written by {saved['world_size']} ranks "
+                f"and this run has {self.world_size}: restore it with {saved['world_size']} ranks"
+            )
+        template = self.runner if self.runner is not None else self._init_runner(self.cfg.seed)
+        self.runner = ckpt.restore_sharded_checkpoint(self.workdir, template, self.rank, step)
         return self

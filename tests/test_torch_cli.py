@@ -1,9 +1,10 @@
 """The port's CLI (``python -m deep_q_learning_tpu_torch``): config
-overrides, the presets listing, the options it refuses, a tiny
+overrides, the presets listing, the option it refuses, a tiny
 train -> resume -> eval round trip on ``--device cpu`` (as
-``tests/test_cli.py`` drives the JAX package's CLI), and ``hpo``, whose
-first round of parameters comes from the seed alone and so equals the JAX
-CLI's."""
+``tests/test_cli.py`` drives the JAX package's CLI), ``train
+--distributed`` at world size 1, ``eval --rollout-dir``, and ``hpo``,
+whose first round of parameters comes from the seed alone and so equals
+the JAX CLI's."""
 
 import dataclasses
 import json
@@ -54,12 +55,7 @@ def test_presets_listing(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--preset", "lunar_per", "--distributed", "--quiet"], "item I"),
-    (["train", "--preset", "lunar_per", "--distributed"], "item I"),
     (["train", "--preset", "lunar_per", "--aot-cache", "x"], "by design"),
-    (["eval", "--preset", "lunar_per", "--workdir", "x", "--rollout-dir", "y"], "item G"),
-    (["eval", "--preset", "lunar_per", "--workdir", "x", "--rollouts", "2"], "item G"),
-    (["eval", "--preset", "lunar_per", "--workdir", "x", "--render", "gif"], "item G"),
 ])
 def test_options_not_ported_are_refused(argv, item):
     with pytest.raises(SystemExit, match=item):
@@ -103,6 +99,84 @@ def test_cli_train_resume_eval_roundtrip(tmp_path, capsys):
         main(["train", *TINY, "--resume"])
     with pytest.raises(ValueError, match="config mismatch"):
         main(["eval", *TINY, "--set", "hidden=8,8", "--workdir", wd])
+
+
+@pytest.mark.parametrize("quiet", [True, False])
+def test_cli_train_distributed_world_one(quiet, tmp_path, capsys):
+    """``train --distributed`` from a plain launch: one gloo rank, step
+    directories, a resume that goes on from the saved counters, and no
+    process group left behind."""
+    import torch.distributed as dist
+
+    wd = str(tmp_path / "run")
+    q = ["--quiet"] if quiet else []
+    assert main(["train", *TINY, "--distributed", "--max-env-steps", "128", "--log-every", "1",
+                 "--checkpoint-every", "1", "--workdir", wd, *q]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    first = json.loads(out[-1])
+    assert len(out) == (1 if quiet else 3)  # a progress line a log point
+    assert first["env_steps"] == 128 and first["updates"] == 4 and first["world_size"] == 1
+    assert sorted(p.name for p in Path(wd).iterdir()) == ["128", "64", "config.json"]
+    assert sorted(p.name for p in (Path(wd) / "128").iterdir()) == ["learner.pt", "shard_0.pt"]
+    assert json.load(open(Path(wd) / "config.json"))["world_size"] == 1
+    assert not dist.is_initialized()
+    assert main(["train", *TINY, "--distributed", "--resume", "--max-env-steps", "192",
+                 "--log-every", "1", "--workdir", wd, "--quiet"]) == 0
+    resumed = _last_json(capsys)
+    assert resumed["env_steps"] == 192 and resumed["updates"] == 6
+
+
+CARTPOLE = [
+    "--preset", "cartpole_vector", "--device", "cpu", "--set", "num_envs=8",
+    "--set", "steps_per_superstep=8", "--set", "hidden=16,16", "--set", "batch_size=16",
+    "--set", "buffer_capacity=256", "--set", "training_start=32", "--set", "return_window=4",
+]
+
+
+@pytest.fixture(scope="module")
+def checkpoints(tmp_path_factory):
+    """A tiny lander and a tiny CartPole checkpoint, by preset arguments."""
+    out = {}
+    for name, args in (("lander", TINY), ("cartpole", CARTPOLE)):
+        wd = str(tmp_path_factory.mktemp(name) / "run")
+        assert main(["train", *args, "--max-env-steps", "64", "--log-every", "1",
+                     "--checkpoint-every", "1", "--workdir", wd, "--quiet"]) == 0
+        out[name] = (args, wd)
+    return out
+
+
+@pytest.mark.parametrize("env,extra,figures", [
+    ("lander", ["--rollouts", "2"], ["png"]),
+    ("lander", ["--rollouts", "1", "--render", "gif"], ["png", "gif"]),
+    ("cartpole", ["--rollouts", "2"], []),
+], ids=["rollouts", "render-gif", "cartpole"])
+def test_cli_eval_rollout_dir(env, extra, figures, checkpoints, tmp_path, capsys):
+    """``eval --rollout-dir``: ``rollout_<i>.npz`` with the JAX keys and,
+    for the lander, the flight-path PNG and, with ``--render gif``, the
+    animated replay; each return printed and in the summary."""
+    if figures:
+        pytest.importorskip("matplotlib")
+    if "gif" in figures:
+        pytest.importorskip("PIL")
+    args, wd = checkpoints[env]
+    out_dir = tmp_path / "rollouts"
+    capsys.readouterr()
+    assert main(["eval", *args, "--workdir", wd, "--rollout-dir", str(out_dir), *extra,
+                 "--quiet"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    report = json.loads(lines[-1])
+    n = int(extra[1])
+    assert len(report["rollouts"]) == n
+    assert sorted(p.name for p in out_dir.iterdir()) == sorted(
+        f"rollout_{i}.{ext}" for i in range(n) for ext in ["npz", *figures])
+    keys = {"obs", "action", "reward", "done", "length", "ret"}
+    if env == "lander":
+        keys |= {"extra_x", "extra_y", "extra_angle", "static_terrain"}
+    for i, roll in enumerate(report["rollouts"]):
+        assert lines[i].startswith(f"rollout {i}: return={roll['return']:.1f} ")
+        traj = np.load(out_dir / f"rollout_{i}.npz")
+        assert set(traj) == keys
+        assert int(traj["length"]) == roll["length"] == traj["obs"].shape[0]
 
 
 def test_module_runs_as_a_program():

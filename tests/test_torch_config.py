@@ -64,6 +64,7 @@ def test_import_loads_nothing_of_the_jax_package():
     code = (
         "import sys, deep_q_learning_tpu_torch, deep_q_learning_tpu_torch.__main__\n"
         "import deep_q_learning_tpu_torch.parallel, deep_q_learning_tpu_torch.hpo\n"
+        "import deep_q_learning_tpu_torch.utils.metrics, deep_q_learning_tpu_torch.utils.visualize\n"
         "from pathlib import Path\n"
         "jax_pkg = (Path.cwd() / 'deep_q_learning_tpu').resolve()\n"
         "bad = [name for name, m in list(sys.modules.items())\n"

@@ -16,7 +16,9 @@ slot may differ only where every prefix between the two slots lies within
 call.  With a population's member axis: each member's loss, td and dQ
 bitwise its own unbatched call, and one slot launch over every member's
 rows bitwise M per-member calls; a population learner update on the GPU
-vs the CPU at rtol 1e-4."""
+vs the CPU at rtol 1e-4.  At world size 1 on NCCL, ``DistributedTrainer``
+is bitwise ``Trainer``; ``dryrun_multichip(1)`` runs the three kernels
+under the all-reduce."""
 
 import dataclasses
 
@@ -519,3 +521,42 @@ def test_classic_env_step_on_gpu_matches_cpu(cuda, env_id):
     same = (gpu[3].cpu() == cpu[3]) & (gpu[4].cpu() == cpu[4])
     assert int((~same).sum()) <= 1
     assert torch.equal(gpu[2].cpu()[same], cpu[2][same])
+
+
+def test_world_one_nccl_distributed_trainer_equals_trainer(cuda):
+    """A world-1 NCCL group: ``DistributedTrainer`` on lunar_per's learner
+    (the TD kernels under the all-reduce) takes the same superstep as
+    ``Trainer``, bitwise, and each kernel launches once per update."""
+    import torch.distributed as dist
+
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.parallel import distributed_init
+    from deep_q_learning_tpu_torch.train import DistributedTrainer, Trainer
+
+    cfg = dataclasses.replace(lunar_per(), steps_per_superstep=4, training_start=0,
+                              use_pallas_sampler=True)
+    distributed_init(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        single = Trainer(cfg, device="cuda").init(seed=0)
+        ranked = DistributedTrainer(cfg, device="cuda").init(seed=0)
+        m_single = single.step()
+        td_kernels.reset_counts()
+        sample_kernels.reset_counts()
+        assert ranked.step() == m_single
+        assert td_kernels.launches == {"td_loss_fwd": 4, "td_loss_bwd": 4}
+        assert sample_kernels.launches == {"per_slot_sample": 4}
+        for a, b in zip([*single.runner.train.online.parameters(), *single.runner.train.opt_state.nu],
+                        [*ranked.runner.train.online.parameters(), *ranked.runner.train.opt_state.nu]):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dryrun_multichip_one_rank_on_the_card(cuda):
+    from deep_q_learning_tpu_torch.parallel import dryrun_multichip
+
+    (report,) = dryrun_multichip(1, device="cuda")
+    assert report["backend"] == "nccl" and report["updates"] == 4
+    assert report["launches"] == {"td_loss_fwd": 4, "td_loss_bwd": 4, "per_slot_sample": 4}
+    assert not any(report["plain_calls"].values())
