@@ -6,7 +6,8 @@
 Phases (each raises on failure, so any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from deep_q_learning_tpu_torch/csrc with nvcc,
-     one nvcc per source, all started together; print each kernel's
+     one nvcc per source, all started together with g++ for the host
+     replay buffer (deep_q_learning_tpu_torch/native); print each kernel's
      registers and shared memory from ptxas, and fail on a spill;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it (the TD kernels at B = 256, 1024, 4096,
@@ -86,6 +87,24 @@ Phases (each raises on failure, so any failure exits non-zero):
      supersteps of 16 vector steps; (d) ``dryrun_multichip(2)`` on the
      card; (e) ``eval --rollout-dir --rollouts 2 --render gif`` of phase
      6's checkpoint (a figure it cannot draw is reported, not written);
+ 11. the host-compatibility path and the bf16 trunk: K1/K2 at the host
+     agent's shapes (B = 64, A = 4 and 2) against their plain versions and
+     timed; (a) ``HostAgent`` with ``lunar_ref_parity`` and ``use_pallas``
+     over ``TimeFractionHostWrapper(TorchHostEnv(rigid lander))`` for
+     ``COMPAT_STEPS`` env steps: K1/K2 launched once per update and no
+     plain call, the buffer holding every env step, a finite loss, ε decayed
+     per episode, the online net trained; one update card vs CPU from the
+     agent's state; launches per env step (``torch.profiler``) and a greedy
+     ``evaluate(1)``; (b) ``make_host_env("torch")``: CartPole-v1 with the
+     learner on the card (K1/K2 at A = 2) and a few frames of the jointed
+     default LunarLander-v2; (c) gymnasium's Box2D lander with the learner on
+     the card where gymnasium and Box2D import, else one line saying so;
+     (d) ``lunar_per`` at full width with ``compute_dtype=bfloat16`` on
+     phase 10's cut through ``Trainer``, timed in turns with the float32
+     run: K1–K3 launched once per update round and no plain call, float32
+     parameters and bf16 trunk activations, K1/K2 on a bf16-fed batch vs
+     plain, one update card vs CPU at the bf16 tolerance; (e) a 2-member
+     bf16 population;
 then print the kernels' record as one JSON line (with each kernel's bound,
 ``bound_ms``), then the result line.
 
@@ -1608,6 +1627,392 @@ def check_rank_shapes(torch, td_kernels, sample_kernels, card):
 RANK_SLOT = (64, 8192, 128)  # a rank of phase 10 (b): its PER rows and its batch
 
 
+# phase 11: the host-compatibility path and the bf16 trunk.
+# (a) HostAgent with lunar_ref_parity (dueling (32, 64), batch 64, adamw,
+#     training_start 250, train_every 4) and use_pallas over the rigid
+#     lander, cut in depth only: COMPAT_STEPS env steps, ~440 updates
+COMPAT_STEPS = 2000
+COMPAT_PROFILED_STEPS = 48  # one episode of the learning agent under torch.profiler
+# K1/K2 on the compat path: lunar_ref_parity's batch at A = 4 (the lander)
+# and A = 2 (CartPole)
+COMPAT_SHAPES = [(64, 4), (64, 2)]
+# (b) CartPole-v1 through make_host_env("torch") with the learner on the card
+# from 64 stored transitions; the jointed default LunarLander-v2 a few frames
+CARTPOLE_COMPAT_STEPS = 300
+JOINTED_HOST_FRAMES = 8
+# (c) gymnasium's Box2D lander with the learner on the card, where it imports
+BOX2D_COMPAT_STEPS = 400
+# (d), (e) lunar_per at full width with a bf16 trunk, cut in depth as phase
+# 10's DIST_SETS; the f32 run on the same cut is timed in turns with it
+BF16_SETS = DIST_SETS + ["compute_dtype=bfloat16"]
+BF16_MEMBERS = 2
+
+
+def train_state_to(ts, device):
+    """A copy of the train state ``ts`` on ``device``."""
+    import copy
+
+    out = copy.deepcopy(ts)
+    out.online.to(device)
+    out.target.to(device)
+    out.opt_state.mu = [t.to(device) for t in out.opt_state.mu]
+    out.opt_state.nu = [t.to(device) for t in out.opt_state.nu]
+    return out
+
+
+def update_card_vs_cpu(torch, cfg, ts, batch, weights):
+    """One learner update of ``cfg`` from a copy of ``ts`` and the same
+    batch, on the card and on the CPU: ``(loss, [params])`` of each."""
+    from deep_q_learning_tpu_torch.algos import build_update_step, make_optimizer
+    from deep_q_learning_tpu_torch.replay.nstep import LearnBatch
+
+    out = []
+    for device in ("cpu", "cuda"):
+        copy_ts = train_state_to(ts, device)
+        lb = LearnBatch(**{k: v.to(device) for k, v in batch.items()})
+        copy_ts, loss, _ = build_update_step(make_optimizer(cfg), cfg)(
+            copy_ts, lb, weights.to(device))
+        out.append((loss.cpu(), [p.detach().cpu() for p in copy_ts.online.parameters()]))
+    return out
+
+
+def profile_host_steps(torch, agent, steps):
+    """Kernel launches, the device's copies by direction and its busy share,
+    per env step of one episode of ``agent`` learning on, cut at ``steps``
+    env steps (its reset included), from torch.profiler."""
+    done = agent._global_steps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        agent.run_episode(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = agent._global_steps - done
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    copies = {kind: sum(e.count for e in events if e.key.startswith(f"Memcpy {kind}")) / n
+              for kind in ("HtoD", "DtoH", "DtoD")}
+    return launches / n, copies, busy_us / 1e6 / wall, n
+
+
+def check_compat_shapes(torch, td_kernels, card):
+    """K1/K2 at the compat path's shapes against their plain versions, both
+    targets; their times (CUDA events over Python calls, and device µs from
+    a CUDA graph) beside their bound at (64, 4)."""
+    from deep_q_learning_tpu_torch.measure import bound_text, device_us
+
+    err = {"td_loss_fwd": 0.0, "td_loss_bwd": 0.0}
+    for i, (b, a) in enumerate(COMPAT_SHAPES):
+        for double in (True, False):
+            check_td_case(torch, td_kernels, td_inputs(torch, b, a, seed=200 + i), a, double, err)
+    times = {}
+    for b, a in COMPAT_SHAPES:
+        args = td_inputs(torch, b, a, seed=210)
+        loss, td = td_kernels.td_loss_fwd(*args, 1.0, True)
+        g = torch.ones((), device="cuda")
+        rows = 2 * b
+        calls = {
+            "td_loss_fwd": (lambda: td_kernels.td_loss_fwd(*args, 1.0, True),
+                            lambda: td_kernels.td_loss_reference(*args, 1.0, True),
+                            td_kernels.td_loss_fwd_work(b, a)),
+            "td_loss_bwd": (lambda: td_kernels.td_loss_bwd(td, args[3], args[6], g, a, 1.0,
+                                                           out_rows=rows),
+                            lambda: td_kernels.td_loss_backward_reference(
+                                td, args[3], args[6], g, a, 1.0, out_rows=rows),
+                            td_kernels.td_loss_bwd_work(b, a, rows)),
+        }
+        for name, (kernel, plain, work) in calls.items():
+            k_ms, p_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            k_us, p_us = device_us(kernel), device_us(plain)
+            if (b, a) == COMPAT_SHAPES[0]:
+                times[name] = (k_ms, p_ms, work)
+            print(f"  {name} B={b} A={a}: kernel {k_ms * 1e3:.2f} us/call, plain "
+                  f"{p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} calls); device "
+                  f"{k_us:.2f} us kernel, {p_us:.2f} us plain (CUDA graph); "
+                  f"{bound_text(work, k_us)} [{card}]")
+    print(f"  K1/K2 at {COMPAT_SHAPES} vs plain, both targets: ok")
+    return err, times
+
+
+def run_compat_lander(torch, td_kernels, card):
+    """Phase 11 (a): HostAgent over the rigid lander on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.compat.host_env import TimeFractionHostWrapper, TorchHostEnv
+    from deep_q_learning_tpu_torch.compat.host_loop import HostAgent
+    from deep_q_learning_tpu_torch.config import lunar_ref_parity
+    from deep_q_learning_tpu_torch.envs import LunarLander
+
+    cfg = dataclasses.replace(lunar_ref_parity(), use_pallas=True)
+    assert (cfg.hidden, cfg.batch_size, cfg.training_start, cfg.train_every) == (
+        (32, 64), 64, 250, 4), cfg
+    lander = LunarLander()
+    params = dataclasses.replace(lander.default_params(), jointed=False,
+                                 max_steps_in_episode=cfg.max_steps_in_episode)
+    env = TimeFractionHostWrapper(TorchHostEnv(lander, params, seed=0, device="cuda"),
+                                  cfg.max_steps_in_episode)
+    agent = HostAgent(env, 9, 4, cfg, device="cuda")
+    online0 = [p.detach().clone() for p in agent.train_state.online.parameters()]
+    calls, records = {}, []
+    count_calls(agent, "_train_step", calls)
+    td_kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.training(max_episodes=10**6, verbose=False, max_total_steps=COMPAT_STEPS,
+                   on_episode=lambda *r: records.append(r))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(td_kernels.launches)
+    steps, updates = agent._global_steps, calls["_train_step"]
+    # a stored transition a step; an update every 4th step from 250 stored
+    assert agent.buffer.size == steps >= COMPAT_STEPS, (agent.buffer.size, steps)
+    assert updates == steps // 4 - 249 // 4 == agent.train_state.updates, (updates, steps)
+    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, (launches, updates)
+    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    assert math.isfinite(agent._last_loss), agent._last_loss
+    eps = [r[-1] for r in records]
+    want = []
+    for _ in records:
+        want.append(max((want[-1] if want else cfg.eps_start) * cfg.eps_decay, cfg.eps_min))
+    assert eps == want and eps[-1] < cfg.eps_start, eps
+    moved = sum(float((p.detach() - p0).norm()) for p, p0 in
+                zip(agent.train_state.online.parameters(), online0))
+    assert moved > 0
+    sps = steps / seconds
+    print(f"  (a) HostAgent lunar_ref_parity + use_pallas, rigid lander on the card: {steps} "
+          f"env steps, {len(records)} episodes, {updates} updates (K1/K2 launched {launches}, "
+          f"no plain call), last loss {agent._last_loss:.5f}, eps {eps[-1]:.4f}; "
+          f"{seconds:.3f} s = {sps:.1f} env-steps/s [{card}]")
+
+    # one update on the card against the CPU, from the agent's own state
+    obs, action, reward, next_obs, done = agent.buffer.sample(cfg.batch_size)
+    batch = dict(obs=torch.from_numpy(obs), action=torch.from_numpy(action),
+                 reward=torch.from_numpy(reward), next_obs=torch.from_numpy(next_obs),
+                 bootstrap=torch.from_numpy(cfg.gamma * (1.0 - done.astype(np.float32))))
+    (lc, pc), (lg, pg) = update_card_vs_cpu(torch, cfg, agent.train_state, batch,
+                                            torch.ones((cfg.batch_size,)))
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-6)
+    for a, c in zip(pg, pc):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)
+    t0 = time.perf_counter()
+    per_step, copies, busy, n = profile_host_steps(torch, agent, COMPAT_PROFILED_STEPS)
+    t1 = time.perf_counter()
+    returns = agent.evaluate(1)
+    assert len(returns) == 1 and math.isfinite(returns[0]), returns
+    copied = ", ".join(f"{v:.2f} {k}" for k, v in copies.items())
+    print(f"  (a) an update card vs CPU from the agent's state: ok; {per_step:.1f} kernel "
+          f"launches and device copies {copied} per env step, device busy {100 * busy:.1f} % "
+          f"of the wall over an episode of {n} learning env steps and its reset "
+          f"(torch.profiler, {t1 - t0:.1f} s); greedy "
+          f"evaluate(1) return {returns[0]:.2f} in {time.perf_counter() - t1:.1f} s [{card}]")
+    return launches
+
+
+def run_compat_engines(torch, td_kernels, card):
+    """Phase 11 (b) and (c): make_host_env("torch") for CartPole-v1 (the
+    learner on the card, K1/K2 at A = 2) and the jointed default lander; the
+    Box2D engine where gymnasium and Box2D import."""
+    import dataclasses
+    import random
+
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.compat.host_env import make_host_env
+    from deep_q_learning_tpu_torch.compat.host_loop import HostAgent
+    from deep_q_learning_tpu_torch.config import lunar_ref_parity
+
+    cfg = dataclasses.replace(lunar_ref_parity(), env_id="CartPole-v1", max_steps_in_episode=500,
+                              training_start=64, use_pallas=True)
+    env, obs_dim, num_actions = make_host_env("torch", "CartPole-v1", max_steps=500, device="cuda")
+    assert (obs_dim, num_actions) == (5, 2)
+    agent = HostAgent(env, obs_dim, num_actions, cfg, device="cuda")
+    td_kernels.reset_counts()
+    t0 = time.perf_counter()
+    _, episodes = agent.training(max_episodes=10**6, verbose=False,
+                                 max_total_steps=CARTPOLE_COMPAT_STEPS)
+    seconds = time.perf_counter() - t0
+    updates = agent.train_state.updates
+    assert updates == agent._global_steps // 4 - 63 // 4 > 0, updates
+    assert td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}
+    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    assert math.isfinite(agent._last_loss)
+    print(f"  (b) make_host_env('torch', 'CartPole-v1'): {agent._global_steps} env steps, "
+          f"{episodes} episodes, {updates} updates with K1/K2 at (64, 2), "
+          f"{agent._global_steps / seconds:.1f} env-steps/s [{card}]")
+
+    lander, obs_dim, num_actions = make_host_env("torch", "LunarLander-v2", device="cuda")
+    assert lander.env.params.jointed and (obs_dim, num_actions) == (9, 4)
+    rng = random.Random(0)
+    t0 = time.perf_counter()
+    obs, _ = lander.reset()
+    frames = [obs]
+    for _ in range(JOINTED_HOST_FRAMES):
+        obs, reward, term, trunc, _ = lander.step(rng.randrange(4))
+        frames.append(obs)
+        assert math.isfinite(reward) and not trunc
+        if term:
+            break
+    seconds = time.perf_counter() - t0
+    frames = np.stack(frames)
+    assert frames.shape[1] == 9 and np.isfinite(frames).all()
+    assert (frames[:, -1] == (np.arange(len(frames)) / 1500).astype(np.float32)).all()
+    print(f"  (b) make_host_env('torch', 'LunarLander-v2'), the jointed lander: a reset and "
+          f"{len(frames) - 1} frames in {seconds:.2f} s ({(len(frames) - 1) / seconds:.2f} "
+          f"env-steps/s with the reset) [{card}]")
+
+    try:
+        import Box2D  # noqa: F401
+        import gymnasium  # noqa: F401
+    except ImportError as e:
+        print(f"  (c) gymnasium's Box2D lander: not on this machine ({e}); it is a host-only "
+              f"env, so nothing of the card is skipped")
+        return
+    cfg = dataclasses.replace(lunar_ref_parity(), training_start=64, use_pallas=True)
+    env, obs_dim, num_actions = make_host_env("box2d", seed=0, device="cuda")
+    agent = HostAgent(env, obs_dim, num_actions, cfg, device="cuda")
+    td_kernels.reset_counts()
+    t0 = time.perf_counter()
+    agent.training(max_episodes=10**6, verbose=False, max_total_steps=BOX2D_COMPAT_STEPS)
+    seconds = time.perf_counter() - t0
+    updates = agent.train_state.updates
+    assert updates > 0 and td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}
+    print(f"  (c) make_host_env('box2d'): {agent._global_steps} env steps on the host, {updates} "
+          f"updates on the card, {agent._global_steps / seconds:.1f} env-steps/s [{card}]")
+
+
+def check_bf16_update_vs_cpu(torch, cfg, ts):
+    """One bf16 learner update from ``ts`` (a trained state) on the card
+    against the CPU, from the same random batch: the loss rtol 1e-3, and
+    each parameter within 2.1 lr, at most 1 % of them beyond lr / 10 (the
+    trunk's bf16 products round in other places on the card: a gradient
+    below the bf16 resolution may flip its sign)."""
+    g = torch.Generator().manual_seed(9)
+    b = cfg.batch_size
+    batch = dict(
+        obs=torch.randn((b, 9), generator=g),
+        action=torch.randint(0, 4, (b,), generator=g, dtype=torch.int32),
+        reward=torch.randn((b,), generator=g), next_obs=torch.randn((b, 9), generator=g),
+        bootstrap=0.97 * (torch.rand((b,), generator=g) > 0.2).float(),
+    )
+    (lc, pc), (lg, pg) = update_card_vs_cpu(torch, cfg, ts, batch,
+                                            torch.rand((b,), generator=g) + 0.1)
+    torch.testing.assert_close(lg, lc, rtol=1e-3, atol=1e-6)
+    lr = cfg.learning_rate
+    far = sum(int(((a - c).abs() > lr / 10).sum()) for a, c in zip(pg, pc))
+    total = sum(a.numel() for a in pg)
+    for a, c in zip(pg, pc):
+        torch.testing.assert_close(a, c, rtol=0, atol=2.1 * lr)
+    assert far <= 0.01 * total, (far, total)
+    return far, total, float((lg - lc).abs() / lc.abs())
+
+
+def run_bf16(torch, td_kernels, sample_kernels, card):
+    """Phase 11 (d): lunar_per with a bf16 trunk through Trainer, timed in
+    turns with the f32 run on the same cut; (e) a 2-member bf16 population.
+    Returns (d)'s kernel launches and K1/K2's error on its batch."""
+    import dataclasses
+
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.__main__ import build_config
+    from deep_q_learning_tpu_torch.parallel import PopulationTrainer
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    cfg = build_config("lunar_per", BF16_SETS)
+    f32 = dist_config()
+    assert cfg.compute_dtype == "bfloat16" and f32.compute_dtype == "float32"
+    zero = {"td_loss_fwd": 0, "td_loss_bwd": 0, "per_slot_sample": 0}
+    turns, peaks, steady = [], {}, {}
+    for c in (f32, cfg, cfg, f32):
+        t = Trainer(c, device="cuda").init(seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(DIST_SUPERSTEPS):
+            t.step()
+        torch.cuda.synchronize()
+        turns.append((c.compute_dtype, DIST_SUPERSTEPS * c.steps_per_superstep * c.num_envs
+                      / (time.perf_counter() - t0)))
+        peaks[c.compute_dtype] = torch.cuda.max_memory_allocated() / 2**20
+    for c in (f32, cfg):
+        steady[c.compute_dtype] = profile_steady(torch, Trainer(dataclasses.replace(
+            c, steps_per_superstep=LAUNCH_STEPS, training_start=0), device="cuda").init(seed=1),
+            LAUNCH_STEPS)
+    rates = ", ".join(f"{name} {rate:.1f}" for name, rate in turns)
+    memory = ", ".join(f"{k} {v:.1f} MiB" for k, v in peaks.items())
+    profiled = ", ".join(f"{k} {s['launches_per_step']:.1f} launches per vector step, device "
+                         f"busy {100 * s['busy']:.1f} %" for k, s in steady.items())
+    print(f"  (d) lunar_per x128 env-steps/s in turns on the same cut: {rates}; peak memory "
+          f"{memory}; steady {LAUNCH_STEPS}-step superstep: {profiled} [{card}]")
+
+    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    metrics = [trainer.step() for _ in range(DIST_SUPERSTEPS)]
+    torch.cuda.synchronize()
+    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    assert sum(m.loss_count for m in metrics) == trainer.runner.train.updates == DIST_ROUNDS
+    assert launches == dict.fromkeys(zero, DIST_ROUNDS) and plain == zero, (launches, plain)
+    bf16_launches = launches
+    loss = sum(m.loss_sum for m in metrics) / DIST_ROUNDS
+    assert math.isfinite(loss), loss
+    online = trainer.runner.train.online
+    assert all(p.dtype == torch.float32 for p in online.parameters())
+    assert all(t.dtype == torch.float32 for t in trainer.runner.train.opt_state.mu)
+    with torch.no_grad():
+        assert online.features(trainer.runner.obs).dtype == torch.bfloat16
+        assert online(trainer.runner.obs).dtype == torch.float32
+    # K1/K2 on a real bf16-fed batch from the replay: the same f32 shapes
+    err = {"td_loss_fwd": 0.0, "td_loss_bwd": 0.0}
+    r = trainer.runner
+    batch, _, weights = trainer.replay.sample_with_info(
+        r.replay, r.generator, cfg.batch_size, gamma=r.hyper.gamma, beta=r.hyper.per_beta)
+    b = cfg.batch_size
+    with torch.no_grad():
+        q_both = online(torch.cat([batch.obs, batch.next_obs]))
+        q_next_target = r.train.target(batch.next_obs)
+    assert q_both.dtype == torch.float32 and q_both.shape == (2 * b, 4)
+    check_td_case(torch, td_kernels, [q_both[:b], q_both[b:], q_next_target, batch.action,
+                                      batch.reward, batch.bootstrap, weights], 4, True, err)
+    far, total, loss_rel = check_bf16_update_vs_cpu(torch, cfg, trainer.runner.train)
+    print(f"  (d) bf16 lunar_per x128: {DIST_ROUNDS} update rounds, launches {launches}, no plain "
+          f"call, loss {loss:.5f}; f32 parameters and Adam state, bf16 trunk activations; K1/K2 "
+          f"on a bf16-fed batch vs plain: ok; an update card vs CPU: loss rel {loss_rel:.2e}, "
+          f"{far} of {total} parameters beyond lr/10 [{card}]")
+
+    m = BF16_MEMBERS
+    pop = PopulationTrainer(cfg, m, eval_envs=4, device="cuda")
+    runner = pop.init(seed=0)
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(DIST_SUPERSTEPS):
+        runner, met = pop.step(runner)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rounds = runner.train.updates
+    assert rounds == [DIST_ROUNDS] * m, rounds
+    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    assert launches == dict.fromkeys(zero, DIST_ROUNDS), launches
+    assert not any(dict(td_kernels.plain_calls, **sample_kernels.plain_calls).values())
+    assert np.isfinite(met.loss_sum).all()
+    with torch.no_grad():
+        assert runner.train.online.features(runner.obs.view(m, cfg.num_envs, -1)).dtype == \
+            torch.bfloat16
+    env_steps = DIST_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs * m
+    print(f"  (e) bf16 lunar_per population of {m}: {env_steps} env steps in {seconds:.3f} s = "
+          f"{env_steps / seconds:.1f} aggregate env-steps/s, {DIST_ROUNDS} update rounds each, "
+          f"launches {launches} [{card}]")
+    return bf16_launches, err
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -1620,13 +2025,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from deep_q_learning_tpu_torch import native
     from deep_q_learning_tpu_torch.ops import build, sample_kernels, td_kernels
 
     print("phase 2: build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, together
-        for fut in [pool.submit(td_kernels._lib), pool.submit(sample_kernels._lib)]:
+    # one nvcc per source and g++ for the host replay buffer, together
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = [pool.submit(td_kernels._lib), pool.submit(sample_kernels._lib),
+                   pool.submit(native.load_library)]
+        for fut in futures:
             fut.result()
+    print(f"  native/replay_buffer.cc: g++ into {native.build_library().relative_to(REPO)}")
     for source in ("td_loss.cu", "per_sample.cu"):
         print(f"  {source}: nvcc {build.build_seconds.get(source, 0.0):.2f} s (0 = reused a build)")
         for kernel, use in build.ptxas_summary(build.ptxas_reports.get(source, "")).items():
@@ -1690,6 +2100,14 @@ def main() -> int:
     shutil.rmtree(cli_workdir, ignore_errors=True)
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    print("phase 11: the host-compatibility path and the bf16 trunk")
+    t0 = time.perf_counter()
+    compat_err, compat_times = check_compat_shapes(torch, td_kernels, card)
+    compat_launches = run_compat_lander(torch, td_kernels, card)
+    run_compat_engines(torch, td_kernels, card)
+    bf16_launches, bf16_err = run_bf16(torch, td_kernels, sample_kernels, card)
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
     # ms and bound at B=256 for the TD kernels (lunar_per, lunar_jointed_per)
     # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);
     # launches of the TD kernels from phase 7, of the slot kernel from phase 5.
@@ -1709,9 +2127,16 @@ def main() -> int:
     # The kernels at a rank's shapes in phase 10 (b) ("[rank]": K1/K2 at
     # B = 128, K3 at (64, 8192, 128)): ms and bound at those shapes, launches
     # of rank 0 there.
-    runs = [("", launches, err, timed), ("[members]", population_launches_run, member_err,
-                                         member_times), ("[rank]", rank_launches, rank_err,
-                                                         rank_times)]
+    # The TD kernels on phase 11's paths: "[compat]", the host agent's update
+    # at (64, 4) (ms and bound there, launches of (a)); "[bf16]", the bf16
+    # learner's, which feeds them lunar_per's f32 shapes (ms and bound at
+    # B = 256 from phase 3, launches and error of (d)).
+    td_only = ("td_loss_fwd", "td_loss_bwd")
+    runs = [("", launches, err, timed, kernels), ("[members]", population_launches_run, member_err,
+                                                  member_times, kernels),
+            ("[rank]", rank_launches, rank_err, rank_times, kernels),
+            ("[compat]", compat_launches, compat_err, compat_times, td_only),
+            ("[bf16]", bf16_launches, bf16_err, times[256], td_only)]
     record = {"kernels": [
         {
             "name": name + suffix,
@@ -1726,8 +2151,8 @@ def main() -> int:
             "bound_by": bound_by(run_timed[name][2]),
             "library_ms": None,
         }
-        for suffix, run_launches, run_err, run_timed in runs
-        for name, (source, replaces) in kernels.items()
+        for suffix, run_launches, run_err, run_timed, names in runs
+        for name, (source, replaces) in kernels.items() if name in names
     ]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s [{card}]")
     print(json.dumps(record))

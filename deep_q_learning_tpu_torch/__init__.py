@@ -16,9 +16,12 @@ uniform and prioritized n-step replay with the hand-written CUDA
 slot-sampling kernel (``ops/sample_kernels.py``, ``csrc/per_sample.cu``),
 the double-DQN learner with the hand-written CUDA TD+huber kernel
 (``ops/td_kernels.py``, ``csrc/td_loss.cu``), the superstep, the
-evaluator, the ``Trainer`` with full-runner checkpoints, and the command
-line (``python -m deep_q_learning_tpu_torch``).  ROADMAP.md lists what is
-still to port.
+evaluator, the ``Trainer`` with full-runner checkpoints, the command
+line (``python -m deep_q_learning_tpu_torch``), population training and the
+GP-UCB search, runs over ranks, the bf16 trunk (``compute_dtype``), and
+the host-compatibility path (``compat/``: the reference agent's host loop
+over any Gym-protocol env, on the native ring buffer of ``native/``).
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,16 @@ or a plain linear head.  Initialisation is flax's ``nn.Dense`` default, not
 deviations, scaled to variance ``1 / fan_in``) and zero biases.  Layer
 names follow the flax module (``trunk_{i}``, ``value``, ``advantage``,
 ``q``), and :meth:`QNetwork.from_flax_params` loads a flax parameter dict.
-The network runs in float32.
+
+``compute_dtype="bfloat16"`` runs the trunk in bf16, as flax's
+``QNetwork(compute_dtype=bfloat16)``: the input, weights, biases and
+activations are bf16, the heads run in float32 on the bf16 features cast
+up, and Q is float32.  Parameters (and so gradients and optimizer state)
+stay float32: the weights are cast at use, not in storage.  flax's
+``Dense(dtype=bf16)`` rounds ``x·W`` to bf16 and then adds the bias in
+bf16, so it rounds twice; ``F.linear`` and ``baddbmm`` would add the bias
+before the one rounding, so the bf16 trunk runs the product and the bias
+add as two ops.  The float32 path is unchanged.
 
 :class:`MemberQNetwork` is M such networks of one shape for a population
 (``parallel/population.py``): each layer holds an (M, out, in) weight and
@@ -23,6 +32,17 @@ from typing import Iterator, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``compute_dtype``; raises for any name
+    but "float32" and "bfloat16"."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {name!r}")
+    return COMPUTE_DTYPES[name]
+
 
 # stddev of a unit normal truncated to [-2, 2]; flax divides by it so the
 # truncated draw has the requested variance
@@ -53,12 +73,14 @@ class QNetwork(nn.Module):
         dueling: bool = True,
         device=None,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: str = "float32",
     ):
         super().__init__()
         self.obs_dim = obs_dim
         self.num_actions = num_actions
         self.hidden = tuple(hidden)
         self.dueling = dueling
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         widths = (obs_dim,) + self.hidden
         self.trunk = nn.ModuleList(
             _linear(widths[i], widths[i + 1], device) for i in range(len(self.hidden))
@@ -88,9 +110,20 @@ class QNetwork(nn.Module):
             with torch.no_grad():
                 layer.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The trunk's activations, in ``compute_dtype``."""
+        if self.compute_dtype == torch.float32:
+            for layer in self.trunk:
+                x = torch.relu(layer(x))
+            return x
+        dt = self.compute_dtype
+        x = x.to(dt)
         for layer in self.trunk:
-            x = torch.relu(layer(x))
+            x = torch.relu(torch.matmul(x, layer.weight.to(dt).t()) + layer.bias.to(dt))
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.features(x).to(torch.float32)
         if self.dueling:
             val = self.value(x)
             adv = self.advantage(x)
@@ -98,7 +131,9 @@ class QNetwork(nn.Module):
         return self.q(x)
 
     @classmethod
-    def from_flax_params(cls, params: Mapping, device=None) -> "QNetwork":
+    def from_flax_params(
+        cls, params: Mapping, device=None, compute_dtype: str = "float32"
+    ) -> "QNetwork":
         """Build a network from a flax ``QNetwork`` parameter dict whose
         leaves are numpy arrays (``{"params": {"trunk_0": {"kernel", "bias"},
         ...}}`` or its inner dict).  Each ``(in, out)`` kernel becomes an
@@ -114,6 +149,7 @@ class QNetwork(nn.Module):
             hidden=hidden,
             dueling=dueling,
             device=device,
+            compute_dtype=compute_dtype,
         )
         with torch.no_grad():
             for name, layer in net.flax_layers():
@@ -133,7 +169,11 @@ class MemberLinear(nn.Module):
         self.bias = nn.Parameter(torch.empty((members, n_out), device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.baddbmm(self.bias[:, None, :], x, self.weight.transpose(1, 2))
+        if x.dtype == torch.float32:
+            return torch.baddbmm(self.bias[:, None, :], x, self.weight.transpose(1, 2))
+        # a reduced-precision trunk: the product rounded, then the bias added
+        dt = x.dtype
+        return torch.bmm(x, self.weight.to(dt).transpose(1, 2)) + self.bias.to(dt)[:, None, :]
 
 
 class MemberQNetwork(nn.Module):
@@ -151,6 +191,7 @@ class MemberQNetwork(nn.Module):
         dueling: bool = True,
         device=None,
         generators: Optional[Sequence[torch.Generator]] = None,
+        compute_dtype: str = "float32",
     ):
         super().__init__()
         self.members = members
@@ -158,6 +199,7 @@ class MemberQNetwork(nn.Module):
         self.num_actions = num_actions
         self.hidden = tuple(hidden)
         self.dueling = dueling
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         widths = (obs_dim,) + self.hidden
         self.trunk = nn.ModuleList(
             MemberLinear(members, widths[i], widths[i + 1], device)
@@ -185,10 +227,16 @@ class MemberQNetwork(nn.Module):
             for _, layer in self.flax_layers():
                 layer.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` (M, rows, obs_dim) -> Q-values (M, rows, num_actions)."""
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The trunk's activations (M, rows, width), in ``compute_dtype``."""
+        x = x.to(self.compute_dtype)
         for layer in self.trunk:
             x = torch.relu(layer(x))
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (M, rows, obs_dim) -> Q-values (M, rows, num_actions)."""
+        x = self.features(x).to(torch.float32)
         if self.dueling:
             val = self.value(x)
             adv = self.advantage(x)
@@ -196,7 +244,9 @@ class MemberQNetwork(nn.Module):
         return self.q(x)
 
     @classmethod
-    def from_flax_params(cls, params: Mapping, device=None) -> "MemberQNetwork":
+    def from_flax_params(
+        cls, params: Mapping, device=None, compute_dtype: str = "float32"
+    ) -> "MemberQNetwork":
         """Stacked networks from a member-stacked flax ``QNetwork`` parameter
         dict (as ``jax.vmap(network.init)`` gives: every leaf with a leading
         member axis, ``kernel`` (M, in, out)); numpy leaves."""
@@ -206,7 +256,8 @@ class MemberQNetwork(nn.Module):
         hidden = tuple(np.shape(p[f"trunk_{i}"]["bias"])[1] for i in range(n_trunk))
         dueling = "value" in p
         head = p["advantage"] if dueling else p["q"]
-        net = cls(members, obs_dim, np.shape(head["bias"])[1], hidden, dueling, device=device)
+        net = cls(members, obs_dim, np.shape(head["bias"])[1], hidden, dueling, device=device,
+                  compute_dtype=compute_dtype)
         with torch.no_grad():
             for name, layer in net.flax_layers():
                 kernel = np.asarray(p[name]["kernel"], np.float32)

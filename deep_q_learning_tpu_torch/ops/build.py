@@ -53,24 +53,9 @@ def load_library(source_name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
     """Compile ``csrc/<source_name>`` (or ``<csrc_dir>/<source_name>``) if
     its build is missing or stale, and load it.  Cached per process."""
     source = csrc_dir / source_name
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # one build at a time: processes that start together (the ranks of a
-        # run that share a checkout) wait here and then find the library;
-        # the kernel releases the lock if its holder dies
-        with open(BUILD_DIR / f"{lib_path.stem}.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if not lib_path.exists():
-                _build(source, source_name, lib_path)
-    return ctypes.CDLL(str(lib_path))
 
-
-def _build(source: Path, source_name: str, lib_path: Path) -> None:
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        out = Path(tmp) / lib_path.name
+    def compile_to(out: Path) -> None:
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
             capture_output=True, text=True,
@@ -80,9 +65,32 @@ def _build(source: Path, source_name: str, lib_path: Path) -> None:
                 f"nvcc failed on {source} (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
-        os.replace(out, lib_path)  # atomic: a loader sees all or nothing
-    build_seconds[source_name] = time.perf_counter() - t0
-    ptxas_reports[source_name] = proc.stdout + proc.stderr
+        build_seconds[source_name] = time.perf_counter() - t0
+        ptxas_reports[source_name] = proc.stdout + proc.stderr
+
+    return ctypes.CDLL(str(cached_build(source, NVCC_FLAGS, BUILD_DIR, compile_to)))
+
+
+def cached_build(source: Path, flags, build_dir: Path, compile_to) -> Path:
+    """The library built from ``source`` with ``flags``: under ``build_dir``,
+    named after a hash of the source and the flags, so an edited source is
+    rebuilt.  Where it is missing, ``compile_to(path)`` writes it to a
+    temporary path that then replaces it atomically (a loader sees all or
+    nothing).  One build at a time: processes that start together (the
+    ranks of a run that share a checkout) wait on a file lock and then find
+    the library; the kernel releases the lock if its holder dies."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    lib_path = build_dir / f"{source.stem}-{digest[:16]}.so"
+    if not lib_path.exists():
+        build_dir.mkdir(parents=True, exist_ok=True)
+        with open(build_dir / f"{lib_path.stem}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib_path.exists():
+                with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+                    out = Path(tmp) / lib_path.name
+                    compile_to(out)
+                    os.replace(out, lib_path)
+    return lib_path
 
 
 def ptxas_summary(report: str) -> dict:

@@ -80,7 +80,10 @@ def build_distributed_superstep(
     )
     venv = VectorEnv(env, local_cfg.num_envs)
     (obs_dim,) = env.obs_shape(env_params)
-    network = QNetwork(obs_dim, env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling)
+    network = QNetwork(
+        obs_dim, env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling,
+        compute_dtype=cfg.compute_dtype,
+    )
     replay = make_replay(cfg, num_envs=local_cfg.num_envs)
     init_local, superstep = build_superstep(
         venv, env_params, network, make_optimizer(cfg), replay, local_cfg, device, group=group

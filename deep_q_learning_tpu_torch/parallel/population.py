@@ -36,26 +36,21 @@ from deep_q_learning_tpu_torch.algos.superstep import build_population_superstep
 from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
 from deep_q_learning_tpu_torch.models import MemberQNetwork
 from deep_q_learning_tpu_torch.replay import make_replay
-from deep_q_learning_tpu_torch.train import resolve_device
+from deep_q_learning_tpu_torch.train import resolve_device, set_matmul_precision
 
 
 def _build(cfg, num_members: int, device):
     """``(init_population, population_step, network, env, env_params)``."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "the PyTorch port runs in float32 only (compute_dtype='bfloat16' "
-            "is not ported; see ROADMAP.md)"
-        )
+    set_matmul_precision(cfg)
     device = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False  # full float32, as Trainer
-    torch.backends.cudnn.allow_tf32 = False
     env, env_params = make_env(
         cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
         param_overrides=cfg.env_param_overrides(),
     )
     (obs_dim,) = env.obs_shape(env_params)
     network = MemberQNetwork(
-        num_members, obs_dim, env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling
+        num_members, obs_dim, env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling,
+        compute_dtype=cfg.compute_dtype,
     )
     init_population, population_step = build_population_superstep(
         VectorEnv(env, cfg.num_envs * num_members), env_params, network,

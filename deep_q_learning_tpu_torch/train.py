@@ -27,6 +27,7 @@ from deep_q_learning_tpu_torch.algos.evaluate import EvalResult, build_evaluator
 from deep_q_learning_tpu_torch.config import config_shape_mismatches, config_to_dict
 from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
 from deep_q_learning_tpu_torch.models import QNetwork
+from deep_q_learning_tpu_torch.models.networks import compute_dtype_of
 from deep_q_learning_tpu_torch.replay import make_replay
 from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
 
@@ -86,24 +87,25 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _float32_only(cfg) -> None:
-    """Everything runs in float32: TF32 is switched off for matmuls and
-    cuDNN (process-wide), since the reference values are full float32."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "the PyTorch port runs in float32 only (compute_dtype='bfloat16' "
-            "is not ported; see ROADMAP.md)"
-        )
+def set_matmul_precision(cfg) -> None:
+    """Check ``cfg.compute_dtype`` and make every matmul accumulate in full
+    float32, as the reference values are computed (process-wide): TF32 off
+    for matmuls and cuDNN, and bf16 products without reduced-precision
+    reductions."""
+    compute_dtype_of(cfg.compute_dtype)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class Trainer:
-    """Build-once, step-many trainer for one config on one device, in
+    """Build-once, step-many trainer for one config on one device.  The
+    network's trunk runs in ``cfg.compute_dtype`` (float32 or bfloat16);
+    parameters, optimizer state, Q-values and everything else stay
     float32."""
 
     def __init__(self, cfg, device="cuda", workdir: Optional[str] = None):
-        _float32_only(cfg)
+        set_matmul_precision(cfg)
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
@@ -114,7 +116,8 @@ class Trainer:
         self.venv = VectorEnv(self.env, cfg.num_envs)
         (obs_dim,) = self.env.obs_shape(self.env_params)
         self.network = QNetwork(
-            obs_dim, self.env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling
+            obs_dim, self.env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling,
+            compute_dtype=cfg.compute_dtype,
         )
         self.optimizer = make_optimizer(cfg)
         self.replay = make_replay(cfg)
@@ -291,7 +294,7 @@ class DistributedTrainer(Trainer):
         from deep_q_learning_tpu_torch.parallel.distributed import build_distributed_superstep
         from deep_q_learning_tpu_torch.parallel.mesh import rank_device
 
-        _float32_only(cfg)
+        set_matmul_precision(cfg)
         self.cfg = cfg
         self.workdir = workdir
         self.group = group

@@ -18,7 +18,9 @@ bitwise its own unbatched call, and one slot launch over every member's
 rows bitwise M per-member calls; a population learner update on the GPU
 vs the CPU at rtol 1e-4.  At world size 1 on NCCL, ``DistributedTrainer``
 is bitwise ``Trainer``; ``dryrun_multichip(1)`` runs the three kernels
-under the all-reduce."""
+under the all-reduce.  The host-compat agent's update on the GPU vs the
+CPU at rtol 1e-4; a bf16-trunk update on the GPU vs the CPU: the loss
+rtol 1e-3, every parameter within 2.1 lr and at most 1 % beyond lr / 10."""
 
 import dataclasses
 
@@ -560,3 +562,104 @@ def test_dryrun_multichip_one_rank_on_the_card(cuda):
     assert report["backend"] == "nccl" and report["updates"] == 4
     assert report["launches"] == {"td_loss_fwd": 4, "td_loss_bwd": 4, "per_slot_sample": 4}
     assert not any(report["plain_calls"].values())
+
+
+class _Corridor:
+    """5-state corridor, classic 4-tuple protocol (``tests/test_torch_compat.py``)."""
+
+    def reset(self):
+        self.pos = 2
+        return self._obs()
+
+    def _obs(self):
+        o = np.zeros(5, np.float32)
+        o[self.pos] = 1.0
+        return o
+
+    def step(self, action):
+        self.pos = int(np.clip(self.pos + (1 if action == 1 else -1), 0, 4))
+        done = self.pos in (0, 4)
+        return self._obs(), 1.0 if self.pos == 4 else (-1.0 if self.pos == 0 else -0.01), done, {}
+
+
+def _update_on_both(cfg, ts, batch, weights):
+    """One update of ``cfg`` from copies of ``ts`` on the CPU and the GPU."""
+    import copy
+
+    from deep_q_learning_tpu_torch.algos import build_update_step, make_optimizer
+    from deep_q_learning_tpu_torch.replay.nstep import LearnBatch
+
+    out = []
+    for device in ("cpu", "cuda"):
+        c = copy.deepcopy(ts)
+        c.online.to(device)
+        c.target.to(device)
+        c.opt_state.mu = [t.to(device) for t in c.opt_state.mu]
+        c.opt_state.nu = [t.to(device) for t in c.opt_state.nu]
+        lb = LearnBatch(**{k: v.to(device) for k, v in batch.items()})
+        c, loss, _ = build_update_step(make_optimizer(cfg), cfg)(c, lb, weights.to(device))
+        out.append((loss.cpu(), [p.detach().cpu() for p in c.online.parameters()]))
+    return out
+
+
+def test_host_agent_update_on_gpu_matches_cpu(cuda):
+    """The compat agent on the card with ``use_pallas``: K1/K2 launched once
+    per update and no plain call; then one update from its state on the GPU
+    vs the CPU at rtol 1e-4."""
+    from deep_q_learning_tpu_torch.compat.host_loop import HostAgent
+    from deep_q_learning_tpu_torch.config import DQNConfig
+
+    cfg = DQNConfig(num_envs=1, batch_size=32, buffer_capacity=4096, training_start=64,
+                    dueling=False, hidden=(32,), learning_rate=3e-3, optimizer="adam",
+                    gamma=0.9, eps_decay=0.95, eps_min=0.01, train_every=2,
+                    target_replace_episodes=10, max_steps_in_episode=20, use_pallas=True)
+    agent = HostAgent(_Corridor(), 5, 2, cfg, device="cuda")
+    td_kernels.reset_counts()
+    agent.training(max_episodes=40, verbose=False)
+    updates = agent.train_state.updates
+    assert updates > 0 and np.isfinite(agent._last_loss)
+    assert td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}
+    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    obs, action, reward, next_obs, done = agent.buffer.sample(cfg.batch_size)
+    batch = dict(obs=torch.from_numpy(obs), action=torch.from_numpy(action),
+                 reward=torch.from_numpy(reward), next_obs=torch.from_numpy(next_obs),
+                 bootstrap=torch.from_numpy(cfg.gamma * (1.0 - done.astype(np.float32))))
+    (lc, pc), (lg, pg) = _update_on_both(cfg, agent.train_state, batch,
+                                         torch.ones((cfg.batch_size,)))
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-6)
+    for a, c in zip(pg, pc):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)
+
+
+def test_bf16_update_on_gpu_matches_cpu(cuda):
+    """A bf16-trunk learner update (lunar_per's, through the TD kernels) on
+    the GPU vs the CPU from a trained state: the loss rtol 1e-3, every
+    parameter within 2.1 lr and at most 1 % beyond lr / 10 (the trunk's bf16
+    products round in other places: a gradient below bf16 resolution may
+    flip its sign, and Adam then moves the weight by about ±lr)."""
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(lunar_per(), steps_per_superstep=4, training_start=0,
+                              compute_dtype="bfloat16")
+    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    td_kernels.reset_counts()
+    trainer.step()
+    assert td_kernels.launches == {"td_loss_fwd": 4, "td_loss_bwd": 4}
+    online = trainer.runner.train.online
+    assert online.features(trainer.runner.obs).dtype == torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+    b = cfg.batch_size
+    batch = dict(obs=torch.randn((b, 9), generator=g),
+                 action=torch.randint(0, 4, (b,), generator=g, dtype=torch.int32),
+                 reward=torch.randn((b,), generator=g), next_obs=torch.randn((b, 9), generator=g),
+                 bootstrap=0.97 * (torch.rand((b,), generator=g) > 0.2).float())
+    (lc, pc), (lg, pg) = _update_on_both(cfg, trainer.runner.train, batch,
+                                         torch.rand((b,), generator=g) + 0.1)
+    torch.testing.assert_close(lg, lc, rtol=1e-3, atol=1e-6)
+    lr = cfg.learning_rate
+    for a, c in zip(pg, pc):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, c, rtol=0, atol=2.1 * lr)
+    far = sum(int(((a - c).abs() > lr / 10).sum()) for a, c in zip(pg, pc))
+    assert far <= 0.01 * sum(a.numel() for a in pg)

@@ -223,7 +223,9 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, deep_q_learning_tpu_torch, deep_q_learning_tpu_torch.train, "
         "deep_q_learning_tpu_torch.__main__, deep_q_learning_tpu_torch.measure, "
-        "deep_q_learning_tpu_torch.parallel, deep_q_learning_tpu_torch.utils.visualize; "
+        "deep_q_learning_tpu_torch.parallel, deep_q_learning_tpu_torch.utils.visualize, "
+        "deep_q_learning_tpu_torch.compat.host_loop, deep_q_learning_tpu_torch.compat.host_env, "
+        "deep_q_learning_tpu_torch.native; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'deep_q_learning_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
