@@ -105,6 +105,20 @@ Phases (each raises on failure, so any failure exits non-zero):
      parameters and bf16 trunk activations, K1/K2 on a bf16-fed batch vs
      plain, one update card vs CPU at the bf16 tolerance; (e) a 2-member
      bf16 population;
+ 12. the gymnasium harness and its examples (the card has no gymnasium):
+     (a) two Box2D episodes recorded on a host that has it
+     (``envs/gym_traces.json``: burn seed 6, nop seed 2) replayed through
+     ``gym_compat._stepwise_lanes`` as two lanes of one jointed lander at
+     gym's (180, 60) iterations (a CUDA graph of the frame, replayed),
+     held to the gates of
+     tests/test_gym_parity.py, and the same replay on the CPU (terminal and
+     contact steps equal, flight error within 1e-5); (b) a live
+     ``compare_lunar_stepwise`` where gymnasium imports, else one line
+     saying so; (c) ``examples.engine_curve_compare --engine torch --env
+     CartPole-v1`` in a process of its own (K1/K2 once per update, no plain
+     call, the JSONL's lines), then ``examples.summarize_engine_curves``
+     over its directory; (d) the rigid ``impact_sweep_torch`` (LAND, LAND,
+     CRASH, CRASH); (c) and the CPU replay run beside (a);
 then print the kernels' record as one JSON line (with each kernel's bound,
 ``bound_ms``), then the result line.
 
@@ -114,6 +128,7 @@ without printing a result where CUDA is absent.
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1636,6 +1651,7 @@ COMPAT_PROFILED_STEPS = 48  # one episode of the learning agent under torch.prof
 # K1/K2 on the compat path: lunar_ref_parity's batch at A = 4 (the lander)
 # and A = 2 (CartPole)
 COMPAT_SHAPES = [(64, 4), (64, 2)]
+CURVE_SHAPE = COMPAT_SHAPES[1]  # phase 12 (c): CartPole through engine_curve_compare
 # (b) CartPole-v1 through make_host_env("torch") with the learner on the card
 # from 64 stored transitions; the jointed default LunarLander-v2 a few frames
 CARTPOLE_COMPAT_STEPS = 300
@@ -1702,13 +1718,15 @@ def profile_host_steps(torch, agent, steps):
 def check_compat_shapes(torch, td_kernels, card):
     """K1/K2 at the compat path's shapes against their plain versions, both
     targets; their times (CUDA events over Python calls, and device µs from
-    a CUDA graph) beside their bound at (64, 4)."""
+    a CUDA graph) beside their bound.  Errors and times by shape."""
     from deep_q_learning_tpu_torch.measure import bound_text, device_us
 
-    err = {"td_loss_fwd": 0.0, "td_loss_bwd": 0.0}
+    err = {}
     for i, (b, a) in enumerate(COMPAT_SHAPES):
+        err[b, a] = {"td_loss_fwd": 0.0, "td_loss_bwd": 0.0}
         for double in (True, False):
-            check_td_case(torch, td_kernels, td_inputs(torch, b, a, seed=200 + i), a, double, err)
+            check_td_case(torch, td_kernels, td_inputs(torch, b, a, seed=200 + i), a, double,
+                          err[b, a])
     times = {}
     for b, a in COMPAT_SHAPES:
         args = td_inputs(torch, b, a, seed=210)
@@ -1728,8 +1746,7 @@ def check_compat_shapes(torch, td_kernels, card):
         for name, (kernel, plain, work) in calls.items():
             k_ms, p_ms = time_ms(torch, kernel), time_ms(torch, plain)
             k_us, p_us = device_us(kernel), device_us(plain)
-            if (b, a) == COMPAT_SHAPES[0]:
-                times[name] = (k_ms, p_ms, work)
+            times.setdefault((b, a), {})[name] = (k_ms, p_ms, work)
             print(f"  {name} B={b} A={a}: kernel {k_ms * 1e3:.2f} us/call, plain "
                   f"{p_ms * 1e3:.2f} us/call (CUDA events, {TIMED_CALLS} calls); device "
                   f"{k_us:.2f} us kernel, {p_us:.2f} us plain (CUDA graph); "
@@ -2013,6 +2030,155 @@ def run_bf16(torch, td_kernels, sample_kernels, card):
     return bf16_launches, err
 
 
+# phase 12: the gymnasium harness and its examples.  The card has no
+# gymnasium: (a) replays two Box2D episodes recorded on a host that has it
+# (deep_q_learning_tpu_torch/envs/gym_traces.json) as two lanes of one
+# jointed lander at gym's (180, 60) solver iterations, held to the gates of
+# tests/test_gym_parity.py, and the same replay on the CPU (in a process of
+# its own, beside the card's)
+# (nop seed 2 is tests/test_gym_parity.py's contact-timing case; seed 0's
+# flight carries a single-frame 8e-3 transient on the JAX engine too,
+# artifacts/gym_parity.json)
+REPLAY_TRACES = ("burn_s6", "nop_s2")
+REPLAY_MAX_STEPS = 400
+REPLAY_CPU = (
+    "import json\n"
+    "from deep_q_learning_tpu_torch.envs import gym_compat\n"
+    f"print(json.dumps(gym_compat._replay({list(REPLAY_TRACES)}, {REPLAY_MAX_STEPS}, 'cpu')))\n"
+)
+# (c) engine_curve_compare --engine torch on phase 11 (b)'s cut (CartPole-v1,
+# lunar_ref_parity, the learner from 64 stored transitions, K1/K2 at A = 2),
+# in a process of its own that prints its kernel launches and plain calls
+CURVE_SETS = ["training_start=64", "max_steps_in_episode=500", "use_pallas=true"]
+CURVE_COUNTS = (
+    "import json, sys\n"
+    "from deep_q_learning_tpu_torch.examples.engine_curve_compare import main\n"
+    "from deep_q_learning_tpu_torch.ops import td_kernels\n"
+    "main(sys.argv[1:])\n"
+    "print(json.dumps({'launches': td_kernels.launches, 'plain': td_kernels.plain_calls}))\n"
+)
+# (d) the rigid impact sweep: artifacts/gym_parity.json's jax_rigid row at these speeds
+IMPACT_SPEEDS = [1.0, 1.5, 2.5, 3.0]
+IMPACT_WANT = {"1.0": "LAND", "1.5": "LAND", "2.5": "CRASH", "3.0": "CRASH"}
+
+
+def replay_gates(burn, nop):
+    """tests/test_gym_parity.py's gates on a replayed burn and nop trace."""
+    for res in (burn, nop):
+        assert res["init_state_err"] < 1e-5, res  # state injection is exact
+    assert burn["term_step"]["gym"] == burn["term_step"]["torch"], burn
+    assert burn["term_reward"]["gym"] == burn["term_reward"]["torch"], burn
+    assert burn["flight_max_err"] < 5e-4, burn
+    assert burn["obs_err_at"]["1"] < 2e-4, burn
+    g, j = nop["first_contact"]["gym"], nop["first_contact"]["torch"]
+    assert g is not None and j is not None and abs(g - j) <= 2, nop
+    assert abs(nop["term_step"]["gym"] - nop["term_step"]["torch"]) <= 2, nop
+    assert nop["flight_max_err"] < 1e-4, nop
+    assert (nop["term_reward"]["gym"] > 0) == (nop["term_reward"]["torch"] > 0), nop
+
+
+def run_gym_harness(torch, td_kernels, card, workdir):
+    """Phase 12: (a) the recorded traces on the card and the CPU, (b) live
+    gymnasium where it imports, (c) engine curves and their summary, (d)
+    the rigid impact sweep.  Returns (c)'s kernel launches."""
+    from deep_q_learning_tpu_torch.envs import gym_compat
+    from deep_q_learning_tpu_torch.examples import summarize_engine_curves
+    from deep_q_learning_tpu_torch.examples.gym_parity_report import impact_sweep_torch
+
+    curve = Path(workdir) / "curve_torch_s0.jsonl"
+    curve_args = ["--engine", "torch", "--env", "CartPole-v1", "--max-total-steps",
+                  str(CARTPOLE_COMPAT_STEPS), "--eval-episodes", "2", "--out", str(curve),
+                  "--device", "cuda"] + [a for kv in CURVE_SETS for a in ("--set", kv)]
+    # (c) and the CPU replay run in processes of their own beside (a), one
+    # thread each and at a lower priority: (a)'s frames are bound by this
+    # process's host time
+    def beside(*args):
+        return subprocess.Popen([sys.executable, "-c", *args], cwd=REPO,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"),
+                                preexec_fn=lambda: os.nice(10), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    t0 = time.perf_counter()
+    procs = {"curves": beside(CURVE_COUNTS, *curve_args), "cpu": beside(REPLAY_CPU)}
+    out = {}
+    try:
+        t1 = time.perf_counter()
+        burn, nop = gym_compat._replay(REPLAY_TRACES, REPLAY_MAX_STEPS, "cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        frames = max(v for r in (burn, nop) for v in r["term_step"].values() if v is not None)
+        replay_gates(burn, nop)
+        print(f"  (a) Box2D traces {REPLAY_TRACES} replayed as 2 lanes of one jointed lander "
+              f"(180, 60) on the card, one CUDA graph of the frame captured at the first: "
+              f"{frames} frames in {seconds:.2f} s = {frames / seconds:.3f} frames/s; burn s6 term {burn['term_step']}, flight "
+              f"{burn['flight_max_err']:.3g}, obs1 {burn['obs_err_at']['1']:.3g}; nop s2 contact "
+              f"{nop['first_contact']}, term {nop['term_step']} {nop['term_reward']}, flight "
+              f"{nop['flight_max_err']:.3g}: the gates of tests/test_gym_parity.py hold [{card}]")
+
+        try:
+            import Box2D  # noqa: F401
+            import gymnasium  # noqa: F401
+        except ImportError as e:
+            print(f"  (b) live gymnasium: not on this machine ({e}); (a)'s recorded traces "
+                  f"stand in for it")
+        else:
+            t1 = time.perf_counter()
+            live = gym_compat.compare_lunar_stepwise("burn", seed=1, device="cuda")
+            assert live["term_step"]["gym"] == live["term_step"]["torch"], live
+            assert live["flight_max_err"] < 5e-4 and live["obs_err_at"]["1"] < 2e-4, live
+            print(f"  (b) live gymnasium burn seed 1 on the card: term {live['term_step']}, "
+                  f"flight {live['flight_max_err']:.3g} in {time.perf_counter() - t1:.1f} s")
+
+        # (d) the rigid sweep, speeds as lanes
+        t1 = time.perf_counter()
+        sweep = impact_sweep_torch(IMPACT_SPEEDS, jointed=False, device="cuda")
+        assert sweep == IMPACT_WANT, sweep
+        print(f"  (d) rigid impact sweep on the card: {sweep} in "
+              f"{time.perf_counter() - t1:.2f} s [{card}]")
+
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name} exited {proc.returncode}:\n{stdout}\n{stderr}")
+            out[name] = stdout.strip().splitlines()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    cpu_burn, cpu_nop = json.loads(out["cpu"][-1])
+    for card_res, cpu_res in ((burn, cpu_burn), (nop, cpu_nop)):
+        for key in ("term_step", "first_contact", "term_reward"):
+            assert card_res[key]["torch"] == cpu_res[key]["torch"], (key, card_res, cpu_res)
+        assert abs(card_res["flight_max_err"] - cpu_res["flight_max_err"]) <= 1e-5, (
+            card_res, cpu_res)
+    print(f"  (a) the same replay on the CPU: terminal and contact steps equal, flight "
+          f"{cpu_burn['flight_max_err']:.3g} / {cpu_nop['flight_max_err']:.3g} against the "
+          f"card's {burn['flight_max_err']:.3g} / {nop['flight_max_err']:.3g}")
+
+    counts = json.loads(out["curves"][-1])
+    lines = [json.loads(line) for line in curve.read_text().splitlines()]
+    final = lines[-1]["final"]
+    updates = final["global_steps"] // 4 - 63 // 4
+    assert "meta" in lines[0] and lines[0]["meta"]["engine"] == "torch", lines[0]
+    assert len(lines) == final["episodes"] + 2 and all("episode" in r for r in lines[1:-1])
+    assert updates > 0 and counts["launches"] == {"td_loss_fwd": updates,
+                                                  "td_loss_bwd": updates}, (counts, final)
+    assert counts["plain"] == {"td_loss_fwd": 0, "td_loss_bwd": 0}, counts
+    summary = summarize_engine_curves.main([
+        "--curve-dir", str(workdir), "--out-json", str(Path(workdir) / "summary.json"),
+        "--out-png", str(Path(workdir) / "summary.png")])
+    assert json.loads((Path(workdir) / "summary.json").read_text()) == summary
+    assert summary["overlay"]["torch"]["seeds"] == 1, summary["overlay"]
+    print(f"  (c) engine_curve_compare --engine torch --env CartPole-v1 in a process of its "
+          f"own: {final['global_steps']} env steps, {final['episodes']} episodes, {updates} "
+          f"updates, K1/K2 launched {counts['launches']}, no plain call, eval mean "
+          f"{final['eval_mean']}; summarize_engine_curves wrote its JSON "
+          f"({time.perf_counter() - t0:.1f} s with (a), (b), (d) beside it) [{card}]")
+    return counts["launches"]
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -2108,6 +2274,13 @@ def main() -> int:
     bf16_launches, bf16_err = run_bf16(torch, td_kernels, sample_kernels, card)
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    print("phase 12: the gymnasium harness and its examples")
+    t0 = time.perf_counter()
+    gym_workdir = tempfile.mkdtemp(dir=REPO / "build")
+    curve_launches = run_gym_harness(torch, td_kernels, card, gym_workdir)
+    shutil.rmtree(gym_workdir, ignore_errors=True)
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+
     # ms and bound at B=256 for the TD kernels (lunar_per, lunar_jointed_per)
     # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);
     # launches of the TD kernels from phase 7, of the slot kernel from phase 5.
@@ -2128,14 +2301,19 @@ def main() -> int:
     # B = 128, K3 at (64, 8192, 128)): ms and bound at those shapes, launches
     # of rank 0 there.
     # The TD kernels on phase 11's paths: "[compat]", the host agent's update
-    # at (64, 4) (ms and bound there, launches of (a)); "[bf16]", the bf16
+    # at (64, 4) (ms and bound there, launches of (a)); "[curves]", phase 12
+    # (c)'s engine_curve_compare on CartPole (ms, bound and error at (64, 2)
+    # from phase 11, launches of 12 (c)); "[bf16]", the bf16
     # learner's, which feeds them lunar_per's f32 shapes (ms and bound at
     # B = 256 from phase 3, launches and error of (d)).
     td_only = ("td_loss_fwd", "td_loss_bwd")
     runs = [("", launches, err, timed, kernels), ("[members]", population_launches_run, member_err,
                                                   member_times, kernels),
             ("[rank]", rank_launches, rank_err, rank_times, kernels),
-            ("[compat]", compat_launches, compat_err, compat_times, td_only),
+            ("[compat]", compat_launches, compat_err[COMPAT_SHAPES[0]],
+             compat_times[COMPAT_SHAPES[0]], td_only),
+            ("[curves]", curve_launches, compat_err[CURVE_SHAPE], compat_times[CURVE_SHAPE],
+             td_only),
             ("[bf16]", bf16_launches, bf16_err, times[256], td_only)]
     record = {"kernels": [
         {

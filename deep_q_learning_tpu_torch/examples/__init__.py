@@ -1,0 +1,3 @@
+"""The port's counterparts of the JAX package's ``examples/`` scripts that
+compare engines against gymnasium's Box2D lander; each runs as
+``python -m deep_q_learning_tpu_torch.examples.<name> --device ...``."""

@@ -20,7 +20,9 @@ vs the CPU at rtol 1e-4.  At world size 1 on NCCL, ``DistributedTrainer``
 is bitwise ``Trainer``; ``dryrun_multichip(1)`` runs the three kernels
 under the all-reduce.  The host-compat agent's update on the GPU vs the
 CPU at rtol 1e-4; a bf16-trunk update on the GPU vs the CPU: the loss
-rtol 1e-3, every parameter within 2.1 lr and at most 1 % beyond lr / 10."""
+rtol 1e-3, every parameter within 2.1 lr and at most 1 % beyond lr / 10.
+The gymnasium harness's CUDA-graph replay of a jointed frame: bitwise the
+eager frame."""
 
 import dataclasses
 
@@ -487,6 +489,48 @@ def test_jointed_frame_on_gpu_matches_cpu(cuda):
     for f in ("leg1", "leg2"):
         assert torch.equal(getattr(c, f), getattr(gpu, f))
     assert torch.equal(c_term, g_term.cpu())
+
+
+def test_graphed_lander_frames_equal_eager_frames(cuda):
+    """``envs/gym_compat._Frames`` replays one CUDA graph of the jointed
+    frame (gym's (180, 60) iterations) on the card: bit for bit the eager
+    frames, over 5 frames of 64 landers near the ground (flights, contacts,
+    crashes) with random actions and dispersion draws."""
+    from deep_q_learning_tpu_torch.envs.gym_compat import _Frames
+    from deep_q_learning_tpu_torch.envs.heuristic import touchdown_states
+    from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLander
+
+    env = LunarLander()
+    p = env.default_params()
+    n = 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    _, eager = touchdown_states(env, p, n, g, frames=20)
+    frames = _Frames(env, p, _copied(eager))
+    for _ in range(5):
+        actions = torch.randint(0, 4, (n,), generator=g, device=cuda, dtype=torch.int32)
+        draws = torch.rand((n, 2), generator=g, device=cuda) * 2 - 1
+        obs, eager, *rest = env.step_env(None, eager, actions, p, draws)
+        got = frames.step(actions, draws)
+        for a, b in zip(got, (obs, *rest)):
+            assert torch.equal(a, b)
+        for (name, a), (_, b) in zip(_leaves(frames.state), _leaves(eager)):
+            assert torch.equal(a, b), name
+    assert frames._graph is not None
+
+
+def _leaves(state, prefix=""):
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor):
+            yield prefix + f.name, v
+        elif v is not None:
+            yield from _leaves(v, prefix + f.name + ".")
+
+
+def _copied(state):
+    return dataclasses.replace(state, **{
+        f.name: (v.clone() if isinstance(v, torch.Tensor) else _copied(v))
+        for f in dataclasses.fields(state) if (v := getattr(state, f.name)) is not None})
 
 
 # one vector step card vs CPU: the CPU tests' atol 1e-6 for CartPole and

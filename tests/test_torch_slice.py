@@ -225,7 +225,11 @@ def test_import_leaves_jax_out():
         "deep_q_learning_tpu_torch.__main__, deep_q_learning_tpu_torch.measure, "
         "deep_q_learning_tpu_torch.parallel, deep_q_learning_tpu_torch.utils.visualize, "
         "deep_q_learning_tpu_torch.compat.host_loop, deep_q_learning_tpu_torch.compat.host_env, "
-        "deep_q_learning_tpu_torch.native; "
+        "deep_q_learning_tpu_torch.native, deep_q_learning_tpu_torch.envs.gym_compat, "
+        "deep_q_learning_tpu_torch.examples.gym_parity_report, "
+        "deep_q_learning_tpu_torch.examples.policy_transfer, "
+        "deep_q_learning_tpu_torch.examples.engine_curve_compare, "
+        "deep_q_learning_tpu_torch.examples.summarize_engine_curves; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'deep_q_learning_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
