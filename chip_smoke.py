@@ -119,6 +119,17 @@ Phases (each raises on failure, so any failure exits non-zero):
      call, the JSONL's lines), then ``examples.summarize_engine_curves``
      over its directory; (d) the rigid ``impact_sweep_torch`` (LAND, LAND,
      CRASH, CRASH); (c) and the CPU replay run beside (a);
+ 13. the reference-format scripts: (a) ``artifacts/lunar_ref_format`` (the
+     pickle pair the JAX package wrote) loaded through the port's
+     ``load_params_pickle`` onto the card, its Q-values of 256 observations
+     held to the CPU's (within 1e-5 of the largest |Q|, TF32 off), and
+     ``ops.fused_td_loss`` at (256, 4) held to the CPU; and
+     ``examples.evaluate_checkpoint --episodes 10`` of it in a process of
+     its own (finite returns); (b) ``examples.train_lunar_lander --preset
+     lunar_per --rollouts 1`` at full width for 4 supersteps (two past
+     ``training_start``): K1/K2 launched once per update, no plain call,
+     and the pair it wrote read back with Q-values bitwise the trained
+     network's; (a)'s process runs beside (b);
 then print the kernels' record as one JSON line (with each kernel's bound,
 ``bound_ms``), then the result line.
 
@@ -2077,6 +2088,126 @@ def replay_gates(burn, nop):
     assert (nop["term_reward"]["gym"] > 0) == (nop["term_reward"]["torch"] > 0), nop
 
 
+# phase 13: the pair the JAX package wrote, Q-values card vs CPU on observations in
+# the lander's range, within rtol 1e-5 of the largest |Q| (TF32 off).  The dueling
+# head adds and subtracts Q-values of up to ~330 here, so the float32 rounding of
+# another summation order is relative to that scale, not to each Q-value: one near
+# 0 differs by ~1.5e-5 between cuBLAS and the CPU
+REF_FORMAT = REPO / "artifacts" / "lunar_ref_format"
+REF_OBS = 256
+REF_Q_RTOL = 1e-5
+REF_EVAL_EPISODES = 10
+# train_lunar_lander at lunar_per's width, logging every superstep: 4 supersteps
+# of 128 vector steps, the learner from vector step 157 (20,000 stored over 128
+# envs), so two whole supersteps past training_start, as phase 4
+REF_TRAIN_SUPERSTEPS = 4
+
+
+def ref_observations(torch):
+    """REF_OBS lander observations from a seed: the 8 state values in
+    [-1, 1], the legs' contact flags 0 or 1, the time fraction in [0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    obs = rng.uniform(-1.0, 1.0, (REF_OBS, 9)).astype(np.float32)
+    obs[:, 6:8] = rng.integers(0, 2, (REF_OBS, 2))
+    obs[:, 8] = rng.random(REF_OBS)
+    return torch.from_numpy(obs)
+
+
+def run_reference_format(torch, td_kernels, card, workdir):
+    """Phase 13: the reference's pickle pair on the card and the two
+    scripts.  Returns (b)'s kernel launches."""
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.examples import train_lunar_lander
+    from deep_q_learning_tpu_torch.models import QNetwork
+    from deep_q_learning_tpu_torch.utils.checkpoint import load_params_pickle
+
+    # (a) the JAX package's pair: Q-values on the card against the CPU
+    obs = ref_observations(torch)
+    params, _ = load_params_pickle(str(REF_FORMAT))
+    with torch.no_grad():
+        q_card = QNetwork.from_flax_params(params, device="cuda")(obs.cuda()).cpu()
+        q_cpu = QNetwork.from_flax_params(params)(obs)
+    q_err, q_max = float((q_card - q_cpu).abs().max()), float(q_cpu.abs().max())
+    assert q_err <= REF_Q_RTOL * q_max, (q_err, q_max)
+    print(f"  (a) {REF_FORMAT.relative_to(REPO)} through load_params_pickle: Q-values of "
+          f"{REF_OBS} observations, card vs CPU max abs err {q_err:.3g} against |Q| up to "
+          f"{q_max:.1f} (rtol {REF_Q_RTOL} of it) [{card}]")
+    # ops.fused_td_loss, the JAX package's signature, on the card against the CPU
+    args = td_inputs(torch, 256, 4, seed=13)
+    got = []
+    for device in ("cuda", "cpu"):
+        q_s, *rest = [x.detach().to(device) for x in args]
+        q_s.requires_grad_(True)
+        loss, td = td_kernels.fused_td_loss(q_s, *rest)
+        loss.backward()
+        got.append([x.detach().cpu() for x in (loss, td, q_s.grad)])
+    (loss, td, dq), (ref_loss, ref_td, ref_dq) = got
+    torch.testing.assert_close(loss, ref_loss, **LOSS_TOL)
+    torch.testing.assert_close(td, ref_td, **LOSS_TOL)
+    torch.testing.assert_close(dq, ref_dq, **DQ_TOL)
+    print(f"  (a) ops.fused_td_loss at (256, 4) on the card vs the CPU: loss {float(loss):.6f}, "
+          f"dQ max abs err {float((dq - ref_dq).abs().max()):.3g}")
+    evaluate = subprocess.Popen(
+        [sys.executable, "-m", "deep_q_learning_tpu_torch.examples.evaluate_checkpoint",
+         "--ckpt", str(REF_FORMAT), "--episodes", str(REF_EVAL_EPISODES), "--device", "cuda",
+         "--out", str(Path(workdir) / "eval")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (b) train_lunar_lander at full width, in this process
+        from deep_q_learning_tpu_torch.config import lunar_per
+
+        cfg = lunar_per()
+        steps = REF_TRAIN_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
+        t0 = time.perf_counter()
+        td_kernels.reset_counts()
+        trainer = train_lunar_lander.main([
+            "--preset", "lunar_per", "--device", "cuda", "--rollouts", "1",
+            "--steps", str(steps), "--log-every", "1", "--workdir", str(workdir)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = dict(td_kernels.launches), dict(td_kernels.plain_calls)
+        updates = trainer.runner.train.updates
+        assert trainer.history[-1]["env_steps"] == steps, trainer.history[-1]
+        assert updates > 0 and launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, (
+            launches, updates)
+        assert plain == {"td_loss_fwd": 0, "td_loss_bwd": 0}, plain
+        assert math.isfinite(trainer.history[-1]["loss"]), trainer.history[-1]
+        params, opt_state = load_params_pickle(str(Path(workdir) / "ref_format"))
+        assert int(opt_state[1][0].count) == updates, opt_state[1][0].count
+        with torch.no_grad():
+            obs_card = obs.cuda()
+            read_back = QNetwork.from_flax_params(params, device="cuda")(obs_card)
+            trained = trainer.runner.train.online(obs_card)
+        assert torch.equal(read_back, trained), float((read_back - trained).abs().max())
+        rollout = np.load(Path(workdir) / "rollout_0.npz")
+        assert math.isfinite(float(rollout["ret"])) and int(rollout["length"]) > 0
+        print(f"  (b) examples.train_lunar_lander --preset lunar_per --rollouts 1: {steps} env "
+              f"steps, {updates} updates, K1/K2 launched {launches}, no plain call; the "
+              f"ref_format pair read back with Q-values bitwise the trained network's; "
+              f"rollout return {float(rollout['ret']):.1f} over {int(rollout['length'])} "
+              f"frames; {seconds:.1f} s [{card}]")
+
+        stdout, stderr = evaluate.communicate(timeout=300)
+    finally:
+        if evaluate.poll() is None:
+            evaluate.kill()
+            evaluate.wait()
+    if evaluate.returncode != 0:
+        raise RuntimeError(f"evaluate_checkpoint exited {evaluate.returncode}:\n{stdout}\n{stderr}")
+    line = next(x for x in stdout.splitlines() if x.startswith("eval over"))
+    stats = dict(kv.split("=") for kv in line.split(": ", 1)[1].split()[:3])
+    assert all(math.isfinite(float(v)) for v in stats.values()), line
+    print(f"  (a) examples.evaluate_checkpoint --episodes {REF_EVAL_EPISODES} in a process of "
+          f"its own, beside (b): {line}; mean {float(stats['mean'])} [{card}]")
+    for extra in stdout.splitlines():
+        if extra != line:
+            print(f"      {extra}")
+    return launches
+
+
 def run_gym_harness(torch, td_kernels, card, workdir):
     """Phase 12: (a) the recorded traces on the card and the CPU, (b) live
     gymnasium where it imports, (c) engine curves and their summary, (d)
@@ -2281,6 +2412,13 @@ def main() -> int:
     shutil.rmtree(gym_workdir, ignore_errors=True)
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
+    print("phase 13: the reference-format scripts")
+    t0 = time.perf_counter()
+    ref_workdir = tempfile.mkdtemp(dir=REPO / "build")
+    examples_launches = run_reference_format(torch, td_kernels, card, ref_workdir)
+    shutil.rmtree(ref_workdir, ignore_errors=True)
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+
     # ms and bound at B=256 for the TD kernels (lunar_per, lunar_jointed_per)
     # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);
     # launches of the TD kernels from phase 7, of the slot kernel from phase 5.
@@ -2305,7 +2443,9 @@ def main() -> int:
     # (c)'s engine_curve_compare on CartPole (ms, bound and error at (64, 2)
     # from phase 11, launches of 12 (c)); "[bf16]", the bf16
     # learner's, which feeds them lunar_per's f32 shapes (ms and bound at
-    # B = 256 from phase 3, launches and error of (d)).
+    # B = 256 from phase 3, launches and error of (d)); "[examples]", phase 13
+    # (b)'s train_lunar_lander, lunar_per's learner (ms, bound and error at
+    # B = 256 from phase 3, launches of (b)).
     td_only = ("td_loss_fwd", "td_loss_bwd")
     runs = [("", launches, err, timed, kernels), ("[members]", population_launches_run, member_err,
                                                   member_times, kernels),
@@ -2314,7 +2454,8 @@ def main() -> int:
              compat_times[COMPAT_SHAPES[0]], td_only),
             ("[curves]", curve_launches, compat_err[CURVE_SHAPE], compat_times[CURVE_SHAPE],
              td_only),
-            ("[bf16]", bf16_launches, bf16_err, times[256], td_only)]
+            ("[bf16]", bf16_launches, bf16_err, times[256], td_only),
+            ("[examples]", examples_launches, err, times[256], td_only)]
     record = {"kernels": [
         {
             "name": name + suffix,

@@ -17,3 +17,4 @@ from deep_q_learning_tpu_torch.algos.superstep import (
     build_population_superstep,
     build_superstep,
 )
+from deep_q_learning_tpu_torch.algos.evaluate import build_evaluator

@@ -14,9 +14,12 @@ keeps the pre-reset ``next_obs`` for bootstrapping.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Generic, Optional, Tuple, TypeVar
 
 import torch
+
+TEnvState = TypeVar("TEnvState")
+TEnvParams = TypeVar("TEnvParams")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +53,7 @@ def uniform(generator: torch.Generator, shape, lo: float, hi: float) -> torch.Te
     return u * (hi - lo) + lo
 
 
-class Environment:
+class Environment(Generic[TEnvState, TEnvParams]):
     """Abstract batched environment.
 
     Subclasses implement ``reset_env`` / ``step_env`` / ``get_obs`` over
@@ -62,8 +65,12 @@ class Environment:
     # superstep instead (algos/superstep.py).
     batch_reset_cheap: bool = False
 
-    def default_params(self):
+    def default_params(self) -> TEnvParams:
         raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
 
     @property
     def num_actions(self) -> int:
@@ -79,13 +86,20 @@ class Environment:
     def reset_batch(self, generator: torch.Generator, n: int, params):
         return self.reset_env(generator, n, params)
 
-    def get_obs(self, state, params) -> torch.Tensor:
+    def get_obs(self, state: TEnvState, params: TEnvParams) -> torch.Tensor:
         raise NotImplementedError
 
     def step_env(self, generator: torch.Generator, state, action, params, draws=None):
         """One transition of every instance.
         Returns ``(obs, state, reward, terminated, truncated)``."""
         raise NotImplementedError
+
+    # the JAX package's "jittable edges": thin calls onto the env functions
+    def reset(self, generator: torch.Generator, n: int, params, draws=None):
+        return self.reset_env(generator, n, params, draws)
+
+    def step(self, generator: torch.Generator, state, action, params, draws=None):
+        return self.step_env(generator, state, action, params, draws)
 
 
 @dataclasses.dataclass

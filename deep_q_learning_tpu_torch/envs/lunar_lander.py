@@ -50,12 +50,14 @@ INITIAL_RANDOM = 1000.0
 
 LEG_AWAY = 20.0 / SCALE
 LEG_DOWN = 18.0 / SCALE
+LEG_H = 8.0 / SCALE
 SIDE_ENGINE_HEIGHT = 14.0 / SCALE
 SIDE_ENGINE_AWAY = 12.0 / SCALE
 
 # ------------------- constants measured from the Box2D bodies --------------
 # (values and provenance: deep_q_learning_tpu/envs/lunar_lander.py)
 TOTAL_MASS = 4.9589
+HULL_MASS = 4.8167  # b2 lander.mass
 INERTIA = 0.953
 COM_OFFSET = 0.0981
 LEG_TIP_X = 0.8577

@@ -23,6 +23,10 @@ class WrappedEnv(Environment):
         return self.env.default_params()
 
     @property
+    def name(self) -> str:
+        return f"{type(self).__name__}({self.env.name})"
+
+    @property
     def num_actions(self) -> int:
         return self.env.num_actions
 

@@ -318,6 +318,21 @@ class FusedTDLoss(torch.autograd.Function):
         return dq, None, None, None, None, None, None, None, None
 
 
+def fused_td_loss(
+    q_s, q_next_online, q_next_target, action, reward, bootstrap, weights,
+    delta: float = 1.0, double: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, td)`` through :class:`FusedTDLoss` (the CUDA kernels on the
+    card, their plain versions on the CPU), with the JAX package's
+    signature: ``q_*`` f32 (B, A), ``action`` i32 (B,), the rest f32 (B,).
+    Differentiable in ``q_s`` only; the targets are stopped."""
+    q_both = torch.cat([q_s, q_next_online.detach()], dim=-2)
+    return FusedTDLoss.apply(
+        q_both, q_s.shape[-2], q_next_target.detach(), action, reward, bootstrap, weights,
+        delta, double,
+    )
+
+
 def build_fused_loss_fn(double: bool = True, huber_delta: float = 1.0):
     """Drop-in for ``algos.losses.build_loss_fn`` (huber only) that routes the
     TD and loss math through :class:`FusedTDLoss`.  The network forwards stay

@@ -42,6 +42,7 @@ from deep_q_learning_tpu_torch.replay.nstep import (
 from deep_q_learning_tpu_torch.replay.uniform import (
     RingStorage,
     alloc_storage,
+    can_sample,
     member_rows,
     write_row,
 )
@@ -234,6 +235,11 @@ class PrioritizedReplay:
         w = (1.0 / (n_valid * p_sel).clamp(min=1e-12)) ** beta[:, None]
         w = w / w.max(dim=1, keepdim=True).values.clamp(min=1e-12)
         return split_members(batch, members), SampleInfo(rows, slot_idx), w
+
+    def can_sample(self, state: PrioritizedReplayState, min_transitions: int) -> torch.Tensor:
+        """True (a 0-d bool tensor) once ``min_transitions`` transitions are
+        stored over this learner's envs (the ``training_start`` gate)."""
+        return can_sample(state, self.num_envs, min_transitions)
 
     def update_priorities(
         self,

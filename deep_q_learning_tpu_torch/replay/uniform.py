@@ -17,7 +17,7 @@ the cursor and the fill, and each samples B transitions from its own rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,6 +65,24 @@ def pack_aux(transition: Transition) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def unpack_aux(aux: torch.Tensor) -> tuple:
+    """(reward f32, action i32, terminated bool, truncated bool) from a
+    gathered ``(..., 4)`` aux block."""
+    return (
+        aux[..., AUX_REWARD],
+        aux[..., AUX_ACTION].to(torch.int32),
+        aux[..., AUX_TERM] > 0.5,
+        aux[..., AUX_TRUNC] > 0.5,
+    )
+
+
+def can_sample(state, num_envs: int, min_transitions: int) -> torch.Tensor:
+    """A 0-d bool tensor: at least ``min_transitions`` transitions are
+    stored over the ``num_envs`` rows (the warm-up gate)."""
+    return torch.tensor(state.filled * num_envs >= min_transitions,
+                        device=state.storage.aux.device)
 
 
 def member_rows(env_idx: torch.Tensor, num_envs: int) -> torch.Tensor:
@@ -146,6 +164,46 @@ class UniformReplay:
         state.cursor = (state.cursor + 1) % self.capacity_per_env
         state.total_adds += 1
         return state
+
+    def sample(
+        self,
+        state: ReplayState,
+        generator: torch.Generator,
+        batch_size: int,
+        indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Transition:
+        """Raw 1-step transitions, uniform with replacement over the filled
+        (env, slot) cells: ``env_idx`` in ``[0, num_envs)`` and ``slot_idx``
+        in ``[0, max(filled, 1))``, drawn directly as the JAX package does
+        (slot numbers, not ages).  ``indices``: optional ``(env_idx,
+        slot_idx)`` used instead of drawing from ``generator``."""
+        if self.members is not None:
+            raise ValueError("sample draws from one learner's buffer; a population "
+                             "samples through sample_with_info")
+        device = state.storage.aux.device
+        if indices is None:
+            indices = (
+                torch.randint(0, self.num_envs, (batch_size,), generator=generator,
+                              device=device),
+                torch.randint(0, max(state.filled, 1), (batch_size,), generator=generator,
+                              device=device),
+            )
+        env_idx, slot_idx = indices
+        s = state.storage
+        reward, action, terminated, truncated = unpack_aux(s.aux[slot_idx, env_idx])
+        return Transition(
+            obs=s.obs[slot_idx, env_idx],
+            action=action,
+            reward=reward,
+            next_obs=s.next_obs[slot_idx, env_idx],
+            terminated=terminated,
+            truncated=truncated,
+        )
+
+    def can_sample(self, state: ReplayState, min_transitions: int) -> torch.Tensor:
+        """True (a 0-d bool tensor) once ``min_transitions`` transitions are
+        stored over this learner's envs (the ``training_start`` gate)."""
+        return can_sample(state, self.num_envs, min_transitions)
 
     def sample_with_info(
         self,

@@ -9,7 +9,8 @@ env-step budget is spent, at the CLI's default ``--log-every 10``.
 ``classic``: ``cartpole_vector`` at seeds 0, 1, 2, 3 in turn (42M env steps
 each) until two have solved; ``acrobot_vector`` at seed 0 (4M), and seed 1
 only if seed 0 missed; ``mountain_car_vector`` the same (13M).  ``lunar``:
-``lunar_per_scaled`` (1024 envs) at seed 0 (63M).  Each run is
+``lunar_per_scaled`` (1024 envs) at seed 0 (63M), then ``lunar_per`` (128
+envs, the single learner of the main path) at seed 0 (30M).  Each run is
 
     python -m deep_q_learning_tpu_torch train --preset P --seed S
         --max-env-steps B --eval-every 10 --history-out DIR/P_seedS.jsonl
@@ -50,7 +51,12 @@ GROUPS = {
         ("acrobot_vector", 4_000_000, (0, 1), 1),
         ("mountain_car_vector", 13_000_000, (0, 1), 1),
     ],
-    "lunar": [("lunar_per_scaled", 63_000_000, (0,), 1)],
+    "lunar": [
+        ("lunar_per_scaled", 63_000_000, (0,), 1),
+        # the single learner of the main path; the JAX package's one single
+        # run solved at 29.5M (artifacts/lunar_solve_curve.json)
+        ("lunar_per", 30_000_000, (0,), 1),
+    ],
 }
 # --population: preset -> budget per member (the JAX package's 10-member
 # lunar_per population reached window 200 at 4.21M-7.09M env steps a member)
@@ -68,16 +74,22 @@ def card_line() -> str:
 
 def cli(args, log, device: str) -> dict:
     """Run ``python -m deep_q_learning_tpu_torch *args``, append its output to
-    ``log`` and return the JSON of its last line."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "deep_q_learning_tpu_torch", *args, "--device", device],
-        capture_output=True, text=True,
-    )
-    log.write(f"$ {' '.join(args)}\n{proc.stdout}{proc.stderr}")
+    ``log`` line by line as it comes (a run cut short keeps its curve) and
+    return the JSON of its last line."""
+    log.write(f"$ {' '.join(args)}\n")
     log.flush()
-    if proc.returncode != 0:
-        raise RuntimeError(f"{args[0]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deep_q_learning_tpu_torch", *args, "--device", device],
+        stdout=subprocess.PIPE, stderr=log, text=True,
+    )
+    lines = []
+    for line in proc.stdout:
+        lines.append(line)
+        log.write(line)
+        log.flush()
+    if proc.wait() != 0:
+        raise RuntimeError(f"{args[0]} exited {proc.returncode}; its output is in {log.name}")
+    return json.loads(lines[-1])
 
 
 def solve(preset: str, seed: int, budget: int, out: Path, card: str, device: str) -> dict:

@@ -197,6 +197,9 @@ def test_module_runs_as_a_program():
     # --preset/--seeds: every seed, at the preset's budget
     (["--preset", "cartpole_vector", "--seeds", "0,2,3"],
      [("cartpole_vector", s, 42_000_000) for s in (0, 2, 3)]),
+    # the lunar group: the scaled preset, then the single lunar_per learner
+    (["--group", "lunar"], [("lunar_per_scaled", 0, 63_000_000), ("lunar_per", 0, 30_000_000)]),
+    (["--preset", "lunar_per", "--seeds", "0"], [("lunar_per", 0, 30_000_000)]),
 ])
 def test_solves_drive_the_cli(argv, trains, tmp_path, monkeypatch):
     """``solves.py`` runs ``train`` at the CLI's default ``--log-every`` with

@@ -16,7 +16,8 @@ slot may differ only where every prefix between the two slots lies within
 call.  With a population's member axis: each member's loss, td and dQ
 bitwise its own unbatched call, and one slot launch over every member's
 rows bitwise M per-member calls; a population learner update on the GPU
-vs the CPU at rtol 1e-4.  At world size 1 on NCCL, ``DistributedTrainer``
+vs the CPU at rtol 1e-4.  ``ops.fused_td_loss`` on the GPU vs the CPU at
+the kernels' tolerances, one launch each way.  At world size 1 on NCCL, ``DistributedTrainer``
 is bitwise ``Trainer``; ``dryrun_multichip(1)`` runs the three kernels
 under the all-reduce.  The host-compat agent's update on the GPU vs the
 CPU at rtol 1e-4; a bf16-trunk update on the GPU vs the CPU: the loss
@@ -92,6 +93,28 @@ def test_td_kernel_matches_plain(cuda, shape, double):
     assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
     partials, ticket = td_kernels.fwd_scratch(cuda)
     assert int(ticket) == 0, "the last block resets the ticket counter"
+
+
+@pytest.mark.parametrize("double", [True, False])
+@pytest.mark.parametrize("shape", [(256, 4), (37, 2)])
+def test_fused_td_loss_on_the_card_matches_the_cpu(cuda, shape, double):
+    """``ops.fused_td_loss`` (the JAX package's signature) launches K1/K2
+    once each on CUDA tensors and gives the CPU's loss, td and dQ."""
+    b, a = shape
+    args = _inputs(b, a, seed=b + 2 * a, device=cuda)
+    got, want = [], []
+    for device, out in ((cuda, got), (torch.device("cpu"), want)):
+        q_s, *rest = [x.detach().to(device) for x in args]
+        q_s.requires_grad_(True)
+        td_kernels.reset_counts()
+        loss, td = td_kernels.fused_td_loss(q_s, *rest, delta=1.0, double=double)
+        loss.backward()
+        kind = "launches" if device.type == "cuda" else "plain_calls"
+        assert getattr(td_kernels, kind) == {"td_loss_fwd": 1, "td_loss_bwd": 1}
+        out.extend(x.detach().cpu() for x in (loss, td, q_s.grad))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("b", [256, 4096])
