@@ -43,15 +43,24 @@ Phases (each raises on failure, so any failure exits non-zero):
   6. drive the same configuration through the command line: ``train`` one
      superstep with a checkpoint, ``train --resume`` one more, ``eval``;
   7. run ``lunar_jointed_per`` (the jointed 3-body lander, solver
-     iterations (120, 40)) at full width through ``Trainer``: 2 supersteps
-     of 16 vector steps of 128 envs, learning from 2048 stored
+     iterations (120, 40)) at full width through ``Trainer``, its vector
+     step and reset pool as CUDA graphs (``envs/graphed.py``): 2
+     supersteps of 16 vector steps of 128 envs, learning from 2048 stored
      transitions; check the TD kernels ran once per learner update with no
      plain call, the counters, a finite loss, the online net trained and
-     the target followed; print env-steps/s and the kernel launches of one
-     jointed vector step; a greedy evaluation cut at 4 frames; then one
-     jointed frame of 64 landers from a short flight near the ground
-     (touchdowns, contacts, crashes) on the card against the same frame on
-     the CPU;
+     the target followed, peak memory under 1 GiB; print each graph's
+     eager warm-up and capture apart from the supersteps; then 8 graphed
+     vector steps against 8 eager ones from clones of the runner's envs
+     and generator, bitwise (pool, obs, states, transitions), the graphed
+     frame's time against the eager frame's, the replay alone on the
+     device (CUDA events) and its launch on the host, the kernels one graphed
+     step runs on the card (device-side profiler events) equal to the
+     eager step's launches; then an eager ``Trainer`` restored from the
+     graphed one's checkpoint: one superstep each, runners bitwise equal,
+     then env-steps/s in three alternating pairs (K1/K2 once per update,
+     no plain call); a greedy evaluation cut at 4 frames; then one jointed
+     frame of 64 landers from a short flight near the ground (touchdowns,
+     contacts, crashes) on the card against the same frame on the CPU;
   8. classic control on the card: ``cartpole_vector``, ``acrobot_vector`` and
      ``mountain_car_vector`` at full width through ``Trainer``, cut in depth
      only (``CLASSIC_RUNS``): check the counters (env steps; updates equal
@@ -97,7 +106,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      agent's state; launches per env step (``torch.profiler``) and a greedy
      ``evaluate(1)``; (b) ``make_host_env("torch")``: CartPole-v1 with the
      learner on the card (K1/K2 at A = 2) and a few frames of the jointed
-     default LunarLander-v2; (c) gymnasium's Box2D lander with the learner on
+     default LunarLander-v2; (c) the jointed ``TorchHostEnv`` with its step
+     and reset as CUDA graphs, bitwise the eager one over 16 steps, with
+     the env-steps/s of each; gymnasium's Box2D lander with the learner on
      the card where gymnasium and Box2D import, else one line saying so;
      (d) ``lunar_per`` at full width with ``compute_dtype=bfloat16`` on
      phase 10's cut through ``Trainer``, timed in turns with the float32
@@ -182,6 +193,7 @@ SCALED_SETS = ["use_pallas_sampler=true"]  # the CLI's overrides of lunar_per_sc
 JOINTED_CUTS = dict(steps_per_superstep=16, training_start=2048)
 JOINTED_SUPERSTEPS = 2
 JOINTED_EVAL_FRAMES = 4  # Trainer.evaluate's default runs max_steps_in_episode = 1000 frames
+JOINTED_FRAMES = 8  # graphed frames held bitwise against eager frames
 # the member axis of the TD kernels: (M, B, A), and (M, B) on misaligned rows
 TD_MEMBER_SHAPES = [(8, 256, 4), (10, 256, 4), (8, 1024, 4)]
 TD_MEMBER_MISALIGNED = (3, 37, 4)
@@ -787,22 +799,55 @@ def run_cli(card, workdir):
     print(f"  CLI train -> resume -> eval on the card: ok [{card}]")
 
 
-def frame_launches(torch, trainer) -> int:
-    """Kernel launches of one vector step of the trainer's env on the card,
-    counted by torch.profiler."""
-    r = trainer.runner
-    actions = torch.zeros((trainer.cfg.num_envs,), dtype=torch.int32, device="cuda")
+def kernel_counts(torch, fn):
+    """``(device kernels, host launches)`` of ``fn()``, from torch.profiler:
+    the kernels that ran on the card (a CUDA graph's replay included) as
+    device-side kernel events, copies, fills and user annotations left out;
+    the kernel launches the host issued.  The device-side events of a long
+    eager call can fall short of its launches (CUPTI drops some; ~100 of
+    ~56k in one run), so an eager call is counted by its launches."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        trainer.env.step_env(r.generator, r.env_states, actions, trainer.env_params)
+        fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(("Memcpy", "Memset")) and e.key not in host)
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return kernels, launches
+
+
+def runner_tree(trainer):
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    return ckpt._to_tree(trainer.runner)
+
+
+def same_tree(torch, a, b, where="runner") -> None:
+    """Bitwise equality of two checkpoint trees (tensors, dicts, lists, numbers)."""
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), where
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            same_tree(torch, a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(torch, x, y, f"{where}[{i}]")
+    else:
+        assert a == b, (where, a, b)
 
 
 def run_jointed(torch, td_kernels, sample_kernels, card):
-    """Phase 7: lunar_jointed_per at full width through the Trainer."""
+    """Phase 7: lunar_jointed_per at full width through the Trainer, its
+    vector step and reset pool as CUDA graphs: the counters, K1/K2 once per
+    update, the capture timed apart from the replays, graphed frames bitwise
+    eager frames and a replay's kernels equal to an eager step's, and
+    graphed against eager env-steps/s in alternating pairs."""
     import dataclasses
 
     from deep_q_learning_tpu_torch.config import lunar_jointed_per
@@ -813,20 +858,28 @@ def run_jointed(torch, td_kernels, sample_kernels, card):
         128, (256, 256), 256, 3, True), cfg
     assert (cfg.lander_engine, cfg.lander_vel_iters, cfg.lander_pos_iters) == ("jointed", 120, 40)
     assert cfg.use_pallas and not cfg.use_pallas_sampler
-    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    workdir = tempfile.mkdtemp(dir=REPO / "build")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda", workdir=workdir).init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert trainer.venv.graphed
     assert trainer.runner.replay.priorities.shape == (128, 4096)
     assert trainer.runner.env_states.solver_acc.c1.shape == (128, 4, 2)
     online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
     target0 = [p.detach().clone() for p in trainer.runner.train.target.parameters()]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
-    t0 = time.perf_counter()
-    metrics = [trainer.step() for _ in range(JOINTED_SUPERSTEPS)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    walls = []
+    metrics = []
+    for _ in range(JOINTED_SUPERSTEPS):
+        t0 = time.perf_counter()
+        metrics.append(trainer.step())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
     launches = dict(td_kernels.launches)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
     assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_jointed_per
@@ -853,24 +906,122 @@ def run_jointed(torch, td_kernels, sample_kernels, card):
     assert moved_online > 0 and 0 < moved_target < moved_online and gap > 0, (
         moved_online, moved_target, gap)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    # each superstep also runs one frame for its pool of fresh episodes
-    frames = vector_steps + JOINTED_SUPERSTEPS
-    per_frame = frame_launches(torch, trainer)
+    assert peak_mib < 1024, peak_mib
+    graphs = trainer.venv._graphs
+    assert sorted(kind for kind, *_ in graphs) == ["reset pool", "step"], list(graphs)
+    pool_g = next(g for (kind, *_), g in graphs.items() if kind == "reset pool")
+    step_g = next(g for (kind, *_), g in graphs.items() if kind == "step")
+    print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
+    print(f"  updates {updates}, launches {launches}, no plain call, episodes "
+          f"{metrics[-1].episodes}, peak memory {peak_mib:.1f} MiB [{card}]")
+    print(f"  graphs: reset pool warm-up {pool_g.warmup_s:.3f} s + capture {pool_g.capture_s:.3f} "
+          f"s (in init, {init_s:.2f} s); vector step warm-up {step_g.warmup_s:.3f} s + capture "
+          f"{step_g.capture_s:.3f} s (in superstep 1); supersteps of {cfg.steps_per_superstep} "
+          f"frames {', '.join(f'{w:.3f}' for w in walls)} s [{card}]")
+
+    graphed_frames(torch, trainer, card)
+    jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card)
+    shutil.rmtree(workdir, ignore_errors=True)
 
     ev = trainer.evaluate(seed=0, max_steps=JOINTED_EVAL_FRAMES)
     assert ev.returns.shape == (128,) and all(math.isfinite(x) for x in ev.returns)
     assert (ev.lengths <= JOINTED_EVAL_FRAMES).all()
-    print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
-    print(f"  updates {updates}, launches {launches}, episodes {metrics[-1].episodes}, "
-          f"greedy eval over {JOINTED_EVAL_FRAMES} frames: mean {float(ev.returns.mean()):.3f}")
-    print(f"  lunar_jointed_per x{cfg.num_envs} envs: {vector_steps * cfg.num_envs} env steps "
-          f"({frames} jointed frames with the reset pools) in {seconds:.3f} s = "
-          f"{vector_steps * cfg.num_envs / seconds:.1f} env-steps/s, "
-          f"{seconds / frames * 1e3:.1f} ms per jointed frame, peak memory {peak_mib:.1f} MiB "
-          f"[{card}]")
-    print(f"  kernel launches of one jointed vector step: {per_frame} "
-          f"(torch.profiler) [{card}]")
+    print(f"  greedy eval over {JOINTED_EVAL_FRAMES} frames (graphed): mean "
+          f"{float(ev.returns.mean()):.3f}")
     return launches
+
+
+def graphed_frames(torch, trainer, card):
+    """Phase 7: JOINTED_FRAMES vector steps through a new graphed VectorEnv
+    against the same steps through an eager one, from clones of the
+    trainer's envs and generator: every output bitwise; the capture timed
+    apart from the replays; the kernels of one replay (device-side profiler
+    events) equal to those of one eager step."""
+    from deep_q_learning_tpu_torch.envs import VectorEnv
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves, tree_map
+    from deep_q_learning_tpu_torch.measure import replay_ms
+
+    r, n = trainer.runner, trainer.cfg.num_envs
+    params = trainer.env_params
+    venvs = {"graphed": VectorEnv(trainer.env, n),
+             "eager": VectorEnv(trainer.env, n, graphed=False)}
+    clone = lambda tree: tree_map(torch.clone, tree)  # noqa: E731
+    runs = {}
+    for name, venv in venvs.items():
+        g = torch.Generator(device="cuda")
+        g.set_state(r.generator.get_state())
+        acts = torch.Generator(device="cuda").manual_seed(7)
+        pool = venv.fresh_pool(g, params)
+        kept = [clone(pool)]
+        obs, states = clone(r.obs), clone(r.env_states)
+        frame_s = []
+        for _ in range(JOINTED_FRAMES):
+            actions = torch.randint(0, 4, (n,), generator=acts, device="cuda", dtype=torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            obs, states, tr = venv.step(g, states, actions, params, prev_obs=obs, fresh=pool)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+            kept.append(clone((obs, states, tr)))
+        counts = kernel_counts(torch, lambda: venv.step(
+            g, states, actions, params, prev_obs=obs, fresh=pool))
+        runs[name] = (kept, frame_s, counts, venv)
+    (gk, gs, (g_kernels, g_launches), gv) = runs["graphed"]
+    (ek, es, (e_kernels, e_launches), _) = runs["eager"]
+    for i, (a, b) in enumerate(zip(tree_leaves(gk), tree_leaves(ek))):
+        assert a.dtype == b.dtype and torch.equal(a, b), f"graphed vs eager, leaf {i}"
+    done = sum(int((tr.terminated | tr.truncated).sum()) for _, _, tr in gk[1:])
+    # the replay runs every kernel the eager step launches; the host launches
+    # only the draws' kernels around it
+    assert g_kernels == e_launches > 0 and g_launches < 10, (g_kernels, e_launches, g_launches)
+    step_g = next(g for (kind, *_), g in gv._graphs.items() if kind == "step")
+    frame_ms = 1e3 * sum(gs[1:]) / (len(gs) - 1)
+    host_ms, device_ms = replay_ms(step_g)
+    print(f"  {JOINTED_FRAMES} graphed frames of {n} landers bitwise the eager frames "
+          f"(pool, obs, states, transitions; {done} episodes ended): first call {gs[0]:.3f} s = "
+          f"eager warm-up {step_g.warmup_s:.3f} s + capture {step_g.capture_s:.3f} s + replay; "
+          f"later calls {frame_ms:.1f} ms a frame with draws, input copies and a sync, eager "
+          f"{1e3 * sum(es) / len(es):.1f} ms; the replay alone {device_ms:.2f} ms on the device "
+          f"(CUDA events, back to back), its launch {host_ms:.2f} ms of host [{card}]")
+    print(f"  kernels of one vector step with its draws: graphed {g_kernels} on the device "
+          f"(profiler's device-side events) from {g_launches} host launches and one graph "
+          f"launch; eager {e_launches} host launches ({e_kernels} device-side events recorded); "
+          f"the eager step_env alone, without the auto-reset: 55,901 launches [{card}]")
+
+
+def jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card):
+    """Phase 7: the trainer against an eager one restored from its
+    checkpoint: one superstep each from the same runner, bitwise equal, then
+    env-steps/s of supersteps in three alternating pairs (eager, graphed,
+    graphed, eager, eager, graphed), with the learner on every frame; K1/K2
+    once per update on both."""
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    trainer.save(step=trainer.runner.env_step * cfg.num_envs)
+    eager = Trainer(cfg, device="cuda", workdir=workdir, graphed=False).restore()
+    assert not eager.venv.graphed
+    rates = {"graphed": [], "eager": []}
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    updates = 0
+    for i, name in enumerate(["graphed", "eager", "eager", "graphed", "graphed", "eager"]):
+        t = trainer if name == "graphed" else eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = t.step()
+        torch.cuda.synchronize()
+        rates[name].append(cfg.steps_per_superstep * cfg.num_envs / (time.perf_counter() - t0))
+        updates += m.loss_count
+        if i == 1:  # both from the same checkpoint, one superstep each
+            same_tree(torch, runner_tree(trainer), runner_tree(eager))
+    assert td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, updates
+    assert not any(dict(td_kernels.plain_calls, **sample_kernels.plain_calls).values())
+    print(f"  one superstep graphed and one eager from the same checkpoint: runners bitwise "
+          f"equal (parameters, Adam, replay ring and priorities, env states, counters)")
+    print(f"  lunar_jointed_per x{cfg.num_envs} env-steps/s in turns, {cfg.steps_per_superstep} "
+          f"frames a superstep, {updates} updates (K1/K2 once each, no plain call): graphed "
+          f"{', '.join(f'{x:.1f}' for x in rates['graphed'])}; eager "
+          f"{', '.join(f'{x:.1f}' for x in rates['eager'])} [{card}]")
 
 
 def to_device(torch, obj, device):
@@ -1667,6 +1818,7 @@ CURVE_SHAPE = COMPAT_SHAPES[1]  # phase 12 (c): CartPole through engine_curve_co
 # from 64 stored transitions; the jointed default LunarLander-v2 a few frames
 CARTPOLE_COMPAT_STEPS = 300
 JOINTED_HOST_FRAMES = 8
+JOINTED_HOST_GRAPHED_STEPS = 16  # phase 11 (c): graphed against eager, one reset each
 # (c) gymnasium's Box2D lander with the learner on the card, where it imports
 BOX2D_COMPAT_STEPS = 400
 # (d), (e) lunar_per at full width with a bf16 trunk, cut in depth as phase
@@ -1894,6 +2046,7 @@ def run_compat_engines(torch, td_kernels, card):
           f"{len(frames) - 1} frames in {seconds:.2f} s ({(len(frames) - 1) / seconds:.2f} "
           f"env-steps/s with the reset) [{card}]")
 
+    run_jointed_host_env(torch, card)
     try:
         import Box2D  # noqa: F401
         import gymnasium  # noqa: F401
@@ -1912,6 +2065,42 @@ def run_compat_engines(torch, td_kernels, card):
     assert updates > 0 and td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}
     print(f"  (c) make_host_env('box2d'): {agent._global_steps} env steps on the host, {updates} "
           f"updates on the card, {agent._global_steps / seconds:.1f} env-steps/s [{card}]")
+
+
+def run_jointed_host_env(torch, card):
+    """Phase 11 (c): the jointed default lander through TorchHostEnv, its
+    step and reset as CUDA graphs, against the eager TorchHostEnv: the same
+    seed and actions give the same observations, rewards and flags bitwise;
+    env-steps/s of each (a reset included)."""
+    import random
+
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.compat.host_env import TorchHostEnv
+    from deep_q_learning_tpu_torch.envs import make_env
+
+    env, params = make_env("LunarLander-v2", max_steps_in_episode=1500)
+    assert params.jointed
+    seqs, rates = {}, {}
+    for graphed in (True, False):
+        host = TorchHostEnv(env, params, seed=3, device="cuda", graphed=graphed)
+        assert host.graphed == graphed
+        rng = random.Random(1)
+        t0 = time.perf_counter()
+        seq = [host.reset()[0]]
+        for _ in range(JOINTED_HOST_GRAPHED_STEPS):
+            obs, reward, term, trunc, _ = host.step(rng.randrange(4))
+            seq.append(np.concatenate([obs, [reward, term, trunc]]))
+            if term or trunc:
+                seq.append(host.reset()[0])
+        rates[graphed] = JOINTED_HOST_GRAPHED_STEPS / (time.perf_counter() - t0)
+        seqs[graphed] = seq
+    assert len(seqs[True]) == len(seqs[False])
+    for a, b in zip(seqs[True], seqs[False]):
+        assert np.array_equal(a, b), (a, b)
+    print(f"  (c) TorchHostEnv, the jointed lander at (180, 60): {JOINTED_HOST_GRAPHED_STEPS} "
+          f"steps graphed bitwise eager; graphed {rates[True]:.2f} env-steps/s (with its two "
+          f"captures), eager {rates[False]:.2f} [{card}]")
 
 
 def check_bf16_update_vs_cpu(torch, cfg, ts):

@@ -8,7 +8,9 @@ Commands:
   presets [--fields]                 list the built-in presets (and fields)
   train --preset P [...]             train; --workdir, --checkpoint-every and
                                      --resume keep and continue full-runner
-                                     checkpoints; --distributed runs one rank
+                                     checkpoints (--keep-newest only the
+                                     newest; --max-seconds stops at a log
+                                     point); --distributed runs one rank
                                      of a process group (world size 1 from a
                                      plain launch, N ranks under torchrun)
   eval --preset P --workdir D        greedy-evaluate a saved checkpoint;
@@ -125,6 +127,8 @@ def cmd_train(args: argparse.Namespace) -> int:
         checkpoint_every=args.checkpoint_every,
         eval_every=args.eval_every,
         verbose=not args.quiet,
+        max_seconds=args.max_seconds,
+        keep_newest=args.keep_newest,
     )
     _report_train(trainer, result, args)
     return 0
@@ -316,6 +320,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--checkpoint-every", type=int, default=None, metavar="SUPERSTEPS")
     p.add_argument("--eval-every", type=int, default=None, metavar="SUPERSTEPS")
     p.add_argument("--history-out", type=str, default=None, metavar="JSONL")
+    p.add_argument("--keep-newest", action="store_true",
+                   help="keep only the newest checkpoint in --workdir")
+    p.add_argument("--max-seconds", type=float, default=None,
+                   help="stop at the first log point past this wall time, with a "
+                        "checkpoint (continue with --resume)")
     p.add_argument(
         "--resume", action="store_true",
         help="restore the latest checkpoint in --workdir before training",

@@ -3,7 +3,9 @@
 
 One greedy episode per env, all in lockstep; an env is masked after its
 first episode ends, and ``truncated`` marks episodes the evaluator cut at
-``max_steps``.
+``max_steps``.  The start states are the reset pool; the lander's steps
+run as the ``VectorEnv``'s CUDA graph on the card, so the loop reads each
+step's outputs before the next step overwrites them.
 """
 
 from __future__ import annotations

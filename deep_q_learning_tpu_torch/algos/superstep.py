@@ -10,7 +10,13 @@ the cadence and warmup gates are plain Python decisions on counters the
 host knows without reading the device (``env_step``, the replay cursor and
 fill), the sample runs only on frames that train, and nothing in the
 per-frame loop reads a device value back.  Metrics are read once, at the
-end of the superstep.
+end of the superstep.  For the lander, the vector step (auto-reset
+included) and the once-a-superstep reset pool run as CUDA graphs on the
+card (``envs/base.py::VectorEnv``, ``envs/graphed.py``); their outputs
+(``r.obs``, ``r.env_states``, the transition) are overwritten by the next
+frame's step, and each is consumed before it: the replay write copies the
+transition, and the next step copies the observation and the states into
+its inputs.
 
 :func:`build_population_superstep` runs M learners in lockstep, where the
 JAX package ``jax.vmap``s this superstep: one vector env of M·N envs

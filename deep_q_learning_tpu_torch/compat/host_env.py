@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from deep_q_learning_tpu_torch.envs.graphed import GraphedStep
 from deep_q_learning_tpu_torch.train import resolve_device
 
 
@@ -34,9 +35,16 @@ class TorchHostEnv:
     env state (``state``, batch of 1) stays on ``device`` and the random
     draws come from a ``torch.Generator`` there; each step brings the
     observation, the reward and both flags to the host in one copy.  There
-    is no auto-reset: the caller resets after a finished episode."""
+    is no auto-reset: the caller resets after a finished episode.
 
-    def __init__(self, env, params=None, seed: int = 0, device="cuda"):
+    For an env that injects its draws (the lander), the draws are taken
+    from the generator first and the step and the reset run through
+    :class:`~deep_q_learning_tpu_torch.envs.graphed.GraphedStep`: one CUDA
+    graph each on the card, the step's graph packing what the host reads;
+    ``graphed=False`` runs them eagerly.  ``state`` is then the step
+    graph's output, overwritten by the next step."""
+
+    def __init__(self, env, params=None, seed: int = 0, device="cuda", graphed: bool = True):
         self.env = env
         self.params = env.default_params() if params is None else params
         self.device = resolve_device(device)
@@ -44,6 +52,10 @@ class TorchHostEnv:
         # one (1,) int32 view per action: a step copies no action to the device
         self._actions = torch.arange(env.num_actions, dtype=torch.int32, device=self.device)
         self.state = None
+        self.graphed = graphed and env.injects_draws
+        self._step = GraphedStep(self._packed_step, f"{env.name}'s host step")
+        self._reset = GraphedStep(lambda d: env.reset_env(None, 1, self.params, d),
+                                  f"{env.name}'s host reset")
 
     @property
     def num_actions(self) -> int:
@@ -56,8 +68,24 @@ class TorchHostEnv:
     def reset(self, seed: Optional[int] = None):
         if seed is not None:
             self._generator.manual_seed(seed)
-        obs, self.state = self.env.reset_env(self._generator, 1, self.params)
-        return obs[0].cpu().numpy(), {}
+        if self.graphed:
+            obs, self.state = self._reset(self.env.reset_draws(self._generator, 1))
+        else:
+            obs, self.state = self.env.reset_env(self._generator, 1, self.params)
+        # a copy: on the CPU, .cpu() of the stepper's static output is the buffer itself
+        return obs[0].to("cpu", copy=True).numpy(), {}
+
+    def _packed_step(self, state, action, draws, generator=None):
+        """The step; obs, reward and both flags (exactly 0.0 or 1.0) packed
+        in one float32 tensor for the host's one copy."""
+        obs, state, reward, terminated, truncated = self.env.step_env(
+            generator, state, action, self.params, draws
+        )
+        host = torch.cat([
+            obs.reshape(-1), reward.reshape(1), terminated.to(torch.float32),
+            truncated.to(torch.float32),
+        ])
+        return state, host
 
     def step(self, action, draws: Optional[torch.Tensor] = None):
         """One transition.  ``draws`` injects the random numbers the env's
@@ -65,14 +93,14 @@ class TorchHostEnv:
         a = int(action)
         if not 0 <= a < self.env.num_actions:
             raise ValueError(f"action {a} outside [0, {self.env.num_actions})")
-        obs, self.state, reward, terminated, truncated = self.env.step_env(
-            self._generator, self.state, self._actions[a : a + 1], self.params, draws
-        )
-        # obs, reward and both flags (exactly 0.0 or 1.0) in one float32 copy
-        host = torch.cat([
-            obs.reshape(-1), reward.reshape(1), terminated.to(torch.float32),
-            truncated.to(torch.float32),
-        ]).cpu().numpy()
+        action = self._actions[a : a + 1]
+        if not self.graphed:
+            self.state, packed = self._packed_step(self.state, action, draws, self._generator)
+        else:
+            if draws is None:
+                draws = self.env.step_draws(self._generator, 1)
+            self.state, packed = self._step(self.state, action, draws)
+        host = packed.to("cpu", copy=True).numpy()
         d = host.shape[0] - 3
         return host[:d], float(host[d]), bool(host[d + 1]), bool(host[d + 2]), {}
 

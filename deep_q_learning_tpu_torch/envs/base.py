@@ -18,6 +18,8 @@ from typing import Any, Generic, Optional, Tuple, TypeVar
 
 import torch
 
+from deep_q_learning_tpu_torch.envs.graphed import GraphedStep, tree_map
+
 TEnvState = TypeVar("TEnvState")
 TEnvParams = TypeVar("TEnvParams")
 
@@ -64,6 +66,11 @@ class Environment(Generic[TEnvState, TEnvParams]):
     # Envs whose reset runs physics (the lander) keep one reset pool per
     # superstep instead (algos/superstep.py).
     batch_reset_cheap: bool = False
+    # Whether ``step_env`` and ``reset_env`` take every random number they
+    # use through ``draws`` (drawn by ``step_draws`` / ``reset_draws``, in
+    # the order the generator would give them), so that ``VectorEnv`` can
+    # run them in a CUDA graph (``envs/graphed.py``).
+    injects_draws: bool = False
 
     def default_params(self) -> TEnvParams:
         raise NotImplementedError
@@ -87,6 +94,14 @@ class Environment(Generic[TEnvState, TEnvParams]):
         return self.reset_env(generator, n, params)
 
     def get_obs(self, state: TEnvState, params: TEnvParams) -> torch.Tensor:
+        raise NotImplementedError
+
+    def step_draws(self, generator: torch.Generator, n: int):
+        """The ``draws`` that ``step_env`` would take from ``generator``."""
+        raise NotImplementedError
+
+    def reset_draws(self, generator: torch.Generator, n: int):
+        """The ``draws`` that ``reset_env`` would take from ``generator``."""
         raise NotImplementedError
 
     def step_env(self, generator: torch.Generator, state, action, params, draws=None):
@@ -116,11 +131,24 @@ class Transition:
 
 
 class VectorEnv:
-    """``num_envs`` lockstep instances with auto-reset."""
+    """``num_envs`` lockstep instances with auto-reset.
 
-    def __init__(self, env: Environment, num_envs: int):
+    For an env that injects its draws (the lander, rigid and jointed),
+    ``step`` and ``fresh_pool`` draw their random numbers from the
+    generator, in the order the eager calls draw them, and run the rest
+    through a :class:`~deep_q_learning_tpu_torch.envs.graphed.GraphedStep`:
+    on a CUDA device one CUDA graph of the vector step, auto-reset
+    included, and one of the reset pool, each captured at its first call.
+    Their outputs are then the graph's static outputs, overwritten by the
+    next call: copy what must outlive it.  ``graphed=False`` runs every
+    call eagerly.  Other envs (the classic ones, whose ``reset_batch``
+    draws inside ``step``) always run eagerly."""
+
+    def __init__(self, env: Environment, num_envs: int, graphed: bool = True):
         self.env = env
         self.num_envs = num_envs
+        self.graphed = graphed and env.injects_draws
+        self._graphs = {}  # (kind, params, device) -> GraphedStep
 
     @property
     def num_actions(self) -> int:
@@ -129,13 +157,56 @@ class VectorEnv:
     def obs_shape(self, params) -> Tuple[int, ...]:
         return self.env.obs_shape(params)
 
+    def _graph(self, kind: str, params, device: torch.device, fn) -> GraphedStep:
+        key = (kind, params, device)
+        if key not in self._graphs:
+            self._graphs[key] = GraphedStep(fn, f"{self.env.name}'s {kind} of {self.num_envs}")
+        return self._graphs[key]
+
+    def _pool(self, generator: torch.Generator, params):
+        draws = self.env.reset_draws(generator, self.num_envs)
+        pool = self._graph("reset pool", params, generator.device,
+                           lambda d: self.env.reset_env(None, self.num_envs, params, d))
+        return pool(draws)
+
     def reset(self, generator: torch.Generator, params):
-        return self.env.reset_env(generator, self.num_envs, params)
+        """``num_envs`` fresh episodes, ``(obs, states)``, the caller's own
+        (never a graph's outputs)."""
+        if not self.graphed:
+            return self.env.reset_env(generator, self.num_envs, params)
+        return tree_map(torch.clone, self._pool(generator, params))
 
     def fresh_pool(self, generator: torch.Generator, params):
         """Per-env reset pool for ``step(..., fresh=...)``, built once per
         superstep for envs whose reset runs physics."""
-        return self.env.reset_env(generator, self.num_envs, params)
+        if not self.graphed:
+            return self.env.reset_env(generator, self.num_envs, params)
+        return self._pool(generator, params)
+
+    def _step(self, generator, states, actions, params, prev_obs, fresh, step_draws=None,
+              reset_draws=None):
+        """The vector step with auto-reset.  Random numbers come from
+        ``generator`` where their draws are None; ``fresh`` None resets
+        through ``reset_batch``, or from ``reset_draws`` where given."""
+        next_obs, next_states, reward, terminated, truncated = self.env.step_env(
+            generator, states, actions, params, step_draws
+        )
+        done = terminated | truncated
+        if fresh is None:
+            fresh = (self.env.reset_batch(generator, self.num_envs, params) if reset_draws is None
+                     else self.env.reset_env(None, self.num_envs, params, reset_draws))
+        fresh_obs, fresh_states = fresh
+        out_states = tree_where(done, fresh_states, next_states)
+        out_obs = tree_where(done, fresh_obs, next_obs)
+        transition = Transition(
+            obs=prev_obs,
+            action=actions,
+            reward=reward,
+            next_obs=next_obs,
+            terminated=terminated,
+            truncated=truncated,
+        )
+        return out_obs, out_states, transition
 
     def step(
         self,
@@ -154,21 +225,13 @@ class VectorEnv:
         ``Environment.reset_batch`` on every call."""
         if prev_obs is None:
             prev_obs = self.env.get_obs(states, params)
-        next_obs, next_states, reward, terminated, truncated = self.env.step_env(
-            generator, states, actions, params
-        )
-        done = terminated | truncated
+        if not self.graphed:
+            return self._step(generator, states, actions, params, prev_obs, fresh)
+        # the draws in the eager step's order: the step's, then the resets'
+        draws = [self.env.step_draws(generator, self.num_envs)]
         if fresh is None:
-            fresh = self.env.reset_batch(generator, self.num_envs, params)
-        fresh_obs, fresh_states = fresh
-        out_states = tree_where(done, fresh_states, next_states)
-        out_obs = tree_where(done, fresh_obs, next_obs)
-        transition = Transition(
-            obs=prev_obs,
-            action=actions,
-            reward=reward,
-            next_obs=next_obs,
-            terminated=terminated,
-            truncated=truncated,
-        )
-        return out_obs, out_states, transition
+            draws.append(self.env.reset_draws(generator, self.num_envs))
+        kind = "step" if fresh is not None else "step with resets"
+        step = self._graph(kind, params, generator.device,
+                           lambda s, a, o, f, *d: self._step(None, s, a, params, o, f, *d))
+        return step(states, actions, prev_obs, fresh, *draws)

@@ -42,6 +42,7 @@ import torch
 
 from deep_q_learning_tpu_torch.envs import lander_solver
 from deep_q_learning_tpu_torch.envs.base import uniform
+from deep_q_learning_tpu_torch.envs.graphed import GraphedStep
 from deep_q_learning_tpu_torch.envs.heuristic import heuristic_action
 from deep_q_learning_tpu_torch.envs.lunar_lander import CHUNKS, LunarLander, LunarLanderState
 from deep_q_learning_tpu_torch.envs.registry import make_env
@@ -206,59 +207,30 @@ def _inject_state_from_gym(genvs, env, params, device="cuda") -> LunarLanderStat
     )
 
 
-def _copy_state(dst, src) -> None:
-    """Copy a batched state's tensors (nested dataclasses included) into
-    ``dst``'s, in place."""
-    for f in dataclasses.fields(dst):
-        d, s = getattr(dst, f.name), getattr(src, f.name)
-        if isinstance(d, torch.Tensor):
-            d.copy_(s)
-        elif d is not None:
-            _copy_state(d, s)
-
-
 class _Frames:
     """A batched port env stepped frame by frame, its state held here.
 
-    On a CUDA device the first frame is captured in a CUDA graph and every
-    frame replays it: an eager jointed frame is ~80k kernel launches, bound
-    by the host's time per launch, where a replay issues them from the
-    device.  The same kernels run in the same order, so a replayed frame is
-    the eager frame bit for bit.  On the CPU the frame runs eagerly."""
+    The frame runs through :class:`~deep_q_learning_tpu_torch.envs.graphed.
+    GraphedStep`: on a CUDA device it is captured once in a CUDA graph and
+    every frame replays it (an eager jointed frame is ~80k kernel launches,
+    bound by the host's time per launch, where a replay issues them from the
+    device), bit for bit the eager frame; on the CPU it is called directly.
+    ``state`` is the frame's output, overwritten by the next frame."""
 
     def __init__(self, env, params, state):
         self.env, self.params, self.state = env, params, state
-        self._graph = None
+        self._stepper = GraphedStep(
+            lambda st, a, d: env.step_env(None, st, a, params, d), f"{env.name}'s frame")
+
+    @property
+    def _graph(self):
+        return self._stepper.graph
 
     def step(self, actions: torch.Tensor, draws: Optional[torch.Tensor] = None):
         """One frame with these actions (and a lander's ``(N, 2)``
         dispersion draws): ``(obs, reward, terminated, truncated)``."""
-        if actions.device.type != "cuda":
-            obs, self.state, *rest = self.env.step_env(None, self.state, actions, self.params,
-                                                       draws)
-            return (obs, *rest)
-        if self._graph is None:
-            self._capture(actions, draws)
-        self._actions.copy_(actions)
-        if draws is not None:
-            self._draws.copy_(draws)
-        self._graph.replay()
-        obs, state, *rest = self._out
-        _copy_state(self.state, state)  # the next frame's input
+        obs, self.state, *rest = self._stepper(self.state, actions, draws)
         return (obs, *rest)
-
-    def _capture(self, actions, draws):
-        self._actions = actions.clone()
-        self._draws = None if draws is None else draws.clone()
-        args = (None, self.state, self._actions, self.params, self._draws)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # one eager frame first, as capture asks
-            self.env.step_env(*args)
-        torch.cuda.current_stream().wait_stream(side)
-        self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
-            self._out = self.env.step_env(*args)
 
 
 def _step_host(frames: _Frames, actions, draws=None):

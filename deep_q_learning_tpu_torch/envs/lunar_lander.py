@@ -139,6 +139,12 @@ def sample_reset_draws(generator: torch.Generator, n: int) -> ResetDraws:
     )
 
 
+def sample_step_draws(generator: torch.Generator, n: int) -> torch.Tensor:
+    """The ``(n, 2)`` engine dispersion one step consumes, uniform on
+    ``[-1, 1)``."""
+    return uniform(generator, (n, 2), -1.0, 1.0)
+
+
 def _terrain_height(terrain: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Piecewise-linear terrain height at world x (chunks span [0, W])."""
     chunk_w = W / (CHUNKS - 1)
@@ -191,6 +197,14 @@ def state_from_numpy(state, device="cpu") -> LunarLanderState:
 
 class LunarLander(Environment):
     """Batched LunarLander, jointed or rigid engine (``params.jointed``)."""
+
+    injects_draws = True
+
+    def step_draws(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        return sample_step_draws(generator, n)
+
+    def reset_draws(self, generator: torch.Generator, n: int) -> ResetDraws:
+        return sample_reset_draws(generator, n)
 
     def default_params(self) -> LunarLanderParams:
         return LunarLanderParams()
@@ -592,7 +606,7 @@ class LunarLander(Environment):
         draws: Optional[torch.Tensor] = None,
     ):
         if draws is None:
-            draws = uniform(generator, (action.shape[0], 2), -1.0, 1.0)
+            draws = sample_step_draws(generator, action.shape[0])
         # dispersion is drawn every frame (gym draws before the engine gate)
         disp = draws / SCALE * params.dispersion_scale
         phys = self._physics_step_jointed if params.jointed else self._physics_step

@@ -34,6 +34,16 @@ class WrappedEnv(Environment):
     def batch_reset_cheap(self) -> bool:
         return self.env.batch_reset_cheap
 
+    @property
+    def injects_draws(self) -> bool:
+        return self.env.injects_draws
+
+    def step_draws(self, generator, n):
+        return self.env.step_draws(generator, n)
+
+    def reset_draws(self, generator, n):
+        return self.env.reset_draws(generator, n)
+
     def obs_shape(self, params) -> Tuple[int, ...]:
         return self.env.obs_shape(params)
 

@@ -1,7 +1,8 @@
 """Device-side measurements behind PERF.md, on one CUDA GPU.
 
     python -m deep_q_learning_tpu_torch.measure [--preset lunar_per_scaled]
-        [--set key=value ...] [--env-only | --kernels-only] [--baseline CHECKOUT]
+        [--set key=value ...] [--env-only | --kernels-only] [--eager]
+        [--baseline CHECKOUT]
 
 1. Device time of each kernel and of its plain version at the main paths'
    shapes, and with a population's member axis (``lunar_per``'s at 8
@@ -17,12 +18,18 @@
 2. One steady superstep of the preset under ``torch.profiler``: host ms by
    phase (spans wrapped around the env step, the reset pool or the cheap
    per-frame reset, the replay and optimizer calls),
-   kernel launches, and the device's busy share of the wall time; then the
-   wall time and env-steps/s of the next two supersteps, unprofiled.
+   kernel and CUDA graph launches, and the device's busy share of the wall
+   time; then the wall time and env-steps/s of the next two supersteps,
+   unprofiled.  The lander's env step and reset pool run as CUDA graphs;
+   ``--eager`` runs them eagerly (``VectorEnv(graphed=False)``).  Each
+   graph is then replayed alone on its static inputs: its device time
+   between CUDA events and the host time of its launch, beside the wall
+   time of a frame of those supersteps.
 
-With ``--kernels-only``, only 1.  With ``--env-only``, neither: the preset's env alone, at its env count,
-steps random actions from fresh resets; the wall time of each frame, then
-one frame under ``torch.profiler`` (kernel launches, device busy share).
+With ``--kernels-only``, only 1.  With
+``--env-only``, neither: the preset's env alone, at its env count, steps
+random actions from fresh resets; the wall time of each frame, then one
+frame under ``torch.profiler`` (kernel launches, device busy share).
 
 Every line names the card and its power limit.  Without CUDA it exits
 non-zero: a CPU run measures nothing this script reports.
@@ -320,10 +327,11 @@ def _span(fn, name):
     return wrapped
 
 
-def profile_superstep(cfg, card: str) -> None:
+def profile_superstep(cfg, card: str, graphed: bool = True) -> None:
     from deep_q_learning_tpu_torch.train import Trainer
 
-    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    trainer = Trainer(cfg, device="cuda", graphed=graphed).init(seed=0)
+    mode = "graphed env step" if trainer.venv.graphed else "eager env step"
     for owner, methods in PHASES.items():  # the superstep calls these by attribute
         obj = getattr(trainer, owner)
         for m in methods:
@@ -346,10 +354,12 @@ def profile_superstep(cfg, card: str) -> None:
     )
     launches = sum(e.count for e in events
                    if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
     frames = cfg.steps_per_superstep
-    print(f"profiled superstep: wall {wall * 1e3:.1f} ms, {m.loss_count} updates, "
+    print(f"profiled superstep ({mode}): wall {wall * 1e3:.1f} ms, {m.loss_count} updates, "
           f"device busy {device_us_total / 1e3:.1f} ms ({100 * device_us_total / 1e6 / wall:.1f} %), "
-          f"{launches} kernel launches ({launches / frames:.0f} per vector step) [{card}]")
+          f"{launches} kernel launches ({launches / frames:.0f} per vector step) and "
+          f"{graph_launches} CUDA graph launches from the host [{card}]")
     spans = sorted((e for e in events if e.key.startswith("phase/")
                     and e.device_type == torch.autograd.DeviceType.CPU),
                    key=lambda e: -e.cpu_time_total)
@@ -358,15 +368,46 @@ def profile_superstep(cfg, card: str) -> None:
               f"({100 * e.cpu_time_total / 1e6 / wall:.1f} %), {e.count} calls")
 
     torch.cuda.reset_peak_memory_stats()
+    walls = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        print(f"unprofiled superstep: {wall * 1e3:.1f} ms, "
-              f"{frames * cfg.num_envs / wall:.1f} env-steps/s, peak memory "
+        walls.append(time.perf_counter() - t0)
+        print(f"unprofiled superstep ({mode}): {walls[-1] * 1e3:.1f} ms, "
+              f"{frames * cfg.num_envs / walls[-1]:.1f} env-steps/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+    frame_ms = 1e3 * min(walls) / frames
+    for (kind, *_), g in trainer.venv._graphs.items():
+        host_ms, device_ms = replay_ms(g)
+        print(f"graph of the {kind}: replay {device_ms:.2f} ms on the device (CUDA events over "
+              f"{REPLAYS} back-to-back replays), its launch {host_ms:.2f} ms of host; a frame of "
+              f"the faster unprofiled superstep {frame_ms:.2f} ms of wall, so one replay is "
+              f"{100 * device_ms / frame_ms:.1f} % of it [{card}]")
+
+
+REPLAYS = 5
+
+
+def replay_ms(graphed) -> tuple:
+    """``(host ms, device ms)`` of one replay of a captured
+    ``envs/graphed.py::GraphedStep`` on its static inputs: the host time of
+    the ``replay()`` call (its launch) and the device time between two CUDA
+    events around ``REPLAYS`` replays back to back, each averaged.  The
+    inputs are not changed, so the outputs are recomputed as they were."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graphed.graph.replay()  # past a first launch's upload
+    torch.cuda.synchronize()
+    host = 0.0
+    start.record()
+    for _ in range(REPLAYS):
+        t0 = time.perf_counter()
+        graphed.graph.replay()
+        host += time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return 1e3 * host / REPLAYS, start.elapsed_time(end) / REPLAYS
 
 
 ENV_FRAMES = 4
@@ -424,6 +465,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="time the kernels and count a learner update's launches, "
                          "without the superstep")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the superstep's env step eagerly (VectorEnv(graphed=False))")
     ap.add_argument("--baseline", type=Path, metavar="CHECKOUT",
                     help="also time the TD and PER slot kernels of another checkout of "
                          "the port, in turns with this tree's")
@@ -443,7 +486,7 @@ def main(argv=None) -> int:
     kernel_device_times(card, args.baseline)
     learner_launches(card, args.baseline)
     if not args.kernels_only:
-        profile_superstep(cfg, card)
+        profile_superstep(cfg, card, graphed=not args.eager)
     return 0
 
 

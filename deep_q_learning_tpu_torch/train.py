@@ -26,6 +26,7 @@ from deep_q_learning_tpu_torch.algos import build_superstep, make_optimizer
 from deep_q_learning_tpu_torch.algos.evaluate import EvalResult, build_evaluator
 from deep_q_learning_tpu_torch.config import config_shape_mismatches, config_to_dict
 from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
+from deep_q_learning_tpu_torch.envs.graphed import capturable
 from deep_q_learning_tpu_torch.models import QNetwork
 from deep_q_learning_tpu_torch.models.networks import compute_dtype_of
 from deep_q_learning_tpu_torch.replay import make_replay
@@ -102,10 +103,15 @@ class Trainer:
     """Build-once, step-many trainer for one config on one device.  The
     network's trunk runs in ``cfg.compute_dtype`` (float32 or bfloat16);
     parameters, optimizer state, Q-values and everything else stay
-    float32."""
+    float32.  The lander's vector step and reset pool, in training and in
+    evaluation, run as CUDA graphs on the card (``envs/base.py::
+    VectorEnv``); ``graphed=False`` runs them eagerly, with the same
+    results.  A config whose env step reads the device (``lander_vel_tol >
+    0``, see ``envs/graphed.py::capturable``) always runs it eagerly."""
 
-    def __init__(self, cfg, device="cuda", workdir: Optional[str] = None):
+    def __init__(self, cfg, device="cuda", workdir: Optional[str] = None, graphed: bool = True):
         set_matmul_precision(cfg)
+        graphed = graphed and capturable(cfg)
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
@@ -113,7 +119,7 @@ class Trainer:
             cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
             param_overrides=cfg.env_param_overrides(),
         )
-        self.venv = VectorEnv(self.env, cfg.num_envs)
+        self.venv = VectorEnv(self.env, cfg.num_envs, graphed=graphed)
         (obs_dim,) = self.env.obs_shape(self.env_params)
         self.network = QNetwork(
             obs_dim, self.env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling,
@@ -126,7 +132,7 @@ class Trainer:
             cfg, self.device,
         )
         # >= 10 parallel greedy episodes (the reference evaluates 10)
-        eval_venv = VectorEnv(self.env, min(max(cfg.num_envs, 10), 128))
+        eval_venv = VectorEnv(self.env, min(max(cfg.num_envs, 10), 128), graphed=graphed)
         self._evaluate = build_evaluator(
             eval_venv, self.env_params, self.env_params.max_steps_in_episode
         )
@@ -170,6 +176,8 @@ class Trainer:
         checkpoint_every: Optional[int] = None,
         eval_every: Optional[int] = None,
         verbose: bool = True,
+        max_seconds: Optional[float] = None,
+        keep_newest: bool = False,
     ) -> TrainResult:
         """Run supersteps until solved or the env-step budget is spent.
 
@@ -177,14 +185,19 @@ class Trainer:
         decided only at log points (every ``log_every`` supersteps), so a
         run stops at the same env step in both.  With a ``workdir``, a
         checkpoint is saved at every log point that is also a multiple of
-        ``checkpoint_every``, and once more after a solve.  ``eval_every``
-        (in supersteps) interleaves greedy evaluation at log points."""
+        ``checkpoint_every``, and once more after a solve; ``keep_newest``
+        deletes the older ones at each.  ``eval_every`` (in supersteps)
+        interleaves greedy evaluation at log points.  ``max_seconds`` also
+        stops the run at the first log point past that wall time, with a
+        checkpoint there (a run longer than one process continues with
+        ``restore``).  Supersteps are counted from the runner's, so a
+        restored run keeps its log, evaluation and checkpoint cadence."""
         if self.runner is None:
             self.init()
         cfg = self.cfg
         t0 = time.time()
         solved = False
-        i = 0
+        i = self.runner.env_step // cfg.steps_per_superstep
         last_steps, last_time = self.runner.env_step * cfg.num_envs, t0
         while True:
             m = self.step()
@@ -220,13 +233,15 @@ class Trainer:
                     flush=True,
                 )
             solved = m.solved
-            if self.workdir and checkpoint_every and i % checkpoint_every == 0:
-                self.save(step=env_steps)
-            if solved or env_steps >= max_env_steps:
+            out_of_time = max_seconds is not None and now - t0 >= max_seconds
+            saved = bool(self.workdir and checkpoint_every and i % checkpoint_every == 0)
+            if saved:
+                self._save(env_steps, keep_newest)
+            if solved or env_steps >= max_env_steps or out_of_time:
                 break
         env_steps = m.env_steps * cfg.num_envs
-        if solved and self.workdir:
-            self.save(step=env_steps)
+        if self.workdir and (solved or (out_of_time and not saved)):
+            self._save(env_steps, keep_newest)
         return TrainResult(
             solved=solved,
             env_steps=env_steps,
@@ -254,6 +269,11 @@ class Trainer:
             raise RuntimeError("call init() first")
         _write_config_json(self.workdir, self.cfg)
         return ckpt.save_checkpoint(self.workdir, self.runner, step)
+
+    def _save(self, step: int, keep_newest: bool) -> None:
+        self.save(step)
+        if keep_newest:
+            ckpt.prune_checkpoints(self.workdir)
 
     def restore(self, step: Optional[int] = None):
         """Load the checkpoint at ``step`` (the latest if None) from
@@ -312,7 +332,8 @@ class DistributedTrainer(Trainer):
             param_overrides=cfg.env_param_overrides(),
         )
         self._evaluate = build_evaluator(
-            VectorEnv(self.env, 128), self.env_params, self.env_params.max_steps_in_episode
+            VectorEnv(self.env, 128, graphed=capturable(cfg)), self.env_params,
+            self.env_params.max_steps_in_episode,
         )
         self.runner = None
         self.history: List[Dict[str, float]] = []

@@ -123,14 +123,24 @@ def restore_checkpoint(path: str, template_runner: Any, step: Optional[int] = No
     return _from_tree(template_runner, saved, "runner")
 
 
-def latest_step(path: str) -> Optional[int]:
+def _steps(path: str) -> list:
     if not os.path.isdir(path):
-        return None
-    steps = [
+        return []
+    return sorted(
         int(name[: -len(_SUFFIX)]) for name in os.listdir(path)
         if name.endswith(_SUFFIX) and name[: -len(_SUFFIX)].isdigit()
-    ]
-    return max(steps) if steps else None
+    )
+
+
+def latest_step(path: str) -> Optional[int]:
+    steps = _steps(path)
+    return steps[-1] if steps else None
+
+
+def prune_checkpoints(path: str) -> None:
+    """Delete every checkpoint under ``path`` but the newest."""
+    for step in _steps(path)[:-1]:
+        os.remove(_checkpoint_file(path, step))
 
 
 # ---------------------------------------------------------------------------

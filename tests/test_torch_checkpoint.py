@@ -109,3 +109,47 @@ def test_save_needs_a_workdir():
     tr = Trainer(CFG, device="cpu").init()
     with pytest.raises(ValueError, match="workdir"):
         tr.save(step=0)
+
+
+def test_time_limited_train_keeps_the_newest_checkpoint_and_resumes(tmp_path):
+    """``train(max_seconds=0)`` stops at the first log point with a
+    checkpoint; with ``keep_newest`` only the newest file stays; a restored
+    trainer goes on bitwise as the run that was not cut."""
+    wd = str(tmp_path / "run")
+    tr = Trainer(CFG, device="cpu", workdir=wd).init(seed=2)
+    first = tr.train(max_env_steps=10**6, log_every=2, checkpoint_every=1, verbose=False,
+                     max_seconds=0.0, keep_newest=True)
+    assert not first.solved and first.env_steps == 2 * 8 * 8
+    tr.train(max_env_steps=10**6, log_every=2, checkpoint_every=1, verbose=False,
+             max_seconds=0.0, keep_newest=True)
+    assert sorted(os.listdir(wd)) == ["256.pt", "config.json"]
+    resumed = Trainer(CFG, device="cpu", workdir=wd).restore()
+    _assert_same(_state(resumed), _state(tr))
+    assert resumed.step() == tr.step()
+
+
+def test_checkpoints_accumulate_without_keep_newest(tmp_path):
+    wd = str(tmp_path / "run")
+    tr = Trainer(CFG, device="cpu", workdir=wd).init(seed=2)
+    tr.train(max_env_steps=3 * 8 * 8, log_every=1, checkpoint_every=1, verbose=False)
+    assert sorted(os.listdir(wd)) == ["128.pt", "192.pt", "64.pt", "config.json"]
+
+
+def test_resumed_train_continues_the_superstep_count(tmp_path):
+    """A run restored from its checkpoint counts supersteps on from the
+    runner's: the log points, the evaluations (and their seeds) and the
+    history's ``superstep`` go on where the cut call left them."""
+    wd = str(tmp_path / "run")
+    kw = dict(max_env_steps=10**6, log_every=2, checkpoint_every=2, eval_every=4,
+              verbose=False, max_seconds=0.0)
+    first = Trainer(CFG, device="cpu", workdir=wd).init(seed=2).train(**kw)
+    assert [(h["superstep"], "eval_mean" in h) for h in first.history] == [(2, False)]
+    resumed = Trainer(CFG, device="cpu", workdir=wd).restore()
+    second = resumed.train(**kw)
+    assert [(h["superstep"], h["env_steps"], "eval_mean" in h) for h in second.history] == [
+        (4, 4 * 8 * 8, True)]
+    whole = Trainer(CFG, device="cpu").init(seed=2)
+    for _ in range(4):
+        whole.step()
+    want = whole.evaluate(seed=4)
+    assert second.history[0]["eval_mean"] == pytest.approx(float(want.returns.mean()), abs=0)

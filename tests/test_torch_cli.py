@@ -8,6 +8,7 @@ the JAX CLI's."""
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -200,10 +201,13 @@ def test_module_runs_as_a_program():
     # the lunar group: the scaled preset, then the single lunar_per learner
     (["--group", "lunar"], [("lunar_per_scaled", 0, 63_000_000), ("lunar_per", 0, 30_000_000)]),
     (["--preset", "lunar_per", "--seeds", "0"], [("lunar_per", 0, 30_000_000)]),
+    # the jointed flagship, its greedy evaluation every 50 supersteps
+    (["--group", "jointed"], [("lunar_jointed_per", 0, 6_000_000)]),
 ])
 def test_solves_drive_the_cli(argv, trains, tmp_path, monkeypatch):
     """``solves.py`` runs ``train`` at the CLI's default ``--log-every`` with
-    a greedy evaluation every 10 supersteps, and ``eval`` of each solve."""
+    a greedy evaluation every 10 supersteps (50 for the jointed preset), and
+    ``eval`` of each solve."""
     from deep_q_learning_tpu_torch import solves
 
     calls = []
@@ -223,11 +227,67 @@ def test_solves_drive_the_cli(argv, trains, tmp_path, monkeypatch):
     got = [(a[a.index("--preset") + 1], int(a[a.index("--seed") + 1]),
             int(a[a.index("--max-env-steps") + 1])) for a in calls if a[0] == "train"]
     assert got == trains
-    assert all(a[a.index("--eval-every") + 1] == "10" for a in calls if a[0] == "train")
+    assert all(a[a.index("--eval-every") + 1] == str(solves.EVAL_EVERY.get(preset, 10))
+               for a, (preset, *_) in zip([a for a in calls if a[0] == "train"], trains))
     summary = [json.loads(line) for line in open(tmp_path / "summary.jsonl")]
     assert [(r["preset"], r["seed"]) for r in summary] == [t[:2] for t in trains]
     assert all(r["card"] == "cpu" and r["env_steps_per_s"] == 5.0 for r in summary)
     assert [r["greedy_eval"] is not None for r in summary] == [r["solved"] for r in summary]
+
+
+def test_solves_resume_a_run_cut_by_its_time_limit(tmp_path, monkeypatch):
+    """A call cut by ``--max-seconds`` leaves its workdir; the same command
+    then runs ``train --resume`` in it, appends the history (each line
+    tagged with its call, env steps continuous), and once the run has
+    finished it is not run again."""
+    from deep_q_learning_tpu_torch import solves
+
+    calls = []
+    progress = iter([(640, False), (1280, True)])
+
+    def fake_cli(args, log, device):
+        calls.append(args)
+        if args[0] == "eval":
+            return {"step": 1280, "return_mean": 210.0}
+        workdir = args[args.index("--workdir") + 1]
+        steps, solved = next(progress)
+        os.makedirs(workdir, exist_ok=True)
+        open(os.path.join(workdir, f"{steps}.pt"), "w").close()
+        with open(args[args.index("--history-out") + 1], "w") as f:
+            for k in (1, 2):
+                f.write(json.dumps({"env_steps": steps - 640 + 320 * k,
+                                    "window_mean": 100.0 * k}) + "\n")
+        return {"solved": solved, "env_steps": steps, "wall_time_s": 64.0, "episodes": 9,
+                "updates": steps // 8, "final_window_mean": 200.0 if solved else 100.0}
+
+    monkeypatch.setattr(solves, "cli", fake_cli)
+    argv = ["--preset", "lunar_jointed_per", "--seeds", "0", "--device", "cpu",
+            "--out", str(tmp_path), "--max-seconds", "60"]
+    for _ in range(3):
+        assert solves.main(argv) == 0
+    trains = [a for a in calls if a[0] == "train"]
+    assert len(trains) == 2 and "--resume" not in trains[0] and "--resume" in trains[1]
+    assert all(a[a.index("--max-seconds") + 1] == "60.0" and "--keep-newest" in a
+               for a in trains)
+    workdirs = {a[a.index("--workdir") + 1] for a in trains}
+    assert len(workdirs) == 1
+    assert [a[0] for a in calls] == ["train", "train", "eval"]
+    history = [json.loads(line) for line in open(tmp_path / "lunar_jointed_per_seed0.jsonl")]
+    assert [(h["call"], h["env_steps"]) for h in history] == [(1, 320), (1, 640), (2, 960),
+                                                             (2, 1280)]
+    summary = [json.loads(line) for line in open(tmp_path / "summary.jsonl")]
+    assert [(r["call"], r["finished"], r["solved"]) for r in summary] == [
+        (1, False, False), (2, True, True), (2, True, True)]
+    assert summary[1]["env_steps_per_s"] == 10.0 and summary[1]["greedy_eval"]["step"] == 1280
+    # the run's record, from its files alone
+    assert solves.main(["--preset", "lunar_jointed_per", "--seeds", "0", "--out", str(tmp_path),
+                        "--artifact", str(tmp_path / "run.json")]) == 0
+    rec = json.loads((tmp_path / "run.json").read_text())
+    assert (rec["solved"], rec["solve_env_steps"], rec["wall_time_s"]) == (True, 1280, 128.0)
+    assert [c["call"] for c in rec["calls"]] == [1, 2] and rec["curve"] == history
+    assert rec["greedy_eval"]["return_mean"] == 210.0
+    assert set(rec["jax_references"]) == set(solves.JAX_ARTIFACTS["lunar_jointed_per"])
+    assert [a[0] for a in calls] == ["train", "train", "eval"]  # it ran nothing
 
 
 HPO_SETS = ["--set", "num_envs=8", "--set", "steps_per_superstep=8", "--set", "hidden=16,16",

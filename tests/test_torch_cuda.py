@@ -23,7 +23,11 @@ under the all-reduce.  The host-compat agent's update on the GPU vs the
 CPU at rtol 1e-4; a bf16-trunk update on the GPU vs the CPU: the loss
 rtol 1e-3, every parameter within 2.1 lr and at most 1 % beyond lr / 10.
 The gymnasium harness's CUDA-graph replay of a jointed frame: bitwise the
-eager frame."""
+eager frame.  ``VectorEnv``'s CUDA graphs of the lander's vector step and
+reset pool: bitwise the eager step over 64 jointed frames with auto-resets
+and over two ``lunar_per`` supersteps (the whole runner); a graphed step
+runs the kernels the eager step launches; ``lander_vel_tol > 0`` (a host
+read in the solver) makes the capture raise."""
 
 import dataclasses
 
@@ -730,3 +734,141 @@ def test_bf16_update_on_gpu_matches_cpu(cuda):
         torch.testing.assert_close(a, c, rtol=0, atol=2.1 * lr)
     far = sum(int(((a - c).abs() > lr / 10).sum()) for a, c in zip(pg, pc))
     assert far <= 0.01 * sum(a.numel() for a in pg)
+
+
+def _kernel_counts(fn):
+    """``(device kernels, host launches)`` of ``fn()``, from torch.profiler:
+    the device-side kernel events (a CUDA graph's replay included; copies,
+    fills and annotations left out) and the kernel launches the host
+    issued.  CUPTI can drop some device-side events of a long eager call,
+    so an eager call is counted by its launches."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(("Memcpy", "Memset")) and e.key not in host)
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return kernels, launches
+
+
+def test_graphed_jointed_vector_step_equals_eager(cuda):
+    """``VectorEnv``'s CUDA graphs of the jointed vector step and reset pool
+    (``lunar_jointed_per``'s (120, 40) iterations, 128 landers) against the
+    eager step, over 64 frames from a flight near the ground with episodes
+    cut at 40 steps: terminations and truncations auto-reset; the pool and
+    every frame's obs, states and transition bitwise.  Then the kernels one
+    graphed step runs on the card (its replay and its draws) equal the
+    kernels the eager step launches."""
+    from deep_q_learning_tpu_torch.envs import VectorEnv
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves, tree_map
+    from deep_q_learning_tpu_torch.envs.heuristic import touchdown_states
+    from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLander, LunarLanderParams
+
+    env = LunarLander()
+    p = LunarLanderParams(vel_iters=120, pos_iters=40, max_steps_in_episode=40)
+    n = 128
+    obs0, st0 = touchdown_states(env, p, n, torch.Generator(device=cuda).manual_seed(1), frames=20)
+    lanes = torch.arange(n, dtype=torch.int32, device=cuda)
+    runs = {}
+    for graphed in (True, False):
+        venv = VectorEnv(env, n, graphed=graphed)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        acts = torch.Generator(device=cuda).manual_seed(4)
+        pool = venv.fresh_pool(g, p)
+        kept = [tree_map(torch.clone, pool)]
+        obs, states = obs0.clone(), tree_map(torch.clone, st0)
+        for _ in range(64):
+            # half the lanes at random, half firing a side engine (crashes)
+            actions = torch.where(lanes % 8 >= 4, torch.randint(
+                0, 4, (n,), generator=acts, device=cuda, dtype=torch.int32), 1 + 2 * (lanes % 2))
+            obs, states, tr = venv.step(g, states, actions, p, prev_obs=obs, fresh=pool)
+            kept.append(tree_map(torch.clone, (obs, states, tr)))
+        counts = _kernel_counts(lambda: venv.step(g, states, actions, p, prev_obs=obs, fresh=pool))
+        runs[graphed] = kept, counts
+    (g_kept, (g_kernels, g_launches)), (e_kept, (_, e_launches)) = runs[True], runs[False]
+    for i, (a, b) in enumerate(zip(tree_leaves(g_kept), tree_leaves(e_kept))):
+        assert a.dtype == b.dtype and torch.equal(a, b), f"leaf {i}"
+    transitions = [tr for _, _, tr in g_kept[1:]]
+    assert any(bool(tr.terminated.any()) for tr in transitions)
+    assert any(bool(tr.truncated.any()) for tr in transitions)
+    assert g_kernels == e_launches > 50_000 and g_launches < 10, (g_kernels, e_launches, g_launches)
+
+
+def test_graphed_lunar_per_superstep_equals_eager(cuda):
+    """Two ``lunar_per`` supersteps of 32 vector steps at full width, learning
+    from 2048 stored transitions, with the rigid lander's step and pool as
+    CUDA graphs against ``graphed=False``: metrics and the whole runner
+    (parameters, Adam, replay ring and priorities, env states) bitwise."""
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.train import Trainer
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = dataclasses.replace(lunar_per(), steps_per_superstep=32, training_start=2048)
+    runs = {}
+    for graphed in (True, False):
+        trainer = Trainer(cfg, device="cuda", graphed=graphed).init(seed=0)
+        assert trainer.venv.graphed == graphed
+        td_kernels.reset_counts()
+        metrics = [trainer.step() for _ in range(2)]
+        updates = sum(m.loss_count for m in metrics)
+        assert td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates} and updates
+        runs[graphed] = metrics, ckpt._to_tree(trainer.runner)
+    assert runs[True][0] == runs[False][0]
+
+    def same(a, b, where="runner"):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), where
+        elif isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, list):
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        else:
+            assert a == b, where
+
+    same(runs[True][1], runs[False][1])
+
+
+def test_graphed_capture_refuses_a_host_read(cuda):
+    """``lander_vel_tol > 0`` makes the solver read the device every
+    velocity pass: eagerly it runs, a ``Trainer`` of such a config trains
+    with its env step eager, and the CUDA graph's capture raises a clear
+    error instead of falling back (in a process of its own: a failed
+    capture may leave the context unusable)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from deep_q_learning_tpu_torch.envs import LunarLander, VectorEnv\n"
+        "from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLanderParams\n"
+        "env, p = LunarLander(), LunarLanderParams(vel_iters=8, pos_iters=4, vel_tol=1e-3)\n"
+        "g = torch.Generator(device='cuda').manual_seed(0)\n"
+        "eager = VectorEnv(env, 4, graphed=False)\n"
+        "obs, st = eager.reset(g, p)\n"
+        "eager.step(g, st, torch.zeros(4, dtype=torch.int32, device='cuda'), p, fresh=(obs, st))\n"
+        "torch.cuda.synchronize()\n"
+        "import dataclasses\n"
+        "from deep_q_learning_tpu_torch.config import lunar_jointed_per\n"
+        "from deep_q_learning_tpu_torch.train import Trainer\n"
+        "cfg = dataclasses.replace(lunar_jointed_per(), num_envs=8, batch_size=16,\n"
+        "    buffer_capacity=256, steps_per_superstep=8, training_start=32, hidden=(32, 32),\n"
+        "    return_window=4, lander_vel_tol=1e-3)\n"
+        "tr = Trainer(cfg, device='cuda').init(seed=0)\n"
+        "assert not tr.venv.graphed and tr.step().env_steps == 8\n"
+        "print('eager ok', flush=True)\n"
+        "VectorEnv(env, 4).fresh_pool(g, p)\n"
+        "print('graphed ran', flush=True)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "eager ok" in proc.stdout, (proc.stdout, proc.stderr)
+    assert "graphed ran" not in proc.stdout
+    assert "CUDA graph capture of" in proc.stderr and "lander_vel_tol" in proc.stderr, proc.stderr

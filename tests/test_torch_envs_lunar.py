@@ -192,7 +192,9 @@ def test_vector_env_autoreset_keeps_pre_reset_next_obs(port_env):
         assert torch.equal(tr.obs, obs)
         assert torch.equal(new_obs[done], pool[0][done])
         assert torch.equal(new_obs[~done], tr.next_obs[~done])
-        obs = new_obs
+        # a copy: the lander's step writes its outputs into the same buffers
+        # every call (envs/graphed.py), so the next step overwrites new_obs
+        obs = new_obs.clone()
         if done.any():
             break
     assert done.any()

@@ -12,9 +12,20 @@ counts depend on the env draws (threefry against Philox) and are left out.
 The same config as a one-member ``PopulationTrainer`` (the form that
 solves, ``solves.py --population``) holds the same hyperparameters and
 keeps the same counters.
+
+The flagship ``lunar_jointed_per`` at ``tests/test_torch_jointed.py``'s
+cut (8 envs, batch 16, 8 vector steps a superstep, ``training_start`` 32,
+hidden (16, 16)) keeps the same counters as the JAX ``Trainer`` over 3
+supersteps, its env step through the port's stepper
+(``envs/graphed.py``).  The JAX side compiles the jointed superstep
+(~27 s with its import and init on one CPU core) under a time limit of
+``JAX_JOINTED_LIMIT_S``.
 """
 
+import contextlib
 import dataclasses
+import signal
+import time
 
 import jax
 import numpy as np
@@ -31,6 +42,10 @@ from deep_q_learning_tpu_torch.train import Trainer
 CUT = dict(num_envs=8, batch_size=16, buffer_capacity=8 * 64, steps_per_superstep=16,
            training_start=64, hidden=(16, 16), return_window=4)
 SUPERSTEPS = 5
+JOINTED_CUT = dict(num_envs=8, batch_size=16, buffer_capacity=8 * 32, steps_per_superstep=8,
+                   training_start=32, hidden=(16, 16), return_window=4)
+JOINTED_SUPERSTEPS = 3
+JAX_JOINTED_LIMIT_S = 240
 
 
 def _jax_opt_count(opt_state) -> int:
@@ -42,11 +57,11 @@ def _jax_opt_count(opt_state) -> int:
     return counts.pop()
 
 
-def _jax_records():
-    cfg = dataclasses.replace(jax_config.lunar_per(), **CUT)
+def _jax_records(preset="lunar_per", cut=CUT, supersteps=SUPERSTEPS):
+    cfg = dataclasses.replace(getattr(jax_config, preset)(), **cut)
     tr = JaxTrainer(cfg).init(seed=1)
     recs = []
-    for _ in range(SUPERSTEPS):
+    for _ in range(supersteps):
         tr.runner, m = tr._superstep(tr.runner)
         r, h = tr.runner, tr.runner.hyper
         recs.append(dict(
@@ -61,8 +76,8 @@ def _jax_records():
     return recs
 
 
-def _port_records():
-    cfg = dataclasses.replace(config.lunar_per(), **CUT)
+def _port_records(preset="lunar_per", cut=CUT, supersteps=SUPERSTEPS):
+    cfg = dataclasses.replace(getattr(config, preset)(), **cut)
     tr = Trainer(cfg, device="cpu").init(seed=1)
     # what the superstep hands the sampler, call by call
     betas = []
@@ -75,7 +90,7 @@ def _port_records():
     tr.replay.sample_with_info = recording_sample
     td_kernels.reset_counts()
     recs = []
-    for _ in range(SUPERSTEPS):
+    for _ in range(supersteps):
         before = len(betas)
         m = tr.step()
         r, h = tr.runner, tr.runner.hyper
@@ -129,3 +144,33 @@ def test_single_learner_hyper_equals_one_member_population(runs):
                 runner.train.opt_state.count[0], runner.replay.total_adds) == (
             g["env_steps"], g["loss_count"], g["updates"], g["opt_count"], g["total_adds"])
         assert np.float32(m.epsilon[0]) == g["epsilon"]
+
+
+@contextlib.contextmanager
+def _time_limit(seconds: int):
+    """Raise TimeoutError once ``seconds`` have passed (at the next Python
+    bytecode: a compile running in XLA is not cut, its caller is)."""
+    def expire(signum, frame):
+        raise TimeoutError(f"the JAX side took over {seconds} s")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+def test_jointed_learner_cadence_matches_jax():
+    t0 = time.perf_counter()
+    with _time_limit(JAX_JOINTED_LIMIT_S):
+        want = _jax_records("lunar_jointed_per", JOINTED_CUT, JOINTED_SUPERSTEPS)
+    assert time.perf_counter() - t0 < JAX_JOINTED_LIMIT_S
+    got, tr = _port_records("lunar_jointed_per", JOINTED_CUT, JOINTED_SUPERSTEPS)
+    assert tr.env_params.jointed and tr.venv.graphed
+    assert len(got) == len(want) == JOINTED_SUPERSTEPS
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"superstep {i + 1}: port {g} != jax {w}"
+    # the warm-up gate opens at vector step 4 (32 stored over 8 envs)
+    assert [g["loss_count"] for g in got] == [5, 8, 8]
