@@ -29,7 +29,15 @@ Phases (each raises on failure, so any failure exits non-zero):
      stable over 100 calls at M = 8 and its ticket counter 0 after a graph
      replay; the PER slot kernel over every member's rows at (M·N, C, M·B) =
      (1024, 4096, 2048) in one launch, equal to 8 per-member calls; and
-     their times beside their bounds;
+     their times beside their bounds; then S1, the jointed solver's step,
+     against its plain version (``assembly_step_reference``) at N = 128,
+     1024 and 37 with (120, 40) passes, N = 2 with (180, 60) and N = 1024 on
+     the ``vel_tol = 1e-3`` branch (its count of passes exact), on states of
+     a flight of 128 landers near the ground, under the gates of
+     tests/test_torch_lander_solver.py, with the share of lanes bitwise
+     equal; bitwise over 100 calls and a graph replay; its device time
+     against the plain version's as a CUDA graph, beside its bound; the
+     plain solver's kernel launches at 128 landers;
   4. run the ``lunar_per`` slice at full width through ``Trainer``: 4
      supersteps (512 vector steps of 128 envs), then check that the TD
      kernels ran once per learner update, the loss is finite, the online
@@ -47,20 +55,26 @@ Phases (each raises on failure, so any failure exits non-zero):
      step and reset pool as CUDA graphs (``envs/graphed.py``): 2
      supersteps of 16 vector steps of 128 envs, learning from 2048 stored
      transitions; check the TD kernels ran once per learner update with no
-     plain call, the counters, a finite loss, the online net trained and
+     plain call, S1 once per vector step and per reset pool on the device
+     in the second superstep (profiled) and the plain solver never, the
+     counters, a finite loss, the online net trained and
      the target followed, peak memory under 1 GiB; print each graph's
      eager warm-up and capture apart from the supersteps; then 8 graphed
      vector steps against 8 eager ones from clones of the runner's envs
      and generator, bitwise (pool, obs, states, transitions), the graphed
      frame's time against the eager frame's, the replay alone on the
-     device (CUDA events) and its launch on the host, the kernels one graphed
-     step runs on the card (device-side profiler events) equal to the
-     eager step's launches; then an eager ``Trainer`` restored from the
+     device (CUDA events), its kernels and its launch on the host, the
+     kernels one graphed step runs on the card (the replay's and the
+     draws') equal by name and count to the eager step's, every launch
+     matched to its kernel in the profiler's trace, S1 once among them and
+     fewer in all than the plain solver alone launches, S1 once in a
+     replay of the reset pool; then an eager ``Trainer`` restored from the
      graphed one's checkpoint: one superstep each, runners bitwise equal,
      then env-steps/s in three alternating pairs (K1/K2 once per update,
      no plain call); a greedy evaluation cut at 4 frames; then one jointed
      frame of 64 landers from a short flight near the ground (touchdowns,
-     contacts, crashes) on the card against the same frame on the CPU;
+     contacts, crashes) on the card (S1) against the same frame on the CPU
+     (the plain solver);
   8. classic control on the card: ``cartpole_vector``, ``acrobot_vector`` and
      ``mountain_car_vector`` at full width through ``Trainer``, cut in depth
      only (``CLASSIC_RUNS``): check the counters (env steps; updates equal
@@ -141,8 +155,17 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``training_start``): K1/K2 launched once per update, no plain call,
      and the pair it wrote read back with Q-values bitwise the trained
      network's; (a)'s process runs beside (b);
-then print the kernels' record as one JSON line (with each kernel's bound,
-``bound_ms``), then the result line.
+ 14. run ``lunar_jointed_scaled(1024)`` with ``use_pallas_sampler=True`` at
+     full width through ``Trainer`` (1,024 jointed landers at (120, 40)),
+     cut in depth only (``JOINTED_SCALED_CUTS``): 3 supersteps of 128
+     vector steps from 2048 stored transitions; K1–K3 once per update and
+     no plain call (TD, sampler or solver), S1 once per vector step and
+     reset pool on the device (the profiled third superstep), the
+     counters, a finite loss, the online net trained, peak memory under
+     1 GiB; env-steps/s of the second superstep and the step graph's
+     replay on the device;
+then print the kernels' record as one JSON line (K1, K2, K3 and S1, with
+each kernel's bound, ``bound_ms``), then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without printing a result where CUDA is absent.
@@ -194,6 +217,13 @@ JOINTED_CUTS = dict(steps_per_superstep=16, training_start=2048)
 JOINTED_SUPERSTEPS = 2
 JOINTED_EVAL_FRAMES = 4  # Trainer.evaluate's default runs max_steps_in_episode = 1000 frames
 JOINTED_FRAMES = 8  # graphed frames held bitwise against eager frames
+# phase 14: lunar_jointed_scaled(1024) with use_pallas_sampler, cut in depth
+# only: 3 supersteps of the preset's 128 vector steps (the first captures the
+# step graph, the second is timed, the third profiled), the learner from
+# 2048 stored transitions (vector step 2 of 1024 landers; the preset's
+# 20,000 open at vector step 20)
+JOINTED_SCALED_CUTS = dict(training_start=2048, use_pallas_sampler=True)
+JOINTED_SCALED_SUPERSTEPS = 3
 # the member axis of the TD kernels: (M, B, A), and (M, B) on misaligned rows
 TD_MEMBER_SHAPES = [(8, 256, 4), (10, 256, 4), (8, 1024, 4)]
 TD_MEMBER_MISALIGNED = (3, 37, 4)
@@ -241,6 +271,52 @@ CLASSIC_RUNS = {  # preset: (supersteps, config cuts)
 # (tests/test_torch_envs_classic.py): CartPole and MountainCar 1e-6; Acrobot's
 # four RK4 stages of trigonometry carry the ulps of sin/cos further
 CLASSIC_TOL = {"CartPole-v1": 1e-6, "MountainCar-v0": 1e-6, "Acrobot-v1": 1e-5}
+
+
+# S1, the jointed solver's step, against its plain version on the card:
+# (N, velocity passes, position passes, vel_tol).  The presets' (120, 40) at
+# the main path's N = 128 and lunar_jointed_scaled's 1024, a block's ragged
+# edge (37), gym's (180, 60) at the width of phase 12's trace replay (2),
+# and the early-exit branch with its count of passes
+SOLVER_SOURCE = "deep_q_learning_tpu_torch/csrc/lander_solver.cu"
+SOLVER_CASES = [(128, 120, 40, 0.0), (1024, 120, 40, 0.0), (37, 120, 40, 0.0),
+                (2, 180, 60, 0.0), (1024, 120, 40, 1e-3)]
+SOLVER_STABLE_CALLS = 100
+# the states: pre-step states of 128 jointed landers along a flight from
+# just above the ground (envs/heuristic.py::solver_inputs)
+SOLVER_ENVS, SOLVER_FRAMES = 128, 120
+# the gates of tests/test_torch_lander_solver.py: the tight tolerances on at
+# least 99 % of the lanes (positions and angles atol 1e-5, velocities 1e-4,
+# accumulators atol 1e-5 + rtol 1e-4); every lane within 4x the field's
+# float32 conditioning gap (the largest gap between JAX's float32 frame and
+# its float64 evaluation over that file's 9,030 rollout lanes, as
+# tests/test_torch_solver_kernel.py prints it, rounded up) plus the tight
+# atol; contact, hull-hit and limit flags exact; the sleep flag flipped only
+# within the velocity tolerance of a threshold, on at most 1 % of the lanes
+SOLVER_TIGHT = {"position": (1e-5, 0.0), "velocity": (1e-4, 0.0), "accumulator": (1e-5, 1e-4)}
+SOLVER_TIGHT_SHARE = 0.99
+SOLVER_CONDITIONING = {
+    (120, 40): {
+        "hull.cx": 1.4e-5, "hull.cy": 6.6e-6, "hull.a": 1.5e-5, "hull.vx": 5.5e-5,
+        "hull.vy": 1.8e-4, "hull.w": 7.3e-4, "leg1.cx": 1.5e-5, "leg1.cy": 9.1e-6,
+        "leg1.a": 1.4e-5, "leg1.vx": 5.3e-4, "leg1.vy": 6.7e-4, "leg1.w": 5.2e-3,
+        "leg2.cx": 2.5e-5, "leg2.cy": 1.1e-5, "leg2.a": 2.9e-5, "leg2.vx": 5.0e-4,
+        "leg2.vy": 1.5e-3, "leg2.w": 7.5e-3, "j1": 8.8e-4, "j2": 8.7e-4, "c1": 2.1e-3,
+        "c2": 4.1e-3,
+    },
+    (180, 60): {
+        "hull.cx": 2.4e-5, "hull.cy": 8.2e-6, "hull.a": 1.2e-5, "hull.vx": 3.8e-5,
+        "hull.vy": 2.0e-4, "hull.w": 5.9e-4, "leg1.cx": 2.7e-5, "leg1.cy": 9.0e-6,
+        "leg1.a": 1.3e-5, "leg1.vx": 6.0e-4, "leg1.vy": 5.5e-4, "leg1.w": 3.4e-3,
+        "leg2.cx": 2.0e-5, "leg2.cy": 1.3e-5, "leg2.a": 3.3e-5, "leg2.vx": 5.0e-4,
+        "leg2.vy": 5.8e-4, "leg2.w": 1.4e-3, "j1": 7.7e-4, "j2": 9.8e-4, "c1": 4.0e-3,
+        "c2": 4.0e-3,
+    },
+}
+SOLVER_KERNEL = "assembly_step_kernel"  # S1's name in the profiler's trace
+# the jointed step graph's replay with the plain solver in it, 128 landers at
+# (120, 40) (NVIDIA H100 80GB HBM3): every kernel the eager step launched
+PLAIN_STEP_REPLAY_KERNELS = 55_935
 
 
 def card_line() -> str:
@@ -385,6 +461,145 @@ def check_td_kernels(torch, td_kernels, per_superstep, card):
                   f"{bound_text(work, k_ms * 1e3)}; launches per superstep "
                   f"{per_superstep[name]} [{card}]")
     return err, times
+
+
+def solver_fields(out):
+    """(name, kind, values) of every compared field of an assembly_step result."""
+    for name, body in zip(("hull", "leg1", "leg2"), out[:3]):
+        for f in ("cx", "cy", "a", "vx", "vy", "w"):
+            yield f"{name}.{f}", "velocity" if f in ("vx", "vy", "w") else "position", getattr(body, f)
+    for f in ("j1", "j2", "c1", "c2"):
+        yield f, "accumulator", getattr(out[7], f)
+
+
+def check_solver_case(torch, got, want, iters):
+    """S1's result against the plain version's under the gates above;
+    returns (largest gap, lanes past the tight tolerances, lanes bitwise
+    equal in every field and flag)."""
+    from deep_q_learning_tpu_torch.envs import lander_solver as ls
+
+    n = want[3].shape[0]
+    tight_bad = torch.zeros(n, dtype=torch.bool, device=want[3].device)
+    same = torch.ones_like(tight_bad)
+    largest = 0.0
+    for (name, kind, g), (_, _, w) in zip(solver_fields(got), solver_fields(want)):
+        atol, rtol = SOLVER_TIGHT[kind]
+        gap = (g.double() - w.double()).abs().reshape(n, -1)
+        tight_bad |= (gap > atol + rtol * w.double().abs().reshape(n, -1)).any(1)
+        same &= (g == w).reshape(n, -1).all(1)
+        bound = 4.0 * SOLVER_CONDITIONING[iters][name] + atol
+        assert float(gap.max()) <= bound, (name, iters, float(gap.max()), bound)
+        largest = max(largest, float(gap.max()))
+    assert float(tight_bad.float().mean()) <= 1 - SOLVER_TIGHT_SHARE, (iters, int(tight_bad.sum()))
+    for i, name in ((3, "touch1"), (4, "touch2"), (5, "hull_hit")):
+        assert torch.equal(got[i], want[i]), name
+    for f in ("s1", "s2"):
+        assert torch.equal(getattr(got[7], f), getattr(want[7], f)), f
+    near = torch.zeros_like(tight_bad)
+    for b in want[:3]:
+        near |= ((torch.hypot(b.vx, b.vy) - ls.LIN_SLEEP_TOL).abs() < 1e-4) | (
+            (b.w.abs() - ls.ANG_SLEEP_TOL).abs() < 1e-4)
+    flipped = got[6] != want[6]
+    assert not bool((flipped & ~near).any()) and float(flipped.float().mean()) <= 0.01
+    same &= ~flipped
+    return largest, int(tight_bad.sum()), int(same.sum())
+
+
+def solver_args(torch, n, vel, pos, seed):
+    """assembly_step inputs of ``n`` lanes on the card (its positional
+    arguments, then ``acc``) from a flight of SOLVER_ENVS landers at (vel,
+    pos) passes."""
+    from deep_q_learning_tpu_torch.envs import LunarLander
+    from deep_q_learning_tpu_torch.envs.heuristic import solver_inputs
+    from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLanderParams
+
+    env, params = LunarLander(), LunarLanderParams(vel_iters=vel, pos_iters=pos)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return solver_inputs(env, params, n, g, envs=SOLVER_ENVS, frames=SOLVER_FRAMES)
+
+
+def check_solver_kernel(torch, solver_kernels, card):
+    """Phase 3, S1: the kernel against assembly_step_reference on the card
+    at SOLVER_CASES under the gates of tests/test_torch_lander_solver.py,
+    the share of lanes bitwise equal; the coverage of the states; bitwise
+    stable over 100 calls and a graph replay; its device time beside the
+    graphed plain version's and its bound; the plain version's kernel
+    count at 128 landers (phase 7 holds a step's replay to it).  Returns
+    (largest gap by N at (120, 40), times by measure.py's SOLVER_SHAPES, that
+    count)."""
+    from deep_q_learning_tpu_torch.envs import lander_solver as ls
+    from deep_q_learning_tpu_torch.measure import SOLVER_SHAPES, solver_device_times, traced_kernels
+
+    kernel = solver_kernels.assembly_step_kernel
+    inputs, err = {}, {}
+    for n, vel, pos, tol in SOLVER_CASES:
+        if (n, vel, pos) not in inputs:
+            inputs[n, vel, pos] = solver_args(torch, n, vel, pos, seed=n + vel)
+        *body, acc = inputs[n, vel, pos]
+        kw = dict(acc=acc, vel_iters=vel, pos_iters=pos, vel_tol=tol, return_iters=tol > 0)
+        solver_kernels.reset_counts()
+        got = kernel(*body, **kw)
+        assert solver_kernels.launches == {"assembly_step": 1}, solver_kernels.launches
+        want = ls.assembly_step_reference(*body, **kw)
+        torch.cuda.synchronize()
+        largest, tight, same = check_solver_case(torch, got[:8], want[:8], (vel, pos))
+        extra = ""
+        if tol > 0:
+            assert torch.equal(got[8], want[8]), "velocity passes"
+            extra = (f", velocity passes {int(got[8].min())}-{int(got[8].max())} (mean "
+                     f"{float(got[8].float().mean()):.1f}) equal to the plain version's")
+        if (vel, pos, tol) == (120, 40, 0.0):
+            err[n] = largest
+        print(f"  S1 vs plain N={n} ({vel}, {pos}) vel_tol={tol}: largest gap {largest:.3g}, "
+              f"{tight} lanes past the tight tolerances, {same} of {n} lanes bitwise equal "
+              f"({100 * same / n:.1f} %){extra}")
+    # what the 1024 states cover (the gates' premise), from the start-of-step pose
+    hull, leg1, leg2, terrain, *_, acc = inputs[1024, 120, 40]
+    c1, t1 = ls.collide_leg(terrain, leg1)
+    _, t2 = ls.collide_leg(terrain, leg2)
+    hit = ls.hull_touches(terrain, hull)
+    both = c1.active1 & c1.active2
+    cover = {"free flight": ~t1 & ~t2 & ~hit, "one leg down": t1 ^ t2, "two legs down": t1 & t2,
+             "2-point block": both & c1.block, "sequential": c1.active1 & ~(both & c1.block),
+             "joint limit": (acc.s1 != 0) | (acc.s2 != 0), "hull hit": hit}
+    cover = {k: int(v.sum()) for k, v in cover.items()}
+    assert all(v > 0 for v in cover.values()), cover
+    print(f"  S1 states (N=1024 of a {SOLVER_FRAMES}-frame flight of {SOLVER_ENVS} landers): {cover}")
+
+    *body, acc = inputs[1024, 120, 40]
+    call = lambda: kernel(*body, acc=acc, vel_iters=120, pos_iters=40)  # noqa: E731
+    first = call()
+    for _ in range(SOLVER_STABLE_CALLS - 1):
+        again = call()
+        same_tree(torch, result_leaves(first), result_leaves(again), "S1 call")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    same_tree(torch, result_leaves(first), result_leaves(captured), "S1 graph replay")
+    print(f"  S1 N=1024 (120, 40): {SOLVER_STABLE_CALLS} calls and a CUDA-graph replay bitwise equal")
+
+    times = {shape: (s1_us / 1e3, p_us / 1e3, work) for shape, (s1_us, p_us, work)
+             in solver_device_times(card, {shape: inputs[shape] for shape in SOLVER_SHAPES}).items()}
+    *body, acc = inputs[SOLVER_CASES[0][:3]]
+    plain = traced_kernels(lambda: ls.assembly_step_reference(
+        *body, acc=acc, vel_iters=120, pos_iters=40))
+    print(f"  the plain solver alone at N=128 (120, 40): {plain.launches} kernel launches, "
+          f"{plain.lost} of them with no kernel in the profiler's trace [{card}]")
+    return err, times, plain.launches
+
+
+def result_leaves(out):
+    """An assembly_step result as a list of tensors."""
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+
+    return tree_leaves(list(out))
 
 
 def td_member_inputs(torch, m, b, a, seed):
@@ -799,27 +1014,6 @@ def run_cli(card, workdir):
     print(f"  CLI train -> resume -> eval on the card: ok [{card}]")
 
 
-def kernel_counts(torch, fn):
-    """``(device kernels, host launches)`` of ``fn()``, from torch.profiler:
-    the kernels that ran on the card (a CUDA graph's replay included) as
-    device-side kernel events, copies, fills and user annotations left out;
-    the kernel launches the host issued.  The device-side events of a long
-    eager call can fall short of its launches (CUPTI drops some; ~100 of
-    ~56k in one run), so an eager call is counted by its launches."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
-    kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith(("Memcpy", "Memset")) and e.key not in host)
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    return kernels, launches
-
-
 def runner_tree(trainer):
     from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
 
@@ -842,15 +1036,20 @@ def same_tree(torch, a, b, where="runner") -> None:
         assert a == b, (where, a, b)
 
 
-def run_jointed(torch, td_kernels, sample_kernels, card):
+def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launches, card):
     """Phase 7: lunar_jointed_per at full width through the Trainer, its
     vector step and reset pool as CUDA graphs: the counters, K1/K2 once per
-    update, the capture timed apart from the replays, graphed frames bitwise
-    eager frames and a replay's kernels equal to an eager step's, and
-    graphed against eager env-steps/s in alternating pairs."""
+    update, S1 once per vector step and per reset pool on the device (and
+    the plain solver never), the capture timed apart from the replays,
+    graphed frames bitwise eager frames and a replay's kernels equal to an
+    eager step's, and graphed against eager env-steps/s in alternating
+    pairs.  Returns the launches of K1 and K2 in the two supersteps and of
+    S1 in the second (counted in the profiler's trace: inside a CUDA graph
+    the wrapper's counter sees the capture, not the replays)."""
     import dataclasses
 
     from deep_q_learning_tpu_torch.config import lunar_jointed_per
+    from deep_q_learning_tpu_torch.measure import traced_kernels
     from deep_q_learning_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(lunar_jointed_per(), **JOINTED_CUTS)
@@ -873,15 +1072,24 @@ def run_jointed(torch, td_kernels, sample_kernels, card):
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
+    solver_kernels.reset_counts()
     walls = []
     metrics = []
-    for _ in range(JOINTED_SUPERSTEPS):
+
+    def superstep():
         t0 = time.perf_counter()
         metrics.append(trainer.step())
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+
+    # the first superstep captures the step graph; in the second, under the
+    # profiler, S1 runs on the device once a vector step (a replay of the
+    # step graph) and once for the reset pool
+    superstep()
+    s1_events = traced_kernels(superstep).count(SOLVER_KERNEL)
     launches = dict(td_kernels.launches)
-    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls,
+                 **solver_kernels.plain_calls)
     assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_jointed_per
 
     updates = sum(m.loss_count for m in metrics)
@@ -897,6 +1105,8 @@ def run_jointed(torch, td_kernels, sample_kernels, card):
     assert metrics[-1].episodes == sum(m.episodes_delta for m in metrics)
     assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, (launches, updates)
     assert not any(plain.values()), plain
+    assert JOINTED_SUPERSTEPS == 2 and s1_events == cfg.steps_per_superstep + 1, s1_events
+    launches["assembly_step"] = s1_events
     assert math.isfinite(loss_sum), loss_sum
     online = [p.detach() for p in trainer.runner.train.online.parameters()]
     target = [p.detach() for p in trainer.runner.train.target.parameters()]
@@ -912,14 +1122,15 @@ def run_jointed(torch, td_kernels, sample_kernels, card):
     pool_g = next(g for (kind, *_), g in graphs.items() if kind == "reset pool")
     step_g = next(g for (kind, *_), g in graphs.items() if kind == "step")
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
-    print(f"  updates {updates}, launches {launches}, no plain call, episodes "
-          f"{metrics[-1].episodes}, peak memory {peak_mib:.1f} MiB [{card}]")
+    print(f"  updates {updates}, launches {launches} (S1: kernels in the trace of the second "
+          f"superstep, profiled: {cfg.steps_per_superstep} vector steps + its reset pool), no "
+          f"plain call, episodes {metrics[-1].episodes}, peak memory {peak_mib:.1f} MiB [{card}]")
     print(f"  graphs: reset pool warm-up {pool_g.warmup_s:.3f} s + capture {pool_g.capture_s:.3f} "
           f"s (in init, {init_s:.2f} s); vector step warm-up {step_g.warmup_s:.3f} s + capture "
           f"{step_g.capture_s:.3f} s (in superstep 1); supersteps of {cfg.steps_per_superstep} "
-          f"frames {', '.join(f'{w:.3f}' for w in walls)} s [{card}]")
+          f"frames {', '.join(f'{w:.3f}' for w in walls)} s (the second profiled) [{card}]")
 
-    graphed_frames(torch, trainer, card)
+    graphed_frames(torch, trainer, plain_launches, card)
     jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card)
     shutil.rmtree(workdir, ignore_errors=True)
 
@@ -931,15 +1142,91 @@ def run_jointed(torch, td_kernels, sample_kernels, card):
     return launches
 
 
-def graphed_frames(torch, trainer, card):
+def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
+    """Phase 14: lunar_jointed_scaled(1024) at full width through the
+    Trainer: 1,024 jointed landers at (120, 40), dueling (256, 256), PER
+    (1024, 512), batch 1024, the three kernels once per update and no plain
+    call, S1 once per vector step and reset pool on the device, the
+    counters, a finite loss, the online net trained, peak memory under 1 GiB;
+    env-steps/s of a superstep and the step graph's replay on the device."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.config import lunar_jointed_scaled
+    from deep_q_learning_tpu_torch.measure import replay_ms, traced_kernels
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(lunar_jointed_scaled(1024), **JOINTED_SCALED_CUTS)
+    assert (cfg.num_envs, cfg.hidden, cfg.batch_size, cfg.dueling, cfg.steps_per_superstep) == (
+        1024, (256, 256), 1024, True, 128), cfg
+    assert (cfg.lander_engine, cfg.lander_vel_iters, cfg.lander_pos_iters) == ("jointed", 120, 40)
+    assert cfg.use_pallas
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    assert trainer.venv.graphed and trainer.runner.replay.priorities.shape == (1024, 512)
+    online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
+    for counts in (td_kernels, sample_kernels, solver_kernels):
+        counts.reset_counts()
+    metrics, walls = [], []
+
+    def superstep():
+        t0 = time.perf_counter()
+        metrics.append(trainer.step())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    superstep()  # captures the step graph
+    superstep()  # timed
+    s1_events = traced_kernels(superstep).count(SOLVER_KERNEL)
+    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls,
+                 **solver_kernels.plain_calls)
+    updates = sum(m.loss_count for m in metrics)
+    loss_sum = sum(m.loss_sum for m in metrics)
+    vector_steps = JOINTED_SCALED_SUPERSTEPS * cfg.steps_per_superstep
+    assert [m.env_steps for m in metrics] == [
+        cfg.steps_per_superstep * (i + 1) for i in range(JOINTED_SCALED_SUPERSTEPS)]
+    assert trainer.runner.replay.total_adds == vector_steps
+    assert updates > 0 and updates == trainer.runner.train.updates, updates
+    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates,
+                        "per_slot_sample": updates}, (launches, updates)
+    assert not any(plain.values()), plain
+    assert s1_events == cfg.steps_per_superstep + 1, s1_events
+    assert math.isfinite(loss_sum), loss_sum
+    moved = sum(float((p.detach() - p0).norm())
+                for p, p0 in zip(trainer.runner.train.online.parameters(), online0))
+    assert moved > 0, moved
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    assert peak_mib < 1024, peak_mib
+    step_g = next(g for (kind, *_), g in trainer.venv._graphs.items() if kind == "step")
+    host_ms, device_ms, nodes = replay_ms(step_g)
+    rate = cfg.steps_per_superstep * cfg.num_envs / walls[1]
+    print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
+    print(f"  updates {updates}, launches {launches} (K1-K3 once per update), S1 "
+          f"{s1_events} times on the device in the third superstep ({cfg.steps_per_superstep} "
+          f"vector steps + its reset pool), no plain call, episodes {metrics[-1].episodes}, "
+          f"peak memory {peak_mib:.1f} MiB [{card}]")
+    print(f"  lunar_jointed_scaled x{cfg.num_envs} envs, use_pallas_sampler: supersteps of "
+          f"{cfg.steps_per_superstep} frames {', '.join(f'{w:.3f}' for w in walls)} s (capture, "
+          f"timed, profiled): {rate:.1f} env-steps/s in the second; the step graph's replay "
+          f"{device_ms:.3f} ms on the device ({nodes} kernels), its launch {host_ms:.3f} ms of "
+          f"host [{card}]")
+    return dict(launches, assembly_step=s1_events)
+
+
+def graphed_frames(torch, trainer, plain_launches, card):
     """Phase 7: JOINTED_FRAMES vector steps through a new graphed VectorEnv
     against the same steps through an eager one, from clones of the
     trainer's envs and generator: every output bitwise; the capture timed
-    apart from the replays; the kernels of one replay (device-side profiler
-    events) equal to those of one eager step."""
+    apart from the replays; the kernels of one graphed step (the replay's
+    and the draws' the host launches) equal by name and count to those of
+    one eager step (every launch matched to its kernel in the profiler's
+    trace), S1 among them once and fewer in all than the plain solver alone
+    launches (phase 3), so none of its kernels; S1 once in a replay of the
+    reset pool."""
     from deep_q_learning_tpu_torch.envs import VectorEnv
     from deep_q_learning_tpu_torch.envs.graphed import tree_leaves, tree_map
-    from deep_q_learning_tpu_torch.measure import replay_ms
+    from deep_q_learning_tpu_torch.measure import replay_ms, traced_kernels
 
     r, n = trainer.runner, trainer.cfg.num_envs
     params = trainer.env_params
@@ -963,30 +1250,44 @@ def graphed_frames(torch, trainer, card):
             torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
             kept.append(clone((obs, states, tr)))
-        counts = kernel_counts(torch, lambda: venv.step(
+        trace = traced_kernels(lambda: venv.step(
             g, states, actions, params, prev_obs=obs, fresh=pool))
-        runs[name] = (kept, frame_s, counts, venv)
-    (gk, gs, (g_kernels, g_launches), gv) = runs["graphed"]
-    (ek, es, (e_kernels, e_launches), _) = runs["eager"]
+        pool_s1 = traced_kernels(lambda: venv.fresh_pool(g, params)).count(SOLVER_KERNEL)
+        assert pool_s1 == 1, (name, pool_s1)
+        runs[name] = (kept, frame_s, trace, venv)
+    (gk, gs, gt, gv), (ek, es, et, _) = runs["graphed"], runs["eager"]
     for i, (a, b) in enumerate(zip(tree_leaves(gk), tree_leaves(ek))):
         assert a.dtype == b.dtype and torch.equal(a, b), f"graphed vs eager, leaf {i}"
     done = sum(int((tr.terminated | tr.truncated).sum()) for _, _, tr in gk[1:])
-    # the replay runs every kernel the eager step launches; the host launches
-    # only the draws' kernels around it
-    assert g_kernels == e_launches > 0 and g_launches < 10, (g_kernels, e_launches, g_launches)
+    # the replay runs the eager step's kernels but the draws', which the host
+    # launches on both paths: the same kernels by name and count
+    g_kernels, g_launches = sum((gt.graphed + gt.launched).values()), gt.launches
+    e_kernels, e_launches = sum(et.launched.values()), et.launches
+    print(f"  replay vs eager: graphed {sum(gt.graphed.values())} kernels in the replay + "
+          f"{sum(gt.launched.values())} of {g_launches} host launches, eager {e_kernels} of "
+          f"{e_launches} host launches (kernels matched to their launches in the profiler's "
+          f"trace)")
+    assert gt.lost == et.lost == 0 and not et.graphed, (gt, et)
+    assert gt.graphed + gt.launched == et.launched, (gt, et)
+    assert g_kernels == e_launches and g_launches < 10, (g_kernels, e_launches, g_launches)
+    g_s1, e_s1 = gt.count(SOLVER_KERNEL), et.count(SOLVER_KERNEL)
+    assert g_s1 == e_s1 == 1 and g_kernels < plain_launches, (g_s1, e_s1, g_kernels)
     step_g = next(g for (kind, *_), g in gv._graphs.items() if kind == "step")
     frame_ms = 1e3 * sum(gs[1:]) / (len(gs) - 1)
-    host_ms, device_ms = replay_ms(step_g)
+    host_ms, device_ms, nodes = replay_ms(step_g)
+    assert nodes == sum(gt.graphed.values()) and nodes < 2_000, (nodes, gt)
     print(f"  {JOINTED_FRAMES} graphed frames of {n} landers bitwise the eager frames "
           f"(pool, obs, states, transitions; {done} episodes ended): first call {gs[0]:.3f} s = "
           f"eager warm-up {step_g.warmup_s:.3f} s + capture {step_g.capture_s:.3f} s + replay; "
           f"later calls {frame_ms:.1f} ms a frame with draws, input copies and a sync, eager "
           f"{1e3 * sum(es) / len(es):.1f} ms; the replay alone {device_ms:.2f} ms on the device "
-          f"(CUDA events, back to back), its launch {host_ms:.2f} ms of host [{card}]")
+          f"(CUDA events, back to back), {nodes} kernels (with the plain solver: {PLAIN_STEP_REPLAY_KERNELS:,}), "
+          f"its launch {host_ms:.2f} ms of host [{card}]")
     print(f"  kernels of one vector step with its draws: graphed {g_kernels} on the device "
-          f"(profiler's device-side events) from {g_launches} host launches and one graph "
-          f"launch; eager {e_launches} host launches ({e_kernels} device-side events recorded); "
-          f"the eager step_env alone, without the auto-reset: 55,901 launches [{card}]")
+          f"(with the plain solver: {PLAIN_STEP_REPLAY_KERNELS:,}), S1 once among them, from "
+          f"{g_launches} host launches and one graph launch; eager {e_launches} host launches, "
+          f"each kernel equal by name; the plain solver alone launches {plain_launches} "
+          f"(phase 3), so none of its kernels ran; S1 once in a replay of the reset pool [{card}]")
 
 
 def jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card):
@@ -2512,18 +2813,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from deep_q_learning_tpu_torch import native
-    from deep_q_learning_tpu_torch.ops import build, sample_kernels, td_kernels
+    from deep_q_learning_tpu_torch.ops import build, sample_kernels, solver_kernels, td_kernels
 
     print("phase 2: build")
     t0 = time.perf_counter()
     # one nvcc per source and g++ for the host replay buffer, together
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         futures = [pool.submit(td_kernels._lib), pool.submit(sample_kernels._lib),
-                   pool.submit(native.load_library)]
+                   pool.submit(solver_kernels._lib), pool.submit(native.load_library)]
         for fut in futures:
             fut.result()
     print(f"  native/replay_buffer.cc: g++ into {native.build_library().relative_to(REPO)}")
-    for source in ("td_loss.cu", "per_sample.cu"):
+    for source in ("td_loss.cu", "per_sample.cu", "lander_solver.cu"):
         print(f"  {source}: nvcc {build.build_seconds.get(source, 0.0):.2f} s (0 = reused a build)")
         for kernel, use in build.ptxas_summary(build.ptxas_reports.get(source, "")).items():
             print(f"    {kernel}: {use['registers']} registers, {use['smem']} B shared, "
@@ -2543,6 +2844,8 @@ def main() -> int:
     member_times = time_td_members(torch, td_kernels, card)
     member_times["per_slot_sample"] = check_slot_members(torch, sample_kernels, card)
     member_err["per_slot_sample"] = 0  # dyadic priorities: exact
+    solver_err, solver_times, plain_solver_launches = check_solver_kernel(
+        torch, solver_kernels, card)
 
     print("phase 4: lunar_per slice")
     run_slice(torch, td_kernels, sample_kernels, card)
@@ -2559,7 +2862,8 @@ def main() -> int:
 
     print("phase 7: lunar_jointed_per, the jointed lander")
     t0 = time.perf_counter()
-    jointed_launches = run_jointed(torch, td_kernels, sample_kernels, card)
+    jointed_launches = run_jointed(torch, td_kernels, sample_kernels, solver_kernels,
+                                   plain_solver_launches, card)
     check_jointed_frame(torch, card)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
@@ -2608,6 +2912,11 @@ def main() -> int:
     shutil.rmtree(ref_workdir, ignore_errors=True)
     print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
+    print("phase 14: lunar_jointed_scaled(1024), the jointed lander at bench scale")
+    t0 = time.perf_counter()
+    scaled_launches = run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+
     # ms and bound at B=256 for the TD kernels (lunar_per, lunar_jointed_per)
     # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);
     # launches of the TD kernels from phase 7, of the slot kernel from phase 5.
@@ -2617,13 +2926,25 @@ def main() -> int:
     # is null
     from deep_q_learning_tpu_torch.ops import bound_by, bound_us
 
-    timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]])
+    # S1: ms, bound and error at phase 7's shape (128 landers, (120, 40)),
+    # launches from phase 7's profiled superstep; "[jointed_scaled]": the four
+    # kernels on phase 14's path (K1/K2 at B = 1024, K3 at (1024, 512, 1024),
+    # S1 at N = 1024 from phase 3), launches from phase 14.  No single PyTorch
+    # call computes S1 either
+    timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]],
+                 assembly_step=solver_times[128, 120, 40])
     launches = dict(launches, **jointed_launches)
+    err["assembly_step"] = solver_err[128]
+    scaled_timed = dict(times[1024], per_slot_sample=slot_times[SLOT_SHAPES[0]],
+                        assembly_step=solver_times[1024, 120, 40])
+    scaled_err = dict(err, assembly_step=solver_err[1024])
     kernels = {
         "td_loss_fwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:48"),
         "td_loss_bwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:97"),
         "per_slot_sample": (PER_SOURCE, "deep_q_learning_tpu/ops/sample_kernels.py:52"),
+        "assembly_step": (SOLVER_SOURCE, "deep_q_learning_tpu/envs/lander_solver.py:305"),
     }
+    tpu_kernels = ("td_loss_fwd", "td_loss_bwd", "per_slot_sample")
     # The kernels at a rank's shapes in phase 10 (b) ("[rank]": K1/K2 at
     # B = 128, K3 at (64, 8192, 128)): ms and bound at those shapes, launches
     # of rank 0 there.
@@ -2637,14 +2958,15 @@ def main() -> int:
     # B = 256 from phase 3, launches of (b)).
     td_only = ("td_loss_fwd", "td_loss_bwd")
     runs = [("", launches, err, timed, kernels), ("[members]", population_launches_run, member_err,
-                                                  member_times, kernels),
-            ("[rank]", rank_launches, rank_err, rank_times, kernels),
+                                                  member_times, tpu_kernels),
+            ("[rank]", rank_launches, rank_err, rank_times, tpu_kernels),
             ("[compat]", compat_launches, compat_err[COMPAT_SHAPES[0]],
              compat_times[COMPAT_SHAPES[0]], td_only),
             ("[curves]", curve_launches, compat_err[CURVE_SHAPE], compat_times[CURVE_SHAPE],
              td_only),
             ("[bf16]", bf16_launches, bf16_err, times[256], td_only),
-            ("[examples]", examples_launches, err, times[256], td_only)]
+            ("[examples]", examples_launches, err, times[256], td_only),
+            ("[jointed_scaled]", scaled_launches, scaled_err, scaled_timed, kernels)]
     record = {"kernels": [
         {
             "name": name + suffix,

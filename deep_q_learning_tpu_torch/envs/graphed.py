@@ -4,8 +4,9 @@ device, captured once in a CUDA graph and replayed.
 The JAX package compiles its whole superstep, env step included, with
 ``jax.jit`` (``deep_q_learning_tpu/train.py:123``), so a frame of the
 jointed lander is one XLA program.  Eager PyTorch issues every one of the
-frame's ~56k small kernels from the host, and waits on the host's time per
-launch.  :class:`GraphedStep` is the port's counterpart of that ``jit``: it
+frame's kernels from the host, and waits on the host's time per launch
+(a few hundred a jointed frame around the solver kernel S1 on the card;
+~56k with the plain solver).  :class:`GraphedStep` is the port's counterpart of that ``jit``: it
 owns static input buffers and the call's outputs, and
 
   * on a CUDA device it runs the call once eagerly on a side stream, then
@@ -47,15 +48,6 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
         return [leaf for f in dataclasses.fields(tree)
                 for leaf in tree_leaves(getattr(tree, f.name))]
     raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
-
-
-def capturable(cfg) -> bool:
-    """Whether a config's env step can run as a CUDA graph: not with
-    ``lander_vel_tol > 0``, whose solver reads the device to end its
-    velocity passes early (``envs/lander_solver.py``).  The trainers build
-    such a config's envs eagerly; a ``VectorEnv`` asked to graph one raises
-    at its capture."""
-    return not cfg.lander_vel_tol > 0
 
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
@@ -137,8 +129,7 @@ class GraphedStep:
         except RuntimeError as err:
             raise RuntimeError(
                 f"CUDA graph capture of {self.name} failed: the call must launch kernels only, "
-                f"with no read back to the host (the lander's solver reads the device when "
-                f"lander_vel_tol > 0); build its VectorEnv with graphed=False to run it "
-                f"eagerly, as the trainers do for such a config") from err
+                f"with no read back to the host; build its VectorEnv with graphed=False to "
+                f"run it eagerly") from err
         self.outputs, self.graph = outputs, graph
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1

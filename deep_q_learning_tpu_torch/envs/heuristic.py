@@ -72,3 +72,57 @@ def touchdown_states(env, params, n: int, generator: torch.Generator, frames: in
         actions = torch.where(heuristic, heuristic_action(obs), random)
         obs, st, *_ = env.step_env(generator, st, actions, params)
     return obs, st
+
+
+def _cat_states(trees):
+    """States (dataclasses of ``(N, ...)`` tensors) joined along the env axis."""
+    first = trees[0]
+    if first is None or isinstance(first, torch.Tensor):
+        return None if first is None else torch.cat(trees)
+    return dataclasses.replace(first, **{
+        f.name: _cat_states([getattr(t, f.name) for t in trees])
+        for f in dataclasses.fields(first)})
+
+
+def solver_inputs(env, params, n: int, generator: torch.Generator, envs: int = 128,
+                  frames: int = 60):
+    """``lander_solver.assembly_step`` inputs of ``n`` lanes, for checks and
+    measurements of the solver: pre-step states of ``envs`` jointed landers
+    along a :func:`touchdown_states` flight of ``frames`` frames (flight,
+    touchdowns, landers on one leg and on both, block contacts, joint
+    limits, crashes; a lander is taken until it finishes), ``n`` of them
+    drawn at random, the hull at its COM and wind-like forces on half the
+    lanes.  Returns ``(hull, leg1, leg2, terrain, fx, fy, torque, gravity,
+    acc)``: ``assembly_step``'s positional arguments, then ``acc``."""
+    from deep_q_learning_tpu_torch.envs import lander_solver as ls
+    from deep_q_learning_tpu_torch.envs.graphed import tree_map
+
+    device = generator.device
+    obs, st = touchdown_states(env, params, envs, generator, frames=0)
+    heuristic = torch.arange(envs, device=device) % 2 == 0
+    alive = torch.ones(envs, dtype=torch.bool, device=device)
+    kept = []
+    for _ in range(frames):
+        kept.append(tree_map(lambda x: x[alive], st))
+        random = torch.randint(0, 4, (envs,), generator=generator, device=device,
+                               dtype=torch.int32)
+        actions = torch.where(heuristic, heuristic_action(obs), random)
+        obs, st, _, terminated, truncated = env.step_env(generator, st, actions, params)
+        alive &= ~(terminated | truncated)
+    st = _cat_states(kept)
+    total = st.x.shape[0]
+    lanes = torch.randperm(total, generator=generator, device=device)[:n]
+    if total < n:
+        lanes = torch.randint(0, total, (n,), generator=generator, device=device)
+    st = tree_map(lambda x: x[lanes].contiguous(), st)
+    hx, hy = ls.hull_com(st.x, st.y, st.angle)
+    hull = ls.Body(hx, hy, st.angle, st.vx, st.vy, st.omega)
+
+    def uniform(lo, hi):
+        return torch.rand((n,), generator=generator, device=device) * (hi - lo) + lo
+
+    wind = torch.rand((n,), generator=generator, device=device) < 0.5
+    fx = torch.where(wind, uniform(-15.0, 15.0), 0.0)
+    torque = torch.where(wind, uniform(-1.5, 1.5), 0.0)
+    return (hull, st.leg1_body, st.leg2_body, st.terrain.contiguous(), fx,
+            torch.zeros_like(fx), torque, params.gravity, st.solver_acc)

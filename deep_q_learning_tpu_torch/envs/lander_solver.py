@@ -27,9 +27,12 @@ Where it differs in form, the values are the same:
     ``assembly_step``.
 
 Everything here is elementwise PyTorch: a frame at the preset iteration
-counts is tens of thousands of kernel launches, and a fused per-env
-kernel is the plan for it (ROADMAP item P); ``assembly_step`` is the unit
-it replaces and its plain reference.
+counts is tens of thousands of kernel launches.  On the card the step
+runs as one kernel instead, S1 (``csrc/lander_solver.cu``, bound in
+``ops/solver_kernels.py``), which computes the same operations for one env
+per thread: :func:`assembly_step` launches it on CUDA tensors and runs
+:func:`assembly_step_reference`, the plain version kept here, on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -641,7 +644,40 @@ def assembly_step(
     vel_tol: float = 0.0,
     return_iters: bool = False,
 ):
-    """One ``world.Step`` of ``N`` 3-body islands.
+    """One ``world.Step`` of ``N`` 3-body islands: :func:`assembly_step_reference`
+    on CPU tensors, the kernel S1 on tensors elsewhere (it launches on CUDA
+    tensors or raises).  Arguments and result as
+    :func:`assembly_step_reference`'s."""
+    # imported here: the kernel's module imports this one
+    from deep_q_learning_tpu_torch.ops import solver_kernels
+
+    kw = dict(acc=acc, dt=dt, vel_iters=vel_iters, pos_iters=pos_iters, vel_tol=vel_tol,
+              return_iters=return_iters)
+    if hull.cx.device.type == "cpu":
+        solver_kernels.plain_calls["assembly_step"] += 1
+        return assembly_step_reference(hull, leg1, leg2, terrain, fx, fy, torque, gravity, **kw)
+    return solver_kernels.assembly_step_kernel(hull, leg1, leg2, terrain, fx, fy, torque,
+                                               gravity, **kw)
+
+
+def assembly_step_reference(
+    hull: Body,
+    leg1: Body,
+    leg2: Body,
+    terrain: torch.Tensor,
+    fx: torch.Tensor,
+    fy: torch.Tensor,
+    torque: torch.Tensor,
+    gravity: float,
+    acc: AssemblyAcc = None,
+    dt: float = 1.0 / FPS,
+    vel_iters: int = VEL_ITERS,
+    pos_iters: int = POS_ITERS,
+    vel_tol: float = 0.0,
+    return_iters: bool = False,
+):
+    """One ``world.Step`` of ``N`` 3-body islands in plain PyTorch, on
+    either device: S1's plain version.
 
     ``fx, fy, torque`` ``(N,)`` are forces on the hull for this step (reset
     kick, wind/turbulence); engine impulses must already be applied to

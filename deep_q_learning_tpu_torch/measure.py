@@ -10,7 +10,9 @@
    CUDA events, so the host's enqueue cost drops out.  Beside each: its
    bound (``ops.bound_us`` of the bytes and operations the call needs) and
    the share of it the kernel reaches, and the kernel's launches per steady
-   superstep on each preset that runs it.  With ``--baseline CHECKOUT``
+   superstep on each preset that runs it.  S1, the jointed solver's step,
+   at ``SOLVER_SHAPES`` on states of a flight of landers, its plain version
+   as a CUDA graph of one call (~56k kernels).  With ``--baseline CHECKOUT``
    (another checkout of the port, e.g. an earlier commit unpacked with
    ``git archive``), its TD kernels and its PER slot kernel are timed too,
    each built from that checkout's own source, in turns with this tree's.
@@ -23,8 +25,8 @@
    unprofiled.  The lander's env step and reset pool run as CUDA graphs;
    ``--eager`` runs them eagerly (``VectorEnv(graphed=False)``).  Each
    graph is then replayed alone on its static inputs: its device time
-   between CUDA events and the host time of its launch, beside the wall
-   time of a frame of those supersteps.
+   between CUDA events, its kernels and the host time of its launch, beside
+   the wall time of a frame of those supersteps.
 
 With ``--kernels-only``, only 1.  With
 ``--env-only``, neither: the preset's env alone, at its env count, steps
@@ -38,13 +40,17 @@ non-zero: a CPU run measures nothing this script reports.
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import functools
 import importlib.util
+import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -61,6 +67,12 @@ SLOT_SHAPES = ((1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096), (64, 8192
 # PER slot kernel over every member's rows, (M, N, C, B)
 MEMBER_TD = (8, 256, 4)
 MEMBER_SLOT = (8, 128, 4096, 256)
+# S1, the jointed solver's step: (N, velocity passes, position passes) of
+# lunar_jointed_per, lunar_jointed_scaled(1024) and the gymnasium harness's
+# two-lane trace replay; its plain version, ~56k kernels a call, is timed as
+# a CUDA graph of one call replayed PLAIN_SOLVER_REPLAYS times
+SOLVER_SHAPES = ((128, 120, 40), (1024, 120, 40), (2, 180, 60))
+PLAIN_SOLVER_REPLAYS = 3
 
 
 def card_line() -> str:
@@ -71,8 +83,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_us(fn) -> float:
-    """Device µs per call of ``fn``, from a CUDA graph of GRAPH_CALLS calls."""
+def device_us(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) -> float:
+    """Device µs per call of ``fn``, from a CUDA graph of ``calls`` calls
+    replayed ``replays`` times between CUDA events."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -81,17 +94,17 @@ def device_us(fn) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(GRAPH_CALLS):
+        for _ in range(calls):
             fn()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(GRAPH_REPLAYS):
+    for _ in range(replays):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) * 1e3 / (GRAPH_CALLS * GRAPH_REPLAYS)
+    return start.elapsed_time(end) * 1e3 / (calls * replays)
 
 
 def launches_per_superstep() -> dict:
@@ -149,12 +162,49 @@ def load_baseline(checkout: Path, name: str):
     return module
 
 
+def solver_device_times(card: str, inputs: Optional[dict] = None) -> dict:
+    """S1 and its plain version at SOLVER_SHAPES: device µs a call of the
+    kernel (a CUDA graph of GRAPH_CALLS calls) and of the plain version (a
+    CUDA graph of one call, replayed PLAIN_SOLVER_REPLAYS times), and the
+    work of the call, whose bound counts the position passes each env ran.
+    ``inputs`` maps each shape to ``assembly_step``'s positional arguments
+    then ``acc``; by default the states of a flight of 128 jointed landers
+    near the ground (``envs/heuristic.py::solver_inputs``).  Prints a line
+    a shape and returns ``{shape: (kernel us, plain us, work)}``."""
+    from deep_q_learning_tpu_torch.envs import LunarLander, lander_solver
+    from deep_q_learning_tpu_torch.envs.heuristic import solver_inputs
+    from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLanderParams
+    from deep_q_learning_tpu_torch.ops import solver_kernels
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    for n, vel, pos in SOLVER_SHAPES:
+        if inputs is None:
+            params = LunarLanderParams(vel_iters=vel, pos_iters=pos)
+            *args, acc = solver_inputs(LunarLander(), params, n, g)
+        else:
+            *args, acc = inputs[n, vel, pos]
+        kw = dict(acc=acc, vel_iters=vel, pos_iters=pos)
+        ran = solver_kernels.position_passes(*args, **kw)
+        k = device_us(lambda: solver_kernels.assembly_step_kernel(*args, **kw))
+        r = device_us(lambda: lander_solver.assembly_step_reference(*args, **kw), calls=1,
+                      replays=PLAIN_SOLVER_REPLAYS)
+        work = solver_kernels.assembly_step_work(n, vel, ran)
+        times[n, vel, pos] = (k, r, work)
+        print(f"assembly_step (S1) N={n} ({vel}, {pos}): device {k:.2f} us kernel, {r:.2f} us "
+              f"plain as a CUDA graph of one call ({r / k:.0f}x); position passes run "
+              f"{int(ran.sum())} (mean {float(ran.float().mean()):.2f}); {bound_text(work, k)} "
+              f"[{card}]")
+    return times
+
+
 def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
     from deep_q_learning_tpu_torch.ops import sample_kernels as sk
     from deep_q_learning_tpu_torch.ops import td_kernels as tk
 
     per_superstep = launches_per_superstep()
     print(f"kernel launches per steady superstep, by preset: {per_superstep}")
+    solver_device_times(card)
     g = torch.Generator(device="cuda").manual_seed(0)
     base_sk = load_baseline(baseline, "sample_kernels") if baseline is not None else None
     for n, c, b in SLOT_SHAPES:
@@ -380,9 +430,10 @@ def profile_superstep(cfg, card: str, graphed: bool = True) -> None:
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
     frame_ms = 1e3 * min(walls) / frames
     for (kind, *_), g in trainer.venv._graphs.items():
-        host_ms, device_ms = replay_ms(g)
+        host_ms, device_ms, nodes = replay_ms(g)
         print(f"graph of the {kind}: replay {device_ms:.2f} ms on the device (CUDA events over "
-              f"{REPLAYS} back-to-back replays), its launch {host_ms:.2f} ms of host; a frame of "
+              f"{REPLAYS} back-to-back replays), {nodes} kernels, its launch {host_ms:.2f} ms of "
+              f"host; a frame of "
               f"the faster unprofiled superstep {frame_ms:.2f} ms of wall, so one replay is "
               f"{100 * device_ms / frame_ms:.1f} % of it [{card}]")
 
@@ -390,12 +441,88 @@ def profile_superstep(cfg, card: str, graphed: bool = True) -> None:
 REPLAYS = 5
 
 
+# Kernel launches of a profiling session's own before the span it counts:
+# on the H100 the profiler has recorded no kernel for the first launches of
+# a session (3-6 in most of chip_smoke.py's; the kernels ran: their outputs
+# were checked bitwise), so they fall outside the span
+WARM_LAUNCHES = 32
+SPAN = "traced_kernels"
+# replays in the span that counts a graph's kernels: the last two must agree
+TRACED_REPLAYS = 4
+
+
+@dataclasses.dataclass
+class KernelTrace:
+    """The kernels a call ran on the card, by name, from the profiler's
+    trace: those the host launched one by one (``launched``, ``launches``
+    calls) and those of the CUDA graphs it launched (``graphed``; and
+    ``per_graph_launch``, their count for each graph launch in order)."""
+
+    launches: int
+    launched: collections.Counter
+    graphed: collections.Counter
+    per_graph_launch: list
+
+    @property
+    def lost(self) -> int:
+        """Host launches with no kernel in the trace."""
+        return self.launches - sum(self.launched.values())
+
+    def count(self, name: str) -> int:
+        """The kernels whose name holds ``name``, launched or in a graph."""
+        return sum(c for k, c in (self.launched + self.graphed).items() if name in k)
+
+
+def traced_kernels(fn: Callable[[], object]) -> KernelTrace:
+    """What ``fn()`` ran on the card, under ``torch.profiler``: every
+    kernel launch call and CUDA graph launch the host made inside a span
+    around ``fn()`` (and a sync), and the kernels matched to them by the
+    trace's correlation ids; the kernels of a graph's replay carry the
+    graph launch's.  Copies and fills are not kernels; host API calls
+    (``cuLaunchKernel`` of cuBLAS among them) are never counted as
+    kernels, whatever the profiler's summary makes of them."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(WARM_LAUNCHES):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        with torch.profiler.record_function(SPAN):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    span = next(e for e in events if e["name"] == SPAN and e.get("cat") != "gpu_user_annotation")
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    calls = [e for e in events if e.get("cat", "").startswith("cuda_") and t0 <= e["ts"] <= t1]
+    # cudaLaunchKernel, cudaLaunchKernelExC, cuLaunchKernel, ...; cudaGraphLaunch
+    launch_ids = {e["args"]["correlation"] for e in calls if "LaunchKernel" in e["name"]}
+    graph_ids = [e["args"]["correlation"] for e in sorted(calls, key=lambda e: e["ts"])
+                 if "GraphLaunch" in e["name"]]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_id = collections.Counter(e["args"]["correlation"] for e in kernels)
+    return KernelTrace(
+        launches=sum("LaunchKernel" in e["name"] for e in calls),
+        launched=collections.Counter(
+            e["name"] for e in kernels if e["args"]["correlation"] in launch_ids),
+        graphed=collections.Counter(
+            e["name"] for e in kernels if e["args"]["correlation"] in set(graph_ids)),
+        per_graph_launch=[by_id[i] for i in graph_ids])
+
+
 def replay_ms(graphed) -> tuple:
-    """``(host ms, device ms)`` of one replay of a captured
+    """``(host ms, device ms, kernels)`` of one replay of a captured
     ``envs/graphed.py::GraphedStep`` on its static inputs: the host time of
     the ``replay()`` call (its launch) and the device time between two CUDA
-    events around ``REPLAYS`` replays back to back, each averaged.  The
-    inputs are not changed, so the outputs are recomputed as they were."""
+    events around ``REPLAYS`` replays back to back, each averaged, and the
+    kernels one replay ran on the card (:func:`traced_kernels` of
+    ``TRACED_REPLAYS`` replays: late in a long process the profiler has
+    also lost records of a profiling session's first replay, so the last
+    two replays must agree, and give the count).  The inputs are not
+    changed, so the outputs are recomputed as they were."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     graphed.graph.replay()  # past a first launch's upload
     torch.cuda.synchronize()
@@ -407,7 +534,12 @@ def replay_ms(graphed) -> tuple:
         host += time.perf_counter() - t0
     end.record()
     end.synchronize()
-    return 1e3 * host / REPLAYS, start.elapsed_time(end) / REPLAYS
+    trace = traced_kernels(lambda: [graphed.graph.replay() for _ in range(TRACED_REPLAYS)])
+    *_, before, last = trace.per_graph_launch
+    if before != last:
+        raise RuntimeError(f"the profiler recorded {trace.per_graph_launch} kernels in "
+                           f"{TRACED_REPLAYS} replays of one graph: its last two must agree")
+    return 1e3 * host / REPLAYS, start.elapsed_time(end) / REPLAYS, last
 
 
 ENV_FRAMES = 4

@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file has a plain ``extern "C"`` interface.  At first use
 ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, named after a hash of
-the source and the flags, so an edited source is rebuilt; ``ctypes`` loads
-it.  A build takes seconds: no PyTorch headers are involved.
+the source, the headers it includes from ``csrc/`` and the flags, so an
+edited source is rebuilt; ``ctypes`` loads it.  A build takes seconds: no
+PyTorch headers are involved.  A source may add flags of its own
+(``SOURCE_FLAGS``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the jointed solver rounds every product and sum, as PyTorch's elementwise
+# kernels do (csrc/lander_solver.cu)
+SOURCE_FLAGS = {"lander_solver.cu": ("--fmad=false",)}
+# the headers a source includes from csrc/, hashed with it
+SOURCE_HEADERS = {"lander_solver.cu": ("lander_solver.cuh",)}
 
 # seconds spent in nvcc by this process, and ptxas's report, by source file name
 build_seconds: dict = {}
@@ -53,11 +60,13 @@ def load_library(source_name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
     """Compile ``csrc/<source_name>`` (or ``<csrc_dir>/<source_name>``) if
     its build is missing or stale, and load it.  Cached per process."""
     source = csrc_dir / source_name
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(source_name, ())
+    headers = [csrc_dir / h for h in SOURCE_HEADERS.get(source_name, ())]
 
     def compile_to(out: Path) -> None:
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
+            [find_nvcc(), *flags, "-o", str(out), str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -68,18 +77,19 @@ def load_library(source_name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
         build_seconds[source_name] = time.perf_counter() - t0
         ptxas_reports[source_name] = proc.stdout + proc.stderr
 
-    return ctypes.CDLL(str(cached_build(source, NVCC_FLAGS, BUILD_DIR, compile_to)))
+    return ctypes.CDLL(str(cached_build(source, flags, BUILD_DIR, compile_to, headers)))
 
 
-def cached_build(source: Path, flags, build_dir: Path, compile_to) -> Path:
+def cached_build(source: Path, flags, build_dir: Path, compile_to, headers=()) -> Path:
     """The library built from ``source`` with ``flags``: under ``build_dir``,
-    named after a hash of the source and the flags, so an edited source is
-    rebuilt.  Where it is missing, ``compile_to(path)`` writes it to a
-    temporary path that then replaces it atomically (a loader sees all or
-    nothing).  One build at a time: processes that start together (the
+    named after a hash of the source, the ``headers`` it includes and the
+    flags, so an edited source is rebuilt.  Where it is missing,
+    ``compile_to(path)`` writes it to a temporary path that then replaces it
+    atomically (a loader sees all or nothing).  One build at a time: processes that start together (the
     ranks of a run that share a checkout) wait on a file lock and then find
     the library; the kernel releases the lock if its holder dies."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    content = source.read_bytes() + b"".join(Path(h).read_bytes() for h in headers)
+    digest = hashlib.sha256(content + " ".join(flags).encode()).hexdigest()
     lib_path = build_dir / f"{source.stem}-{digest[:16]}.so"
     if not lib_path.exists():
         build_dir.mkdir(parents=True, exist_ok=True)

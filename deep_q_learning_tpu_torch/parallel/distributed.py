@@ -24,7 +24,6 @@ import torch.distributed as dist
 from deep_q_learning_tpu_torch.algos import build_superstep, make_optimizer
 from deep_q_learning_tpu_torch.algos.superstep import SuperstepMetrics
 from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
-from deep_q_learning_tpu_torch.envs.graphed import capturable
 from deep_q_learning_tpu_torch.models import QNetwork
 from deep_q_learning_tpu_torch.replay import make_replay
 
@@ -79,7 +78,7 @@ def build_distributed_superstep(
         cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
         param_overrides=cfg.env_param_overrides(),
     )
-    venv = VectorEnv(env, local_cfg.num_envs, graphed=capturable(cfg))
+    venv = VectorEnv(env, local_cfg.num_envs)
     (obs_dim,) = env.obs_shape(env_params)
     network = QNetwork(
         obs_dim, env.num_actions, hidden=cfg.hidden, dueling=cfg.dueling,

@@ -34,7 +34,6 @@ from deep_q_learning_tpu_torch.algos.dqn import CADENCE_FIELDS
 from deep_q_learning_tpu_torch.algos.evaluate import EvalResult, build_evaluator
 from deep_q_learning_tpu_torch.algos.superstep import build_population_superstep
 from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
-from deep_q_learning_tpu_torch.envs.graphed import capturable
 from deep_q_learning_tpu_torch.models import MemberQNetwork
 from deep_q_learning_tpu_torch.replay import make_replay
 from deep_q_learning_tpu_torch.train import resolve_device, set_matmul_precision
@@ -54,7 +53,7 @@ def _build(cfg, num_members: int, device):
         compute_dtype=cfg.compute_dtype,
     )
     init_population, population_step = build_population_superstep(
-        VectorEnv(env, cfg.num_envs * num_members, graphed=capturable(cfg)), env_params, network,
+        VectorEnv(env, cfg.num_envs * num_members), env_params, network,
         make_optimizer(cfg), make_replay(cfg, members=num_members), cfg, device, num_members,
     )
     return init_population, population_step, network, env, env_params
@@ -116,7 +115,7 @@ class PopulationTrainer:
         # the JAX package: a rigid-engine population scored on the jointed one)
         self._eval_env_params = env_params
         self._evaluate = build_evaluator(
-            VectorEnv(env, eval_envs * num_members, graphed=capturable(cfg)), env_params,
+            VectorEnv(env, eval_envs * num_members), env_params,
             env_params.max_steps_in_episode
         )
 

@@ -26,7 +26,6 @@ from deep_q_learning_tpu_torch.algos import build_superstep, make_optimizer
 from deep_q_learning_tpu_torch.algos.evaluate import EvalResult, build_evaluator
 from deep_q_learning_tpu_torch.config import config_shape_mismatches, config_to_dict
 from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
-from deep_q_learning_tpu_torch.envs.graphed import capturable
 from deep_q_learning_tpu_torch.models import QNetwork
 from deep_q_learning_tpu_torch.models.networks import compute_dtype_of
 from deep_q_learning_tpu_torch.replay import make_replay
@@ -106,12 +105,10 @@ class Trainer:
     float32.  The lander's vector step and reset pool, in training and in
     evaluation, run as CUDA graphs on the card (``envs/base.py::
     VectorEnv``); ``graphed=False`` runs them eagerly, with the same
-    results.  A config whose env step reads the device (``lander_vel_tol >
-    0``, see ``envs/graphed.py::capturable``) always runs it eagerly."""
+    results."""
 
     def __init__(self, cfg, device="cuda", workdir: Optional[str] = None, graphed: bool = True):
         set_matmul_precision(cfg)
-        graphed = graphed and capturable(cfg)
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
@@ -332,7 +329,7 @@ class DistributedTrainer(Trainer):
             param_overrides=cfg.env_param_overrides(),
         )
         self._evaluate = build_evaluator(
-            VectorEnv(self.env, 128, graphed=capturable(cfg)), self.env_params,
+            VectorEnv(self.env, 128), self.env_params,
             self.env_params.max_steps_in_episode,
         )
         self.runner = None

@@ -26,8 +26,11 @@ The gymnasium harness's CUDA-graph replay of a jointed frame: bitwise the
 eager frame.  ``VectorEnv``'s CUDA graphs of the lander's vector step and
 reset pool: bitwise the eager step over 64 jointed frames with auto-resets
 and over two ``lunar_per`` supersteps (the whole runner); a graphed step
-runs the kernels the eager step launches; ``lander_vel_tol > 0`` (a host
-read in the solver) makes the capture raise."""
+runs the kernels the eager step runs, the jointed solver's kernel S1 once
+among them; a ``lander_vel_tol > 0`` trainer graphs, bitwise its eager
+twin.  S1 against the plain solver: bitwise at N = 128 and 37 with and
+without the early exit, and over a graph replay; its wrapper refuses a
+wrong dtype, a non-contiguous input and mixed devices."""
 
 import dataclasses
 
@@ -736,26 +739,6 @@ def test_bf16_update_on_gpu_matches_cpu(cuda):
     assert far <= 0.01 * sum(a.numel() for a in pg)
 
 
-def _kernel_counts(fn):
-    """``(device kernels, host launches)`` of ``fn()``, from torch.profiler:
-    the device-side kernel events (a CUDA graph's replay included; copies,
-    fills and annotations left out) and the kernel launches the host
-    issued.  CUPTI can drop some device-side events of a long eager call,
-    so an eager call is counted by its launches."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
-    kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith(("Memcpy", "Memset")) and e.key not in host)
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    return kernels, launches
-
-
 def test_graphed_jointed_vector_step_equals_eager(cuda):
     """``VectorEnv``'s CUDA graphs of the jointed vector step and reset pool
     (``lunar_jointed_per``'s (120, 40) iterations, 128 landers) against the
@@ -763,11 +746,14 @@ def test_graphed_jointed_vector_step_equals_eager(cuda):
     cut at 40 steps: terminations and truncations auto-reset; the pool and
     every frame's obs, states and transition bitwise.  Then the kernels one
     graphed step runs on the card (its replay and its draws) equal the
-    kernels the eager step launches."""
+    kernels the eager step launches, by name and count, every launch matched
+    to its kernel in the profiler's trace; S1 once among them and a few
+    hundred in all (the plain solver alone is ~56k)."""
     from deep_q_learning_tpu_torch.envs import VectorEnv
     from deep_q_learning_tpu_torch.envs.graphed import tree_leaves, tree_map
     from deep_q_learning_tpu_torch.envs.heuristic import touchdown_states
     from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLander, LunarLanderParams
+    from deep_q_learning_tpu_torch.measure import traced_kernels
 
     env = LunarLander()
     p = LunarLanderParams(vel_iters=120, pos_iters=40, max_steps_in_episode=40)
@@ -788,15 +774,20 @@ def test_graphed_jointed_vector_step_equals_eager(cuda):
                 0, 4, (n,), generator=acts, device=cuda, dtype=torch.int32), 1 + 2 * (lanes % 2))
             obs, states, tr = venv.step(g, states, actions, p, prev_obs=obs, fresh=pool)
             kept.append(tree_map(torch.clone, (obs, states, tr)))
-        counts = _kernel_counts(lambda: venv.step(g, states, actions, p, prev_obs=obs, fresh=pool))
-        runs[graphed] = kept, counts
-    (g_kept, (g_kernels, g_launches)), (e_kept, (_, e_launches)) = runs[True], runs[False]
+        trace = traced_kernels(lambda: venv.step(g, states, actions, p, prev_obs=obs, fresh=pool))
+        runs[graphed] = kept, trace
+    (g_kept, gt), (e_kept, et) = runs[True], runs[False]
     for i, (a, b) in enumerate(zip(tree_leaves(g_kept), tree_leaves(e_kept))):
         assert a.dtype == b.dtype and torch.equal(a, b), f"leaf {i}"
     transitions = [tr for _, _, tr in g_kept[1:]]
     assert any(bool(tr.terminated.any()) for tr in transitions)
     assert any(bool(tr.truncated.any()) for tr in transitions)
-    assert g_kernels == e_launches > 50_000 and g_launches < 10, (g_kernels, e_launches, g_launches)
+    g_kernels = sum((gt.graphed + gt.launched).values())
+    assert gt.lost == et.lost == 0 and not et.graphed, (gt, et)
+    assert gt.graphed + gt.launched == et.launched, (gt, et)
+    assert g_kernels == et.launches and gt.launches < 10, (g_kernels, et.launches, gt.launches)
+    s1 = "assembly_step_kernel"
+    assert gt.count(s1) == et.count(s1) == 1 and g_kernels < 2_000, (gt, et)
 
 
 def test_graphed_lunar_per_superstep_equals_eager(cuda):
@@ -835,40 +826,112 @@ def test_graphed_lunar_per_superstep_equals_eager(cuda):
     same(runs[True][1], runs[False][1])
 
 
-def test_graphed_capture_refuses_a_host_read(cuda):
-    """``lander_vel_tol > 0`` makes the solver read the device every
-    velocity pass: eagerly it runs, a ``Trainer`` of such a config trains
-    with its env step eager, and the CUDA graph's capture raises a clear
-    error instead of falling back (in a process of its own: a failed
-    capture may leave the context unusable)."""
-    import subprocess
-    import sys
-    from pathlib import Path
+def test_vel_tol_trainer_graphs_bitwise_eager(cuda):
+    """``lander_vel_tol > 0`` once made the solver read the device every
+    velocity pass, which a capture refuses.  S1 ends each env's passes on
+    the card, so a ``Trainer`` of such a config graphs its env step, and its
+    supersteps equal an eager trainer's bitwise (the whole runner)."""
+    from deep_q_learning_tpu_torch.config import lunar_jointed_per
+    from deep_q_learning_tpu_torch.ops import solver_kernels
+    from deep_q_learning_tpu_torch.train import Trainer
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
 
-    code = (
-        "import torch\n"
-        "from deep_q_learning_tpu_torch.envs import LunarLander, VectorEnv\n"
-        "from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLanderParams\n"
-        "env, p = LunarLander(), LunarLanderParams(vel_iters=8, pos_iters=4, vel_tol=1e-3)\n"
-        "g = torch.Generator(device='cuda').manual_seed(0)\n"
-        "eager = VectorEnv(env, 4, graphed=False)\n"
-        "obs, st = eager.reset(g, p)\n"
-        "eager.step(g, st, torch.zeros(4, dtype=torch.int32, device='cuda'), p, fresh=(obs, st))\n"
-        "torch.cuda.synchronize()\n"
-        "import dataclasses\n"
-        "from deep_q_learning_tpu_torch.config import lunar_jointed_per\n"
-        "from deep_q_learning_tpu_torch.train import Trainer\n"
-        "cfg = dataclasses.replace(lunar_jointed_per(), num_envs=8, batch_size=16,\n"
-        "    buffer_capacity=256, steps_per_superstep=8, training_start=32, hidden=(32, 32),\n"
-        "    return_window=4, lander_vel_tol=1e-3)\n"
-        "tr = Trainer(cfg, device='cuda').init(seed=0)\n"
-        "assert not tr.venv.graphed and tr.step().env_steps == 8\n"
-        "print('eager ok', flush=True)\n"
-        "VectorEnv(env, 4).fresh_pool(g, p)\n"
-        "print('graphed ran', flush=True)\n"
-    )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0 and "eager ok" in proc.stdout, (proc.stdout, proc.stderr)
-    assert "graphed ran" not in proc.stdout
-    assert "CUDA graph capture of" in proc.stderr and "lander_vel_tol" in proc.stderr, proc.stderr
+    cfg = dataclasses.replace(lunar_jointed_per(), num_envs=8, batch_size=16,
+                              buffer_capacity=256, steps_per_superstep=8, training_start=32,
+                              hidden=(32, 32), return_window=4, lander_vel_tol=1e-3)
+    runs = {}
+    solver_kernels.reset_counts()
+    for graphed in (True, False):
+        tr = Trainer(cfg, device="cuda", graphed=graphed).init(seed=0)
+        assert tr.venv.graphed == graphed
+        runs[graphed] = [tr.step() for _ in range(2)], ckpt._to_tree(tr.runner)
+    assert solver_kernels.plain_calls == {"assembly_step": 0}
+    assert runs[True][0] == runs[False][0]
+
+    def same(a, b, where="runner"):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), where
+        elif isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, list):
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        else:
+            assert a == b, where
+
+    same(runs[True][1], runs[False][1])
+
+
+# ----------------------------------------------------------------------- S1
+def _solver_case(n, vel, pos, seed):
+    from deep_q_learning_tpu_torch.envs import LunarLander
+    from deep_q_learning_tpu_torch.envs.heuristic import solver_inputs
+    from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLanderParams
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = LunarLanderParams(vel_iters=vel, pos_iters=pos)
+    return solver_inputs(LunarLander(), p, n, g, envs=64, frames=60)
+
+
+def _solver_leaves(out):
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+
+    return tree_leaves(list(out))
+
+
+@pytest.mark.parametrize("n", [128, 37])
+def test_solver_kernel_matches_plain(cuda, n):
+    """S1 against ``assembly_step_reference`` on the card, from a flight of
+    64 landers near the ground, with and without the early exit: PyTorch's
+    elementwise kernels and S1 round every operation the same way, so every
+    output is bitwise equal (``tests/test_torch_lander_solver.py``'s
+    tolerances would allow more), the count of passes included."""
+    from deep_q_learning_tpu_torch.envs import lander_solver as ls
+    from deep_q_learning_tpu_torch.ops import solver_kernels
+
+    *args, acc = _solver_case(n, 120, 40, seed=n)
+    for tol in (0.0, 1e-3):
+        kw = dict(acc=acc, vel_iters=120, pos_iters=40, vel_tol=tol, return_iters=True)
+        solver_kernels.reset_counts()
+        got = ls.assembly_step(*args, **kw)
+        assert solver_kernels.launches == {"assembly_step": 1}
+        want = ls.assembly_step_reference(*args, **kw)
+        for i, (a, b) in enumerate(zip(_solver_leaves(got), _solver_leaves(want))):
+            assert a.dtype == b.dtype and torch.equal(a, b), (tol, i)
+
+
+def test_solver_kernel_is_bitwise_stable_over_a_graph_replay(cuda):
+    from deep_q_learning_tpu_torch.ops.solver_kernels import assembly_step_kernel
+
+    *args, acc = _solver_case(128, 120, 40, seed=5)
+    call = lambda: assembly_step_kernel(*args, acc=acc, vel_iters=120, pos_iters=40)  # noqa: E731
+    first = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(_solver_leaves(first), _solver_leaves(captured)):
+            assert torch.equal(a, b)
+
+
+def test_solver_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    from deep_q_learning_tpu_torch.ops.solver_kernels import assembly_step_kernel
+
+    *args, acc = _solver_case(16, 120, 40, seed=6)
+    hull, leg1, leg2, terrain, fx, fy, torque, gravity = args
+    with pytest.raises(TypeError, match="dtype"):
+        assembly_step_kernel(hull, leg1, leg2, terrain, fx.double(), fy, torque, gravity, acc)
+    wide = torch.zeros((terrain.shape[1], terrain.shape[0]), device=cuda).t()
+    wide.copy_(terrain)
+    with pytest.raises(ValueError, match="contiguous"):
+        assembly_step_kernel(hull, leg1, leg2, wide, fx, fy, torque, gravity, acc)
+    with pytest.raises(ValueError, match="is on cpu"):
+        assembly_step_kernel(hull, leg1, leg2, terrain, fx, fy.cpu(), torque, gravity, acc)

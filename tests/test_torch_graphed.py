@@ -195,16 +195,19 @@ def test_tiny_jointed_trainer_resumes_bitwise_through_the_stepper(trainers):
     _same(ckpt._to_tree(resumed.runner), ckpt._to_tree(g.runner))
 
 
-def test_trainers_run_a_config_that_reads_the_device_eagerly(monkeypatch):
-    """``lander_vel_tol > 0`` makes the solver read the device, which a
-    capture refuses: ``Trainer``, ``DistributedTrainer`` and
-    ``PopulationTrainer`` choose the eager step from the config for their
-    training and evaluation envs (on the CPU as on the card), and train;
-    with the tolerance 0 they graph both."""
+def test_trainers_graph_a_vel_tol_config_bitwise_eager(monkeypatch):
+    """``lander_vel_tol > 0`` (the velocity passes' early exit) once made the
+    solver read the device every pass, so the trainers built such a
+    config's envs eagerly.  The exit now runs per env inside the solver's
+    kernel on the card, with no host read, and every lander config graphs:
+    ``Trainer``, ``DistributedTrainer`` and ``PopulationTrainer`` build
+    their training and evaluation envs through the stepper with the
+    tolerance 0 and 1e-3 alike, and a ``Trainer`` of the 1e-3 config
+    through the stepper equals ``graphed=False`` bitwise over 2 supersteps
+    and an evaluation."""
     import torch.distributed as dist
 
     from deep_q_learning_tpu_torch import train
-    from deep_q_learning_tpu_torch.envs.graphed import capturable
     from deep_q_learning_tpu_torch.parallel import distributed, population
     from deep_q_learning_tpu_torch.parallel.mesh import distributed_init
     from deep_q_learning_tpu_torch.train import DistributedTrainer
@@ -220,21 +223,26 @@ def test_trainers_run_a_config_that_reads_the_device_eagerly(monkeypatch):
         monkeypatch.setattr(module, "VectorEnv", Recorded)
     cfg = dataclasses.replace(lunar_jointed_per(), **TINY)
     tol = dataclasses.replace(cfg, lander_vel_tol=1e-3)
-    assert capturable(cfg) and not capturable(tol)
     assert not dist.is_initialized()
     distributed_init(device="cpu")
     try:
-        for c, graphed in ((cfg, True), (tol, False)):
+        for c in (cfg, tol):
             built.clear()
             tr = Trainer(c, device="cpu").init(seed=0)
             DistributedTrainer(c, device="cpu")
             pop = population.PopulationTrainer(c, 2, eval_envs=2, device="cpu")
-            assert built == [graphed] * 6
-        assert tr.step().env_steps == TINY["steps_per_superstep"]
-        assert tr.evaluate(seed=0, max_steps=2).returns.shape == (10,)
+            assert built == [True] * 6
         assert pop.step(pop.init(seed=0))[1].env_steps == TINY["steps_per_superstep"]
     finally:
         dist.destroy_process_group()
+    eager = Trainer(tol, device="cpu", graphed=False).init(seed=0)
+    assert tr.venv.graphed and not eager.venv.graphed
+    assert [tr.step() for _ in range(2)] == [eager.step() for _ in range(2)]
+    _same(ckpt._to_tree(tr.runner), ckpt._to_tree(eager.runner))
+    got, want = tr.evaluate(seed=0, max_steps=2), eager.evaluate(seed=0, max_steps=2)
+    assert got.returns.shape == (10,)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and (a == b).all()
 
 
 def test_host_env_through_the_stepper_equals_eager():

@@ -1,0 +1,370 @@
+"""S1's per-env body (``deep_q_learning_tpu_torch/csrc/lander_solver.cuh``)
+on the CPU: built by g++ (``-O2 -ffp-contract=off``, no fast math) through
+``ops/build.py::cached_build`` into a host library that runs every env in
+turn, and held against the JAX ``assembly_step`` (vmapped) and the port's
+plain version (``envs/lander_solver.py::assembly_step_reference``).
+
+The states and gates are ``tests/test_torch_lander_solver.py``'s: JAX
+rollouts with flight, touchdowns, two-point block contacts, joint limits
+and crashes, and the settled lander; against JAX the tight tolerances on
+99 % of the lanes and every lane within 4x that field's float32
+conditioning gap (JAX float32 vs float64, measured here at each iteration
+count), the contact, hull-hit and limit flags exact, the sleep flag only
+near a threshold.  Against the plain version the same gates, and more:
+the host build calls the C library's sinf/cosf where PyTorch's CPU kernels
+call their own (they differ in the last ulp on some inputs), so with the
+plain version's ``torch.sin``/``torch.cos`` replaced by the C library's,
+every lane must be bitwise equal.  That holds the kernel's body to the plain
+version operation for operation, the position loop's early break against
+its masked loop included.
+"""
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from deep_q_learning_tpu.envs import lander_solver as J
+from deep_q_learning_tpu_torch.envs import lander_solver as T
+from deep_q_learning_tpu_torch.ops import build
+from deep_q_learning_tpu_torch.ops import solver_kernels as sk
+from test_torch_lander_solver import (  # noqa: F401  (fixtures)
+    ACC,
+    BODY,
+    _as_f64,
+    _body,
+    _check_frame,
+    _fields,
+    _jax_step,
+    _t,
+    frame_inputs,
+)
+
+CXX_FLAGS = ("-x", "c++", "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+             "-Wno-unknown-pragmas")
+ITERS = [(120, 40), (180, 60)]  # the presets', gym's
+
+
+@pytest.fixture(scope="module")
+def host():
+    source = build.CSRC_DIR / "lander_solver.cuh"
+
+    def compile_to(out: Path) -> None:
+        subprocess.run(["g++", *CXX_FLAGS, "-o", str(out), str(source)], check=True,
+                       capture_output=True, text=True)
+
+    lib = ctypes.CDLL(str(build.cached_build(source, CXX_FLAGS, build.BUILD_DIR, compile_to)))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lander_solver_host.argtypes = [ptr, ptr, i32, i32, i32]
+    lib.lander_collide_host.argtypes = [ptr] * 5 + [i32, ptr, ptr]
+    lib.lander_trig_host.argtypes = [ptr, ptr, i32, i32]
+    lib.lander_solver_sizes.argtypes = [ptr]
+    sk.check_sizes(lib)
+    return lib
+
+
+def _launch(lib):
+    def launch(io, consts, n, vel, pos):
+        lib.lander_solver_host(ctypes.byref(io), ctypes.byref(consts), n, vel, pos)
+    return launch
+
+
+def _inputs(inputs):
+    hull, l1, l2, terrain, (fx, fy, tq), acc = inputs
+    return (_body(hull), _body(l1), _body(l2), _t(terrain), _t(fx), _t(fy), _t(tq), -10.0,
+            T.AssemblyAcc(*(_t(getattr(acc, f)) for f in ACC)))
+
+
+def _host_step(lib, inputs, vel, pos, vel_tol=0.0, return_iters=False, return_pos_iters=False):
+    *args, acc = _inputs(inputs)
+    return sk.assembly_step_call(_launch(lib), *args, acc, 1.0 / T.FPS, vel, pos, vel_tol,
+                                 return_iters, return_pos_iters)
+
+
+def _plain_step(inputs, vel, pos, **kw):
+    *args, acc = _inputs(inputs)
+    return T.assembly_step_reference(*args, acc=acc, vel_iters=vel, pos_iters=pos, **kw)
+
+
+class _LibmTrig:
+    """``torch.sin``/``torch.cos`` replaced by the C library's sinf/cosf
+    (through the host library) while the block runs."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def _fn(self, which):
+        def trig(x):
+            x = x.contiguous()
+            out = torch.empty_like(x)
+            self.lib.lander_trig_host(x.data_ptr(), out.data_ptr(), x.numel(), which)
+            return out
+        return trig
+
+    def __enter__(self):
+        self.saved = torch.sin, torch.cos
+        torch.sin, torch.cos = self._fn(0), self._fn(1)
+
+    def __exit__(self, *exc):
+        torch.sin, torch.cos = self.saved
+
+
+def _lanes_equal(a, b, n):
+    """Per lane: every body field, accumulator and flag of two results equal."""
+    same = torch.ones(n, dtype=torch.bool)
+    for x, y in zip(a[:3], b[:3]):
+        for f in BODY:
+            same &= getattr(x, f) == getattr(y, f)
+    for f in ACC:
+        same &= (getattr(a[7], f) == getattr(b[7], f)).reshape(n, -1).all(1)
+    for i in range(3, 7):
+        same &= a[i] == b[i]
+    return same
+
+
+@pytest.fixture(scope="module")
+def conditioning_at(frame_inputs):  # noqa: F811
+    """Per iteration count and field, the largest gap over the lanes between
+    JAX's float32 frame and the same JAX code in float64."""
+    cache = {}
+
+    def get(vel, pos):
+        if (vel, pos) not in cache:
+            ref = _jax_step(frame_inputs, vel_iters=vel, pos_iters=pos)
+            with jax.enable_x64(True):
+                wide = jax.tree.map(
+                    lambda x: x.astype(np.float64) if x.dtype == np.float32 else x, frame_inputs)
+                ref64 = _jax_step(wide, vel_iters=vel, pos_iters=pos)
+            n = len(ref[3])
+            cache[vel, pos] = ref, {
+                name: float(np.abs(_as_f64(a, n) - _as_f64(b, n)).max())
+                for (name, _, a), (_, _, b) in zip(_fields(ref), _fields(ref64))
+            }
+        return cache[vel, pos]
+
+    return get
+
+
+# ----------------------------------------------------------------- one frame
+@pytest.mark.parametrize("vel,pos", ITERS)
+def test_host_body_matches_jax_and_plain(host, frame_inputs, conditioning_at, vel, pos):  # noqa: F811
+    ref, conditioning = conditioning_at(vel, pos)
+    got = _host_step(host, frame_inputs, vel, pos)
+    gaps, misses = _check_frame(got, ref, conditioning)
+    plain = _plain_step(frame_inputs, vel, pos)
+    _check_frame(got, _as_reference(plain), conditioning)
+    n = len(ref[3])
+    share = float(_lanes_equal(got, plain, n).float().mean())
+    print(f"({vel}, {pos}): float32 conditioning {conditioning}; vs JAX largest gaps {gaps}, {misses} of {n} lanes past the tight "
+          f"tolerances; bitwise the plain version (PyTorch's sin/cos) on {100 * share:.1f} % "
+          f"of the lanes")
+
+
+def _as_reference(out):
+    """A plain-version result in the form ``_check_frame`` takes for its
+    reference (JAX's): every tensor as a numpy array."""
+    def np_(x):
+        if isinstance(x, torch.Tensor):
+            return x.numpy()
+        return type(x)(*(getattr(x, f).numpy() for f in (BODY if isinstance(x, T.Body) else ACC)))
+    return [np_(x) for x in out]
+
+
+@pytest.mark.parametrize("vel,pos", ITERS)
+def test_host_body_is_the_plain_version_bitwise(host, frame_inputs, vel, pos):  # noqa: F811
+    """With the same sinf/cosf, the host build and the plain version agree
+    bit for bit on every lane: every other operation rounds the same."""
+    with _LibmTrig(host):
+        plain = _plain_step(frame_inputs, vel, pos)
+    got = _host_step(host, frame_inputs, vel, pos)
+    same = _lanes_equal(got, plain, len(got[3]))
+    assert bool(same.all()), (int((~same).sum()), torch.flatnonzero(~same)[:10])
+
+
+def test_vel_tol_branch_matches_jax_and_plain(host, frame_inputs, conditioning_at):  # noqa: F811
+    """The early-exit branch: each lane stops once its accumulators change
+    by less than vel_tol in a pass and keeps its state.  ``used`` equals the
+    plain version's exactly, and JAX's where test_torch_lander_solver.py
+    allows; every lane bitwise the plain version with the same sin/cos."""
+    vel, pos = ITERS[0]
+    kw = dict(vel_iters=vel, pos_iters=pos, vel_tol=1e-4, return_iters=True)
+    ref = _jax_step(frame_inputs, **kw)
+    got = _host_step(host, frame_inputs, vel, pos, vel_tol=1e-4, return_iters=True)
+    _check_frame(got[:8], ref[:8], conditioning_at(vel, pos)[1])
+    used = got[8]
+    assert used.dtype == torch.int32 and (used >= 1).all() and (used <= vel).all()
+    assert (ref[8] < vel).mean() > 0.5, "most lanes must exit early"
+    assert (used.numpy() != ref[8]).mean() <= 0.01
+    plain = _plain_step(frame_inputs, vel, pos, vel_tol=1e-4, return_iters=True)
+    assert torch.equal(used, plain[8])
+    with _LibmTrig(host):
+        plain = _plain_step(frame_inputs, vel, pos, vel_tol=1e-4, return_iters=True)
+    assert bool(_lanes_equal(got, plain, len(used)).all()) and torch.equal(used, plain[8])
+
+
+def test_position_loop_break_equals_the_masked_loop(host, frame_inputs):  # noqa: F811
+    """The body leaves the position loop after the first pass that meets
+    Box2D's slop test, where the plain version runs every pass with the
+    lane masked: with the same sin/cos, the two agree bit for bit at 40 and
+    at 60 passes, and a lane that stopped after k passes has at 40 passes
+    the values of a run cut to k."""
+    vel = ITERS[0][0]
+    out = {}
+    for pos in (40, 60):
+        got = _host_step(host, frame_inputs, vel, pos, return_pos_iters=True)
+        with _LibmTrig(host):
+            plain = _plain_step(frame_inputs, vel, pos)
+        assert bool(_lanes_equal(got[:8], plain, len(got[3])).all()), pos
+        out[pos] = got
+    ran = out[40][8]
+    assert (ran < 40).float().mean() > 0.9 and (ran == 40).any() and (ran >= 1).all()
+    assert torch.equal(torch.where(ran < 40, out[60][8], ran), ran)
+    for k in sorted(set(ran.tolist()))[:6]:
+        cut = _host_step(host, frame_inputs, vel, k)
+        lanes = ran == k
+        assert bool(_lanes_equal(cut, out[40], len(ran))[lanes].all()), k
+
+
+# ---------------------------------------------------------------- geometry
+def _collide(lib, terrain, leg):
+    n = terrain.shape[0]
+    idx = torch.empty((n, 2), dtype=torch.int32)
+    flags = torch.empty((n, 3), dtype=torch.bool)
+    k = sk.solver_consts(1.0 / T.FPS, -10.0, 0.0)
+    lib.lander_collide_host(terrain.data_ptr(), leg.cx.data_ptr(), leg.cy.data_ptr(),
+                            leg.a.data_ptr(), ctypes.byref(k), n, idx.data_ptr(), flags.data_ptr())
+    return idx, flags
+
+
+def test_deepest_corner_ties_pick_the_first(host):
+    """A level leg on flat terrain has its two bottom corners (0, 1) at one
+    depth: the body's manifold takes corner 0 then corner 1, as argmin's
+    first of equal minima does in JAX and in the plain version."""
+    n = 64
+    rng = np.random.default_rng(3)
+    terrain = np.full((n, J.CHUNKS), 0.99 * 13.333 / 4.0, np.float32)
+    z = np.zeros(n, np.float32)
+    leg = J.Body(rng.uniform(1, 19, n).astype(np.float32),
+                 (terrain[:, 0] + rng.uniform(-0.2, 0.4, n)).astype(np.float32), z, z, z, z)
+    want, _ = jax.tree.map(np.asarray, jax.jit(jax.vmap(J.collide_leg))(terrain, leg))
+    idx, flags = _collide(host, _t(terrain), _body(leg))
+    assert (want.idx1 == 0).all() and (want.idx2 == 1).all()
+    np.testing.assert_array_equal(idx[:, 0].numpy(), want.idx1)
+    np.testing.assert_array_equal(idx[:, 1].numpy(), want.idx2)
+    np.testing.assert_array_equal(flags[:, 0].numpy(), want.active1)
+    assert want.active1.any() and not want.active1.all()
+
+
+def test_manifolds_match_the_plain_version(host, frame_inputs):  # noqa: F811
+    """Corner indices and flags of every leg of the rollout states, the
+    tilted and penetrating ones included, equal the plain version's."""
+    _, l1, l2, terrain, _, _ = frame_inputs
+    for leg in (l1, l2):
+        c, _ = T.collide_leg(_t(terrain), _body(leg))
+        idx, flags = _collide(host, _t(terrain), _body(leg))
+        assert torch.equal(idx[:, 0].long(), c.idx1) and torch.equal(idx[:, 1].long(), c.idx2)
+        for i, f in enumerate(("active1", "active2", "block")):
+            assert torch.equal(flags[:, i], getattr(c, f)), f
+
+
+# ---------------------------------------------------------- the dispatcher
+def test_assembly_step_on_cpu_tensors_is_the_plain_version(frame_inputs):  # noqa: F811
+    *args, acc = _inputs(frame_inputs)
+    sk.reset_counts()
+    got = T.assembly_step(*args, acc=acc, vel_iters=60, pos_iters=20)
+    want = T.assembly_step_reference(*args, acc=acc, vel_iters=60, pos_iters=20)
+    assert bool(_lanes_equal(got, want, len(got[3])).all())
+    assert sk.launches == {"assembly_step": 0} and sk.plain_calls == {"assembly_step": 1}
+
+
+def test_wrapper_checks_its_inputs():
+    """The kernel's wrapper refuses a wrong dtype, a non-contiguous input
+    and a wrong shape, and CPU tensors (``assembly_step`` takes the plain
+    version for those); so does the measurements' entry; nothing launches."""
+    n = 4
+    z = torch.zeros(n)
+    body = T.Body(z, z, z, z, z, z)
+    terrain = torch.zeros((n, T.CHUNKS))
+    args = [body, body, body, terrain, z, z, z, -10.0]
+    sk.reset_counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.assembly_step_kernel(*args, vel_iters=2, pos_iters=1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.position_passes(*args, T.zero_acc(n, z.device), vel_iters=2, pos_iters=1)
+    with pytest.raises(TypeError, match="dtype"):
+        sk.assembly_step_kernel(*args[:4], z.double(), *args[5:])
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.assembly_step_kernel(*args[:3], torch.zeros((T.CHUNKS, n)).t(), *args[4:])
+    with pytest.raises(ValueError, match="shape"):
+        sk.assembly_step_kernel(*args[:4], torch.zeros(n + 1), *args[5:])
+    assert sk.launches == {"assembly_step": 0} and sk.plain_calls == {"assembly_step": 0}
+
+
+# ------------------------------------------------------------------- work
+_ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "sin", "cos", "abs", "floor",
+          "clamp", "clamp_min", "clamp_max", "minimum", "maximum", "reciprocal"}
+
+
+def _is_one(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.dim() == 0 and float(x) == 1.0
+    return x == 1.0
+
+
+class _CountArithmetic(TorchDispatchMode):
+    """Float arithmetic of the plain version, one operation an element: an
+    elementwise op counts its output's elements, a max reduction its input's
+    less its output's; ``x * 1.0`` (how PyTorch writes ``1.0 / t``, after a
+    reciprocal) counts nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if isinstance(out, torch.Tensor) and out.is_floating_point():
+            if name == "amax":
+                self.ops += args[0].numel() - out.numel()
+            elif name in _ARITH and not (name == "mul" and _is_one(args[1])):
+                self.ops += out.numel()
+        return out
+
+
+@pytest.mark.parametrize("n,vel,pos", [(5, 3, 2), (37, 2, 4)])
+def test_work_counts_what_the_code_does(frame_inputs, n, vel, pos):  # noqa: F811
+    """``assembly_step_work``: the bytes of a call's inputs and outputs, and
+    the plain version's arithmetic (which the kernel's body repeats, branch
+    for branch), at two shapes and on the vel_tol branch."""
+    sub = [x for x in _inputs(frame_inputs)]
+    pick = lambda t: t[:n].contiguous() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    args = [T.Body(*(pick(getattr(b, f)) for f in BODY)) for b in sub[:3]]
+    args += [pick(x) for x in sub[3:8]]
+    acc = T.AssemblyAcc(*(pick(getattr(sub[8], f)) for f in ACC))
+    count = _CountArithmetic()
+    with count:
+        out = T.assembly_step_reference(*args, acc=acc, vel_iters=vel, pos_iters=pos)
+    nbytes, ops = sk.assembly_step_work(n, vel, pos)
+    assert ops == count.ops
+
+    def size(tree):
+        leaves = [tree] if isinstance(tree, torch.Tensor) else [
+            getattr(tree, f) for f in (BODY if isinstance(tree, T.Body) else ACC)]
+        return sum(t.numel() * t.element_size() for t in leaves)
+
+    given = sum(size(x) for x in args if not isinstance(x, float)) + size(acc)
+    assert nbytes == given + sum(size(x) for x in out)
+    count = _CountArithmetic()
+    with count:
+        out = T.assembly_step_reference(*args, acc=acc, vel_iters=vel, pos_iters=pos,
+                                        vel_tol=1e-9, return_iters=True)
+    # the plain version runs every lane until the last one stops
+    ran = int(out[8].max())
+    assert sk.assembly_step_work(n, ran, pos, vel_tol=1e-9, return_iters=True) == (
+        nbytes + 4 * n, count.ops)
