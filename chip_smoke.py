@@ -31,12 +31,14 @@ Phases (each raises on failure, so any failure exits non-zero):
      (1024, 4096, 2048) in one launch, equal to 8 per-member calls; and
      their times beside their bounds; then S1, the jointed solver's step,
      against its plain version (``assembly_step_reference``) at N = 128,
-     1024 and 37 with (120, 40) passes, N = 2 with (180, 60) and N = 1024 on
-     the ``vel_tol = 1e-3`` branch (its count of passes exact), on states of
-     a flight of 128 landers near the ground, under the gates of
-     tests/test_torch_lander_solver.py, with the share of lanes bitwise
-     equal; bitwise over 100 calls and a graph replay; its device time
-     against the plain version's as a CUDA graph, beside its bound; the
+     1024 and 37 with (120, 40) passes, N = 2 with (180, 60), the ragged
+     N = 3, 33 and 129 (a group of lanes or a block part-full) and N = 1024
+     and 33 on the ``vel_tol = 1e-3`` branch (its count of passes exact), on
+     states of a flight of 128 landers near the ground, under the gates of
+     tests/test_torch_lander_solver.py and bit for bit on every lane and
+     flag; bitwise over 100 calls and a graph replay; its device time
+     against the plain version's as a CUDA graph, beside its bound (the
+     operations the states need: ``solver_kernels.needed_work``); the
      plain solver's kernel launches at 128 landers;
   4. run the ``lunar_per`` slice at full width through ``Trainer``: 4
      supersteps (512 vector steps of 128 envs), then check that the TD
@@ -275,12 +277,14 @@ CLASSIC_TOL = {"CartPole-v1": 1e-6, "MountainCar-v0": 1e-6, "Acrobot-v1": 1e-5}
 
 # S1, the jointed solver's step, against its plain version on the card:
 # (N, velocity passes, position passes, vel_tol).  The presets' (120, 40) at
-# the main path's N = 128 and lunar_jointed_scaled's 1024, a block's ragged
-# edge (37), gym's (180, 60) at the width of phase 12's trace replay (2),
-# and the early-exit branch with its count of passes
+# the main path's N = 128 and lunar_jointed_scaled's 1024, gym's (180, 60) at
+# the width of phase 12's trace replay (2), ragged counts of envs (3, 33, 37,
+# 129: a warp, a block of 16 envs part-full), and the early-exit branch with
+# its count of passes
 SOLVER_SOURCE = "deep_q_learning_tpu_torch/csrc/lander_solver.cu"
 SOLVER_CASES = [(128, 120, 40, 0.0), (1024, 120, 40, 0.0), (37, 120, 40, 0.0),
-                (2, 180, 60, 0.0), (1024, 120, 40, 1e-3)]
+                (2, 180, 60, 0.0), (3, 120, 40, 0.0), (33, 120, 40, 0.0), (129, 120, 40, 0.0),
+                (1024, 120, 40, 1e-3), (33, 120, 40, 1e-3)]
 SOLVER_STABLE_CALLS = 100
 # the states: pre-step states of 128 jointed landers along a flight from
 # just above the ground (envs/heuristic.py::solver_inputs)
@@ -475,7 +479,7 @@ def solver_fields(out):
 def check_solver_case(torch, got, want, iters):
     """S1's result against the plain version's under the gates above;
     returns (largest gap, lanes past the tight tolerances, lanes bitwise
-    equal in every field and flag)."""
+    equal in every bit of every field and flag)."""
     from deep_q_learning_tpu_torch.envs import lander_solver as ls
 
     n = want[3].shape[0]
@@ -486,13 +490,15 @@ def check_solver_case(torch, got, want, iters):
         atol, rtol = SOLVER_TIGHT[kind]
         gap = (g.double() - w.double()).abs().reshape(n, -1)
         tight_bad |= (gap > atol + rtol * w.double().abs().reshape(n, -1)).any(1)
-        same &= (g == w).reshape(n, -1).all(1)
+        same &= (g.view(torch.int32) == w.view(torch.int32)).reshape(n, -1).all(1)
         bound = 4.0 * SOLVER_CONDITIONING[iters][name] + atol
         assert float(gap.max()) <= bound, (name, iters, float(gap.max()), bound)
         largest = max(largest, float(gap.max()))
     assert float(tight_bad.float().mean()) <= 1 - SOLVER_TIGHT_SHARE, (iters, int(tight_bad.sum()))
     for i, name in ((3, "touch1"), (4, "touch2"), (5, "hull_hit")):
         assert torch.equal(got[i], want[i]), name
+    for f in ("s1", "s2"):
+        same &= getattr(got[7], f) == getattr(want[7], f)
     for f in ("s1", "s2"):
         assert torch.equal(getattr(got[7], f), getattr(want[7], f)), f
     near = torch.zeros_like(tight_bad)
@@ -543,6 +549,7 @@ def check_solver_kernel(torch, solver_kernels, card):
         want = ls.assembly_step_reference(*body, **kw)
         torch.cuda.synchronize()
         largest, tight, same = check_solver_case(torch, got[:8], want[:8], (vel, pos))
+        assert same == n, ("S1 differs from the plain version", n, vel, pos, tol, n - same)
         extra = ""
         if tol > 0:
             assert torch.equal(got[8], want[8]), "velocity passes"

@@ -6,26 +6,41 @@
 // program inside the jitted superstep.  The port's plain PyTorch version
 // (envs/lander_solver.py::assembly_step_reference) runs the same arithmetic
 // as ~56k elementwise kernels a frame at the presets' (120, 40) passes.
-// This kernel runs the whole step, every pass, for one env per thread; the
-// body is lander_solver.cuh, shared with the host build of the CPU tests.
+// This kernel runs the whole step, every pass, for one env per group of
+// kGroup (4) lanes of a warp; the body is lander_solver.cuh, shared with the
+// host build of the CPU tests.
 //
 // What bounds it on the card: neither bytes nor operations.  A call reads
-// 232 bytes and writes 180 bytes an env, and does ~66k float32 operations
-// an env at the presets' (120, 40) passes (ops/solver_kernels.py::
-// assembly_step_work): at N = 128, 53 KB and 8.4M operations, 0.13 us at
-// an H100's published 67 TFLOP/s.  But each env is one long chain of dependent
-// operations (sequential impulse passes, divisions, sin/cos), and at the
-// presets' N = 128 the whole call is one block of 128 threads on one SM of
-// 132.  So its time is the latency of that chain, and the design is the
-// simple one: one thread an env, its state in registers
-// (__launch_bounds__(128) lets ptxas use up to 255 a thread), early exits
-// per thread with no host read, no shared memory and no synchronisation.
-// Spreading an env over a warp or over more SMs is later work (ROADMAP).
+// 232 bytes and writes 180 bytes an env, and the plain version does ~53k
+// float32 operations an env at the presets' (120, 40) passes
+// (ops/solver_kernels.py::assembly_step_work): at N = 128, 53 KB and 6.8M
+// operations, 0.1 us at an H100's published 67 TFLOP/s.  But each env is
+// one long chain of dependent operations (sequential impulse passes, IEEE
+// divisions, sin/cos), and the call lasts as long as its slowest warp: 120
+// velocity passes and, where a lander has not settled, up to 40 position
+// passes.  A division without fast math is a reciprocal, Newton steps and a
+// checked slow path that the compiler keeps in order, and a warp alone on
+// its scheduler waits out every latency.  So the design shortens the chain
+// an env's lanes walk:
+//   * the group's lanes hold the env's state alike and split what is
+//     independent: the two legs' contact solves and position passes, a
+//     joint's three divisions, a position joint's sin/cos and divisions,
+//     the hull's vertices (lander_solver.cuh);
+//   * only what a select keeps is computed: in a velocity pass a lane
+//     divides once a joint (again only where a limit is violated) and a
+//     leg's contacts divide only in a 2x2 block;
+//   * the warp stays converged (a group past the last env runs with it, and
+//     loops run while any group needs them), so every shuffle names the
+//     whole warp and costs no check of which lanes arrived;
+//   * 16 envs a 64-thread block, so the presets' N = 128 runs on 8 SMs, the
+//     state in registers, no shared memory and no block-wide
+//     synchronisation.
 //
 // Build with --fmad=false (ops/build.py gives it to this source alone):
 // PyTorch's elementwise kernels round every product and sum, and so must
 // this code to agree with the plain version; no --use_fast_math, so that
-// sinf/cosf/sqrtf and division are the precise ones PyTorch calls.
+// sqrtf and division are the precise ones PyTorch calls (sincosf is bitwise
+// PyTorch's sin and cos on this card, lander_solver.cuh::Trig).
 //
 // Plain C interface (no PyTorch headers), built by nvcc and loaded with
 // ctypes (ops/build.py).  The launcher runs on the caller's stream,
@@ -38,20 +53,61 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// The card's lanes for lander_solver.cuh: this thread is rank r of its
+// group, and a read is a shuffle within the group's kGroup lanes.  Every
+// lane of the warp takes part in every shuffle and vote (the body keeps the
+// warp converged), so all name the whole warp: a constant mask lets the
+// compiler issue them without checking which lanes arrived.
+struct WarpLanes {
+  static constexpr int kLocal = 1;
+  static constexpr unsigned kWarp = 0xffffffffu;
+  int r;
+
+  __host__ __device__ int rank(int) const { return r; }
+
+  template <class T>
+  __host__ __device__ T read(const T (&v)[1], int src) const {
+#ifdef __CUDA_ARCH__
+    static_assert(sizeof(T) % 4 == 0, "shuffled in 32-bit words");
+    constexpr int kWords = sizeof(T) / 4;
+    unsigned w[kWords];
+    memcpy(w, &v[0], sizeof(T));
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) w[q] = __shfl_sync(kWarp, w[q], src, lander::kGroup);
+    T out;
+    memcpy(&out, w, sizeof(T));
+    return out;
+#else
+    return v[0];
+#endif
+  }
+
+  __host__ __device__ bool any(bool p) const {
+#ifdef __CUDA_ARCH__
+    return __any_sync(kWarp, p);
+#else
+    return p;
+#endif
+  }
+};
 
 }  // namespace
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(lander::kThreads)
 assembly_step_kernel(lander::IO io, lander::Consts k, int n, int vel_iters, int pos_iters) {
-  int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < n) lander::assembly_step_env(io, k, i, vel_iters, pos_iters);
+  int i = (blockIdx.x * lander::kThreads + threadIdx.x) / lander::kGroup;
+  // a group past the last env runs the last env with its warp and stores
+  // nothing (a warp past it has no live group and leaves)
+  int first = (blockIdx.x * lander::kThreads + (threadIdx.x & ~31)) / lander::kGroup;
+  if (first >= n) return;
+  WarpLanes lanes{static_cast<int>(threadIdx.x) & (lander::kGroup - 1)};
+  lander::assembly_step_env(io, k, i < n ? i : n - 1, i < n, vel_iters, pos_iters, lanes);
 }
 
 extern "C" int assembly_step_launch(const lander::IO* io, const lander::Consts* k, int n,
                                     int vel_iters, int pos_iters, cudaStream_t stream) {
   if (n > 0) {
-    assembly_step_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+    assembly_step_kernel<<<lander::blocks_for(n), lander::kThreads, 0, stream>>>(
         *io, *k, n, vel_iters, pos_iters);
   }
   return static_cast<int>(cudaGetLastError());

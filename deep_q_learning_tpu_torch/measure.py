@@ -14,8 +14,10 @@
    at ``SOLVER_SHAPES`` on states of a flight of landers, its plain version
    as a CUDA graph of one call (~56k kernels).  With ``--baseline CHECKOUT``
    (another checkout of the port, e.g. an earlier commit unpacked with
-   ``git archive``), its TD kernels and its PER slot kernel are timed too,
-   each built from that checkout's own source, in turns with this tree's.
+   ``git archive``), its TD kernels, its PER slot kernel and its S1 are
+   timed too, each built from that checkout's own source, in turns with
+   this tree's (baseline, tree, tree, baseline), S1 with the count of lanes
+   whose result differs from the baseline's in any bit.
    Then the kernel launches of one learner update (``torch.profiler``).
 2. One steady superstep of the preset under ``torch.profiler``: host ms by
    phase (spans wrapped around the env step, the reset pool or the cheap
@@ -147,10 +149,10 @@ def td_inputs(b: int, g: torch.Generator):
 
 @functools.cache
 def load_baseline(checkout: Path, name: str):
-    """``ops/<name>.py`` (``td_kernels`` or ``sample_kernels``) of another
-    checkout of the port (an earlier commit unpacked with ``git archive``),
-    with its kernels built from that checkout's ``csrc/``, to time beside
-    this one in one process."""
+    """``ops/<name>.py`` (``td_kernels``, ``sample_kernels`` or
+    ``solver_kernels``) of another checkout of the port (an earlier commit
+    unpacked with ``git archive``), with its kernels built from that
+    checkout's ``csrc/``, to time beside this one in one process."""
     from deep_q_learning_tpu_torch.ops import build
 
     path = checkout / "deep_q_learning_tpu_torch" / "ops" / f"{name}.py"
@@ -162,20 +164,26 @@ def load_baseline(checkout: Path, name: str):
     return module
 
 
-def solver_device_times(card: str, inputs: Optional[dict] = None) -> dict:
+def solver_device_times(card: str, inputs: Optional[dict] = None,
+                        baseline: Optional[Path] = None) -> dict:
     """S1 and its plain version at SOLVER_SHAPES: device µs a call of the
     kernel (a CUDA graph of GRAPH_CALLS calls) and of the plain version (a
     CUDA graph of one call, replayed PLAIN_SOLVER_REPLAYS times), and the
-    work of the call, whose bound counts the position passes each env ran.
+    work of the call on this data (``solver_kernels.needed_work``: the
+    position passes each env ran, without what the plain version's selects
+    drop), whose bound is printed beside the plain version's count's.
     ``inputs`` maps each shape to ``assembly_step``'s positional arguments
     then ``acc``; by default the states of a flight of 128 jointed landers
-    near the ground (``envs/heuristic.py::solver_inputs``).  Prints a line
-    a shape and returns ``{shape: (kernel us, plain us, work)}``."""
+    near the ground (``envs/heuristic.py::solver_inputs``).  With
+    ``baseline`` (a checkout, :func:`load_baseline`), that checkout's S1 is
+    timed in turns with this tree's too.  Prints a line a shape and returns
+    ``{shape: (kernel us, plain us, work)}``."""
     from deep_q_learning_tpu_torch.envs import LunarLander, lander_solver
     from deep_q_learning_tpu_torch.envs.heuristic import solver_inputs
     from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLanderParams
     from deep_q_learning_tpu_torch.ops import solver_kernels
 
+    base = load_baseline(baseline, "solver_kernels") if baseline is not None else None
     g = torch.Generator(device="cuda").manual_seed(0)
     times = {}
     for n, vel, pos in SOLVER_SHAPES:
@@ -189,13 +197,40 @@ def solver_device_times(card: str, inputs: Optional[dict] = None) -> dict:
         k = device_us(lambda: solver_kernels.assembly_step_kernel(*args, **kw))
         r = device_us(lambda: lander_solver.assembly_step_reference(*args, **kw), calls=1,
                       replays=PLAIN_SOLVER_REPLAYS)
-        work = solver_kernels.assembly_step_work(n, vel, ran)
+        work = solver_kernels.needed_work(*args, acc, ran, vel_iters=vel, pos_iters=pos)
+        plain_work = solver_kernels.assembly_step_work(n, vel, ran)
         times[n, vel, pos] = (k, r, work)
         print(f"assembly_step (S1) N={n} ({vel}, {pos}): device {k:.2f} us kernel, {r:.2f} us "
               f"plain as a CUDA graph of one call ({r / k:.0f}x); position passes run "
-              f"{int(ran.sum())} (mean {float(ran.float().mean()):.2f}); {bound_text(work, k)} "
-              f"[{card}]")
+              f"{int(ran.sum())} (mean {float(ran.float().mean()):.2f}); {bound_text(work, k)}; "
+              f"counting the plain version's operations, {bound_text(plain_work, k)} [{card}]")
+        if base is None:
+            continue
+        differ = solver_lanes_differ(base.assembly_step_kernel(*args, **kw),
+                                     solver_kernels.assembly_step_kernel(*args, **kw))
+        b0, t0, t1, b1 = [
+            device_us(lambda: (base if which == "baseline" else solver_kernels)
+                      .assembly_step_kernel(*args, **kw))
+            for which in ("baseline", "tree", "tree", "baseline")
+        ]
+        print(f"  N={n} ({vel}, {pos}) assembly_step (S1): baseline {b0:.2f}, {b1:.2f} us; this "
+              f"tree {t0:.2f}, {t1:.2f} us (device, in turns; x{(b0 + b1) / (t0 + t1):.2f}); "
+              f"{differ} of {n} lanes differ from the baseline's in some bit [{card}]")
     return times
+
+
+def solver_lanes_differ(a, b) -> int:
+    """Lanes of two ``assembly_step`` results that differ in any bit of any
+    field, accumulator or flag."""
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+
+    n = a[3].shape[0]
+    differ = torch.zeros(n, dtype=torch.bool, device=a[3].device)
+    for x, y in zip(tree_leaves(list(a)), tree_leaves(list(b))):
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        differ |= (x != y).reshape(n, -1).any(1)
+    return int(differ.sum())
 
 
 def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
@@ -204,7 +239,7 @@ def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
 
     per_superstep = launches_per_superstep()
     print(f"kernel launches per steady superstep, by preset: {per_superstep}")
-    solver_device_times(card)
+    solver_device_times(card, baseline=baseline)
     g = torch.Generator(device="cuda").manual_seed(0)
     base_sk = load_baseline(baseline, "sample_kernels") if baseline is not None else None
     for n, c, b in SLOT_SHAPES:

@@ -7,17 +7,20 @@ Not a TPU kernel: the JAX package writes the solver as scalar code per env
 ``jax.vmap`` with XLA compiles its velocity and position loops into one
 program inside the jitted superstep.  The plain version runs the same
 arithmetic as tens of thousands of elementwise kernels a frame; the kernel
-runs the whole step in one launch, one thread an env, and agrees with the
-plain version operation for operation (see the source).
+runs the whole step in one launch, a group of four lanes of a warp an env,
+and agrees with the plain version bit for bit: every value it keeps comes
+from the same operations on the same operands (see the source).
 
 :func:`assembly_step_kernel` launches the kernel on CUDA tensors, or
 raises; ``envs/lander_solver.py::assembly_step`` calls it for CUDA tensors
 and runs the plain version on CPU tensors.  ``launches`` counts kernel
 launches, and ``plain_calls`` counts calls that took the plain version.
-:func:`assembly_step_work` gives the bytes and operations a call needs
-(``ops.bound_us`` turns them into the least time the card could take), and
-:func:`position_passes`, for measurements only, the position passes each
-env of a call ran, which that count needs.
+:func:`assembly_step_work` gives the bytes and the plain version's
+operations of a call; :func:`needed_work`, for measurements only, the
+operations the call needs on its data, of which ``ops.bound_us`` makes
+S1's bound (the least time the card could take), and
+:func:`position_passes`, likewise, the position passes each env of a call
+ran, which both counts take.
 """
 
 from __future__ import annotations
@@ -43,18 +46,42 @@ BODY_FIELDS = ("cx", "cy", "a", "vx", "vy", "w")
 # write 18 body floats, the accumulators and 4 one-byte flags
 READ_BYTES = 4 * (18 + ls.CHUNKS + 3 + 8 + 2 + 16)
 WRITE_BYTES = 4 * (18 + 8 + 2 + 16) + 4
-# float32 operations an env, counted from the code (csrc/lander_solver.cuh,
-# which computes every branch the plain version computes and selects; sin,
-# cos, sqrt and a division count one each): the frame's collision,
-# integration, per-frame terms, warm start, stores, position integration and
-# sleep test; each velocity pass; each position pass; and what a velocity
-# pass adds with vel_tol > 0 (16 differences, 16 absolute values, 15
-# maxima).  tests/test_torch_solver_kernel.py holds them to a count of the
-# plain version's arithmetic
+# float32 operations an env of the plain version, which computes every
+# branch and selects (sin, cos, sqrt and a division count one each): the
+# frame's collision, integration, per-frame terms, warm start, stores,
+# position integration and sleep test; each velocity pass; each position
+# pass; and what a velocity pass adds with vel_tol > 0 (16 differences, 16
+# absolute values, 15 maxima).  tests/test_torch_solver_kernel.py holds
+# them to a count of the plain version's arithmetic.  The function needs
+# fewer (needed_work below), and so does the kernel, which computes only
+# the branches the selects keep and reuses sin and cos
 FRAME_OPS = 895
 VEL_PASS_OPS = 430
 POS_PASS_OPS = 341
 VEL_TOL_PASS_OPS = 47
+
+# Operations of the plain version's branches that a select drops, counted
+# as above (see envs/lander_solver.py):
+#   _solve_joint: the 3x3 rows 18, new_z 1, the violated 2x2's right side 4
+#     and rows 8, its -z 1, the point 2x2 rows 8; a joint whose limit is
+#     inactive keeps only the point rows, an active one the 3x3 and new_z,
+#     a violated one the 3x3's third row, new_z and the violated branch
+JOINT_DROPS = {"inactive": 32, "active": 21, "violated": 20}
+#   _joint_data, once a frame: the cofactors 27, det3 and its test 15, k13
+#     and k23 6, which only the limit's rows read
+JOINT_FRAME_DROP = 48
+#   _solve_contacts: the block case 24 (b1, b2 and the case-1 solve 16,
+#     case 2 4, case 3 4, each tried only if the one before fails) and the
+#     sequential case 13
+BLOCK_OPS, BLOCK_CASE1, BLOCK_CASE_OPS, SEQUENTIAL_OPS = 24, 16, 4, 13
+#   _pos_contact, a corner with no contact: its separation 6, correction 3,
+#   mass 3 and impulse 2
+POS_CORNER_DROP = 14
+#   _pos_joint: the lower limit's correction and error 5, the upper's 4
+POS_LIMIT_OPS, POS_LOWER_OPS, POS_UPPER_OPS = 9, 5, 4
+#   _integrate: the translation clamp's sqrt and division 2, the rotation's 1
+#   _contact_data: the block determinant 3 where the block is ill-conditioned
+TRANSLATION_CLAMP, ROTATION_CLAMP, BLOCK_DET = 2, 1, 3
 
 
 def reset_counts() -> None:
@@ -73,17 +100,152 @@ def assembly_step_work(
     n: int, vel_iters: Union[int, torch.Tensor], pos_iters: Union[int, torch.Tensor],
     vel_tol: float = 0.0, return_iters: bool = False,
 ) -> Tuple[int, int]:
-    """``(bytes, operations)`` a call on ``n`` envs needs: every input read
-    once and every output written once, and the float32 operations of the
-    passes run.  ``vel_iters`` and ``pos_iters`` are the passes every env
-    runs, or ``(n,)`` counts per env (what a call with ``vel_tol > 0`` and
-    the position loop's early exit ran: ``return_iters`` and
-    :func:`position_passes`).  ``return_iters`` adds the int32 count written
+    """``(bytes, operations)`` of a call on ``n`` envs: every input read
+    once and every output written once, and the plain version's float32
+    operations in the passes run.  ``vel_iters`` and ``pos_iters`` are the
+    passes every env runs, or ``(n,)`` counts per env (what a call with
+    ``vel_tol > 0`` and the position loop's early exit ran:
+    ``return_iters`` and :func:`position_passes`).  ``return_iters`` adds the int32 count written
     per env."""
     vel, pos = _total(vel_iters, n), _total(pos_iters, n)
     per_vel = VEL_PASS_OPS + (VEL_TOL_PASS_OPS if vel_tol > 0 else 0)
     nbytes = n * (READ_BYTES + WRITE_BYTES + (4 if return_iters else 0))
     return nbytes, n * FRAME_OPS + vel * per_vel + pos * POS_PASS_OPS
+
+
+def needed_work(
+    hull, leg1, leg2, terrain, fx, fy, torque, gravity: float, acc, pos_passes,
+    dt: float = 1.0 / ls.FPS, vel_iters: int = ls.VEL_ITERS, pos_iters: int = ls.POS_ITERS,
+    vel_tol: float = 0.0, return_iters: bool = False,
+) -> Tuple[int, int]:
+    """For measurements, not on the main path: ``(bytes, operations)`` the
+    call needs on this data, the yardstick of S1's bound.  The bytes and the
+    passes are :func:`assembly_step_work`'s (``pos_passes``, ``(N,)``, the
+    position passes each env ran: :func:`position_passes`); of the
+    operations, those that the plain version's selects drop are left out,
+    and sin and cos count once an env and angle (by its bits).
+
+    Runs the plain version once on the same inputs, recording each select's
+    condition where it is made (the branches of ``JOINT_DROPS`` and the
+    rest above) and each sin and cos input.  The per-frame terms that feed
+    only some passes' branches (the 2x2 determinant of a limit never
+    violated, 4 a joint; the first two cofactor rows of a limit violated in
+    every pass, 18) are still counted: at most 36 of an env's ~895 a frame."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    n = hull.cx.shape[0]
+    device = hull.cx.device
+    pos_passes = torch.as_tensor(pos_passes, device=device)
+    state = {"conds": None, "vel": 0, "pos": -1}
+    drops = []  # (velocity pass or None, position pass or None, (N,) operations)
+    trig = []  # (function, position pass, input)
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name == "where" and state["conds"] is not None:
+                state["conds"].append(args[0])
+            elif name in ("sin", "cos"):
+                trig.append((name, state["pos"], args[0]))
+            return func(*args, **(kwargs or {}))
+
+    def per_env(x):  # an (N,) or (2N,) count as (N,)
+        return x.view(-1, n).sum(0)
+
+    def i64(x):
+        return x.to(torch.int64)
+
+    def joint(conds, hv, lv, j, acc, dt):
+        assert len(conds) == 6 and torch.equal(conds[3], j["limit_active"]), "_solve_joint"
+        viol, active = conds[0], conds[3]
+        ops = torch.where(~active, JOINT_DROPS["inactive"],
+                          torch.where(viol, JOINT_DROPS["violated"], JOINT_DROPS["active"]))
+        if state["vel"] == 0:
+            ops = ops + JOINT_FRAME_DROP * i64(~active)
+        drops.append((state["vel"], None, i64(ops)))
+
+    def contacts(conds, lv, c, d, acc):
+        assert len(conds) == 10 and torch.equal(conds[8], d["both"]), "_solve_contacts"
+        ok_2, ok_b = conds[2], conds[3]
+        block = BLOCK_CASE1 + BLOCK_CASE_OPS * (i64(~ok_b) + i64(~ok_b & ~ok_2))
+        ops = torch.where(d["both"], SEQUENTIAL_OPS + BLOCK_OPS - block, BLOCK_OPS)
+        drops.append((state["vel"], None, per_env(ops)))
+        state["vel"] += 1
+
+    def pos_contact(conds, lp, c):
+        assert len(conds) == 4 and torch.equal(conds[0], c.active1), "_pos_contact"
+        ops = POS_CORNER_DROP * (i64(~conds[0]) + i64(~conds[2]))
+        drops.append((None, state["pos"], per_env(ops)))
+
+    def pos_joint(conds, hp, lp, side):
+        assert len(conds) == 5, "_pos_joint"
+        at_upper, at_lower = conds[0], conds[1]
+        kept = torch.where(at_lower, POS_LOWER_OPS, torch.where(at_upper, POS_UPPER_OPS, 0))
+        drops.append((None, state["pos"], i64(POS_LIMIT_OPS - kept)))
+
+    def integrate(conds, b, dt):
+        assert len(conds) == 2, "_integrate"
+        ops = TRANSLATION_CLAMP * i64(~conds[0]) + ROTATION_CLAMP * i64(~conds[1])
+        drops.append((None, None, per_env(ops)))
+
+    def contact_data(conds, legs, c):
+        assert len(conds) == 1, "_contact_data"
+        drops.append((None, None, per_env(BLOCK_DET * i64(~conds[0]))))
+
+    def site(fn, count, before=None):
+        def run(*args):
+            if before is not None:
+                before()
+            state["conds"] = []
+            out = fn(*args)
+            conds, state["conds"] = state["conds"], None
+            count(conds, *args)
+            return out
+        return run
+
+    def next_pos():
+        state["pos"] += 1
+
+    sites = {"_solve_joint": (joint, None), "_solve_contacts": (contacts, None),
+             "_pos_contact": (pos_contact, next_pos), "_pos_joint": (pos_joint, None),
+             "_integrate": (integrate, None), "_contact_data": (contact_data, None)}
+    saved = {name: getattr(ls, name) for name in sites}
+    try:
+        for name, (count, before) in sites.items():
+            setattr(ls, name, site(saved[name], count, before))
+        with Record():
+            out = ls.assembly_step_reference(
+                hull, leg1, leg2, terrain, fx, fy, torque, gravity, acc=acc, dt=dt,
+                vel_iters=vel_iters, pos_iters=pos_iters, vel_tol=vel_tol, return_iters=True)
+    finally:
+        for name, fn in saved.items():
+            setattr(ls, name, fn)
+    vel_passes = out[8]
+
+    dropped = torch.zeros(n, dtype=torch.int64, device=device)
+    for vel, pos, ops in drops:
+        if vel is not None:
+            ops = ops * (vel < vel_passes)
+        elif pos is not None:
+            ops = ops * (pos < pos_passes)
+        dropped += ops
+    # sin and cos: every call of the passes run, less one an env and angle
+    for name in ("sin", "cos"):
+        keys = []
+        for fn, pos, x in trig:
+            if fn != name:
+                continue
+            rows = x.reshape(x.shape[0], -1)
+            env = (torch.arange(rows.shape[0], device=device) % n)[:, None].expand_as(rows)
+            ran = pos < pos_passes[env] if pos >= 0 else torch.ones_like(env, dtype=torch.bool)
+            dropped += torch.bincount(env[ran], minlength=n)
+            bits = rows.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            keys.append((env * 2**32 + bits)[ran])
+        env_of = torch.unique(torch.cat(keys)) // 2**32
+        dropped -= torch.bincount(env_of, minlength=n)
+
+    nbytes, ops = assembly_step_work(n, vel_passes, pos_passes, vel_tol, return_iters)
+    return nbytes, ops - int(dropped.sum())
 
 
 # ---------------------------------------------------------------------------

@@ -28,9 +28,11 @@ reset pool: bitwise the eager step over 64 jointed frames with auto-resets
 and over two ``lunar_per`` supersteps (the whole runner); a graphed step
 runs the kernels the eager step runs, the jointed solver's kernel S1 once
 among them; a ``lander_vel_tol > 0`` trainer graphs, bitwise its eager
-twin.  S1 against the plain solver: bitwise at N = 128 and 37 with and
-without the early exit, and over a graph replay; its wrapper refuses a
-wrong dtype, a non-contiguous input and mixed devices."""
+twin.  S1 against the plain solver: bit for bit (every bit of every field,
+accumulator and flag) at N = 128, 1024 and 37, N = 2 at (180, 60) and the
+ragged N = 3, 33 and 129, with and without the early exit; over 100 calls
+and a graph replay; its wrapper refuses a wrong dtype, a non-contiguous
+input and mixed devices."""
 
 import dataclasses
 
@@ -880,25 +882,54 @@ def _solver_leaves(out):
     return tree_leaves(list(out))
 
 
-@pytest.mark.parametrize("n", [128, 37])
-def test_solver_kernel_matches_plain(cuda, n):
+def _same_bits(a, b) -> bool:
+    """Equal dtype and every bit equal (``torch.equal`` takes -0.0 for 0.0)."""
+    if a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+# (N, velocity passes, position passes): the presets' shape at 128 and 1024
+# envs, gym's at 2, and ragged counts (a group of lanes, a warp, a block of
+# the kernel part-full)
+SOLVER_CASES = [pytest.param(128, 120, 40, id="128"), pytest.param(37, 120, 40, id="37"),
+                pytest.param(1024, 120, 40, id="1024"), pytest.param(2, 180, 60, id="2-180-60"),
+                pytest.param(3, 120, 40, id="3"), pytest.param(33, 120, 40, id="33"),
+                pytest.param(129, 120, 40, id="129")]
+
+
+@pytest.mark.parametrize("n,vel,pos", SOLVER_CASES)
+def test_solver_kernel_matches_plain(cuda, n, vel, pos):
     """S1 against ``assembly_step_reference`` on the card, from a flight of
     64 landers near the ground, with and without the early exit: PyTorch's
     elementwise kernels and S1 round every operation the same way, so every
-    output is bitwise equal (``tests/test_torch_lander_solver.py``'s
+    output is bit for bit equal (``tests/test_torch_lander_solver.py``'s
     tolerances would allow more), the count of passes included."""
     from deep_q_learning_tpu_torch.envs import lander_solver as ls
     from deep_q_learning_tpu_torch.ops import solver_kernels
 
-    *args, acc = _solver_case(n, 120, 40, seed=n)
+    *args, acc = _solver_case(n, vel, pos, seed=n)
     for tol in (0.0, 1e-3):
-        kw = dict(acc=acc, vel_iters=120, pos_iters=40, vel_tol=tol, return_iters=True)
+        kw = dict(acc=acc, vel_iters=vel, pos_iters=pos, vel_tol=tol, return_iters=True)
         solver_kernels.reset_counts()
         got = ls.assembly_step(*args, **kw)
         assert solver_kernels.launches == {"assembly_step": 1}
         want = ls.assembly_step_reference(*args, **kw)
         for i, (a, b) in enumerate(zip(_solver_leaves(got), _solver_leaves(want))):
-            assert a.dtype == b.dtype and torch.equal(a, b), (tol, i)
+            assert _same_bits(a, b), (tol, i)
+
+
+def test_solver_kernel_is_bitwise_stable_over_100_calls(cuda):
+    from deep_q_learning_tpu_torch.ops.solver_kernels import assembly_step_kernel
+
+    *args, acc = _solver_case(1024, 120, 40, seed=7)
+    first = assembly_step_kernel(*args, acc=acc, vel_iters=120, pos_iters=40)
+    for _ in range(99):
+        again = assembly_step_kernel(*args, acc=acc, vel_iters=120, pos_iters=40)
+        for a, b in zip(_solver_leaves(first), _solver_leaves(again)):
+            assert _same_bits(a, b)
 
 
 def test_solver_kernel_is_bitwise_stable_over_a_graph_replay(cuda):
@@ -919,7 +950,7 @@ def test_solver_kernel_is_bitwise_stable_over_a_graph_replay(cuda):
         graph.replay()
         torch.cuda.synchronize()
         for a, b in zip(_solver_leaves(first), _solver_leaves(captured)):
-            assert torch.equal(a, b)
+            assert _same_bits(a, b)
 
 
 def test_solver_kernel_wrapper_refuses_what_it_does_not_take(cuda):

@@ -60,17 +60,18 @@ def host():
 
     lib = ctypes.CDLL(str(build.cached_build(source, CXX_FLAGS, build.BUILD_DIR, compile_to)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lander_solver_host.argtypes = [ptr, ptr, i32, i32, i32]
+    lib.lander_solver_host.argtypes = [ptr, ptr, i32, i32, i32, i32]
     lib.lander_collide_host.argtypes = [ptr] * 5 + [i32, ptr, ptr]
     lib.lander_trig_host.argtypes = [ptr, ptr, i32, i32]
+    lib.lander_retrig_host.argtypes = [ptr, ptr, i32, ptr, ptr]
     lib.lander_solver_sizes.argtypes = [ptr]
     sk.check_sizes(lib)
     return lib
 
 
-def _launch(lib):
+def _launch(lib, others=False):
     def launch(io, consts, n, vel, pos):
-        lib.lander_solver_host(ctypes.byref(io), ctypes.byref(consts), n, vel, pos)
+        lib.lander_solver_host(ctypes.byref(io), ctypes.byref(consts), n, vel, pos, int(others))
     return launch
 
 
@@ -80,10 +81,14 @@ def _inputs(inputs):
             T.AssemblyAcc(*(_t(getattr(acc, f)) for f in ACC)))
 
 
-def _host_step(lib, inputs, vel, pos, vel_tol=0.0, return_iters=False, return_pos_iters=False):
+def _host_step(lib, inputs, vel, pos, vel_tol=0.0, return_iters=False, return_pos_iters=False,
+               others=False):
+    """The host build on ``inputs``; with ``others``, every group runs all
+    the passes its loops allow, its values kept from where it was done, as
+    a group of the kernel does in a warp whose other groups run on."""
     *args, acc = _inputs(inputs)
-    return sk.assembly_step_call(_launch(lib), *args, acc, 1.0 / T.FPS, vel, pos, vel_tol,
-                                 return_iters, return_pos_iters)
+    return sk.assembly_step_call(_launch(lib, others), *args, acc, 1.0 / T.FPS, vel, pos,
+                                 vel_tol, return_iters, return_pos_iters)
 
 
 def _plain_step(inputs, vel, pos, **kw):
@@ -175,15 +180,69 @@ def _as_reference(out):
     return [np_(x) for x in out]
 
 
-@pytest.mark.parametrize("vel,pos", ITERS)
-def test_host_body_is_the_plain_version_bitwise(host, frame_inputs, vel, pos):  # noqa: F811
+def _lanes(inputs, n):
+    """``n`` of the rollout lanes, drawn with a fixed seed (flight, contacts
+    and limits mixed), as ``frame_inputs`` holds them."""
+    hull, l1, l2, terrain, forces, acc = inputs
+    pick = np.sort(np.random.default_rng(n).choice(len(terrain), n, replace=False))
+    take = lambda tree: jax.tree.map(lambda x: np.asarray(x)[pick], tree)  # noqa: E731
+    return take(hull), take(l1), take(l2), take(terrain), take(forces), take(acc)
+
+
+# every lane, and ragged counts of envs: one group, a part-full warp, a
+# warp and a group past a block of the kernel's launch
+BITWISE_CASES = [pytest.param(vel, pos, None, id=f"{vel}-{pos}") for vel, pos in ITERS] + [
+    pytest.param(*ITERS[0], n, id=f"{ITERS[0][0]}-{ITERS[0][1]}-n{n}") for n in (1, 3, 33)]
+
+
+@pytest.mark.parametrize("vel,pos,n", BITWISE_CASES)
+def test_host_body_is_the_plain_version_bitwise(host, frame_inputs, vel, pos, n):  # noqa: F811
     """With the same sinf/cosf, the host build and the plain version agree
-    bit for bit on every lane: every other operation rounds the same."""
+    bit for bit on every lane: every other operation rounds the same.  The
+    host build runs the kernel's lane groups (every lane of a group in
+    turn, its shuffles reads of the other lanes' values) over the launch's
+    envs, so this holds the group decomposition itself to the plain
+    version, on all rollout lanes and at ragged counts; and again with
+    every group running the passes a warp's other groups would make it run
+    (the dropped passes and the selects of the kernel's converged warp)."""
+    inputs = frame_inputs if n is None else _lanes(frame_inputs, n)
     with _LibmTrig(host):
-        plain = _plain_step(frame_inputs, vel, pos)
-    got = _host_step(host, frame_inputs, vel, pos)
-    same = _lanes_equal(got, plain, len(got[3]))
-    assert bool(same.all()), (int((~same).sum()), torch.flatnonzero(~same)[:10])
+        plain = _plain_step(inputs, vel, pos)
+    for others in (False, True):
+        got = _host_step(host, inputs, vel, pos, others=others)
+        same = _lanes_equal(got, plain, len(got[3]))
+        assert bool(same.all()), (others, int((~same).sum()), torch.nonzero(~same).flatten()[:10])
+
+
+def test_sin_cos_reused_only_for_the_same_angle_bits(host):
+    """The body keeps an angle's sinf/cosf (``lander_solver.cuh::Trig``) and
+    takes them again only for an angle of the same bits: equal floats of
+    other bits (+0.0 and -0.0, whose sines differ in sign), neighbours, NaNs
+    of other payloads and any other angle are computed anew, bitwise the C
+    library's sinf/cosf."""
+    f32 = np.float32
+    nan_a = np.array([0x7FC00001], np.uint32).view(np.float32)[0]
+    nan_b = np.array([0x7FC00002], np.uint32).view(np.float32)[0]
+    up = np.nextafter(f32(0.3), f32(1.0))
+    pairs = [  # (angle the Trig holds, angle asked for, kept)
+        (f32(0.3), f32(0.3), True), (f32(-1e5), f32(-1e5), True), (nan_a, nan_a, True),
+        (f32(np.inf), f32(np.inf), True), (f32(0.0), f32(-0.0), False),
+        (f32(-0.0), f32(0.0), False), (f32(0.3), up, False), (nan_a, nan_b, False),
+        (f32(0.3), f32(-0.3), False), (f32(2.0), f32(1e6), False),
+    ]
+    prev = torch.tensor([p for p, _, _ in pairs])
+    a = torch.tensor([x for _, x, _ in pairs])
+    kept = torch.tensor([k for _, _, k in pairs])
+    c, s = torch.empty_like(a), torch.empty_like(a)
+    host.lander_retrig_host(prev.data_ptr(), a.data_ptr(), len(pairs), c.data_ptr(), s.data_ptr())
+    assert bool(((c == -2.0) & (s == -2.0) == kept).all()), (c, s)
+    want_s, want_c = torch.empty_like(a), torch.empty_like(a)
+    host.lander_trig_host(a.data_ptr(), want_s.data_ptr(), len(pairs), 0)
+    host.lander_trig_host(a.data_ptr(), want_c.data_ptr(), len(pairs), 1)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(s)[~kept], bits(want_s)[~kept])
+    assert torch.equal(bits(c)[~kept], bits(want_c)[~kept])
+    assert bits(s)[4] != bits(s)[5], "sin(+0.0) and sin(-0.0) differ in sign"
 
 
 def test_vel_tol_branch_matches_jax_and_plain(host, frame_inputs, conditioning_at):  # noqa: F811
@@ -205,6 +264,8 @@ def test_vel_tol_branch_matches_jax_and_plain(host, frame_inputs, conditioning_a
     with _LibmTrig(host):
         plain = _plain_step(frame_inputs, vel, pos, vel_tol=1e-4, return_iters=True)
     assert bool(_lanes_equal(got, plain, len(used)).all()) and torch.equal(used, plain[8])
+    got = _host_step(host, frame_inputs, vel, pos, vel_tol=1e-4, return_iters=True, others=True)
+    assert bool(_lanes_equal(got, plain, len(used)).all()) and torch.equal(got[8], plain[8])
 
 
 def test_position_loop_break_equals_the_masked_loop(host, frame_inputs):  # noqa: F811
@@ -368,3 +429,62 @@ def test_work_counts_what_the_code_does(frame_inputs, n, vel, pos):  # noqa: F81
     ran = int(out[8].max())
     assert sk.assembly_step_work(n, ran, pos, vel_tol=1e-9, return_iters=True) == (
         nbytes + 4 * n, count.ops)
+
+
+def _free_flight(n):
+    """``n`` landers high above flat terrain, each joint mid-way between its
+    limits and every angle distinct: no contact, no limit, no clamp."""
+    rng = np.random.default_rng(5)
+    f = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, n), dtype=torch.float32)  # noqa: E731
+    ha = f(-0.2, 0.2)
+    hull = T.Body(f(6, 14), f(11, 12), ha, f(-0.5, 0.5), f(-0.5, 0.5), f(-0.1, 0.1))
+    legs = [T.Body(hull.cx + dx, hull.cy - 0.5, ha + da + f(-0.05, 0.05), f(-0.5, 0.5),
+                   f(-0.5, 0.5), f(-0.1, 0.1)) for dx, da in ((-0.6, 0.55), (0.6, -0.55))]
+    terrain = torch.full((n, T.CHUNKS), 3.3)
+    z = torch.zeros(n)
+    return [hull, *legs, terrain, z, z, z, -10.0, T.zero_acc(n)]
+
+
+def test_needed_work_in_free_flight():
+    """``needed_work`` where every select's choice is known: in free flight
+    a velocity pass keeps the point rows of both joints and the sequential
+    case of both legs (430 - 2 * 32 - 2 * 24 operations an env), the first
+    pass also drops each joint's limit terms (2 * 48), and the frame keeps
+    sin and cos of three angles of 14 calls, no clamp (3 bodies * 3
+    operations) and the block determinant only where the block is kept."""
+    n = 6
+    *args, acc = _free_flight(n)
+    c, _ = T.collide_leg(torch.cat([args[3], args[3]]), T._cat_bodies(args[1], args[2]))
+    d = T._contact_data(T._cat_bodies(args[1], args[2]), c)
+    assert not bool(c.active1.any() | c.active2.any())
+    for leg, side in ((args[1], -1.0), (args[2], 1.0)):
+        assert not bool(T._joint_data(args[0].a, leg.a, side)["limit_active"].any())
+    ill = int((d["det"] == 1.0).sum())
+    passes = torch.zeros(n, dtype=torch.int32)
+    work = [sk.needed_work(*args, acc, passes, vel_iters=v, pos_iters=0) for v in (0, 1, 2)]
+    assert work[0] == (sk.assembly_step_work(n, 0, 0)[0],
+                       n * (sk.FRAME_OPS - (14 - 6) - 9) - sk.BLOCK_DET * ill)
+    assert work[1][1] - work[0][1] == n * (sk.VEL_PASS_OPS - 2 * 32 - 2 * 24 - 2 * 48)
+    assert work[2][1] - work[1][1] == n * (sk.VEL_PASS_OPS - 2 * 32 - 2 * 24)
+
+
+@pytest.mark.parametrize("n,vel,pos", [(5, 3, 2), (37, 2, 4)])
+def test_needed_work_leaves_out_what_selects_drop(host, frame_inputs, n, vel, pos):  # noqa: F811
+    """On rollout states (contacts, limits and crashes): ``needed_work``
+    has ``assembly_step_work``'s bytes and passes, and of its operations
+    leaves out no more than every branch and sin/cos call it may drop; the
+    same with vel_tol > 0, whose passes are the plain version's."""
+    inputs = _lanes(frame_inputs, n)
+    *args, acc = _inputs(inputs)
+    ran = _host_step(host, inputs, vel, pos, return_pos_iters=True)[-1]
+    for tol in (0.0, 1e-9):
+        nbytes, ops = sk.needed_work(*args, acc, ran, vel_iters=vel, pos_iters=pos, vel_tol=tol)
+        used = T.assembly_step_reference(*args, acc=acc, vel_iters=vel, pos_iters=pos,
+                                         vel_tol=tol, return_iters=True)[8]
+        plain = sk.assembly_step_work(n, used, ran, tol)
+        assert nbytes == plain[0]
+        vel_drop = 2 * sk.JOINT_DROPS["inactive"] + 2 * sk.BLOCK_OPS
+        most = (n * (14 - 2 + 2 * sk.JOINT_FRAME_DROP + 9 + 2 * sk.BLOCK_DET)
+                + int(used.sum()) * vel_drop
+                + int(ran.sum()) * (16 - 2 + 4 * sk.POS_CORNER_DROP + 2 * sk.POS_LIMIT_OPS))
+        assert plain[1] - most <= ops < plain[1], (ops, plain[1], most)
