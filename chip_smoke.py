@@ -40,25 +40,41 @@ Phases (each raises on failure, so any failure exits non-zero):
      against the plain version's as a CUDA graph, beside its bound (the
      operations the states need: ``solver_kernels.needed_work``); the
      plain solver's kernel launches at 128 landers;
-  4. run the ``lunar_per`` slice at full width through ``Trainer``: 4
-     supersteps (512 vector steps of 128 envs), then check that the TD
-     kernels ran once per learner update, the loss is finite, the online
-     net trained, the target followed by Polyak averaging, and a greedy
-     evaluation returns finite returns; then one learner update on the
-     card is held against the same update on the CPU;
+  4. run the ``lunar_per`` slice at full width through ``Trainer``, each
+     frame as CUDA graph launches (``algos/superstep.py::GraphedLearner``:
+     the frame's graph with the actor, the vector step and the replay
+     write, the learner update's graph L): 4 supersteps (512 vector steps
+     of 128 envs), the last under the profiler; check that the TD kernels
+     ran on the device once per learner update there (counted in the
+     trace: a graph's replay passes no wrapper's counter) and no plain
+     version ran, the host's launches per vector step (kernels, graphs,
+     copies and fills; at most ``SLICE_HOST_LAUNCHES``) and the device's
+     busy share, the counters (the Adam count on the device equal to its
+     mirror), the loss is finite, the online net trained, the target
+     followed by Polyak averaging, peak memory under 1 GiB, and a greedy
+     evaluation returns finite returns; then the first training frames of
+     a one-frame superstep against the eager learner (the Adam count 1
+     after the first, the runners bitwise after every frame); then an
+     eager-learner ``Trainer`` restored from the graphed one's checkpoint,
+     one superstep each bitwise, and env-steps/s in three alternating
+     pairs; each graph's replay on the device, its kernels and its capture
+     time; then one learner update on the card is held against the same
+     update on the CPU;
   5. run ``lunar_per_scaled(1024)`` with ``use_pallas_sampler=True`` at
-     full width through ``Trainer``: 2 supersteps (256 vector steps of
-     1024 envs), and check that the PER slot kernel and the TD kernels ran
-     once per learner update and no plain version ran;
+     full width through ``Trainer``'s graphed learner: 2 supersteps (256
+     vector steps of 1024 envs), and check that the PER slot kernel and the
+     TD kernels ran on the device once per learner update in the second,
+     profiled, and no plain version ran;
   6. drive the same configuration through the command line: ``train`` one
      superstep with a checkpoint, ``train --resume`` one more, ``eval``;
   7. run ``lunar_jointed_per`` (the jointed 3-body lander, solver
-     iterations (120, 40)) at full width through ``Trainer``, its vector
-     step and reset pool as CUDA graphs (``envs/graphed.py``): 2
-     supersteps of 16 vector steps of 128 envs, learning from 2048 stored
+     iterations (120, 40)) at full width through ``Trainer``, each frame
+     as the graphed learner's CUDA graphs (the vector step inside the
+     frame's) and the reset pool as one (``envs/graphed.py``): 2
+     supersteps of 16 vector steps of 128 envs, learning from 1792 stored
      transitions; check the TD kernels ran once per learner update with no
-     plain call, S1 once per vector step and per reset pool on the device
-     in the second superstep (profiled) and the plain solver never, the
+     plain call and S1 once per vector step and per reset pool on the
+     device in the second superstep (profiled), the plain solver never, the
      counters, a finite loss, the online net trained and
      the target followed, peak memory under 1 GiB; print each graph's
      eager warm-up and capture apart from the supersteps; then 8 graphed
@@ -161,11 +177,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      full width through ``Trainer`` (1,024 jointed landers at (120, 40)),
      cut in depth only (``JOINTED_SCALED_CUTS``): 3 supersteps of 128
      vector steps from 2048 stored transitions; K1–K3 once per update and
-     no plain call (TD, sampler or solver), S1 once per vector step and
+     no plain call (TD, sampler or solver) and S1 once per vector step and
      reset pool on the device (the profiled third superstep), the
      counters, a finite loss, the online net trained, peak memory under
-     1 GiB; env-steps/s of the second superstep and the step graph's
-     replay on the device;
+     1 GiB; env-steps/s of the second superstep and the frame's and the
+     update's graph replays on the device;
 then print the kernels' record as one JSON line (K1, K2, K3 and S1, with
 each kernel's bound, ``bound_ms``), then the result line.
 
@@ -173,6 +189,7 @@ It imports nothing of JAX or of the JAX package, and exits non-zero
 without printing a result where CUDA is absent.
 """
 
+import gc
 import json
 import math
 import os
@@ -193,6 +210,11 @@ TD_SHAPES = [(256, 4), (1024, 4), (4096, 4), (300, 4), (37, 2)]
 TD_TIMED = (256, 1024, 4096)
 TD_STABLE_B, TD_STABLE_CALLS = 4096, 100
 SUPERSTEPS = 4
+# phase 4: the host's launches (kernels, graphs, copies and fills) per vector
+# step of a steady lunar_per superstep with the graphed learner (the eager
+# learner's ~390-490), and the frame from which the trap check's learner runs
+SLICE_HOST_LAUNCHES = 40
+FIRST_TRAIN_FRAME = 3
 SCALED_SUPERSTEPS = 2
 # (N, C, B): lunar_per_scaled(1024), lunar_per, lunar_per_scaled(4096) (C = 2^19 / 4096),
 # then C % 4 != 0 on misaligned rows (the scalar path) and C past 1024 * 16 (the chunk loop)
@@ -215,7 +237,10 @@ REPO = Path(__file__).resolve().parent
 SCALED_SETS = ["use_pallas_sampler=true"]  # the CLI's overrides of lunar_per_scaled
 # lunar_jointed_per cut in depth only: the width and the solver iterations
 # are the preset's (never below ~60 velocity iterations: the joints give way)
-JOINTED_CUTS = dict(steps_per_superstep=16, training_start=2048)
+# (learning from 1792 stored transitions, vector step 14: the update's graph
+# makes its eager call there and is captured at 15, so the second superstep,
+# profiled, replays both graphs only)
+JOINTED_CUTS = dict(steps_per_superstep=16, training_start=1792)
 JOINTED_SUPERSTEPS = 2
 JOINTED_EVAL_FRAMES = 4  # Trainer.evaluate's default runs max_steps_in_episode = 1000 frames
 JOINTED_FRAMES = 8  # graphed frames held bitwise against eager frames
@@ -321,6 +346,15 @@ SOLVER_KERNEL = "assembly_step_kernel"  # S1's name in the profiler's trace
 # the jointed step graph's replay with the plain solver in it, 128 landers at
 # (120, 40) (NVIDIA H100 80GB HBM3): every kernel the eager step launched
 PLAIN_STEP_REPLAY_KERNELS = 55_935
+
+
+def fresh_peak(torch) -> None:
+    """Start the peak-memory count afresh, after collecting what earlier
+    phases left in reference cycles (a ``VectorEnv`` and its graphs), whose
+    device memory stays allocated until the collector's next full pass."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def card_line() -> str:
@@ -893,34 +927,54 @@ def check_slot_kernel(torch, sample_kernels, per_superstep, card):
 
 
 def run_slice(torch, td_kernels, sample_kernels, card):
-    """Phase 4: lunar_per at full width through the Trainer."""
+    """Phase 4: lunar_per at full width through the Trainer, each frame as
+    CUDA graph launches (``GraphedLearner``): the counters, a finite loss,
+    the online net trained and the target following by Polyak averaging;
+    in the last superstep, profiled, K1/K2 once per update on the device,
+    the host's launches per vector step and the device's busy share; peak
+    memory under 1 GiB; a greedy evaluation; the eager learner restored
+    from the graphed one's checkpoint, one superstep each bitwise, then
+    env-steps/s in alternating pairs; graph L's replay on the device."""
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.measure import learner_kernels, replay_ms, traced_kernels
     from deep_q_learning_tpu_torch.train import Trainer
 
     cfg = lunar_per()
-    trainer = Trainer(cfg, device="cuda").init(seed=0)
+    workdir = tempfile.mkdtemp(dir=REPO / "build")
+    trainer = Trainer(cfg, device="cuda", workdir=workdir).init(seed=0)
+    assert isinstance(trainer._superstep, GraphedLearner)
     online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
     target0 = [p.detach().clone() for p in trainer.runner.train.target.parameters()]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak(torch)
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
     t0 = time.perf_counter()
-    metrics = [trainer.step() for _ in range(SUPERSTEPS)]
+    metrics = [trainer.step() for _ in range(SUPERSTEPS - 1)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(td_kernels.launches)
+    # the last superstep under the profiler, every frame training: K1/K2 on
+    # the device (a graph's replay passes none of the wrappers' counters)
+    trace = traced_kernels(lambda: metrics.append(trainer.step()))
+    launches = learner_kernels(trace)
+    steady = metrics[-1].loss_count
+    assert steady == cfg.steps_per_superstep, steady
+    assert launches == {"td_loss_fwd": steady, "td_loss_bwd": steady, "per_slot_sample": 0}, (
+        launches, steady)
     assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_per
+    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    per_step = trace.host_launches / cfg.steps_per_superstep
+    assert per_step <= SLICE_HOST_LAUNCHES, (per_step, trace.launches, trace.copies)
 
     updates = sum(m.loss_count for m in metrics)
     loss_sum = sum(m.loss_sum for m in metrics)
     env_steps = metrics[-1].env_steps * cfg.num_envs
     assert env_steps == SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
     assert updates > 0, "no learner update ran"
-    assert updates == trainer.runner.train.updates
-    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, (launches, updates)
-    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    opt = trainer.runner.train.opt_state
+    assert updates == trainer.runner.train.updates == opt.count == int(opt.device_count)
     assert math.isfinite(loss_sum), loss_sum
     online = [p.detach() for p in trainer.runner.train.online.parameters()]
     target = [p.detach() for p in trainer.runner.train.target.parameters()]
@@ -931,56 +985,153 @@ def run_slice(torch, td_kernels, sample_kernels, card):
         moved_online, moved_target, gap)
     torch.cuda.synchronize()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    assert peak_mib < 1024, peak_mib
 
     ev = trainer.evaluate(seed=0)
     assert ev.returns.shape == (128,) and all(math.isfinite(x) for x in ev.returns)
+    frame, learn = trainer._superstep.frame, trainer._superstep.learn
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
     print(f"  updates {updates}, episodes {metrics[-1].episodes}, window {metrics[-1].window_mean:.3f}, "
           f"eval mean {float(ev.returns.mean()):.3f} over {len(ev.returns)} episodes")
-    print(f"  lunar_per x{cfg.num_envs} envs: {env_steps} env steps in {seconds:.3f} s = "
-          f"{env_steps / seconds:.1f} env-steps/s, peak memory {peak_mib:.1f} MiB "
-          f"[{card}]")
+    print(f"  lunar_per x{cfg.num_envs} envs: {env_steps - cfg.steps_per_superstep * cfg.num_envs} "
+          f"env steps of the first {SUPERSTEPS - 1} supersteps in {seconds:.3f} s = "
+          f"{(env_steps - cfg.steps_per_superstep * cfg.num_envs) / seconds:.1f} env-steps/s (with "
+          f"the graphs' eager calls and captures), peak memory {peak_mib:.1f} MiB [{card}]")
+    print(f"  the last superstep, profiled: {steady} updates, K1/K2 on the device {launches}, no "
+          f"plain call; {per_step:.1f} host launches per vector step ({trace.launches} kernels, "
+          f"{len(trace.per_graph_launch)} graphs, {trace.copies} copies and fills in "
+          f"{cfg.steps_per_superstep} vector steps; at most {SLICE_HOST_LAUNCHES}), device busy "
+          f"{100 * trace.device_us / trace.wall_us:.1f} % of {trace.wall_us / 1e3:.1f} ms [{card}]")
+    first_training_frames(torch, card)
+    slice_pairs(torch, trainer, cfg, workdir, td_kernels, card)
+    shutil.rmtree(workdir, ignore_errors=True)
+    # last: a replay of the learner's graphs writes the runner again
+    for name, g in (("frame (actor, env step, replay write)", frame), ("update (graph L)", learn)):
+        host_ms, device_ms, nodes = replay_ms(g)
+        print(f"  the graph of the {name}: replay {device_ms:.3f} ms on the device (CUDA events), "
+              f"{nodes} kernels, its launch {host_ms:.3f} ms of host; captured in "
+              f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
+
+
+def first_training_frames(torch, card):
+    """Phase 4: the learner's graph makes its first call eagerly and
+    captures on the second, so no frame applies its update twice: one
+    ``lunar_per`` frame a superstep at full width through the graphed
+    learner and the eager one from the same seed, learning from frame
+    FIRST_TRAIN_FRAME; after every frame the Adam count is the number of
+    updates (1 after the first training frame, an eager call; 2 after the
+    capture and its replay) and the runners are bitwise equal."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(lunar_per(), steps_per_superstep=1,
+                              training_start=FIRST_TRAIN_FRAME * 128)
+    graphed = Trainer(cfg, device="cuda").init(seed=0)
+    eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
+    counts = []
+    for frame in range(1, FIRST_TRAIN_FRAME + 4):
+        assert graphed.step() == eager.step(), frame
+        opt = graphed.runner.train.opt_state
+        assert int(opt.device_count) == opt.count == max(frame - FIRST_TRAIN_FRAME + 1, 0), frame
+        same_tree(torch, runner_tree(graphed), runner_tree(eager), f"frame {frame}")
+        counts.append(opt.count)
+    assert graphed._superstep.learn.graph is not None
+    print(f"  the first training frames, one a superstep, graphed learner vs eager: Adam count "
+          f"{counts} over frames 1-{len(counts)} (the first training frame an eager call, the "
+          f"next the capture and its replay), runners bitwise equal after each [{card}]")
+
+
+def slice_pairs(torch, trainer, cfg, workdir, td_kernels, card):
+    """Phase 4: the graphed learner against the eager one (the frame eager
+    around the env step's graph) restored from its checkpoint: one superstep
+    each, runners bitwise equal, then env-steps/s in three alternating
+    pairs; K1/K2 once per eager update by the wrappers' counters, which the
+    graphed learner's replays never pass."""
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    trainer.save(step=trainer.runner.env_step * cfg.num_envs)
+    eager = Trainer(cfg, device="cuda", workdir=workdir, graphed_learner=False).restore()
+    assert eager.venv.graphed and not isinstance(eager._superstep, GraphedLearner)
+    rates = {"graphed": [], "eager": []}
+    td_kernels.reset_counts()
+    eager_updates = 0
+    for i, name in enumerate(["graphed", "eager", "eager", "graphed", "graphed", "eager"]):
+        t = trainer if name == "graphed" else eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = t.step()
+        torch.cuda.synchronize()
+        rates[name].append(cfg.steps_per_superstep * cfg.num_envs / (time.perf_counter() - t0))
+        eager_updates += m.loss_count if name == "eager" else 0
+        if i == 1:  # both from the same checkpoint, one superstep each
+            same_tree(torch, runner_tree(trainer), runner_tree(eager))
+    assert td_kernels.launches == {"td_loss_fwd": eager_updates, "td_loss_bwd": eager_updates}
+    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    print(f"  one superstep graphed and one with the eager learner from the same checkpoint: "
+          f"runners bitwise equal (parameters, Adam moments and count, replay ring, priorities "
+          f"and counters, env states)")
+    print(f"  lunar_per x{cfg.num_envs} env-steps/s in turns, graphed learner "
+          f"{', '.join(f'{x:.1f}' for x in rates['graphed'])}; eager learner "
+          f"{', '.join(f'{x:.1f}' for x in rates['eager'])} [{card}]")
 
 
 def run_scaled(torch, td_kernels, sample_kernels, card):
     """Phase 5: lunar_per_scaled(1024) with the PER slot kernel, at full
-    width through the Trainer."""
+    width through the Trainer's graphed learner: K1, K2 and K3 once per
+    update on the device in the second superstep, profiled, and no plain
+    call."""
     import dataclasses
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import lunar_per_scaled
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
     from deep_q_learning_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(lunar_per_scaled(1024), use_pallas_sampler=True)
     trainer = Trainer(cfg, device="cuda").init(seed=0)
+    assert isinstance(trainer._superstep, GraphedLearner)
     per = trainer.runner.replay.priorities
     assert per.shape == (1024, 512) and cfg.batch_size == 1024, (per.shape, cfg.batch_size)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak(torch)
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
     t0 = time.perf_counter()
-    metrics = [trainer.step() for _ in range(SCALED_SUPERSTEPS)]
+    metrics = [trainer.step() for _ in range(SCALED_SUPERSTEPS - 1)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    # the last superstep under the profiler: the kernels on the device
+    trace = traced_kernels(lambda: metrics.append(trainer.step()))
+    launches = learner_kernels(trace)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
 
     updates = sum(m.loss_count for m in metrics)
+    steady = metrics[-1].loss_count
     loss_sum = sum(m.loss_sum for m in metrics)
     env_steps = metrics[-1].env_steps * cfg.num_envs
     assert env_steps == SCALED_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
     assert updates > 0 and updates == trainer.runner.train.updates
-    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates,
-                        "per_slot_sample": updates}, (launches, updates)
+    assert steady == cfg.steps_per_superstep // cfg.train_every, steady
+    assert launches == dict.fromkeys(("td_loss_fwd", "td_loss_bwd", "per_slot_sample"), steady), (
+        launches, steady)
     assert not any(plain.values()), plain
     assert math.isfinite(loss_sum), loss_sum
     assert float(trainer.runner.replay.max_priority) > 0
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    per_step = trace.host_launches / cfg.steps_per_superstep
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
-    print(f"  updates {updates}, launches {launches}, episodes {metrics[-1].episodes}")
-    print(f"  lunar_per_scaled x{cfg.num_envs} envs, use_pallas_sampler: {env_steps} env steps "
-          f"in {seconds:.3f} s = {env_steps / seconds:.1f} env-steps/s, "
+    print(f"  updates {updates}; the second superstep, profiled: {steady} updates, K1-K3 on the "
+          f"device {launches}, no plain call, {per_step:.1f} host launches per vector step, "
+          f"device busy {100 * trace.device_us / trace.wall_us:.1f} %; episodes "
+          f"{metrics[-1].episodes}")
+    print(f"  lunar_per_scaled x{cfg.num_envs} envs, use_pallas_sampler: "
+          f"{env_steps - cfg.steps_per_superstep * cfg.num_envs} env steps of the first "
+          f"superstep (with the graphs' eager calls and captures) in {seconds:.3f} s = "
+          f"{(env_steps - cfg.steps_per_superstep * cfg.num_envs) / seconds:.1f} env-steps/s, "
           f"peak memory {peak_mib:.1f} MiB [{card}]")
     return launches
 
@@ -1044,19 +1195,23 @@ def same_tree(torch, a, b, where="runner") -> None:
 
 
 def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launches, card):
-    """Phase 7: lunar_jointed_per at full width through the Trainer, its
-    vector step and reset pool as CUDA graphs: the counters, K1/K2 once per
+    """Phase 7: lunar_jointed_per at full width through the Trainer, each
+    frame as CUDA graphs (the frame with the jointed vector step, the
+    learner update) and the reset pool as one: the counters, K1/K2 once per
     update, S1 once per vector step and per reset pool on the device (and
-    the plain solver never), the capture timed apart from the replays,
+    the plain solver never), the captures timed apart from the replays,
     graphed frames bitwise eager frames and a replay's kernels equal to an
-    eager step's, and graphed against eager env-steps/s in alternating
-    pairs.  Returns the launches of K1 and K2 in the two supersteps and of
-    S1 in the second (counted in the profiler's trace: inside a CUDA graph
-    the wrapper's counter sees the capture, not the replays)."""
+    eager step's, an eager trainer restored from the graphed one's
+    checkpoint bitwise after a superstep each, and graphed against eager
+    env-steps/s in alternating pairs.  Returns the launches of K1, K2 and
+    S1 in the second superstep (counted in the profiler's trace: inside a
+    CUDA graph a wrapper's counter sees the eager call and the capture, not
+    the replays)."""
     import dataclasses
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import lunar_jointed_per
-    from deep_q_learning_tpu_torch.measure import traced_kernels
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
     from deep_q_learning_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(lunar_jointed_per(), **JOINTED_CUTS)
@@ -1066,12 +1221,12 @@ def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launche
     assert cfg.use_pallas and not cfg.use_pallas_sampler
     workdir = tempfile.mkdtemp(dir=REPO / "build")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak(torch)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device="cuda", workdir=workdir).init(seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    assert trainer.venv.graphed
+    assert trainer.venv.graphed and isinstance(trainer._superstep, GraphedLearner)
     assert trainer.runner.replay.priorities.shape == (128, 4096)
     assert trainer.runner.env_states.solver_acc.c1.shape == (128, 4, 2)
     online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
@@ -1089,12 +1244,14 @@ def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launche
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
 
-    # the first superstep captures the step graph; in the second, under the
-    # profiler, S1 runs on the device once a vector step (a replay of the
-    # step graph) and once for the reset pool
+    # the first superstep captures the frame graph (and the update's, at its
+    # last frame); in the second, under the profiler, S1 runs on the device
+    # once a vector step (a replay of the frame graph) and once for the
+    # reset pool, K1 and K2 once an update
     superstep()
-    s1_events = traced_kernels(superstep).count(SOLVER_KERNEL)
-    launches = dict(td_kernels.launches)
+    trace = traced_kernels(superstep)
+    s1_events = trace.count(SOLVER_KERNEL)
+    counted = learner_kernels(trace)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls,
                  **solver_kernels.plain_calls)
     assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_jointed_per
@@ -1108,12 +1265,15 @@ def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launche
     # learning starts once 2048 transitions are stored: at vector step 16
     first = cfg.training_start // cfg.num_envs
     assert updates == vector_steps - first + 1 == trainer.runner.train.updates, updates
-    assert trainer.runner.train.opt_state.count == updates
+    opt = trainer.runner.train.opt_state
+    assert opt.count == updates == int(opt.device_count)
     assert metrics[-1].episodes == sum(m.episodes_delta for m in metrics)
-    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, (launches, updates)
+    steady = metrics[-1].loss_count
+    assert counted == {"td_loss_fwd": steady, "td_loss_bwd": steady, "per_slot_sample": 0}, (
+        counted, steady)
     assert not any(plain.values()), plain
     assert JOINTED_SUPERSTEPS == 2 and s1_events == cfg.steps_per_superstep + 1, s1_events
-    launches["assembly_step"] = s1_events
+    launches = {"td_loss_fwd": steady, "td_loss_bwd": steady, "assembly_step": s1_events}
     assert math.isfinite(loss_sum), loss_sum
     online = [p.detach() for p in trainer.runner.train.online.parameters()]
     target = [p.detach() for p in trainer.runner.train.target.parameters()]
@@ -1125,17 +1285,24 @@ def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launche
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     assert peak_mib < 1024, peak_mib
     graphs = trainer.venv._graphs
-    assert sorted(kind for kind, *_ in graphs) == ["reset pool", "step"], list(graphs)
-    pool_g = next(g for (kind, *_), g in graphs.items() if kind == "reset pool")
-    step_g = next(g for (kind, *_), g in graphs.items() if kind == "step")
+    # the vector step runs inside the learner's frame graph
+    assert [kind for kind, *_ in graphs] == ["reset pool"], list(graphs)
+    pool_g = next(iter(graphs.values()))
+    step_g, learn_g = trainer._superstep.frame, trainer._superstep.learn
+    assert step_g.graph is not None and learn_g.graph is not None
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
-    print(f"  updates {updates}, launches {launches} (S1: kernels in the trace of the second "
-          f"superstep, profiled: {cfg.steps_per_superstep} vector steps + its reset pool), no "
-          f"plain call, episodes {metrics[-1].episodes}, peak memory {peak_mib:.1f} MiB [{card}]")
+    print(f"  updates {updates}, launches {launches} (kernels in the trace of the second "
+          f"superstep, profiled: {cfg.steps_per_superstep} vector steps + its reset pool, "
+          f"{steady} updates), no plain call, {trace.host_launches / cfg.steps_per_superstep:.1f} "
+          f"host launches per vector step, device busy "
+          f"{100 * trace.device_us / trace.wall_us:.1f} %, episodes {metrics[-1].episodes}, peak "
+          f"memory {peak_mib:.1f} MiB [{card}]")
     print(f"  graphs: reset pool warm-up {pool_g.warmup_s:.3f} s + capture {pool_g.capture_s:.3f} "
-          f"s (in init, {init_s:.2f} s); vector step warm-up {step_g.warmup_s:.3f} s + capture "
-          f"{step_g.capture_s:.3f} s (in superstep 1); supersteps of {cfg.steps_per_superstep} "
-          f"frames {', '.join(f'{w:.3f}' for w in walls)} s (the second profiled) [{card}]")
+          f"s (in init, {init_s:.2f} s); frame (actor, vector step, replay write) eager call "
+          f"{step_g.warmup_s:.3f} s + capture {step_g.capture_s:.3f} s, update eager call "
+          f"{learn_g.warmup_s:.3f} s + capture {learn_g.capture_s:.3f} s (in superstep 1 and "
+          f"2); supersteps of {cfg.steps_per_superstep} frames "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s (the second profiled) [{card}]")
 
     graphed_frames(torch, trainer, plain_launches, card)
     jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card)
@@ -1159,7 +1326,7 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
     import dataclasses
 
     from deep_q_learning_tpu_torch.config import lunar_jointed_scaled
-    from deep_q_learning_tpu_torch.measure import replay_ms, traced_kernels
+    from deep_q_learning_tpu_torch.measure import learner_kernels, replay_ms, traced_kernels
     from deep_q_learning_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(lunar_jointed_scaled(1024), **JOINTED_SCALED_CUTS)
@@ -1168,7 +1335,7 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
     assert (cfg.lander_engine, cfg.lander_vel_iters, cfg.lander_pos_iters) == ("jointed", 120, 40)
     assert cfg.use_pallas
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak(torch)
     trainer = Trainer(cfg, device="cuda").init(seed=0)
     assert trainer.venv.graphed and trainer.runner.replay.priorities.shape == (1024, 512)
     online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
@@ -1182,21 +1349,24 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
 
-    superstep()  # captures the step graph
+    superstep()  # captures the frame's and the update's graphs
     superstep()  # timed
-    s1_events = traced_kernels(superstep).count(SOLVER_KERNEL)
-    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    trace = traced_kernels(superstep)
+    s1_events = trace.count(SOLVER_KERNEL)
+    launches = learner_kernels(trace)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls,
                  **solver_kernels.plain_calls)
     updates = sum(m.loss_count for m in metrics)
+    steady = metrics[-1].loss_count
     loss_sum = sum(m.loss_sum for m in metrics)
     vector_steps = JOINTED_SCALED_SUPERSTEPS * cfg.steps_per_superstep
     assert [m.env_steps for m in metrics] == [
         cfg.steps_per_superstep * (i + 1) for i in range(JOINTED_SCALED_SUPERSTEPS)]
     assert trainer.runner.replay.total_adds == vector_steps
     assert updates > 0 and updates == trainer.runner.train.updates, updates
-    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates,
-                        "per_slot_sample": updates}, (launches, updates)
+    assert steady == cfg.steps_per_superstep // cfg.train_every, steady
+    assert launches == dict.fromkeys(("td_loss_fwd", "td_loss_bwd", "per_slot_sample"), steady), (
+        launches, steady)
     assert not any(plain.values()), plain
     assert s1_events == cfg.steps_per_superstep + 1, s1_events
     assert math.isfinite(loss_sum), loss_sum
@@ -1205,19 +1375,23 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
     assert moved > 0, moved
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     assert peak_mib < 1024, peak_mib
-    step_g = next(g for (kind, *_), g in trainer.venv._graphs.items() if kind == "step")
-    host_ms, device_ms, nodes = replay_ms(step_g)
     rate = cfg.steps_per_superstep * cfg.num_envs / walls[1]
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
-    print(f"  updates {updates}, launches {launches} (K1-K3 once per update), S1 "
-          f"{s1_events} times on the device in the third superstep ({cfg.steps_per_superstep} "
-          f"vector steps + its reset pool), no plain call, episodes {metrics[-1].episodes}, "
+    print(f"  updates {updates}; the third superstep, profiled: K1-K3 {launches} on the device "
+          f"({steady} updates), S1 {s1_events} times ({cfg.steps_per_superstep} vector steps + "
+          f"its reset pool), no plain call, {trace.host_launches / cfg.steps_per_superstep:.1f} "
+          f"host launches per vector step, device busy "
+          f"{100 * trace.device_us / trace.wall_us:.1f} %; episodes {metrics[-1].episodes}, "
           f"peak memory {peak_mib:.1f} MiB [{card}]")
+    # last: a replay of the learner's graphs writes the runner again
+    host_ms, device_ms, nodes = replay_ms(trainer._superstep.frame)
+    learn_host, learn_device, learn_nodes = replay_ms(trainer._superstep.learn)
     print(f"  lunar_jointed_scaled x{cfg.num_envs} envs, use_pallas_sampler: supersteps of "
-          f"{cfg.steps_per_superstep} frames {', '.join(f'{w:.3f}' for w in walls)} s (capture, "
-          f"timed, profiled): {rate:.1f} env-steps/s in the second; the step graph's replay "
-          f"{device_ms:.3f} ms on the device ({nodes} kernels), its launch {host_ms:.3f} ms of "
-          f"host [{card}]")
+          f"{cfg.steps_per_superstep} frames {', '.join(f'{w:.3f}' for w in walls)} s (captures, "
+          f"timed, profiled): {rate:.1f} env-steps/s in the second; the frame graph's replay "
+          f"(actor, vector step, replay write) {device_ms:.3f} ms on the device ({nodes} "
+          f"kernels), its launch {host_ms:.3f} ms of host; the update's {learn_device:.3f} ms "
+          f"({learn_nodes} kernels), its launch {learn_host:.3f} ms [{card}]")
     return dict(launches, assembly_step=s1_events)
 
 
@@ -1299,10 +1473,12 @@ def graphed_frames(torch, trainer, plain_launches, card):
 
 def jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card):
     """Phase 7: the trainer against an eager one restored from its
-    checkpoint: one superstep each from the same runner, bitwise equal, then
-    env-steps/s of supersteps in three alternating pairs (eager, graphed,
-    graphed, eager, eager, graphed), with the learner on every frame; K1/K2
-    once per update on both."""
+    checkpoint: one superstep each from the same runner, bitwise equal (the
+    learner and the env step), then env-steps/s of supersteps in three
+    alternating pairs (graphed, eager, eager, graphed, graphed, eager), with
+    the learner on every frame; K1/K2 once per update of the eager trainer
+    by the wrappers' counters, which the graphed trainer's replays never
+    pass."""
     from deep_q_learning_tpu_torch.train import Trainer
 
     trainer.save(step=trainer.runner.env_step * cfg.num_envs)
@@ -1311,7 +1487,7 @@ def jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card
     rates = {"graphed": [], "eager": []}
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
-    updates = 0
+    updates = eager_updates = 0
     for i, name in enumerate(["graphed", "eager", "eager", "graphed", "graphed", "eager"]):
         t = trainer if name == "graphed" else eager
         torch.cuda.synchronize()
@@ -1320,12 +1496,15 @@ def jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card
         torch.cuda.synchronize()
         rates[name].append(cfg.steps_per_superstep * cfg.num_envs / (time.perf_counter() - t0))
         updates += m.loss_count
+        eager_updates += m.loss_count if name == "eager" else 0
         if i == 1:  # both from the same checkpoint, one superstep each
             same_tree(torch, runner_tree(trainer), runner_tree(eager))
-    assert td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, updates
+    assert td_kernels.launches == {"td_loss_fwd": eager_updates, "td_loss_bwd": eager_updates}, (
+        td_kernels.launches, eager_updates)
     assert not any(dict(td_kernels.plain_calls, **sample_kernels.plain_calls).values())
     print(f"  one superstep graphed and one eager from the same checkpoint: runners bitwise "
-          f"equal (parameters, Adam, replay ring and priorities, env states, counters)")
+          f"equal (parameters, Adam moments and count, replay ring, priorities and counters, "
+          f"env states)")
     print(f"  lunar_jointed_per x{cfg.num_envs} env-steps/s in turns, {cfg.steps_per_superstep} "
           f"frames a superstep, {updates} updates (K1/K2 once each, no plain call): graphed "
           f"{', '.join(f'{x:.1f}' for x in rates['graphed'])}; eager "
@@ -1570,7 +1749,7 @@ def run_population(torch, td_kernels, sample_kernels, card):
     assert runner.train.online.trunk[0].weight.shape == (m, 256, 9)
     online0 = [p.detach().clone() for p in runner.train.online.parameters()]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak(torch)
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
@@ -1771,9 +1950,12 @@ def learner_digest(train) -> str:
 
 
 def profile_steady(torch, trainer, steps):
-    """Launches per vector step, the device's busy share of the wall and the
-    host time of the ``grad_all_reduce`` span per update, from torch.profiler
-    over one steady superstep of ``steps`` vector steps (after one to warm)."""
+    """The host's launches per vector step (kernels, CUDA graphs, copies and
+    fills), the device's busy share of the wall and the host time of the
+    ``grad_all_reduce`` span per update, from torch.profiler over one
+    steady superstep of ``steps`` vector steps (after one to warm)."""
+    from deep_q_learning_tpu_torch.measure import host_launches
+
     trainer.step()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1786,8 +1968,7 @@ def profile_steady(torch, trainer, steps):
     busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                   for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "grad_all_reduce")
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    launches = sum(host_launches(events).values())
     span = [e for e in events if e.key == "grad_all_reduce" and
             e.device_type == torch.autograd.DeviceType.CPU]
     span_us = span[0].cpu_time_total / max(m.loss_count, 1) if span else 0.0
@@ -1836,7 +2017,7 @@ def gloo_lunar_rank(shard, n, port):
     # as a JAX shard's does: (64, 2^19 / 64) rows of priorities
     assert trainer.runner.replay.priorities.shape == RANK_SLOT[:2], trainer.runner.replay.priorities.shape
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak(torch)
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
     t0 = time.perf_counter()
@@ -1924,7 +2105,7 @@ def run_distributed(torch, td_kernels, sample_kernels, card, cli_workdir):
           f"{100 * steady_single['busy']:.1f} % of the wall [{card}]")
     trainer = DistributedTrainer(cfg, device="cuda").init(seed=0)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak(torch)
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
     t0 = time.perf_counter()
@@ -2010,7 +2191,7 @@ def run_distributed(torch, td_kernels, sample_kernels, card, cli_workdir):
         8192, 1 << 19, (256, 256), 256, "uniform"), mh
     trainer = DistributedTrainer(mh, device="cuda").init(seed=0)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak(torch)
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
     t0 = time.perf_counter()
@@ -2144,6 +2325,8 @@ def train_state_to(ts, device):
     out.target.to(device)
     out.opt_state.mu = [t.to(device) for t in out.opt_state.mu]
     out.opt_state.nu = [t.to(device) for t in out.opt_state.nu]
+    if out.opt_state.device_count is not None:
+        out.opt_state.device_count = out.opt_state.device_count.to(device)
     return out
 
 
@@ -2446,6 +2629,7 @@ def run_bf16(torch, td_kernels, sample_kernels, card):
     import numpy as np
 
     from deep_q_learning_tpu_torch.__main__ import build_config
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
     from deep_q_learning_tpu_torch.parallel import PopulationTrainer
     from deep_q_learning_tpu_torch.train import Trainer
 
@@ -2457,7 +2641,7 @@ def run_bf16(torch, td_kernels, sample_kernels, card):
     for c in (f32, cfg, cfg, f32):
         t = Trainer(c, device="cuda").init(seed=0)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        fresh_peak(torch)
         t0 = time.perf_counter()
         for _ in range(DIST_SUPERSTEPS):
             t.step()
@@ -2479,12 +2663,14 @@ def run_bf16(torch, td_kernels, sample_kernels, card):
     trainer = Trainer(cfg, device="cuda").init(seed=0)
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
-    metrics = [trainer.step() for _ in range(DIST_SUPERSTEPS)]
+    metrics = [trainer.step() for _ in range(DIST_SUPERSTEPS - 1)]
+    # the last superstep under the profiler: the kernels on the device
+    launches = learner_kernels(traced_kernels(lambda: metrics.append(trainer.step())))
     torch.cuda.synchronize()
-    launches = dict(td_kernels.launches, **sample_kernels.launches)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    steady = metrics[-1].loss_count
     assert sum(m.loss_count for m in metrics) == trainer.runner.train.updates == DIST_ROUNDS
-    assert launches == dict.fromkeys(zero, DIST_ROUNDS) and plain == zero, (launches, plain)
+    assert launches == dict.fromkeys(zero, steady) and plain == zero, (launches, plain)
     bf16_launches = launches
     loss = sum(m.loss_sum for m in metrics) / DIST_ROUNDS
     assert math.isfinite(loss), loss
@@ -2507,7 +2693,8 @@ def run_bf16(torch, td_kernels, sample_kernels, card):
     check_td_case(torch, td_kernels, [q_both[:b], q_both[b:], q_next_target, batch.action,
                                       batch.reward, batch.bootstrap, weights], 4, True, err)
     far, total, loss_rel = check_bf16_update_vs_cpu(torch, cfg, trainer.runner.train)
-    print(f"  (d) bf16 lunar_per x128: {DIST_ROUNDS} update rounds, launches {launches}, no plain "
+    print(f"  (d) bf16 lunar_per x128: {DIST_ROUNDS} update rounds, launches {launches} on the "
+          f"device in the last superstep (profiled, {steady} updates), no plain "
           f"call, loss {loss:.5f}; f32 parameters and Adam state, bf16 trunk activations; K1/K2 "
           f"on a bf16-fed batch vs plain: ok; an update card vs CPU: loss rel {loss_rel:.2e}, "
           f"{far} of {total} parameters beyond lr/10 [{card}]")
@@ -2598,6 +2785,11 @@ REF_EVAL_EPISODES = 10
 # of 128 vector steps, the learner from vector step 157 (20,000 stored over 128
 # envs), so two whole supersteps past training_start, as phase 4
 REF_TRAIN_SUPERSTEPS = 4
+# phase 4: the host's launches (kernels, graphs, copies and fills) per vector
+# step of a steady lunar_per superstep with the graphed learner (the eager
+# learner's ~390-490), and the frame from which the trap check's learner runs
+SLICE_HOST_LAUNCHES = 40
+FIRST_TRAIN_FRAME = 3
 
 
 def ref_observations(torch):
@@ -2618,6 +2810,7 @@ def run_reference_format(torch, td_kernels, card, workdir):
     import numpy as np
 
     from deep_q_learning_tpu_torch.examples import train_lunar_lander
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
     from deep_q_learning_tpu_torch.models import QNetwork
     from deep_q_learning_tpu_torch.utils.checkpoint import load_params_pickle
 
@@ -2665,11 +2858,10 @@ def run_reference_format(torch, td_kernels, card, workdir):
             "--steps", str(steps), "--log-every", "1", "--workdir", str(workdir)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches, plain = dict(td_kernels.launches), dict(td_kernels.plain_calls)
+        plain = dict(td_kernels.plain_calls)
         updates = trainer.runner.train.updates
         assert trainer.history[-1]["env_steps"] == steps, trainer.history[-1]
-        assert updates > 0 and launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, (
-            launches, updates)
+        assert updates > 0, updates
         assert plain == {"td_loss_fwd": 0, "td_loss_bwd": 0}, plain
         assert math.isfinite(trainer.history[-1]["loss"]), trainer.history[-1]
         params, opt_state = load_params_pickle(str(Path(workdir) / "ref_format"))
@@ -2681,8 +2873,17 @@ def run_reference_format(torch, td_kernels, card, workdir):
         assert torch.equal(read_back, trained), float((read_back - trained).abs().max())
         rollout = np.load(Path(workdir) / "rollout_0.npz")
         assert math.isfinite(float(rollout["ret"])) and int(rollout["length"]) > 0
+        # one more superstep of the script's trainer under the profiler: K1/K2
+        # on the device once per update (a graph's replay passes no counter)
+        more = []
+        launches = learner_kernels(traced_kernels(lambda: more.append(trainer.step())))
+        steady = more[0].loss_count
+        assert steady == cfg.steps_per_superstep and launches == {
+            "td_loss_fwd": steady, "td_loss_bwd": steady, "per_slot_sample": 0}, (launches, steady)
+        assert dict(td_kernels.plain_calls) == {"td_loss_fwd": 0, "td_loss_bwd": 0}
         print(f"  (b) examples.train_lunar_lander --preset lunar_per --rollouts 1: {steps} env "
-              f"steps, {updates} updates, K1/K2 launched {launches}, no plain call; the "
+              f"steps, {updates} updates, no plain call; one more superstep of its trainer, "
+              f"profiled: K1/K2 on the device {launches} ({steady} updates); the "
               f"ref_format pair read back with Q-values bitwise the trained network's; "
               f"rollout return {float(rollout['ret']):.1f} over {int(rollout['length'])} "
               f"frames; {seconds:.1f} s [{card}]")

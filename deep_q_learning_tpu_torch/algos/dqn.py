@@ -12,6 +12,11 @@ and init defaults"):
     with decay 0.9.
 The learning rate and the clip norm are read from :class:`HyperParams` at
 every update, as ``optax.inject_hyperparams`` allows in the JAX package.
+A single learner's Adam count lives on the device (``OptState.
+device_count``, int32 as optax's) and its bias corrections ``1 - decay**count``
+are computed there in float32, so that an update launches kernels only and
+runs inside a CUDA graph (``algos/superstep.py``); ``OptState.count`` and
+``TrainState.updates`` are its host mirrors.
 
 A population of M learners (``parallel/population.py``) runs the same
 functions on member-stacked state: :class:`MemberHyperParams`, networks
@@ -34,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from deep_q_learning_tpu_torch.algos.losses import build_loss_fn
+from deep_q_learning_tpu_torch.envs.graphed import device_mirror
 from deep_q_learning_tpu_torch.replay.nstep import LearnBatch
 
 
@@ -133,15 +139,30 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
+def _device_bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """``1 - decay**count`` in float32 on ``count``'s device, as optax
+    computes it: a () tensor, read by the kernels that use it.  The power
+    of the float32 ``decay`` is taken in float64 and rounded once to
+    float32, so it is the correctly rounded float32 power on any device
+    (a float32 ``pow`` is off by an ulp at some counts, and by other ulps
+    on the card than on the CPU); it equals :func:`_bias_correction`'s
+    at every count to 60,000 for 0.9 and at all but two for 0.999."""
+    power = torch.pow(float(np.float32(decay)), count.to(torch.float64)).to(torch.float32)
+    return 1.0 - power
+
+
 # ---------------------------------------------------------------------------
 # Optimizer (optax semantics)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class OptState:
-    count: int  # updates applied (optax's int32 count); a list of M for members
+    # updates applied (optax's int32 count): a host mirror of device_count;
+    # a list of M for members, with no device count
+    count: int = device_mirror("device_count")
     mu: List[torch.Tensor]  # first moments (adam/adamw)
     nu: List[torch.Tensor]  # second moments (adam/adamw/rmsprop)
+    device_count: Optional[torch.Tensor] = None  # () int32 on the device, a single learner's
 
 
 # optax's defaults for the constructors the JAX package calls with the
@@ -162,9 +183,13 @@ class Optimizer:
         self.clip = clip
 
     def init(self, params: List[torch.Tensor], members: Optional[int] = None) -> OptState:
-        """Zero moments; a count, or one for each of ``members``."""
+        """Zero moments; a count on the device and its host mirror, or a
+        host count for each of ``members``."""
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
-        return OptState(count=0 if members is None else [0] * members, mu=zeros(), nu=zeros())
+        if members is not None:
+            return OptState(count=[0] * members, mu=zeros(), nu=zeros())
+        return OptState(count=0, mu=zeros(), nu=zeros(), device_count=torch.zeros(
+            (), dtype=torch.int32, device=params[0].device))
 
     @torch.no_grad()
     def apply(
@@ -175,10 +200,14 @@ class Optimizer:
         learning_rate,
         max_grad_norm=math.inf,
         mask: Optional[Sequence[bool]] = None,
+        advance: bool = True,
     ) -> None:
         """Update ``params`` and ``state`` in place from ``grads``.
 
-        With ``mask`` (M bools) the parameters are member-stacked: the clip's
+        A single learner's count advances on the device, and its host
+        mirror with it unless ``advance`` is False (a caller inside a CUDA
+        graph advances the mirror itself).  With ``mask`` (M bools) the
+        parameters are member-stacked: the clip's
         global norm is each member's over all its leaves, ``learning_rate``
         and ``max_grad_norm`` are (M,) tensors, ``state.count`` is a list of
         M counts that bias-correct each member's Adam moments, and a member
@@ -197,7 +226,9 @@ class Optimizer:
                 for g in grads
             ]
         if mask is None:
-            state.count += 1
+            state.device_count.add_(1)
+            if advance:
+                state.count += 1
         else:
             state.count = [c + bool(k) for c, k in zip(state.count, mask)]
         if self.name in ("adam", "adamw"):
@@ -209,7 +240,7 @@ class Optimizer:
             # bias corrections in float32, as optax computes decay**count; a
             # member whose gate is closed gets its next count's (discarded)
             if mask is None:
-                bc1, bc2 = _bias_correction(b1, state.count), _bias_correction(b2, state.count)
+                bc1, bc2 = (_device_bias_correction(d, state.device_count) for d in (b1, b2))
             else:
                 counts = [max(c, 1) for c in state.count]
                 bc1, bc2 = (
@@ -374,11 +405,15 @@ def build_update_step(optimizer: Optimizer, cfg, group=None) -> Callable:
         weights: torch.Tensor,
         hyper: Optional[HyperParams] = None,
         mask: Optional[Sequence[bool]] = None,
+        advance: bool = True,
     ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
         """With ``mask`` (M bools): member-stacked ``ts``, batch (every leaf
         (M, B, ...)), ``weights`` (M, B) and :class:`MemberHyperParams`;
         only the members whose mask is True change.  Returns ``loss`` (M,)
-        and ``td`` (M, B) for every member."""
+        and ``td`` (M, B) for every member.  ``advance=False`` leaves a
+        single learner's host counters (``ts.updates`` and the optimizer's
+        count mirror) to the caller: the update then launches kernels only,
+        and can be captured in a CUDA graph."""
         h = hyper if hyper is not None else HyperParams.from_config(cfg)
         params = list(ts.online.parameters())
         loss, td = loss_fn(ts.online, ts.target, batch, weights)
@@ -389,7 +424,8 @@ def build_update_step(optimizer: Optimizer, cfg, group=None) -> Callable:
             if mask is not None:
                 raise ValueError("a population does not run under a process group")
             grads, loss = all_reduce_mean(grads, loss, group)
-        optimizer.apply(grads, ts.opt_state, params, h.learning_rate, h.max_grad_norm, mask)
+        optimizer.apply(grads, ts.opt_state, params, h.learning_rate, h.max_grad_norm, mask,
+                        advance)
         if cfg.target_tau is not None:
             # Polyak soft target update every gradient step
             tau = h.target_tau
@@ -398,7 +434,8 @@ def build_update_step(optimizer: Optimizer, cfg, group=None) -> Callable:
                 for t, p in zip(ts.target.parameters(), params):
                     write(t, (1.0 - _member_view(tau, t)) * t + _member_view(tau, t) * p)
         if mask is None:
-            ts.updates += 1
+            if advance:
+                ts.updates += 1
         else:
             ts.updates = [u + bool(k) for u, k in zip(ts.updates, mask)]
         return ts, loss.detach(), td

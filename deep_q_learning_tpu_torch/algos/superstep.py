@@ -5,16 +5,34 @@ actor forward → vector env step with auto-reset → replay write → episode
 accounting → (on training frames) prioritized n-step sample, learner
 update, priority update → target sync.
 
-PyTorch runs this eagerly, so the JAX package's XLA-specific structure goes:
-the cadence and warmup gates are plain Python decisions on counters the
-host knows without reading the device (``env_step``, the replay cursor and
-fill), the sample runs only on frames that train, and nothing in the
-per-frame loop reads a device value back.  Metrics are read once, at the
-end of the superstep.  For the lander, the vector step (auto-reset
-included) and the once-a-superstep reset pool run as CUDA graphs on the
-card (``envs/base.py::VectorEnv``, ``envs/graphed.py``); their outputs
-(``r.obs``, ``r.env_states``, the transition) are overwritten by the next
-frame's step, and each is consumed before it: the replay write copies the
+The JAX package jits the whole superstep into one XLA program
+(``deep_q_learning_tpu/train.py:123``): a ``lax.fori_loop`` over frames
+whose train and sync gates are ``lax.cond``s on device counters.  Here the
+cadence and warmup gates are plain Python decisions on counters the host
+knows without reading the device (``env_step``, the replay's fill), the
+sample runs only on frames that train, and nothing in the per-frame loop
+reads a device value back.  Metrics are read once, at the end of the
+superstep.
+
+A single learner of the prioritized replay on the lander runs each frame
+as CUDA graph launches on the card (:class:`GraphedLearner`, the port's
+counterpart of that ``jit``): the random numbers are drawn first, in the
+eager order, into static buffers; then one graph of the frame (the actor's
+forward, ε-greedy on the drawn uniforms, the vector step with auto-reset,
+the replay write at the device cursor and the episode accounting) and, on
+a frame that trains, one graph of the learner update (the PER sample on
+the drawn uniforms, the forward, the TD kernels and the backward, the
+clip, Adam, the Polyak step and the priority write), replayed
+``updates_per_step`` times.  Every piece of state they touch is updated in
+place; the counters they advance live on the device, with host mirrors
+(``envs/graphed.py::device_mirror``).  On the CPU the same functions run
+directly on the same buffers.  The once-a-superstep reset pool is a graph
+of ``VectorEnv``'s.  ``graphed_learner=False``, a process group, the
+uniform replay and the classic envs (whose resets draw inside the step)
+run the frame eagerly, the lander's vector step still as ``VectorEnv``'s
+graph (``envs/base.py``, ``envs/graphed.py``); its outputs (``r.obs``,
+``r.env_states``, the transition) are overwritten by the next frame's
+step, and each is consumed before it: the replay write copies the
 transition, and the next step copies the observation and the states into
 its inputs.
 
@@ -35,7 +53,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +70,7 @@ from deep_q_learning_tpu_torch.algos.dqn import (
     sync_target,
 )
 from deep_q_learning_tpu_torch.envs.base import Transition, VectorEnv
+from deep_q_learning_tpu_torch.envs.graphed import GraphedStep, copy_into, tree_map
 
 
 @dataclasses.dataclass
@@ -143,27 +162,35 @@ def _scatter_completed_returns(
     return padded[..., :w], (cursor + num_done) % w, torch.clamp(filled + num_done, max=w)
 
 
+def _account(r: RunnerState, tr: Transition):
+    """The episode accounting of one vector step, in place.  Returns the
+    episodes that ended and the sum of their returns, per member for a
+    population."""
+    done = (tr.terminated | tr.truncated).view(r.ep_return.shape)
+    ep_return = r.ep_return + tr.reward.view(r.ep_return.shape)
+    window, cursor, filled = _scatter_completed_returns(
+        r.return_window, r.window_cursor, r.window_filled, done, ep_return
+    )
+    r.return_window.copy_(window)
+    r.window_cursor.copy_(cursor)
+    r.window_filled.copy_(filled)
+    num_done = done.sum(dim=-1)
+    r.episodes.add_(num_done)
+    r.ep_return.copy_(torch.where(done, 0.0, ep_return))
+    r.ep_length.copy_(torch.where(done, 0, r.ep_length + 1))
+    return num_done, torch.where(done, ep_return, 0.0).sum(dim=-1)
+
+
 def _act_and_step(r: RunnerState, venv, env_params, replay, q_values, eps, fresh):
     """One vector step of ``r``: ε-greedy actions from ``q_values`` (one row
     an env), the env step with auto-reset, the replay write, and the episode
-    accounting.  Returns the episodes that ended and the sum of their
-    returns, per member for a population."""
+    accounting."""
     actions = epsilon_greedy(r.generator, q_values, eps)
     r.obs, r.env_states, tr = venv.step(
         r.generator, r.env_states, actions, env_params, prev_obs=r.obs, fresh=fresh
     )
     replay.add(r.replay, tr)
-
-    done = (tr.terminated | tr.truncated).view(r.ep_return.shape)
-    ep_return = r.ep_return + tr.reward.view(r.ep_return.shape)
-    r.return_window, r.window_cursor, r.window_filled = _scatter_completed_returns(
-        r.return_window, r.window_cursor, r.window_filled, done, ep_return
-    )
-    num_done = done.sum(dim=-1)
-    r.episodes = r.episodes + num_done
-    r.ep_return = torch.where(done, 0.0, ep_return)
-    r.ep_length = torch.where(done, 0, r.ep_length + 1).to(torch.int32)
-    return num_done, torch.where(done, ep_return, 0.0).sum(dim=-1)
+    return _account(r, tr)
 
 
 def _window_mean(r: RunnerState) -> torch.Tensor:
@@ -215,6 +242,141 @@ def _read_metrics(r: RunnerState, loss_sum, loss_count: int, ep_delta, ret_delta
     )
 
 
+def _tensors(obj: Any) -> List[torch.Tensor]:
+    """The tensors of ``obj``, in a fixed order: a module's parameters and
+    buffers, and the tensors of dataclasses, lists and tuples; numbers,
+    generators and ``None`` hold none."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, torch.nn.Module):
+        return list(obj.parameters()) + list(obj.buffers())
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj) for t in _tensors(getattr(obj, f.name))]
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in _tensors(x)]
+    return []
+
+
+class _LearnerWork:
+    """What the graphed learner's graphs run, and the static buffers they
+    read and add into (:class:`GraphedLearner`).  It holds no graph, so the
+    graphs' functions (its methods) make no reference cycle that would keep
+    their memory until the garbage collector's next full pass."""
+
+    def __init__(self, venv, env_params, replay, update, cfg, device):
+        self.venv, self.env_params, self.replay, self.update = venv, env_params, replay, update
+        self.cfg = cfg
+        n, b = venv.num_envs, cfg.batch_size
+        self.u_act = torch.zeros((n,), device=device)
+        self.eps = torch.zeros((), device=device)
+        self.u_env = torch.zeros((b,), device=device)
+        self.u_slot = torch.zeros((b,), device=device)
+        self.loss_sum = torch.zeros((), device=device)
+        self.ep_delta = torch.zeros((), dtype=torch.int64, device=device)
+        self.ret_delta = torch.zeros((), device=device)
+        self.draws = None  # the env step's, a clone of the first frame's at first
+        self.runner = self.fresh = None
+
+    def statics(self) -> List[torch.Tensor]:
+        return [self.u_act, self.eps, self.u_env, self.u_slot, self.loss_sum, self.ep_delta,
+                self.ret_delta]
+
+    def frame(self, *_bound) -> None:
+        """One vector step of ``self.runner`` on the static buffers, in place."""
+        r, cfg = self.runner, self.cfg
+        with torch.no_grad():
+            if cfg.eps_schedule != "linear_step":
+                self.eps.copy_(epsilon_by_schedule(cfg, 0, r.episodes, r.hyper))
+            q_values = r.train.online(r.obs)
+            actions = epsilon_greedy(None, q_values, self.eps, u=self.u_act)
+            obs, states, tr = self.venv._step(
+                None, r.env_states, actions, self.env_params, r.obs, self.fresh, *self.draws)
+            self.replay.write(r.replay, tr)
+            num_done, ret_done = _account(r, tr)
+            self.ep_delta.add_(num_done)
+            self.ret_delta.add_(ret_done)
+            r.obs.copy_(obs)
+            copy_into(r.env_states, states)
+
+    def learn(self, *_bound) -> None:
+        """One learner update of ``self.runner`` on the static uniforms, in
+        place; its loss added into ``loss_sum``."""
+        r, h = self.runner, self.runner.hyper
+        batch, info, weights = self.replay.sample_with_info(
+            r.replay, None, self.cfg.batch_size, gamma=h.gamma, beta=h.per_beta,
+            uniforms=(self.u_env, self.u_slot))
+        _, loss, td = self.update(r.train, batch, weights, h, advance=False)
+        self.replay.update_priorities(r.replay, info, td)
+        self.loss_sum.add_(loss)
+
+
+class GraphedLearner:
+    """The superstep of a single learner as CUDA graph launches (module
+    docstring): ``graphed(runner) -> (runner, SuperstepMetrics)``.
+
+    Static buffers hold what the host writes before a graph runs: the
+    actor's uniforms and ε (written each frame under ``linear_step``,
+    computed in the frame graph under ``exp_episode``), the env step's
+    draws, the sampler's two uniforms; and what the graphs add up over a
+    superstep: the loss, the episodes ended and their returns.
+    :attr:`frame` and :attr:`learn` are in-place ``GraphedStep``s bound to
+    the runner's tensors: a restored runner (new tensors) starts each over
+    with an eager call, and new hyperparameters (baked into a capture as
+    kernel arguments) make new ones."""
+
+    def __init__(self, venv, env_params, replay, update, cfg, device, sync):
+        self.work = _LearnerWork(venv, env_params, replay, update, cfg, device)
+        self.cfg, self.sync = cfg, sync
+        self.hyper = self.frame = self.learn = None
+
+    def __call__(self, r: RunnerState) -> Tuple[RunnerState, SuperstepMetrics]:
+        w, cfg = self.work, self.cfg
+        venv, env, replay = w.venv, w.venv.env, w.replay
+        hyper = dataclasses.astuple(r.hyper)
+        if hyper != self.hyper:
+            name = f"the {cfg.env_id} learner's"
+            self.frame = GraphedStep(w.frame, f"{name} frame", in_place=True)
+            self.learn = GraphedStep(w.learn, f"{name} update", in_place=True)
+            self.hyper = hyper
+        w.runner = r
+        w.fresh = None if env.batch_reset_cheap else venv.fresh_pool(r.generator, w.env_params)
+        for total in (w.loss_sum, w.ep_delta, w.ret_delta):
+            total.zero_()
+        statics = w.statics()
+        n, loss_count = venv.num_envs, 0
+        for _ in range(cfg.steps_per_superstep):
+            # the draws in the eager frame's order: the actor's, the step's,
+            # the resets' (without a pool), then each update's two
+            if cfg.eps_schedule == "linear_step":
+                w.eps.fill_(epsilon_by_schedule(cfg, r.env_step * n, r.episodes, r.hyper))
+            torch.rand((n,), generator=r.generator, device=w.u_act.device, out=w.u_act)
+            draws = [env.step_draws(r.generator, n)]
+            if w.fresh is None:
+                draws.append(env.reset_draws(r.generator, n))
+            if w.draws is None:
+                w.draws = tree_map(torch.clone, draws)
+            else:
+                copy_into(w.draws, draws)
+            self.frame(_tensors((r.train.online, r.obs, r.env_states, r.replay, r.episodes,
+                                 r.ep_return, r.ep_length, r.return_window, r.window_cursor,
+                                 r.window_filled, w.fresh, w.draws, statics)))
+            replay.advance(r.replay)
+            r.env_step += 1
+            if r.env_step % r.hyper.train_every == 0 and (
+                    r.replay.filled * n >= r.hyper.training_start):
+                for _ in range(cfg.updates_per_step):
+                    for u in (w.u_env, w.u_slot):
+                        torch.rand(u.shape, generator=r.generator, device=u.device, out=u)
+                    self.learn(_tensors((r.train, r.replay, statics)))
+                    r.train.updates += 1
+                    r.train.opt_state.count += 1
+                loss_count += cfg.updates_per_step
+            self.sync(r)
+        eps = epsilon_by_schedule(cfg, r.env_step * n, r.episodes, r.hyper)
+        return r, _read_metrics(r, w.loss_sum, loss_count, w.ep_delta, w.ret_delta, eps, cfg,
+                                None)
+
+
 def build_superstep(
     venv: VectorEnv,
     env_params: Any,
@@ -224,6 +386,7 @@ def build_superstep(
     cfg,
     device,
     group=None,
+    graphed_learner: bool = True,
 ) -> Tuple[Callable, Callable]:
     """Build ``(init_runner, superstep)``.
 
@@ -242,7 +405,13 @@ def build_superstep(
     ``num_shards`` makes them; ``episodes``-mode target syncs decide on the
     episode count summed over the ranks; and the metrics come back combined
     over the ranks.  ``exp_episode`` ε stays per rank: the local episode
-    count over the local ``num_envs``, as the JAX shard body computes it."""
+    count over the local ``num_envs``, as the JAX shard body computes it.
+
+    The superstep is a :class:`GraphedLearner` where ``graphed_learner`` is
+    set, ``venv`` graphs its step (the lander), the replay is prioritized
+    and there is no ``group``; else each frame runs eagerly, with the same
+    results.  The learner under a process group stays eager: its
+    all-reduce (gloo) cannot be captured."""
     device = torch.device(device)
     update = build_update_step(optimizer, cfg, group)
     num_envs = venv.num_envs
@@ -282,21 +451,21 @@ def build_superstep(
             window_filled=zero.clone(),
         )
 
-    def _maybe_train(r: RunnerState) -> Optional[torch.Tensor]:
+    def _maybe_train(r: RunnerState, loss_sum: torch.Tensor) -> Tuple[torch.Tensor, int]:
         """``cfg.updates_per_step`` updates when the cadence and the warmup
-        gate (in stored transitions) allow; returns their loss sum or None."""
+        gate (in stored transitions) allow, each loss added to ``loss_sum``;
+        returns the sum and the count of updates."""
         h = r.hyper
         if r.env_step % h.train_every or r.replay.filled * global_envs < h.training_start:
-            return None
-        loss_sum = None
+            return loss_sum, 0
         for _ in range(cfg.updates_per_step):
             batch, info, weights = replay.sample_with_info(
                 r.replay, r.generator, cfg.batch_size, gamma=h.gamma, beta=h.per_beta
             )
             _, loss, td = update(r.train, batch, weights, h)
             replay.update_priorities(r.replay, info, td)
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        return loss_sum
+            loss_sum = loss_sum + loss
+        return loss_sum, cfg.updates_per_step
 
     def _maybe_sync(r: RunnerState) -> None:
         """Hard target sync on the configured cadence; with ``target_tau``
@@ -317,9 +486,13 @@ def build_superstep(
             k = r.hyper.target_replace_episodes
             do_sync = (episodes // k) > (r.last_sync_episodes // k)
             sync_target(r.train, do_sync)
-            r.last_sync_episodes = torch.where(do_sync, episodes, r.last_sync_episodes)
+            r.last_sync_episodes.copy_(torch.where(do_sync, episodes, r.last_sync_episodes))
         else:
             raise ValueError(f"unknown target_sync_mode {cfg.target_sync_mode!r}")
+
+    if graphed_learner and venv.graphed and group is None and replay.kind == "prioritized":
+        return init_runner, GraphedLearner(venv, env_params, replay, update, cfg, device,
+                                           _maybe_sync)
 
     def superstep(r: RunnerState) -> Tuple[RunnerState, SuperstepMetrics]:
         # the lander's reset runs physics: one reset pool per superstep
@@ -340,10 +513,8 @@ def build_superstep(
 
             # --- learner ----------------------------------------------------
             r.env_step += 1
-            step_loss = _maybe_train(r)
-            if step_loss is not None:
-                loss_sum = loss_sum + step_loss
-                loss_count += cfg.updates_per_step
+            loss_sum, updates = _maybe_train(r, loss_sum)
+            loss_count += updates
             _maybe_sync(r)
 
         eps = epsilon_by_schedule(cfg, r.env_step * global_envs, r.episodes, r.hyper)

@@ -24,6 +24,18 @@ numbers from a generator and read nothing back to the host: its caller
 draws the random numbers first and passes them in (``Environment.
 step_draws`` and ``reset_draws``).  A capture that fails raises; nothing
 falls back to the eager call.
+
+``in_place=True`` is for a function that writes its results into tensors
+it is given (the learner's update, ``algos/superstep.py``), where a second
+run of the warm-up would apply everything twice.  Such a step has no
+static buffers of its own: it is bound to the tensors of its arguments,
+and every call is one real call of the function on them.  On a CUDA
+device the first call with those tensors runs eagerly on a side stream
+(the warm-up, which counts as the call), the second captures the graph and
+replays it once, and later calls replay it.  A call with tensors at other
+addresses (a restored runner) starts over with an eager call.  Python code
+in the function runs at the eager call and at the capture only, never at a
+replay: host counters belong outside it.
 """
 
 from __future__ import annotations
@@ -62,6 +74,15 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
         f.name: tree_map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
 
 
+def device_mirror(device_field: str):
+    """A dataclass field for a host int that mirrors the device tensor in
+    ``device_field``: a counter that CUDA graphs advance on the device and
+    the host tracks without reading it back.  ``utils/checkpoint.py``
+    saves the int, after checking it against the tensor, and restores
+    both from it."""
+    return dataclasses.field(metadata={"device": device_field})
+
+
 def copy_into(dst: Any, src: Any) -> None:
     """Copy every tensor of ``src`` into the same place of ``dst``, whose
     structure, shapes and dtypes must match; a tensor that already is its
@@ -78,21 +99,41 @@ def copy_into(dst: Any, src: Any) -> None:
         d.copy_(s)
 
 
+_side_streams: dict = {}
+
+
+def side_stream() -> torch.cuda.Stream:
+    """The current device's side stream for every eager call before a
+    capture.  A stream's cuBLAS workspace is allocated at its first matmul
+    and kept for the life of the process, so a new stream for each capture
+    would keep one more workspace (tens of MiB) each time."""
+    device = torch.cuda.current_device()
+    if device not in _side_streams:
+        _side_streams[device] = torch.cuda.Stream(device)
+    return _side_streams[device]
+
+
 class GraphedStep:
     """``fn(*args)`` through static buffers; captured in a CUDA graph on the
-    first call whose inputs lie on a CUDA device, replayed after."""
+    first call whose inputs lie on a CUDA device, replayed after.  With
+    ``in_place``, ``fn`` writes into its arguments' tensors (module
+    docstring)."""
 
-    def __init__(self, fn: Callable, name: str = "step"):
+    def __init__(self, fn: Callable, name: str = "step", in_place: bool = False):
         self.fn = fn
         self.name = name
+        self.in_place = in_place
         self.inputs = None  # the static inputs: a clone of the first call's arguments
         self.outputs = None  # the static outputs
         self.graph = None
+        self.bound = None  # in place: the addresses of the tensors the graph was made for
         # host seconds of the eager warm-up call and of the capture (with the
         # graph's instantiation), on a CUDA device
         self.warmup_s = self.capture_s = None
 
     def __call__(self, *args):
+        if self.in_place:
+            return self._call_in_place(args)
         if self.inputs is None:
             self.inputs = tree_map(torch.clone, args)
         else:
@@ -100,7 +141,8 @@ class GraphedStep:
         leaves = tree_leaves(self.inputs)
         if leaves and leaves[0].device.type == "cuda":
             if self.graph is None:
-                self._capture()
+                self._eager_on_side_stream(self.inputs)
+                self.outputs = self._capture(self.inputs)
             self.graph.replay()
         else:
             out = self.fn(*self.inputs)
@@ -110,26 +152,46 @@ class GraphedStep:
                 copy_into(self.outputs, out)
         return self.outputs
 
-    def _capture(self) -> None:
+    def _call_in_place(self, args) -> None:
+        leaves = tree_leaves(args)
+        if not (leaves and leaves[0].device.type == "cuda"):
+            self.fn(*args)
+            return
+        bound = tuple(t.data_ptr() for t in leaves)
+        if bound != self.bound:  # other tensors: this call is the warm-up
+            self.graph, self.bound = None, bound
+            self._eager_on_side_stream(args)
+            return
+        if self.graph is None:
+            self._capture(args)
+        self.graph.replay()
+
+    def _eager_on_side_stream(self, args) -> None:
+        """One eager call on a side stream, as capture asks of a first call."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        side = torch.cuda.Stream()
+        side = side_stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # one eager call first, as capture asks
-            self.fn(*self.inputs)
+        with torch.cuda.stream(side):
+            self.fn(*args)
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        self.warmup_s = time.perf_counter() - t0
+
+    def _capture(self, args):
+        """Capture ``fn(*args)`` into ``self.graph``; returns its outputs."""
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
             # thread_local: another thread's CUDA work (a process group's)
             # may go on during the capture; this thread's may not sync
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs = self.fn(*self.inputs)
+                outputs = self.fn(*args)
         except RuntimeError as err:
             raise RuntimeError(
                 f"CUDA graph capture of {self.name} failed: the call must launch kernels only, "
-                f"with no read back to the host; build its VectorEnv with graphed=False to "
-                f"run it eagerly") from err
-        self.outputs, self.graph = outputs, graph
-        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+                f"with no read back to the host; build it with graphed=False to run it "
+                f"eagerly") from err
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        return outputs

@@ -2,7 +2,7 @@
 
     python -m deep_q_learning_tpu_torch.measure [--preset lunar_per_scaled]
         [--set key=value ...] [--env-only | --kernels-only] [--eager]
-        [--baseline CHECKOUT]
+        [--eager-learner] [--baseline CHECKOUT]
 
 1. Device time of each kernel and of its plain version at the main paths'
    shapes, and with a population's member axis (``lunar_per``'s at 8
@@ -21,14 +21,21 @@
    Then the kernel launches of one learner update (``torch.profiler``).
 2. One steady superstep of the preset under ``torch.profiler``: host ms by
    phase (spans wrapped around the env step, the reset pool or the cheap
-   per-frame reset, the replay and optimizer calls),
-   kernel and CUDA graph launches, and the device's busy share of the wall
-   time; then the wall time and env-steps/s of the next two supersteps,
-   unprofiled.  The lander's env step and reset pool run as CUDA graphs;
-   ``--eager`` runs them eagerly (``VectorEnv(graphed=False)``).  Each
-   graph is then replayed alone on its static inputs: its device time
-   between CUDA events, its kernels and the host time of its launch, beside
-   the wall time of a frame of those supersteps.
+   per-frame reset, the replay and optimizer calls, and the learner's
+   frame and update graphs), the host's launches (kernels, CUDA graphs,
+   copies and fills) per vector step, the kernels of the learner in the
+   trace (K1, K2 and K3 once per update), and the device's busy share of
+   the wall time; then the wall time and env-steps/s of the next two
+   supersteps, unprofiled.  With the prioritized replay on the lander a
+   frame runs as CUDA graphs: the frame (actor, env step, replay write)
+   and, when it trains, the learner update (``algos/superstep.py::
+   GraphedLearner``), beside the reset pool's graph; ``--eager-learner``
+   runs the frame eagerly around the env step's graph, and ``--eager``
+   runs everything eagerly (``graphed=False``).  Each graph is then
+   replayed alone: its device time between CUDA events, its kernels and
+   the host time of its launch, beside the wall time of a frame of those
+   supersteps.  The learner's graphs write the runner in place, so their
+   replays come last and leave the trainer advanced past its counters.
 
 With ``--kernels-only``, only 1.  With
 ``--env-only``, neither: the preset's env alone, at its env count, steps
@@ -409,20 +416,55 @@ def _span(fn, name):
     def wrapped(*args, **kwargs):
         with torch.profiler.record_function(name):
             return fn(*args, **kwargs)
+    wrapped.__wrapped__ = fn
     return wrapped
 
 
-def profile_superstep(cfg, card: str, graphed: bool = True) -> None:
+# the learner's kernels by their names in the profiler's trace
+LEARNER_KERNELS = {"td_loss_fwd": ("td_loss_fwd_kernel",), "td_loss_bwd": ("td_loss_bwd_kernel",),
+                   "per_slot_sample": ("slot_warp_kernel", "slot_block_kernel")}
+# the host's calls that put work on the card one by one
+HOST_LAUNCHES = {"kernels": ("cudaLaunchKernel", "cuLaunchKernel"), "graphs": ("cudaGraphLaunch",),
+                 "copies and fills": ("cudaMemcpyAsync", "cudaMemsetAsync")}
+
+
+def host_launches(events) -> dict:
+    """The host's launches in ``key_averages()`` ``events``, by kind
+    (:data:`HOST_LAUNCHES`)."""
+    return {kind: sum(e.count for e in events if e.key.startswith(names))
+            for kind, names in HOST_LAUNCHES.items()}
+
+
+def learner_kernels(trace: "KernelTrace") -> dict:
+    """K1, K2 and K3 in a :class:`KernelTrace`, launched or in a graph."""
+    return {name: sum(trace.count(k) for k in kernels) for name, kernels in LEARNER_KERNELS.items()}
+
+
+def learner_graphs(trainer) -> dict:
+    """The learner's CUDA graphs of a trainer whose superstep is a
+    ``GraphedLearner`` (none otherwise), by what they run."""
+    frame, learn = getattr(trainer._superstep, "frame", None), getattr(trainer._superstep, "learn", None)
+    return {k: g for k, g in (("frame", frame), ("learner update", learn))
+            if g is not None and g.graph is not None}
+
+
+def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: bool = True) -> None:
     from deep_q_learning_tpu_torch.train import Trainer
 
-    trainer = Trainer(cfg, device="cuda", graphed=graphed).init(seed=0)
-    mode = "graphed env step" if trainer.venv.graphed else "eager env step"
+    trainer = Trainer(cfg, device="cuda", graphed=graphed,
+                      graphed_learner=graphed_learner).init(seed=0)
+    learner = type(trainer._superstep).__name__ == "GraphedLearner"
+    mode = ("graphed learner" if learner else "eager learner, graphed env step"
+            if trainer.venv.graphed else "eager")
     for owner, methods in PHASES.items():  # the superstep calls these by attribute
         obj = getattr(trainer, owner)
         for m in methods:
             setattr(obj, m, _span(getattr(obj, m), f"phase/{owner}.{m}"))
     for _ in range(2):  # past the warm-up frames: every superstep now trains
         trainer.step()
+    for name in ("frame", "learn") if learner else ():
+        graphed_step = getattr(trainer._superstep, name)
+        setattr(trainer._superstep, name, _span(graphed_step, f"phase/graph.{name}"))
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -437,14 +479,18 @@ def profile_superstep(cfg, card: str, graphed: bool = True) -> None:
         getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("phase/")
     )
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+    launches = host_launches(events)
+    kernels = {name: sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                         and any(k in e.key for k in names))
+               for name, names in LEARNER_KERNELS.items()}
     frames = cfg.steps_per_superstep
     print(f"profiled superstep ({mode}): wall {wall * 1e3:.1f} ms, {m.loss_count} updates, "
           f"device busy {device_us_total / 1e3:.1f} ms ({100 * device_us_total / 1e6 / wall:.1f} %), "
-          f"{launches} kernel launches ({launches / frames:.0f} per vector step) and "
-          f"{graph_launches} CUDA graph launches from the host [{card}]")
+          f"host launches {launches}: {sum(launches.values()) / frames:.1f} per vector step; "
+          f"the learner's kernels on the device {kernels} [{card}]")
+    if learner:
+        for name in ("frame", "learn"):
+            setattr(trainer._superstep, name, getattr(trainer._superstep, name).__wrapped__)
     spans = sorted((e for e in events if e.key.startswith("phase/")
                     and e.device_type == torch.autograd.DeviceType.CPU),
                    key=lambda e: -e.cpu_time_total)
@@ -464,13 +510,15 @@ def profile_superstep(cfg, card: str, graphed: bool = True) -> None:
               f"{frames * cfg.num_envs / walls[-1]:.1f} env-steps/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
     frame_ms = 1e3 * min(walls) / frames
-    for (kind, *_), g in trainer.venv._graphs.items():
+    graphs = {kind: g for (kind, *_), g in trainer.venv._graphs.items()}
+    graphs.update(learner_graphs(trainer))  # last: their replays write the runner
+    for kind, g in graphs.items():
         host_ms, device_ms, nodes = replay_ms(g)
-        print(f"graph of the {kind}: replay {device_ms:.2f} ms on the device (CUDA events over "
-              f"{REPLAYS} back-to-back replays), {nodes} kernels, its launch {host_ms:.2f} ms of "
-              f"host; a frame of "
-              f"the faster unprofiled superstep {frame_ms:.2f} ms of wall, so one replay is "
-              f"{100 * device_ms / frame_ms:.1f} % of it [{card}]")
+        print(f"graph of the {kind}: replay {device_ms:.3f} ms on the device (CUDA events over "
+              f"{REPLAYS} back-to-back replays), {nodes} kernels, its launch {host_ms:.3f} ms of "
+              f"host, captured in {g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call; a "
+              f"frame of the faster unprofiled superstep {frame_ms:.3f} ms of wall, so one "
+              f"replay is {100 * device_ms / frame_ms:.1f} % of it [{card}]")
 
 
 REPLAYS = 5
@@ -491,12 +539,24 @@ class KernelTrace:
     """The kernels a call ran on the card, by name, from the profiler's
     trace: those the host launched one by one (``launched``, ``launches``
     calls) and those of the CUDA graphs it launched (``graphed``; and
-    ``per_graph_launch``, their count for each graph launch in order)."""
+    ``per_graph_launch``, their count for each graph launch in order).
+    ``copies`` counts the host's copy and fill calls, ``device_us`` the
+    device time of the kernels, copies and fills matched to the span's
+    calls, and ``wall_us`` the span's wall time on the host."""
 
     launches: int
     launched: collections.Counter
     graphed: collections.Counter
     per_graph_launch: list
+    copies: int = 0
+    device_us: float = 0.0
+    wall_us: float = 0.0
+
+    @property
+    def host_launches(self) -> int:
+        """Everything the host put on the card one call at a time: kernels,
+        CUDA graphs, copies and fills."""
+        return self.launches + len(self.per_graph_launch) + self.copies
 
     @property
     def lost(self) -> int:
@@ -537,15 +597,23 @@ def traced_kernels(fn: Callable[[], object]) -> KernelTrace:
     launch_ids = {e["args"]["correlation"] for e in calls if "LaunchKernel" in e["name"]}
     graph_ids = [e["args"]["correlation"] for e in sorted(calls, key=lambda e: e["ts"])
                  if "GraphLaunch" in e["name"]]
+    copy_ids = {e["args"]["correlation"] for e in calls
+                if e["name"].startswith(("cudaMemcpy", "cudaMemset"))}
     kernels = [e for e in events if e.get("cat") == "kernel"]
     by_id = collections.Counter(e["args"]["correlation"] for e in kernels)
+    ours = launch_ids | set(graph_ids) | copy_ids
     return KernelTrace(
         launches=sum("LaunchKernel" in e["name"] for e in calls),
         launched=collections.Counter(
             e["name"] for e in kernels if e["args"]["correlation"] in launch_ids),
         graphed=collections.Counter(
             e["name"] for e in kernels if e["args"]["correlation"] in set(graph_ids)),
-        per_graph_launch=[by_id[i] for i in graph_ids])
+        per_graph_launch=[by_id[i] for i in graph_ids],
+        copies=len(copy_ids),
+        device_us=sum(e["dur"] for e in events
+                      if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                      and e.get("args", {}).get("correlation") in ours),
+        wall_us=span["dur"])
 
 
 def replay_ms(graphed) -> tuple:
@@ -556,8 +624,10 @@ def replay_ms(graphed) -> tuple:
     kernels one replay ran on the card (:func:`traced_kernels` of
     ``TRACED_REPLAYS`` replays: late in a long process the profiler has
     also lost records of a profiling session's first replay, so the last
-    two replays must agree, and give the count).  The inputs are not
-    changed, so the outputs are recomputed as they were."""
+    two replays must agree, and give the count).  A functional step's
+    inputs are not changed, so its outputs are recomputed as they were; an
+    in-place step's replays each apply its work again (a frame, an update)
+    to the tensors it is bound to, past their host counters."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     graphed.graph.replay()  # past a first launch's upload
     torch.cuda.synchronize()
@@ -633,7 +703,10 @@ def main(argv=None) -> int:
                     help="time the kernels and count a learner update's launches, "
                          "without the superstep")
     ap.add_argument("--eager", action="store_true",
-                    help="run the superstep's env step eagerly (VectorEnv(graphed=False))")
+                    help="run the superstep eagerly, its env step too (graphed=False)")
+    ap.add_argument("--eager-learner", action="store_true",
+                    help="run the frame eagerly around the env step's graph "
+                         "(graphed_learner=False)")
     ap.add_argument("--baseline", type=Path, metavar="CHECKOUT",
                     help="also time the TD and PER slot kernels of another checkout of "
                          "the port, in turns with this tree's")
@@ -653,7 +726,8 @@ def main(argv=None) -> int:
     kernel_device_times(card, args.baseline)
     learner_launches(card, args.baseline)
     if not args.kernels_only:
-        profile_superstep(cfg, card, graphed=not args.eager)
+        profile_superstep(cfg, card, graphed=not args.eager,
+                          graphed_learner=not args.eager_learner)
     return 0
 
 

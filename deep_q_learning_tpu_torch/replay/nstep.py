@@ -32,13 +32,14 @@ class LearnBatch:
     bootstrap: torch.Tensor  # (B,) gamma^K * (0 if the stop was a termination)
 
 
-def valid_slot_mask(
-    capacity: int, cursor: int, filled: int, n_step: int, device=None
-) -> torch.Tensor:
+def valid_slot_mask(capacity: int, cursor, filled, n_step: int, device=None) -> torch.Tensor:
     """(C,) bool: slots whose n-step window lies inside the stored,
-    time-ordered region (age rank <= filled - n)."""
+    time-ordered region (age rank <= filled - n).  ``cursor`` and
+    ``filled`` are host ints, or () int64 tensors on ``device``."""
     start = (cursor - filled) % capacity  # oldest stored slot
     ranks = (torch.arange(capacity, device=device) - start) % capacity
+    if isinstance(filled, torch.Tensor):
+        return ranks < torch.clamp(filled - (n_step - 1), min=0)
     return ranks < max(filled - (n_step - 1), 0)
 
 

@@ -16,6 +16,17 @@ duplicate ``(env, slot)`` pairs resolve max-wins through set-to-0 and a
 ``scatter_reduce`` with ``amax`` (the JAX package's large-N branch).  The
 max priority stays a device scalar, so no step reads it back to the host.
 
+The write cursor and the count of adds live on the device too
+(``device_cursor``, ``device_adds``), as the JAX package's replay state
+carries them, so that a write, a sample and a priority update launch
+kernels only and run inside the learner's CUDA graphs
+(``algos/superstep.py``); every tensor of the state is updated in place.
+The host ints ``cursor`` and ``total_adds`` mirror them, advanced by
+:meth:`PrioritizedReplay.advance`, for the host's gates and the
+checkpoint.  :meth:`PrioritizedReplay.write` is the device half of
+:meth:`~PrioritizedReplay.add`, and a single learner samples from the
+device counters (a population from the host mirrors).
+
 With ``members`` M (a population), the priorities of M members are one
 (M·N, C) array beside the shared storage, member ``m``'s rows at ``m·N``,
 and ``max_priority`` is (M,).  Each member samples B from its own rows:
@@ -33,6 +44,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from deep_q_learning_tpu_torch.envs.base import Transition
+from deep_q_learning_tpu_torch.envs.graphed import device_mirror
 from deep_q_learning_tpu_torch.ops.sample_kernels import slot_select, slot_select_members
 from deep_q_learning_tpu_torch.replay.nstep import (
     assemble_learn_batch,
@@ -53,8 +65,10 @@ class PrioritizedReplayState:
     storage: RingStorage  # slot-major packed leaves — see replay/uniform.py
     priorities: torch.Tensor  # (N, C) f32, already exponentiated by alpha; (M·N, C) for members
     max_priority: torch.Tensor  # () f32 (pre-alpha magnitude); (M,) for members
-    cursor: int
-    total_adds: int
+    cursor: int = device_mirror("device_cursor")
+    total_adds: int = device_mirror("device_adds")
+    device_cursor: Optional[torch.Tensor] = None  # () int64, the cursor on the device
+    device_adds: Optional[torch.Tensor] = None  # () int64, total_adds on the device
 
     @property
     def capacity_per_env(self) -> int:
@@ -111,12 +125,15 @@ class PrioritizedReplay:
         if example.obs.shape[0] != self.rows:
             raise ValueError(f"example must hold {self.rows} env rows")
         device = example.obs.device
+        zero = torch.zeros((), dtype=torch.int64, device=device)
         return PrioritizedReplayState(
             storage=alloc_storage(example, self.capacity_per_env),
             priorities=torch.zeros((self.rows, self.capacity_per_env), device=device),
             max_priority=torch.ones(() if self.members is None else (self.members,), device=device),
             cursor=0,
             total_adds=0,
+            device_cursor=zero,
+            device_adds=zero.clone(),
         )
 
     def add(
@@ -124,15 +141,27 @@ class PrioritizedReplay:
     ) -> PrioritizedReplayState:
         """Write one vector step in place; new transitions enter at the max
         priority."""
-        write_row(state.storage, state.cursor, transition)
+        self.write(state, transition)
+        self.advance(state)
+        return state
+
+    def write(self, state: PrioritizedReplayState, transition: Transition) -> None:
+        """The device half of :meth:`add`: the row and its priorities at the
+        device cursor, and the device counters advanced; the host mirrors
+        are left to :meth:`advance`."""
+        cursor = state.device_cursor
+        write_row(state.storage, cursor, transition)
         new_p = state.max_priority**self.alpha
-        state.priorities[:, state.cursor].copy_(
-            new_p.expand(self.num_envs) if self.members is None
-            else new_p.repeat_interleave(self.num_envs)  # each member's own
-        )
+        column = (new_p.expand(self.num_envs) if self.members is None
+                  else new_p.repeat_interleave(self.num_envs))  # each member's own
+        state.priorities.index_copy_(1, cursor.view(1), column.unsqueeze(1))
+        cursor.copy_((cursor + 1) % self.capacity_per_env)
+        state.device_adds.add_(1)
+
+    def advance(self, state: PrioritizedReplayState) -> None:
+        """The host mirrors of one :meth:`write`."""
         state.cursor = (state.cursor + 1) % self.capacity_per_env
         state.total_adds += 1
-        return state
 
     def sample_with_info(
         self,
@@ -155,8 +184,9 @@ class PrioritizedReplay:
         p_all = state.priorities
         device = p_all.device
         # zero the newest n-1 slots so n-step windows never cross the cursor
+        filled = torch.clamp(state.device_adds, max=self.capacity_per_env)
         mask = valid_slot_mask(
-            self.capacity_per_env, state.cursor, state.filled, self.n_step, device
+            self.capacity_per_env, state.device_cursor, filled, self.n_step, device
         )
         p = p_all * mask[None, :].to(torch.float32)
         if uniforms is None:
@@ -189,7 +219,7 @@ class PrioritizedReplay:
         )
 
         # importance weights: w = (1/(n·P))^β, normalised by the batch max
-        n_valid = float(state.filled * self.num_envs)
+        n_valid = (filled * self.num_envs).to(torch.float32)
         w = (1.0 / (n_valid * p_sel).clamp(min=1e-12)) ** (self.beta if beta is None else beta)
         w = w / w.max().clamp(min=1e-12)
         return batch, SampleInfo(env_idx, slot_idx), w
@@ -263,10 +293,12 @@ class PrioritizedReplay:
             new_p = torch.where(keep[:, None], new_p, flat[idx])
         flat.index_fill_(0, idx.reshape(-1), 0.0)
         flat.scatter_reduce_(0, idx.reshape(-1), new_p.reshape(-1), reduce="amax")
-        # decaying high-water mark (max_decay=1.0: the classic monotone max)
+        # decaying high-water mark (max_decay=1.0: the classic monotone max),
+        # written in place like every tensor of the state
         if self.members is None:
-            state.max_priority = torch.maximum(state.max_priority * self.max_decay, mag.max())
+            state.max_priority.copy_(torch.maximum(state.max_priority * self.max_decay, mag.max()))
             return state
         new_max = torch.maximum(state.max_priority * self.max_decay, mag.max(dim=1).values)
-        state.max_priority = new_max if keep is None else torch.where(keep, new_max, state.max_priority)
+        state.max_priority.copy_(
+            new_max if keep is None else torch.where(keep, new_max, state.max_priority))
         return state

@@ -7,7 +7,9 @@ truncated) are packed into one float32 ``aux`` lane, so an n-step window
 is a single gather (``replay/nstep.py``).
 
 The port updates the buffers in place.  The cursor and fill counters are
-Python ints: the host knows them without reading the device.
+Python ints: the host knows them without reading the device.  The
+prioritized replay also keeps them on the device, for the learner's CUDA
+graphs (``replay/prioritized.py``): :func:`write_row` takes either.
 
 A population of M members (``members=M``) keeps one storage of M·N env
 rows, member ``m``'s at ``m·N``: the members add in lockstep, so they share
@@ -91,8 +93,15 @@ def member_rows(env_idx: torch.Tensor, num_envs: int) -> torch.Tensor:
     return env_idx + offset
 
 
-def write_row(storage: RingStorage, cursor: int, transition: Transition) -> None:
-    """Write one vector step at slot ``cursor``, in place."""
+def write_row(storage: RingStorage, cursor, transition: Transition) -> None:
+    """Write one vector step at slot ``cursor``, in place: a host int, or a
+    () int64 tensor on the storage's device, read there."""
+    if isinstance(cursor, torch.Tensor):
+        at = cursor.view(1)
+        storage.obs.index_copy_(0, at, transition.obs.unsqueeze(0))
+        storage.next_obs.index_copy_(0, at, transition.next_obs.unsqueeze(0))
+        storage.aux.index_copy_(0, at, pack_aux(transition).unsqueeze(0))
+        return
     storage.obs[cursor].copy_(transition.obs)
     storage.next_obs[cursor].copy_(transition.next_obs)
     storage.aux[cursor].copy_(pack_aux(transition))

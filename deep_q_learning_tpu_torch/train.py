@@ -104,10 +104,14 @@ class Trainer:
     parameters, optimizer state, Q-values and everything else stay
     float32.  The lander's vector step and reset pool, in training and in
     evaluation, run as CUDA graphs on the card (``envs/base.py::
-    VectorEnv``); ``graphed=False`` runs them eagerly, with the same
-    results."""
+    VectorEnv``), and with the prioritized replay so does each training
+    frame, the actor and the learner update included (``algos/superstep.py
+    ::GraphedLearner``); ``graphed=False`` runs them eagerly, with the same
+    results, and ``graphed_learner=False`` runs the frame eagerly around
+    the graphed vector step."""
 
-    def __init__(self, cfg, device="cuda", workdir: Optional[str] = None, graphed: bool = True):
+    def __init__(self, cfg, device="cuda", workdir: Optional[str] = None, graphed: bool = True,
+                 graphed_learner: bool = True):
         set_matmul_precision(cfg)
         self.cfg = cfg
         self.workdir = workdir
@@ -126,7 +130,7 @@ class Trainer:
         self.replay = make_replay(cfg)
         self._init_runner, self._superstep = build_superstep(
             self.venv, self.env_params, self.network, self.optimizer, self.replay,
-            cfg, self.device,
+            cfg, self.device, graphed_learner=graphed_learner,
         )
         # >= 10 parallel greedy episodes (the reference evaluates 10)
         eval_venv = VectorEnv(self.env, min(max(cfg.num_envs, 10), 128), graphed=graphed)

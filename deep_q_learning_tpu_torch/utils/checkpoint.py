@@ -6,6 +6,12 @@ the runtime hyperparameters, env states and observations, the replay ring,
 priorities, max priority, cursor and fill, the device generator's state,
 and every counter and the return window.
 
+A counter that the learner's CUDA graphs advance on the device (the Adam
+count, the replay's cursor and fill) is a host int mirrored by a device
+tensor (``envs/graphed.py::device_mirror``).  The checkpoint holds the int,
+read back from the tensor at save time and checked against the mirror;
+a restore writes it into both.
+
 The runner is flattened to plain data before ``torch.save``: nested dicts
 and lists of CPU tensors, Python numbers and strings.  ``torch.load`` then
 runs with ``weights_only=True``, which unpickles nothing else, so loading a
@@ -41,6 +47,21 @@ import torch
 _SUFFIX = ".pt"
 
 
+def _mirrors(obj: Any) -> dict:
+    """``{host field: device field}`` of a dataclass's mirrored counters."""
+    return {f.name: f.metadata["device"] for f in dataclasses.fields(obj) if "device" in f.metadata}
+
+
+def _read_counter(obj: Any, host: str, device: str) -> Any:
+    """The counter's value on the device (the host int where there is no
+    device tensor); raises where the two differ."""
+    value, tensor = getattr(obj, host), getattr(obj, device)
+    if tensor is not None and int(tensor) != value:
+        raise RuntimeError(f"{type(obj).__name__}.{device} holds {int(tensor)} on the device "
+                           f"but its host mirror {host} is {value}")
+    return value
+
+
 def _to_tree(obj: Any) -> Any:
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu()
@@ -49,7 +70,10 @@ def _to_tree(obj: Any) -> Any:
     if isinstance(obj, torch.Generator):
         return obj.get_state()
     if dataclasses.is_dataclass(obj):
-        return {f.name: _to_tree(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        mirrors = _mirrors(obj)
+        return {f.name: _read_counter(obj, f.name, mirrors[f.name]) if f.name in mirrors
+                else _to_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj) if f.name not in mirrors.values()}
     if isinstance(obj, list):
         return [_to_tree(x) for x in obj]
     if obj is None or isinstance(obj, (bool, int, float, str)):
@@ -76,13 +100,16 @@ def _from_tree(template: Any, saved: Any, where: str) -> Any:
         template.set_state(saved)
         return template
     if dataclasses.is_dataclass(template):
-        names = [f.name for f in dataclasses.fields(template)]
+        mirrors = _mirrors(template)
+        names = [f.name for f in dataclasses.fields(template) if f.name not in mirrors.values()]
         if not isinstance(saved, dict) or sorted(saved) != sorted(names):
             raise ValueError(f"{where}: the checkpoint's fields differ from {names}")
-        return dataclasses.replace(
-            template,
-            **{n: _from_tree(getattr(template, n), saved[n], f"{where}.{n}") for n in names},
-        )
+        values = {n: _from_tree(getattr(template, n), saved[n], f"{where}.{n}") for n in names}
+        for host, dev in mirrors.items():
+            tensor = getattr(template, dev)
+            if tensor is not None:
+                values[dev] = torch.full_like(tensor, values[host])
+        return dataclasses.replace(template, **values)
     if isinstance(template, list):
         if not isinstance(saved, list) or len(saved) != len(template):
             raise ValueError(f"{where}: expected a list of {len(template)}")

@@ -28,7 +28,11 @@ reset pool: bitwise the eager step over 64 jointed frames with auto-resets
 and over two ``lunar_per`` supersteps (the whole runner); a graphed step
 runs the kernels the eager step runs, the jointed solver's kernel S1 once
 among them; a ``lander_vel_tol > 0`` trainer graphs, bitwise its eager
-twin.  S1 against the plain solver: bit for bit (every bit of every field,
+twin.  The single learner's frame and update as CUDA graphs
+(``GraphedLearner``): the first training frames apply one update each
+(the Adam count 1, 2, 3, 4 and the runner bitwise the eager learner's
+after each), K1 and K2 counted in the profiler's trace once per update.
+S1 against the plain solver: bit for bit (every bit of every field,
 accumulator and flag) at N = 128, 1024 and 37, N = 2 at (180, 60) and the
 ragged N = 3, 33 and 129, with and without the early exit; over 100 calls
 and a graph replay; its wrapper refuses a wrong dtype, a non-contiguous
@@ -672,6 +676,7 @@ def _update_on_both(cfg, ts, batch, weights):
         c.target.to(device)
         c.opt_state.mu = [t.to(device) for t in c.opt_state.mu]
         c.opt_state.nu = [t.to(device) for t in c.opt_state.nu]
+        c.opt_state.device_count = c.opt_state.device_count.to(device)
         lb = LearnBatch(**{k: v.to(device) for k, v in batch.items()})
         c, loss, _ = build_update_step(make_optimizer(cfg), cfg)(c, lb, weights.to(device))
         out.append((loss.cpu(), [p.detach().cpu() for p in c.online.parameters()]))
@@ -716,12 +721,17 @@ def test_bf16_update_on_gpu_matches_cpu(cuda):
     from deep_q_learning_tpu_torch.config import lunar_per
     from deep_q_learning_tpu_torch.train import Trainer
 
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
+
     cfg = dataclasses.replace(lunar_per(), steps_per_superstep=4, training_start=0,
                               compute_dtype="bfloat16")
     trainer = Trainer(cfg, device="cuda").init(seed=0)
     td_kernels.reset_counts()
-    trainer.step()
-    assert td_kernels.launches == {"td_loss_fwd": 4, "td_loss_bwd": 4}
+    trainer.step()  # the learner's graphs: an eager call, then the capture
+    # counted on the device: a replay does not pass the wrappers' counters
+    assert learner_kernels(traced_kernels(trainer.step)) == {
+        "td_loss_fwd": 4, "td_loss_bwd": 4, "per_slot_sample": 0}
+    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
     online = trainer.runner.train.online
     assert online.features(trainer.runner.obs).dtype == torch.bfloat16
     g = torch.Generator().manual_seed(0)
@@ -794,10 +804,14 @@ def test_graphed_jointed_vector_step_equals_eager(cuda):
 
 def test_graphed_lunar_per_superstep_equals_eager(cuda):
     """Two ``lunar_per`` supersteps of 32 vector steps at full width, learning
-    from 2048 stored transitions, with the rigid lander's step and pool as
-    CUDA graphs against ``graphed=False``: metrics and the whole runner
-    (parameters, Adam, replay ring and priorities, env states) bitwise."""
+    from 2048 stored transitions, with the frame and the learner update as
+    CUDA graphs (the rigid lander's step among them) against
+    ``graphed=False``: metrics and the whole runner (parameters, Adam,
+    replay ring and priorities, env states) bitwise; K1 and K2 once per
+    update, in the profiler's trace of the second superstep on the graphed
+    path and by the wrappers' counters on the eager one."""
     from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
     from deep_q_learning_tpu_torch.train import Trainer
     from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
 
@@ -807,9 +821,16 @@ def test_graphed_lunar_per_superstep_equals_eager(cuda):
         trainer = Trainer(cfg, device="cuda", graphed=graphed).init(seed=0)
         assert trainer.venv.graphed == graphed
         td_kernels.reset_counts()
-        metrics = [trainer.step() for _ in range(2)]
-        updates = sum(m.loss_count for m in metrics)
-        assert td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates} and updates
+        metrics = [trainer.step()]
+        if graphed:
+            counted = learner_kernels(traced_kernels(lambda: metrics.append(trainer.step())))
+        else:
+            metrics.append(trainer.step())
+            counted = dict(td_kernels.launches, per_slot_sample=0)
+        updates = metrics[-1].loss_count if graphed else sum(m.loss_count for m in metrics)
+        assert counted == {"td_loss_fwd": updates, "td_loss_bwd": updates,
+                           "per_slot_sample": 0} and updates, counted
+        assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
         runs[graphed] = metrics, ckpt._to_tree(trainer.runner)
     assert runs[True][0] == runs[False][0]
 
@@ -826,6 +847,50 @@ def test_graphed_lunar_per_superstep_equals_eager(cuda):
             assert a == b, where
 
     same(runs[True][1], runs[False][1])
+
+
+def test_first_graphed_training_frames_apply_one_update_each(cuda):
+    """The learner's graph runs its first call eagerly and captures on the
+    second, so no frame applies its update twice: one ``lunar_per`` frame a
+    superstep at full width, learning from the third, through the graphed
+    learner and the eager one from the same seed.  After each training
+    frame the Adam count is the number of updates (1 after the first, an
+    eager call; 2 after the capture and its replay; then replays) and the
+    runners are bitwise equal."""
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.train import Trainer
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = dataclasses.replace(lunar_per(), steps_per_superstep=1, training_start=3 * 128)
+    graphed = Trainer(cfg, device="cuda").init(seed=0)
+    eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
+    assert isinstance(graphed._superstep, GraphedLearner)
+    assert not isinstance(eager._superstep, GraphedLearner) and eager.venv.graphed
+
+    def same(a, b, where="runner"):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), where
+        elif isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, list):
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        else:
+            assert a == b, where
+
+    captured = []
+    for frame in range(1, 7):
+        assert graphed.step() == eager.step()
+        updates = max(frame - 2, 0)
+        count = graphed.runner.train.opt_state
+        assert int(count.device_count) == count.count == updates, (frame, count.count)
+        same(ckpt._to_tree(graphed.runner), ckpt._to_tree(eager.runner))
+        captured.append(graphed._superstep.learn.graph is not None)
+    # the update: eager at frame 3, captured and replayed at 4, replayed after
+    assert captured == [False, False, False, True, True, True], captured
+    assert graphed._superstep.frame.graph is not None
 
 
 def test_vel_tol_trainer_graphs_bitwise_eager(cuda):
