@@ -106,11 +106,19 @@ Phases (each raises on failure, so any failure exits non-zero):
   9. a population at full width: ``lunar_per`` with 8 members of 128 rigid
      landers, dueling (256, 256), PER (128, 4096) a member, batch 256 and
      ``use_pallas_sampler=True`` through ``PopulationTrainer``, cut in depth
-     only (``POP_CUTS``): each kernel launched once per update round for all
-     members and no plain call, every member's counters exact and its loss
-     finite, a greedy evaluation of every member; one population learner
-     update card vs CPU; aggregate env-steps/s, launches per vector step
-     and peak memory; then the command line's ``hpo --population 4``;
+     only (``POP_CUTS``), each frame as CUDA graph launches
+     (``GraphedPopulation``): each kernel once per update round for all
+     members in the profiler's trace of a steady superstep and no plain
+     call, every member's counters exact (the Adam counts on the device)
+     and its loss finite, a greedy evaluation of every member; aggregate
+     env-steps/s, host launches per vector step, busy share and peak
+     memory; the eager population restored from its checkpoint, both with
+     mixed gates and new learning rates (the graphs captured anew),
+     bitwise after one superstep each, then in turns; each
+     graph's replay ms, kernels and capture s; one population learner
+     update card vs CPU; then the command line's ``hpo --population 4``,
+     and two of its trials in process, graphed and eager, with each
+     trial's captures;
  10. runs over ranks and rollouts: first the kernels at a rank's shapes
      (K1/K2 at B = 128, K3 at (64, 8192, 128)) against their plain versions
      and timed; (a) world size 1 on NCCL: one superstep of
@@ -147,7 +155,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      run: K1–K3 launched once per update round and no plain call, float32
      parameters and bf16 trunk activations, K1/K2 on a bf16-fed batch vs
      plain, one update card vs CPU at the bf16 tolerance; (e) a 2-member
-     bf16 population;
+     bf16 population, graphed: K1–K3 once per update round in the
+     profiler's trace of its last superstep;
  12. the gymnasium harness and its examples (the card has no gymnasium):
      (a) two Box2D episodes recorded on a host that has it
      (``envs/gym_traces.json``: burn seed 6, nop seed 2) replayed through
@@ -189,6 +198,7 @@ It imports nothing of JAX or of the JAX package, and exits non-zero
 without printing a result where CUDA is absent.
 """
 
+import collections
 import gc
 import json
 import math
@@ -216,6 +226,7 @@ SUPERSTEPS = 4
 SLICE_HOST_LAUNCHES = 40
 FIRST_TRAIN_FRAME = 3
 SCALED_SUPERSTEPS = 2
+TRACE_ATTEMPTS = 3  # a profiled superstep whose trace lost kernel records is run again
 # (N, C, B): lunar_per_scaled(1024), lunar_per, lunar_per_scaled(4096) (C = 2^19 / 4096),
 # then C % 4 != 0 on misaligned rows (the scalar path) and C past 1024 * 16 (the chunk loop)
 SLOT_SHAPES = [(1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096), (5, 37, 64), (3, 20000, 64)]
@@ -258,12 +269,24 @@ TD_MEMBER_TIMED = (8, 256, 4)  # lunar_per, 8 members
 TD_MEMBER_STABLE = (8, 1024, 4)  # 4 blocks a member: the ticket over the grid
 # the PER slot kernel over every member's rows: M, N, C, B of lunar_per, 8 members
 SLOT_MEMBERS = (8, 128, 4096, 256)
-# phase 9: lunar_per, 8 members, cut in depth only: 2 supersteps of 32 vector
-# steps, the learner from 2048 stored transitions a member (vector step 16)
+# phase 9: lunar_per, 8 members, cut in depth only: 3 supersteps of 32 vector
+# steps, the learner from 2048 stored transitions a member (vector step 16),
+# each frame as CUDA graph launches (GraphedPopulation): the first superstep
+# makes each graph's eager call and capture, the second is timed, the third
+# profiled.  Then the eager population restored from its checkpoint and both
+# given mixed gates and learning rates (POP_HYPER: train_every 1-3, member 7
+# learning from 14,336 stored, vector step 112 of the next superstep; new
+# learning-rate tensors make the graphs start over): bitwise after one
+# superstep each, then env-steps/s in turns
 POP_MEMBERS = 8
 POP_CUTS = dict(steps_per_superstep=32, training_start=2048, use_pallas_sampler=True)
-POP_SUPERSTEPS = 2
+POP_SUPERSTEPS = 3
 POP_EVAL_ENVS, POP_EVAL_FRAMES = 16, 64
+POP_HYPER = dict(train_every=[1, 2, 3, 1, 2, 3, 1, 1], training_start=[2048] * 7 + [14_336],
+                 learning_rate=[1e-4 * (k + 1) for k in range(8)])
+POP_HOST_LAUNCHES = 40  # at most, a vector step of the graphed population (the eager: ~435)
+# the search's trials in process: 2 trials of 4 members, graphed and eager
+POP_TRIALS = [{"learning_rate": lr} for lr in (1e-4, 3e-4, 6e-4, 1e-3)]
 # the CLI's search: 8 trials in rounds of 4, 2 supersteps (32,768 env steps) a trial
 HPO_ARGS = ["--preset", "lunar_per", "--space", "lunar", "--population", "4", "--trials", "8",
             "--steps-per-trial", "32768", "--set", "max_steps_in_episode=200"]
@@ -937,7 +960,7 @@ def run_slice(torch, td_kernels, sample_kernels, card):
     env-steps/s in alternating pairs; graph L's replay on the device."""
     from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import lunar_per
-    from deep_q_learning_tpu_torch.measure import learner_kernels, replay_ms, traced_kernels
+    from deep_q_learning_tpu_torch.measure import learner_kernels, replay_ms
     from deep_q_learning_tpu_torch.train import Trainer
 
     cfg = lunar_per()
@@ -957,12 +980,12 @@ def run_slice(torch, td_kernels, sample_kernels, card):
     seconds = time.perf_counter() - t0
     # the last superstep under the profiler, every frame training: K1/K2 on
     # the device (a graph's replay passes none of the wrappers' counters)
-    trace = traced_kernels(lambda: metrics.append(trainer.step()))
+    trace, _ = traced_superstep(lambda: metrics.append(trainer.step()), "phase 4")
     launches = learner_kernels(trace)
     steady = metrics[-1].loss_count
     assert steady == cfg.steps_per_superstep, steady
     assert launches == {"td_loss_fwd": steady, "td_loss_bwd": steady, "per_slot_sample": 0}, (
-        launches, steady)
+        launches, steady, collections.Counter(trace.per_graph_launch), trace.lost)
     assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_per
     assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
     per_step = trace.host_launches / cfg.steps_per_superstep
@@ -971,7 +994,8 @@ def run_slice(torch, td_kernels, sample_kernels, card):
     updates = sum(m.loss_count for m in metrics)
     loss_sum = sum(m.loss_sum for m in metrics)
     env_steps = metrics[-1].env_steps * cfg.num_envs
-    assert env_steps == SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
+    assert env_steps == len(metrics) * cfg.steps_per_superstep * cfg.num_envs
+    timed_steps = (SUPERSTEPS - 1) * cfg.steps_per_superstep * cfg.num_envs
     assert updates > 0, "no learner update ran"
     opt = trainer.runner.train.opt_state
     assert updates == trainer.runner.train.updates == opt.count == int(opt.device_count)
@@ -993,9 +1017,9 @@ def run_slice(torch, td_kernels, sample_kernels, card):
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
     print(f"  updates {updates}, episodes {metrics[-1].episodes}, window {metrics[-1].window_mean:.3f}, "
           f"eval mean {float(ev.returns.mean()):.3f} over {len(ev.returns)} episodes")
-    print(f"  lunar_per x{cfg.num_envs} envs: {env_steps - cfg.steps_per_superstep * cfg.num_envs} "
+    print(f"  lunar_per x{cfg.num_envs} envs: {timed_steps} "
           f"env steps of the first {SUPERSTEPS - 1} supersteps in {seconds:.3f} s = "
-          f"{(env_steps - cfg.steps_per_superstep * cfg.num_envs) / seconds:.1f} env-steps/s (with "
+          f"{timed_steps / seconds:.1f} env-steps/s (with "
           f"the graphs' eager calls and captures), peak memory {peak_mib:.1f} MiB [{card}]")
     print(f"  the last superstep, profiled: {steady} updates, K1/K2 on the device {launches}, no "
           f"plain call; {per_step:.1f} host launches per vector step ({trace.launches} kernels, "
@@ -1087,7 +1111,7 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
 
     from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import lunar_per_scaled
-    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
+    from deep_q_learning_tpu_torch.measure import learner_kernels
     from deep_q_learning_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(lunar_per_scaled(1024), use_pallas_sampler=True)
@@ -1105,7 +1129,7 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     # the last superstep under the profiler: the kernels on the device
-    trace = traced_kernels(lambda: metrics.append(trainer.step()))
+    trace, _ = traced_superstep(lambda: metrics.append(trainer.step()), "phase 5")
     launches = learner_kernels(trace)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
 
@@ -1113,7 +1137,8 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
     steady = metrics[-1].loss_count
     loss_sum = sum(m.loss_sum for m in metrics)
     env_steps = metrics[-1].env_steps * cfg.num_envs
-    assert env_steps == SCALED_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
+    assert env_steps == len(metrics) * cfg.steps_per_superstep * cfg.num_envs
+    timed_steps = (SCALED_SUPERSTEPS - 1) * cfg.steps_per_superstep * cfg.num_envs
     assert updates > 0 and updates == trainer.runner.train.updates
     assert steady == cfg.steps_per_superstep // cfg.train_every, steady
     assert launches == dict.fromkeys(("td_loss_fwd", "td_loss_bwd", "per_slot_sample"), steady), (
@@ -1129,9 +1154,9 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
           f"device busy {100 * trace.device_us / trace.wall_us:.1f} %; episodes "
           f"{metrics[-1].episodes}")
     print(f"  lunar_per_scaled x{cfg.num_envs} envs, use_pallas_sampler: "
-          f"{env_steps - cfg.steps_per_superstep * cfg.num_envs} env steps of the first "
+          f"{timed_steps} env steps of the first "
           f"superstep (with the graphs' eager calls and captures) in {seconds:.3f} s = "
-          f"{(env_steps - cfg.steps_per_superstep * cfg.num_envs) / seconds:.1f} env-steps/s, "
+          f"{timed_steps / seconds:.1f} env-steps/s, "
           f"peak memory {peak_mib:.1f} MiB [{card}]")
     return launches
 
@@ -1192,6 +1217,27 @@ def same_tree(torch, a, b, where="runner") -> None:
             same_tree(torch, x, y, f"{where}[{i}]")
     else:
         assert a == b, (where, a, b)
+
+
+def traced_superstep(step, where: str):
+    """``measure.traced_kernels(step)`` of a superstep whose trace the
+    profiler kept whole, and the supersteps it took: a trace in which a
+    kernel launch or a CUDA graph launch has no kernel (the profiler lost
+    its records: phase 4's lost the kernels of up to 12 of its 257 graph
+    launches in two of four whole runs of this script, and none in nine
+    traces of the same superstep in processes of their own) is reported,
+    and ``step`` runs and is traced again, up to TRACE_ATTEMPTS times."""
+    from deep_q_learning_tpu_torch.measure import traced_kernels
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        trace = traced_kernels(step)
+        empty = trace.per_graph_launch.count(0)
+        if not trace.lost and not empty:
+            return trace, attempt
+        print(f"  {where}: the profiler lost records in superstep {attempt} of the trace "
+              f"({trace.lost} of {trace.launches} kernel launches and {empty} of "
+              f"{len(trace.per_graph_launch)} graph launches with no kernel); tracing the next")
+    raise RuntimeError(f"{where}: the profiler lost records in {TRACE_ATTEMPTS} supersteps")
 
 
 def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launches, card):
@@ -1326,7 +1372,7 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
     import dataclasses
 
     from deep_q_learning_tpu_torch.config import lunar_jointed_scaled
-    from deep_q_learning_tpu_torch.measure import learner_kernels, replay_ms, traced_kernels
+    from deep_q_learning_tpu_torch.measure import learner_kernels, replay_ms
     from deep_q_learning_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(lunar_jointed_scaled(1024), **JOINTED_SCALED_CUTS)
@@ -1351,7 +1397,7 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
 
     superstep()  # captures the frame's and the update's graphs
     superstep()  # timed
-    trace = traced_kernels(superstep)
+    trace, _ = traced_superstep(superstep, "phase 14")
     s1_events = trace.count(SOLVER_KERNEL)
     launches = learner_kernels(trace)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls,
@@ -1359,9 +1405,9 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
     updates = sum(m.loss_count for m in metrics)
     steady = metrics[-1].loss_count
     loss_sum = sum(m.loss_sum for m in metrics)
-    vector_steps = JOINTED_SCALED_SUPERSTEPS * cfg.steps_per_superstep
+    vector_steps = len(metrics) * cfg.steps_per_superstep
     assert [m.env_steps for m in metrics] == [
-        cfg.steps_per_superstep * (i + 1) for i in range(JOINTED_SCALED_SUPERSTEPS)]
+        cfg.steps_per_superstep * (i + 1) for i in range(len(metrics))]
     assert trainer.runner.replay.total_adds == vector_steps
     assert updates > 0 and updates == trainer.runner.train.updates, updates
     assert steady == cfg.steps_per_superstep // cfg.train_every, steady
@@ -1730,12 +1776,23 @@ def check_learner_vs_cpu(torch, td_kernels):
 
 
 def run_population(torch, td_kernels, sample_kernels, card):
-    """Phase 9: lunar_per, 8 members at full width, through PopulationTrainer."""
+    """Phase 9: lunar_per, 8 members at full width, through PopulationTrainer,
+    each frame as CUDA graph launches (``GraphedPopulation``): the counters,
+    every member trained with a finite loss; in the third superstep,
+    profiled, K1/K2/K3 once per update round on the device (a graph's
+    replay passes no wrapper's counter: the wrappers count graph L's eager
+    call and its capture only), the host's launches per vector step and
+    the device's busy share; peak memory under 1 GiB; a greedy evaluation;
+    then the eager population against it (:func:`population_pairs`), and
+    each graph's replay.  Returns the kernels' launches in the profiled
+    superstep."""
     import dataclasses
 
     import numpy as np
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedPopulation
     from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.measure import learner_kernels, replay_ms
     from deep_q_learning_tpu_torch.parallel import PopulationTrainer
 
     cfg = dataclasses.replace(lunar_per(), **POP_CUTS)
@@ -1744,6 +1801,7 @@ def run_population(torch, td_kernels, sample_kernels, card):
     assert cfg.use_pallas and cfg.replay == "prioritized" and cfg.train_every == 1
     m = POP_MEMBERS
     trainer = PopulationTrainer(cfg, m, eval_envs=POP_EVAL_ENVS, device="cuda")
+    assert isinstance(trainer._step, GraphedPopulation)
     runner = trainer.init(seed=0)
     assert runner.replay.priorities.shape == (m * 128, 4096), runner.replay.priorities.shape
     assert runner.train.online.trunk[0].weight.shape == (m, 256, 9)
@@ -1753,27 +1811,33 @@ def run_population(torch, td_kernels, sample_kernels, card):
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
+    metrics = [trainer.step(runner)[1]]  # each graph's eager call and capture
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics = []
-    for _ in range(POP_SUPERSTEPS):
-        runner, met = trainer.step(runner)
-        metrics.append(met)
+    metrics.append(trainer.step(runner)[1])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    trace, _ = traced_superstep(lambda: metrics.append(trainer.step(runner)[1]), "phase 9")
+    steady = cfg.steps_per_superstep
+    launches = learner_kernels(trace)
+    assert metrics[-1].loss_count.tolist() == [steady] * m, metrics[-1].loss_count
+    assert launches == {"td_loss_fwd": steady, "td_loss_bwd": steady,
+                        "per_slot_sample": steady}, (launches, steady)
+    wrapped = dict(td_kernels.launches, **sample_kernels.launches)
+    assert wrapped == {"td_loss_fwd": 2, "td_loss_bwd": 2, "per_slot_sample": 2}, wrapped
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    assert not any(plain.values()), plain
+    per_step = trace.host_launches / steady
+    assert per_step <= POP_HOST_LAUNCHES, (per_step, trace.launches, trace.copies)
 
-    vector_steps = POP_SUPERSTEPS * cfg.steps_per_superstep
-    rounds = vector_steps - cfg.training_start // cfg.num_envs + 1  # vector steps 16..64
-    assert [mt.env_steps for mt in metrics] == [
-        cfg.steps_per_superstep * (i + 1) for i in range(POP_SUPERSTEPS)]
-    assert runner.replay.total_adds == vector_steps
+    vector_steps = len(metrics) * steady
+    rounds = vector_steps - cfg.training_start // cfg.num_envs + 1  # vector steps 16..96
+    assert [mt.env_steps for mt in metrics] == [steady * (i + 1) for i in range(len(metrics))]
+    assert runner.replay.total_adds == int(runner.replay.device_adds) == vector_steps
     counts = sum(mt.loss_count for mt in metrics)
     assert counts.tolist() == [rounds] * m, counts
-    assert runner.train.updates == [rounds] * m == runner.train.opt_state.count
-    assert launches == {"td_loss_fwd": rounds, "td_loss_bwd": rounds,
-                        "per_slot_sample": rounds}, (launches, rounds)
-    assert not any(plain.values()), plain
+    opt = runner.train.opt_state
+    assert runner.train.updates == [rounds] * m == opt.count == opt.device_count.tolist()
     loss_sum = sum(mt.loss_sum for mt in metrics)
     assert np.isfinite(loss_sum).all(), loss_sum
     assert (metrics[-1].episodes == sum(mt.episodes_delta for mt in metrics)).all()
@@ -1781,51 +1845,150 @@ def run_population(torch, td_kernels, sample_kernels, card):
     moved = [float((p.detach() - p0).flatten(1).norm(dim=1).min()) for p, p0 in
              zip(runner.train.online.parameters(), online0)]
     assert min(moved) > 0, moved  # every member's every layer trained
+    torch.cuda.synchronize()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    env_steps = vector_steps * cfg.num_envs * m
+    assert peak_mib < 1024, peak_mib
+    env_steps = steady * cfg.num_envs * m
 
     ev = trainer.evaluate(runner, seed=0, max_steps=POP_EVAL_FRAMES)
     assert ev.returns.shape == (m, POP_EVAL_ENVS) and np.isfinite(ev.returns).all()
-    per_step, busy = population_launches(torch, trainer, cfg)
     print(f"  supersteps: {[(mt.env_steps, mt.loss_count.tolist()) for mt in metrics]}")
-    print(f"  {m} members: updates {runner.train.updates}, launches {launches}, losses "
+    print(f"  {m} members: updates {runner.train.updates}, losses "
           f"{np.round(loss_sum / np.maximum(counts, 1), 5).tolist()}, episodes "
           f"{metrics[-1].episodes.tolist()}; greedy eval over {POP_EVAL_FRAMES} frames: means "
           f"{np.round(ev.returns.mean(axis=1), 2).tolist()}")
-    print(f"  lunar_per population {m} x {cfg.num_envs} envs: {env_steps} env steps in "
-          f"{seconds:.3f} s = {env_steps / seconds:.1f} aggregate env-steps/s, "
-          f"{per_step:.1f} kernel launches per vector step and the device busy "
-          f"{100 * busy:.1f} % of the wall (torch.profiler, a steady {LAUNCH_STEPS}-step "
-          f"superstep), peak memory {peak_mib:.1f} MiB [{card}]")
+    print(f"  lunar_per population {m} x {cfg.num_envs} envs, graphed: the second superstep "
+          f"{env_steps} env steps in {seconds:.3f} s = {env_steps / seconds:.1f} aggregate "
+          f"env-steps/s; peak memory {peak_mib:.1f} MiB [{card}]")
+    print(f"  the third superstep, profiled: {steady} update rounds, K1/K2/K3 on the device "
+          f"{launches}, the wrappers {wrapped} (graph L's eager call and capture), no plain "
+          f"call; {per_step:.1f} host launches per vector step ({trace.launches} kernels, "
+          f"{len(trace.per_graph_launch)} graphs, {trace.copies} copies and fills in {steady} "
+          f"vector steps; at most {POP_HOST_LAUNCHES}), device busy "
+          f"{100 * trace.device_us / trace.wall_us:.1f} % of {trace.wall_us / 1e3:.1f} ms "
+          f"[{card}]")
+    population_pairs(torch, trainer, runner, cfg, td_kernels, card)
+    # last: a replay of the population's graphs writes the runner again
+    step = trainer._step
+    for name, g in (("frame (actor, env step, replay write)", step.frame),
+                    ("update (graph L)", step.learn)):
+        host_ms, device_ms, nodes = replay_ms(g)
+        print(f"  the population's graph of the {name}: replay {device_ms:.3f} ms on the device "
+              f"(CUDA events), {nodes} kernels, its launch {host_ms:.3f} ms of host; captured "
+              f"in {g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
     return launches
 
 
-def population_launches(torch, trainer, cfg):
-    """Kernel launches per vector step of a steady population superstep
-    (every frame trains), and the device's busy share of its wall time,
-    from torch.profiler on a second population whose supersteps are
-    LAUNCH_STEPS long."""
+def population_pairs(torch, trainer, runner, cfg, td_kernels, card):
+    """Phase 9: the eager population (the frame eager around the env step's
+    graph) restored from the graphed one's checkpoint, both given mixed
+    gates and learning rates (``POP_HYPER``; new learning-rate tensors, so
+    the graphs start over with an eager call and a capture): runners and
+    metrics bitwise equal after one superstep each, then env-steps/s in
+    three alternating pairs; K1/K2 once per eager update round by the
+    wrappers' counters, and once each for graph L's new eager call and
+    capture; the eager population's launches per vector step and busy
+    share from a profiled superstep."""
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedPopulation
+    from deep_q_learning_tpu_torch.measure import traced_kernels
+    from deep_q_learning_tpu_torch.parallel import PopulationTrainer, set_population_hyper
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    workdir = tempfile.mkdtemp(dir=REPO / "build")
+    ckpt.save_checkpoint(workdir, runner, runner.env_step)
+    eager = PopulationTrainer(cfg, trainer.num_members, eval_envs=1, device="cuda",
+                              graphed_learner=False)
+    assert not isinstance(eager._step, GraphedPopulation)
+    eager_runner = ckpt.restore_checkpoint(workdir, eager.init(seed=1))
+    shutil.rmtree(workdir, ignore_errors=True)
+    same_tree(torch, ckpt._to_tree(runner), ckpt._to_tree(eager_runner), "restored")
+    graphs = (trainer._step.frame.graph, trainer._step.learn.graph)
+    for r in (runner, eager_runner):
+        set_population_hyper(r, **POP_HYPER)
+    rates = {"graphed": [], "eager": []}
+    td_kernels.reset_counts()
+    eager_rounds = 0
+    frames = cfg.steps_per_superstep
+    for i, name in enumerate(["graphed", "eager", "eager", "graphed", "graphed", "eager"]):
+        t, r = (trainer, runner) if name == "graphed" else (eager, eager_runner)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, met = t.step(r)
+        torch.cuda.synchronize()
+        rates[name].append(frames * cfg.num_envs * trainer.num_members / (time.perf_counter() - t0))
+        if name == "eager":  # member 0 trains every frame: one update round a frame
+            assert met.loss_count[0] == frames, met.loss_count
+            eager_rounds += frames
+        if i == 0:
+            graphed_metrics = met
+        if i == 1:  # both from the same checkpoint and gates, one superstep each
+            same_tree(torch, ckpt._to_tree(runner), ckpt._to_tree(eager_runner))
+            for f in ("episodes", "loss_sum", "loss_count", "window_mean", "epsilon"):
+                assert np.array_equal(getattr(met, f), getattr(graphed_metrics, f)), f
+            gated = met.loss_count.tolist()
+    assert len(set(gated)) > 1, gated  # the gates differ
+    new = (trainer._step.frame.graph, trainer._step.learn.graph)
+    assert all(g is not None and g is not old for g, old in zip(new, graphs)), "not re-captured"
+    wrapped = eager_rounds + 2  # and graph L's new eager call and capture
+    assert td_kernels.launches == {"td_loss_fwd": wrapped, "td_loss_bwd": wrapped}, (
+        td_kernels.launches, eager_rounds)
+    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    trace = traced_kernels(lambda: eager.step(eager_runner))
+    print(f"  graphed and eager population from the same checkpoint with mixed gates and "
+          f"learning rates (updates "
+          f"{gated} in the superstep): runners and metrics bitwise equal (parameters, Adam "
+          f"moments and device counts, replay ring, priorities and counters, env states); the "
+          f"graphs started over for the new hyperparameters (frame captured in "
+          f"{trainer._step.frame.capture_s:.3f} s, graph L in {trainer._step.learn.capture_s:.3f} "
+          f"s)")
+    print(f"  lunar_per population {trainer.num_members} x {cfg.num_envs} aggregate env-steps/s in "
+          f"turns, graphed {', '.join(f'{x:.1f}' for x in rates['graphed'])} (the first with the "
+          f"graphs' eager calls and captures); eager "
+          f"{', '.join(f'{x:.1f}' for x in rates['eager'])}; the eager population "
+          f"{trace.host_launches / frames:.1f} host launches per vector step, device busy "
+          f"{100 * trace.device_us / trace.wall_us:.1f} % (a profiled superstep) [{card}]")
+
+
+def run_hpo_trials(torch, card):
+    """Phase 9: the search's trials in process, as ``hpo --population 4``
+    runs them (``HPO_ARGS``: 32,768 env steps a trial, episodes cut at 200
+    frames): two trials of the same 4 candidates on one trainer, graphed
+    then eager, with each trial's wall time, and the graphed population's
+    eager calls and captures, made anew for each trial's runner."""
     import dataclasses
 
-    from deep_q_learning_tpu_torch.parallel import PopulationTrainer
+    import numpy as np
 
-    short = dataclasses.replace(cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0)
-    pop = PopulationTrainer(short, trainer.num_members, eval_envs=1, device="cuda")
-    runner, _ = pop.step(pop.init(seed=1))
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        runner, met = pop.step(runner)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    assert met.loss_count.tolist() == [LAUNCH_STEPS] * trainer.num_members
-    events = prof.key_averages()
-    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                  for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    return launches / LAUNCH_STEPS, busy_us / 1e6 / wall
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.parallel import PopulationTrainer, candidate_overrides
+
+    cfg = dataclasses.replace(lunar_per(), max_steps_in_episode=200)
+    steps = int(HPO_ARGS[HPO_ARGS.index("--steps-per-trial") + 1])
+    overrides = candidate_overrides(POP_TRIALS)
+    results = {}
+    for graphed in (True, False):
+        trainer = PopulationTrainer(cfg, len(POP_TRIALS), device="cuda", graphed_learner=graphed)
+        walls, captures = [], []
+        for seed in (0, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = trainer.run(steps, hyper_overrides=overrides, seed=seed)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            assert np.isfinite(out["eval_mean"]).all(), out
+            if graphed:
+                captures.append(sum(g.warmup_s + g.capture_s
+                                    for g in (trainer._step.frame, trainer._step.learn)))
+        results[graphed] = out["eval_mean"]
+        print(f"  {len(POP_TRIALS)}-member trials of {steps} env steps in process, "
+              f"{'graphed' if graphed else 'eager'}: {', '.join(f'{w:.2f}' for w in walls)} s "
+              f"of wall with the greedy evaluation"
+              + (f"; the frame and graph L's eager calls and captures "
+                 f"{', '.join(f'{c:.3f}' for c in captures)} s a trial" if graphed else "")
+              + f" [{card}]")
+    assert np.array_equal(results[True], results[False]), results
 
 
 def check_population_update_vs_cpu(torch):
@@ -1863,6 +2026,7 @@ def check_population_update_vs_cpu(torch):
         hyper.learning_rate = torch.linspace(1e-4, 1e-3, m, device=device)
         lb = LearnBatch(**{k: v.to(device) for k, v in batch.items()})
         ts, loss, td = build_update_step(opt, cfg)(ts, lb, weights.to(device), hyper, mask)
+        assert ts.opt_state.device_count.tolist() == ts.opt_state.count, device
         out.append((loss.cpu(), td.cpu(), [p.detach().cpu() for p in ts.online.parameters()],
                     [p.detach().cpu() for p in ts.target.parameters()], ts.opt_state.count))
     (lc, tdc, pc, tc, cc), (lg, tdg, pg, tg, cg) = out
@@ -2705,23 +2869,33 @@ def run_bf16(torch, td_kernels, sample_kernels, card):
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
     t0 = time.perf_counter()
-    for _ in range(DIST_SUPERSTEPS):
-        runner, met = pop.step(runner)
+    for _ in range(DIST_SUPERSTEPS - 1):
+        pop.step(runner)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    # the last superstep under the profiler: graph L's kernels on the device
+    # (the wrappers count its eager call and its capture only)
+    mets = []
+    pop_launches = learner_kernels(traced_kernels(lambda: mets.append(pop.step(runner)[1])))
+    met = mets[-1]
     rounds = runner.train.updates
     assert rounds == [DIST_ROUNDS] * m, rounds
-    launches = dict(td_kernels.launches, **sample_kernels.launches)
-    assert launches == dict.fromkeys(zero, DIST_ROUNDS), launches
+    last = met.loss_count.tolist()
+    assert last == [cfg.steps_per_superstep] * m, last
+    assert pop_launches == dict.fromkeys(zero, last[0]), pop_launches
+    wrapped = dict(td_kernels.launches, **sample_kernels.launches)
+    assert wrapped == dict.fromkeys(zero, 2), wrapped
     assert not any(dict(td_kernels.plain_calls, **sample_kernels.plain_calls).values())
     assert np.isfinite(met.loss_sum).all()
     with torch.no_grad():
         assert runner.train.online.features(runner.obs.view(m, cfg.num_envs, -1)).dtype == \
             torch.bfloat16
-    env_steps = DIST_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs * m
-    print(f"  (e) bf16 lunar_per population of {m}: {env_steps} env steps in {seconds:.3f} s = "
-          f"{env_steps / seconds:.1f} aggregate env-steps/s, {DIST_ROUNDS} update rounds each, "
-          f"launches {launches} [{card}]")
+    env_steps = (DIST_SUPERSTEPS - 1) * cfg.steps_per_superstep * cfg.num_envs * m
+    print(f"  (e) bf16 lunar_per population of {m}, graphed: {env_steps} env steps of the first "
+          f"superstep in {seconds:.3f} s = {env_steps / seconds:.1f} aggregate env-steps/s (with "
+          f"the graphs' eager calls and captures), {DIST_ROUNDS} update rounds each; the last "
+          f"superstep, profiled: launches {pop_launches} on the device, the wrappers {wrapped} "
+          f"[{card}]")
     return bf16_launches, err
 
 
@@ -2810,7 +2984,7 @@ def run_reference_format(torch, td_kernels, card, workdir):
     import numpy as np
 
     from deep_q_learning_tpu_torch.examples import train_lunar_lander
-    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
+    from deep_q_learning_tpu_torch.measure import learner_kernels
     from deep_q_learning_tpu_torch.models import QNetwork
     from deep_q_learning_tpu_torch.utils.checkpoint import load_params_pickle
 
@@ -2876,8 +3050,9 @@ def run_reference_format(torch, td_kernels, card, workdir):
         # one more superstep of the script's trainer under the profiler: K1/K2
         # on the device once per update (a graph's replay passes no counter)
         more = []
-        launches = learner_kernels(traced_kernels(lambda: more.append(trainer.step())))
-        steady = more[0].loss_count
+        trace, _ = traced_superstep(lambda: more.append(trainer.step()), "phase 13 (b)")
+        launches = learner_kernels(trace)
+        steady = more[-1].loss_count
         assert steady == cfg.steps_per_superstep and launches == {
             "td_loss_fwd": steady, "td_loss_bwd": steady, "per_slot_sample": 0}, (launches, steady)
         assert dict(td_kernels.plain_calls) == {"td_loss_fwd": 0, "td_loss_bwd": 0}
@@ -3089,6 +3264,7 @@ def main() -> int:
     population_launches_run = run_population(torch, td_kernels, sample_kernels, card)
     check_population_update_vs_cpu(torch)
     run_hpo_cli(card)
+    run_hpo_trials(torch, card)
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
     print("phase 10: runs over ranks and rollouts")
@@ -3129,9 +3305,9 @@ def main() -> int:
     # and at (1024, 512, 1024) for the slot kernel (lunar_per_scaled);
     # launches of the TD kernels from phase 7, of the slot kernel from phase 5.
     # The same kernels with a member axis ("[members]"): ms and bound at
-    # phase 9's shapes, (8, 256, 4) and (1024, 4096, 2048), launches from
-    # phase 9.  No single PyTorch call computes any of the three: library_ms
-    # is null
+    # phase 9's shapes, (8, 256, 4) and (1024, 4096, 2048), launches in the
+    # profiler's trace of phase 9's profiled superstep (graph L's replays).
+    # No single PyTorch call computes any of the three: library_ms is null
     from deep_q_learning_tpu_torch.ops import bound_by, bound_us
 
     # S1: ms, bound and error at phase 7's shape (128 landers, (120, 40)),

@@ -12,16 +12,18 @@ and init defaults"):
     with decay 0.9.
 The learning rate and the clip norm are read from :class:`HyperParams` at
 every update, as ``optax.inject_hyperparams`` allows in the JAX package.
-A single learner's Adam count lives on the device (``OptState.
-device_count``, int32 as optax's) and its bias corrections ``1 - decay**count``
-are computed there in float32, so that an update launches kernels only and
+The Adam count lives on the device (``OptState.device_count``, int32 as
+optax's; (M,) for a population) and its bias corrections ``1 - decay**count``
+are read there from a table of optax's float32 values
+(:func:`bias_correction_table`), so that an update launches kernels only and
 runs inside a CUDA graph (``algos/superstep.py``); ``OptState.count`` and
 ``TrainState.updates`` are its host mirrors.
 
 A population of M learners (``parallel/population.py``) runs the same
 functions on member-stacked state: :class:`MemberHyperParams`, networks
 with a leading member axis (``models.MemberQNetwork``), and a ``mask`` of
-the members whose train gate is open.  Every reduction is per member (the
+the members whose train gate is open (an (M,) bool tensor on the device, or
+M host bools).  Every reduction is per member (the
 clip's global norm, Adam's bias correction from each member's own count),
 and a member whose gate is closed keeps its parameters, moments, count
 and target, as under ``jax.vmap`` a closed ``lax.cond`` is a select.
@@ -125,13 +127,24 @@ def _member_view(x, like: torch.Tensor):
     return x
 
 
-def _masked_writer(mask: Optional[Sequence[bool]], device) -> Callable:
+def _masked_writer(mask: Optional[torch.Tensor]) -> Callable:
     """``write(buffer, value)`` storing ``value`` in place, only in the
-    members whose ``mask`` is True (everywhere if ``mask`` is None)."""
-    if mask is None or all(mask):
+    members whose device ``mask`` (M,) is True (everywhere if ``mask`` is
+    None).  ``where(True, value, buf)`` is ``value`` bit for bit, so an open
+    gate writes what an unmasked write would."""
+    if mask is None:
         return lambda buf, value: buf.copy_(value)
-    keep = torch.tensor([bool(k) for k in mask], device=device)
-    return lambda buf, value: buf.copy_(torch.where(_member_view(keep, buf), value, buf))
+    return lambda buf, value: buf.copy_(torch.where(_member_view(mask, buf), value, buf))
+
+
+def _member_mask(mask, device) -> Tuple[Optional[torch.Tensor], Optional[List[bool]]]:
+    """``(device mask, host gates)`` of a ``mask`` argument: an (M,) bool
+    tensor as it is, with no host gates; a sequence of M host bools as a
+    device tensor and the bools; None as None."""
+    if mask is None or isinstance(mask, torch.Tensor):
+        return mask, None
+    gates = [bool(k) for k in mask]
+    return torch.tensor(gates, device=device), gates
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -139,16 +152,37 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
+_BIAS_TABLES: dict = {}  # (decay, device): the table of bias_correction_table
+_BIAS_TABLE_LIMIT = 1 << 20  # a decay whose correction reaches 1.0f later is refused
+
+
+def bias_correction_table(decay: float, device) -> torch.Tensor:
+    """Optax's float32 bias corrections for ``decay`` on ``device``: entry
+    ``k`` is :func:`_bias_correction` ``(decay, k)``, from count 0 to the
+    first count whose correction is exactly 1.0f (it stays 1.0f past it).
+    Made once for each (decay, device) and kept."""
+    device = torch.device(device)
+    key = (float(decay), device)
+    if key not in _BIAS_TABLES:
+        values = [_bias_correction(decay, 0)]
+        while values[-1] != 1.0:
+            if len(values) == _BIAS_TABLE_LIMIT:
+                raise ValueError(f"1 - {decay}**count is below 1.0f at count {_BIAS_TABLE_LIMIT}")
+            values.append(_bias_correction(decay, len(values)))
+        table = torch.tensor(values, dtype=torch.float32, device=device)
+        assert np.float32(values[-1]) == 1 and table.numel() == len(values)
+        _BIAS_TABLES[key] = table
+    return _BIAS_TABLES[key]
+
+
 def _device_bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
-    """``1 - decay**count`` in float32 on ``count``'s device, as optax
-    computes it: a () tensor, read by the kernels that use it.  The power
-    of the float32 ``decay`` is taken in float64 and rounded once to
-    float32, so it is the correctly rounded float32 power on any device
-    (a float32 ``pow`` is off by an ulp at some counts, and by other ulps
-    on the card than on the CPU); it equals :func:`_bias_correction`'s
-    at every count to 60,000 for 0.9 and at all but two for 0.999."""
-    power = torch.pow(float(np.float32(decay)), count.to(torch.float64)).to(torch.float32)
-    return 1.0 - power
+    """Optax's ``1 - decay**count`` in float32 at each device ``count`` (a
+    () or (M,) int32 tensor; a count below 1 reads count 1's), in one
+    gather from :func:`bias_correction_table`: kernels only, with no read
+    back to the host."""
+    table = bias_correction_table(decay, count.device)
+    index = torch.clamp(count, 1, table.numel() - 1)
+    return table.index_select(0, index.reshape(-1)).view(count.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -158,11 +192,11 @@ def _device_bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class OptState:
     # updates applied (optax's int32 count): a host mirror of device_count;
-    # a list of M for members, with no device count
+    # a list of M for members
     count: int = device_mirror("device_count")
     mu: List[torch.Tensor]  # first moments (adam/adamw)
     nu: List[torch.Tensor]  # second moments (adam/adamw/rmsprop)
-    device_count: Optional[torch.Tensor] = None  # () int32 on the device, a single learner's
+    device_count: Optional[torch.Tensor] = None  # () int32 on the device; (M,) for members
 
 
 # optax's defaults for the constructors the JAX package calls with the
@@ -183,13 +217,17 @@ class Optimizer:
         self.clip = clip
 
     def init(self, params: List[torch.Tensor], members: Optional[int] = None) -> OptState:
-        """Zero moments; a count on the device and its host mirror, or a
-        host count for each of ``members``."""
+        """Zero moments; a count on the device and its host mirror, one for
+        each of ``members`` if given.  Adam's bias-correction tables are
+        made here, before any update is captured."""
+        device = params[0].device
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
-        if members is not None:
-            return OptState(count=[0] * members, mu=zeros(), nu=zeros())
-        return OptState(count=0, mu=zeros(), nu=zeros(), device_count=torch.zeros(
-            (), dtype=torch.int32, device=params[0].device))
+        if self.name in ("adam", "adamw"):
+            for decay in (ADAM_B1, ADAM_B2):
+                bias_correction_table(decay, device)
+        shape, count = ((), 0) if members is None else ((members,), [0] * members)
+        return OptState(count=count, mu=zeros(), nu=zeros(),
+                        device_count=torch.zeros(shape, dtype=torch.int32, device=device))
 
     @torch.no_grad()
     def apply(
@@ -199,21 +237,25 @@ class Optimizer:
         params: List[torch.Tensor],
         learning_rate,
         max_grad_norm=math.inf,
-        mask: Optional[Sequence[bool]] = None,
+        mask=None,
         advance: bool = True,
     ) -> None:
         """Update ``params`` and ``state`` in place from ``grads``.
 
-        A single learner's count advances on the device, and its host
-        mirror with it unless ``advance`` is False (a caller inside a CUDA
-        graph advances the mirror itself).  With ``mask`` (M bools) the
-        parameters are member-stacked: the clip's
-        global norm is each member's over all its leaves, ``learning_rate``
-        and ``max_grad_norm`` are (M,) tensors, ``state.count`` is a list of
-        M counts that bias-correct each member's Adam moments, and a member
-        whose mask is False keeps its parameters, moments and count."""
+        The count advances on the device, and its host mirror with it unless
+        ``advance`` is False (a caller inside a CUDA graph advances the
+        mirror itself).  With ``mask`` (an (M,) bool tensor or M host bools)
+        the parameters are member-stacked: the clip's global norm is each
+        member's over all its leaves, ``learning_rate`` and
+        ``max_grad_norm`` are (M,) tensors, each member's count
+        bias-corrects its own Adam moments, and a member whose mask is
+        False keeps its parameters, moments and count.  A mask given as a
+        tensor advances no host mirror: pass ``advance=False``."""
         grads = list(grads)
-        write = _masked_writer(mask, params[0].device)
+        mask, gates = _member_mask(mask, params[0].device)
+        if mask is not None and advance and gates is None:
+            raise ValueError("a device mask advances no host mirror: pass advance=False")
+        write = _masked_writer(mask)
         per = _member_view
         if self.clip:
             if mask is None:
@@ -225,28 +267,19 @@ class Optimizer:
                             g / per(norm, g) * per(max_grad_norm, g))
                 for g in grads
             ]
-        if mask is None:
-            state.device_count.add_(1)
-            if advance:
-                state.count += 1
-        else:
-            state.count = [c + bool(k) for c, k in zip(state.count, mask)]
+        state.device_count.add_(1 if mask is None else mask)
+        if advance:
+            state.count = (state.count + 1 if mask is None
+                           else [c + k for c, k in zip(state.count, gates)])
         if self.name in ("adam", "adamw"):
             b1, b2 = ADAM_B1, ADAM_B2
             for m, g in zip(state.mu, grads):
                 write(m, (1 - b1) * g + b1 * m)
             for v, g in zip(state.nu, grads):
                 write(v, (1 - b2) * (g * g) + b2 * v)
-            # bias corrections in float32, as optax computes decay**count; a
-            # member whose gate is closed gets its next count's (discarded)
-            if mask is None:
-                bc1, bc2 = (_device_bias_correction(d, state.device_count) for d in (b1, b2))
-            else:
-                counts = [max(c, 1) for c in state.count]
-                bc1, bc2 = (
-                    torch.tensor([_bias_correction(d, c) for c in counts], device=params[0].device)
-                    for d in (b1, b2)
-                )
+            # optax's float32 bias corrections; a member whose gate is closed
+            # reads its count's (discarded), count 1's at count 0
+            bc1, bc2 = (_device_bias_correction(d, state.device_count) for d in (b1, b2))
             updates = [
                 (m / per(bc1, m)) / (torch.sqrt(v / per(bc2, v)) + EPS)
                 for m, v in zip(state.mu, state.nu)
@@ -404,18 +437,22 @@ def build_update_step(optimizer: Optimizer, cfg, group=None) -> Callable:
         batch: LearnBatch,
         weights: torch.Tensor,
         hyper: Optional[HyperParams] = None,
-        mask: Optional[Sequence[bool]] = None,
+        mask=None,
         advance: bool = True,
     ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
-        """With ``mask`` (M bools): member-stacked ``ts``, batch (every leaf
-        (M, B, ...)), ``weights`` (M, B) and :class:`MemberHyperParams`;
-        only the members whose mask is True change.  Returns ``loss`` (M,)
-        and ``td`` (M, B) for every member.  ``advance=False`` leaves a
-        single learner's host counters (``ts.updates`` and the optimizer's
-        count mirror) to the caller: the update then launches kernels only,
-        and can be captured in a CUDA graph."""
+        """With ``mask`` (an (M,) bool tensor on the device, or M host
+        bools): member-stacked ``ts``, batch (every leaf (M, B, ...)),
+        ``weights`` (M, B) and :class:`MemberHyperParams`; only the members
+        whose mask is True change.  Returns ``loss`` (M,) and ``td`` (M, B)
+        for every member.  ``advance=False`` leaves the host counters
+        (``ts.updates`` and the optimizer's count mirror) to the caller: the
+        update then launches kernels only, and can be captured in a CUDA
+        graph.  A mask given as a tensor needs ``advance=False``."""
         h = hyper if hyper is not None else HyperParams.from_config(cfg)
         params = list(ts.online.parameters())
+        mask, gates = _member_mask(mask, params[0].device)
+        if mask is not None and advance and gates is None:
+            raise ValueError("a device mask advances no host mirror: pass advance=False")
         loss, td = loss_fn(ts.online, ts.target, batch, weights)
         # members are independent: the gradient of their summed losses is
         # each member's own
@@ -425,22 +462,29 @@ def build_update_step(optimizer: Optimizer, cfg, group=None) -> Callable:
                 raise ValueError("a population does not run under a process group")
             grads, loss = all_reduce_mean(grads, loss, group)
         optimizer.apply(grads, ts.opt_state, params, h.learning_rate, h.max_grad_norm, mask,
-                        advance)
+                        advance=advance and mask is None)
         if cfg.target_tau is not None:
             # Polyak soft target update every gradient step
             tau = h.target_tau
-            write = _masked_writer(mask, params[0].device)
+            write = _masked_writer(mask)
             with torch.no_grad():
                 for t, p in zip(ts.target.parameters(), params):
                     write(t, (1.0 - _member_view(tau, t)) * t + _member_view(tau, t) * p)
-        if mask is None:
-            if advance:
+        if advance:
+            if mask is None:
                 ts.updates += 1
-        else:
-            ts.updates = [u + bool(k) for u, k in zip(ts.updates, mask)]
+            else:
+                advance_members(ts, gates)
         return ts, loss.detach(), td
 
     return update
+
+
+def advance_members(ts: TrainState, gates: Sequence[bool]) -> None:
+    """The host mirrors of one member update under ``gates``: each open
+    member's update count and Adam count advance by one."""
+    ts.updates = [u + bool(k) for u, k in zip(ts.updates, gates)]
+    ts.opt_state.count = [c + bool(k) for c, k in zip(ts.opt_state.count, gates)]
 
 
 @torch.no_grad()
@@ -450,10 +494,7 @@ def sync_target(ts: TrainState, do_sync=True) -> TrainState:
     member-stacked networks it is one decision a member: an (M,) bool
     tensor, or a sequence of M host bools."""
     if isinstance(do_sync, (list, tuple)):
-        write = _masked_writer(do_sync, next(ts.online.parameters()).device)
-        for t, p in zip(ts.target.parameters(), ts.online.parameters()):
-            write(t, p)
-        return ts
+        do_sync = _member_mask(do_sync, next(ts.online.parameters()).device)[0]
     for t, p in zip(ts.target.parameters(), ts.online.parameters()):
         if isinstance(do_sync, torch.Tensor):
             t.copy_(torch.where(_member_view(do_sync, t), p, t))

@@ -41,11 +41,15 @@ JAX package ``jax.vmap``s this superstep: one vector env of M·N envs
 (member ``m``'s at rows ``m·N``), member-stacked networks, one replay of
 M members, and per-member hyperparameters.  Its loop shares this module's
 per-frame helpers.  Each member's train and sync gates are host decisions
-as here; a member whose gate is closed is left as it was (``mask``
-arguments in ``algos/dqn.py`` and the replays), as a closed ``lax.cond``
-under ``vmap`` is a select.  The members draw their random numbers from
-one generator, in lockstep, so each member's draws depend on which frames
-any member trains, not only its own.
+as here; a member whose gate is closed is left as it was (a device
+``mask`` in ``algos/dqn.py`` and the replays), as a closed ``lax.cond``
+under ``vmap`` is a select.  On the lander with the prioritized replay it
+runs as CUDA graph launches too (:class:`GraphedPopulation`): the same
+frame graph for every member's envs, and graph L for every member, the
+host writing the gates into a static mask before its replays; its Adam
+counts and replay counters live on the device.  The members draw their
+random numbers from one generator, in lockstep, so each member's draws
+depend on which frames any member trains, not only its own.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from deep_q_learning_tpu_torch.algos.dqn import (
     HyperParams,
     MemberHyperParams,
     TrainState,
+    advance_members,
     build_update_step,
     epsilon_by_schedule,
     epsilon_greedy,
@@ -261,25 +266,29 @@ class _LearnerWork:
     """What the graphed learner's graphs run, and the static buffers they
     read and add into (:class:`GraphedLearner`).  It holds no graph, so the
     graphs' functions (its methods) make no reference cycle that would keep
-    their memory until the garbage collector's next full pass."""
+    their memory until the garbage collector's next full pass.  With
+    ``members`` M (:class:`GraphedPopulation`) the buffers have a member
+    axis, and the gate ``mask`` (M,) says which members an update changes."""
 
-    def __init__(self, venv, env_params, replay, update, cfg, device):
+    def __init__(self, venv, env_params, replay, update, cfg, device, members=None):
         self.venv, self.env_params, self.replay, self.update = venv, env_params, replay, update
-        self.cfg = cfg
-        n, b = venv.num_envs, cfg.batch_size
-        self.u_act = torch.zeros((n,), device=device)
-        self.eps = torch.zeros((), device=device)
-        self.u_env = torch.zeros((b,), device=device)
-        self.u_slot = torch.zeros((b,), device=device)
-        self.loss_sum = torch.zeros((), device=device)
-        self.ep_delta = torch.zeros((), dtype=torch.int64, device=device)
-        self.ret_delta = torch.zeros((), device=device)
+        self.cfg, self.members = cfg, members
+        self.envs = venv.num_envs // (members or 1)  # a member's
+        m = () if members is None else (members,)
+        self.u_act = torch.zeros((venv.num_envs,), device=device)
+        self.eps = torch.zeros(m, device=device)
+        self.u_env = torch.zeros(m + (cfg.batch_size,), device=device)
+        self.u_slot = torch.zeros(m + (cfg.batch_size,), device=device)
+        self.mask = None if members is None else torch.zeros(m, dtype=torch.bool, device=device)
+        self.loss_sum = torch.zeros(m, device=device)
+        self.ep_delta = torch.zeros(m, dtype=torch.int64, device=device)
+        self.ret_delta = torch.zeros(m, device=device)
         self.draws = None  # the env step's, a clone of the first frame's at first
         self.runner = self.fresh = None
 
     def statics(self) -> List[torch.Tensor]:
-        return [self.u_act, self.eps, self.u_env, self.u_slot, self.loss_sum, self.ep_delta,
-                self.ret_delta]
+        return _tensors([self.u_act, self.eps, self.u_env, self.u_slot, self.mask, self.loss_sum,
+                         self.ep_delta, self.ret_delta])
 
     def frame(self, *_bound) -> None:
         """One vector step of ``self.runner`` on the static buffers, in place."""
@@ -287,8 +296,13 @@ class _LearnerWork:
         with torch.no_grad():
             if cfg.eps_schedule != "linear_step":
                 self.eps.copy_(epsilon_by_schedule(cfg, 0, r.episodes, r.hyper))
-            q_values = r.train.online(r.obs)
-            actions = epsilon_greedy(None, q_values, self.eps, u=self.u_act)
+            if self.members is None:
+                q_values, eps = r.train.online(r.obs), self.eps
+            else:  # member m's envs at rows m·N
+                obs = r.obs.view(self.members, self.envs, -1)
+                q_values = r.train.online(obs).flatten(0, 1)
+                eps = self.eps.repeat_interleave(self.envs)
+            actions = epsilon_greedy(None, q_values, eps, u=self.u_act)
             obs, states, tr = self.venv._step(
                 None, r.env_states, actions, self.env_params, r.obs, self.fresh, *self.draws)
             self.replay.write(r.replay, tr)
@@ -300,14 +314,15 @@ class _LearnerWork:
 
     def learn(self, *_bound) -> None:
         """One learner update of ``self.runner`` on the static uniforms, in
-        place; its loss added into ``loss_sum``."""
+        place; its loss added into ``loss_sum`` (a closed gate's as 0)."""
         r, h = self.runner, self.runner.hyper
         batch, info, weights = self.replay.sample_with_info(
             r.replay, None, self.cfg.batch_size, gamma=h.gamma, beta=h.per_beta,
             uniforms=(self.u_env, self.u_slot))
-        _, loss, td = self.update(r.train, batch, weights, h, advance=False)
-        self.replay.update_priorities(r.replay, info, td)
-        self.loss_sum.add_(loss)
+        mask = () if self.mask is None else (self.mask,)  # a population's gates
+        _, loss, td = self.update(r.train, batch, weights, h, *mask, advance=False)
+        self.replay.update_priorities(r.replay, info, td, *mask)
+        self.loss_sum.add_(loss if self.mask is None else torch.where(self.mask, loss, 0.0))
 
 
 class GraphedLearner:
@@ -324,31 +339,60 @@ class GraphedLearner:
     with an eager call, and new hyperparameters (baked into a capture as
     kernel arguments) make new ones."""
 
+    members = None
+
     def __init__(self, venv, env_params, replay, update, cfg, device, sync):
-        self.work = _LearnerWork(venv, env_params, replay, update, cfg, device)
+        self.work = _LearnerWork(venv, env_params, replay, update, cfg, device, self.members)
         self.cfg, self.sync = cfg, sync
         self.hyper = self.frame = self.learn = None
+
+    def _baked(self, hyper) -> Any:
+        """What a capture bakes in of ``hyper``: a single learner's floats."""
+        return dataclasses.astuple(hyper)
+
+    def _gates(self, r: RunnerState) -> Any:
+        """Whether this frame trains (host counters only), or None."""
+        h = r.hyper
+        if r.env_step % h.train_every == 0 and r.replay.filled * self.work.envs >= h.training_start:
+            return True
+        return None
+
+    def _updated(self, r: RunnerState, gates) -> None:
+        """The host mirrors of one update under ``gates``."""
+        r.train.updates += 1
+        r.train.opt_state.count += 1
+
+    def _metrics(self, r: RunnerState, loss_count) -> SuperstepMetrics:
+        w = self.work
+        eps = epsilon_by_schedule(self.cfg, r.env_step * w.envs, r.episodes, r.hyper)
+        return _read_metrics(r, w.loss_sum, loss_count, w.ep_delta, w.ret_delta, eps, self.cfg,
+                             None)
 
     def __call__(self, r: RunnerState) -> Tuple[RunnerState, SuperstepMetrics]:
         w, cfg = self.work, self.cfg
         venv, env, replay = w.venv, w.venv.env, w.replay
-        hyper = dataclasses.astuple(r.hyper)
-        if hyper != self.hyper:
-            name = f"the {cfg.env_id} learner's"
+        baked = self._baked(r.hyper)
+        if self.frame is None or baked != self.hyper:
+            name = f"the {cfg.env_id} {'population' if self.members else 'learner'}'s"
             self.frame = GraphedStep(w.frame, f"{name} frame", in_place=True)
             self.learn = GraphedStep(w.learn, f"{name} update", in_place=True)
-            self.hyper = hyper
+            self.hyper = baked
         w.runner = r
         w.fresh = None if env.batch_reset_cheap else venv.fresh_pool(r.generator, w.env_params)
         for total in (w.loss_sum, w.ep_delta, w.ret_delta):
             total.zero_()
         statics = w.statics()
-        n, loss_count = venv.num_envs, 0
+        n = venv.num_envs
+        loss_count = np.zeros(() if self.members is None else (self.members,), dtype=np.int64)
         for _ in range(cfg.steps_per_superstep):
             # the draws in the eager frame's order: the actor's, the step's,
             # the resets' (without a pool), then each update's two
             if cfg.eps_schedule == "linear_step":
-                w.eps.fill_(epsilon_by_schedule(cfg, r.env_step * n, r.episodes, r.hyper))
+                eps = epsilon_by_schedule(cfg, r.env_step * w.envs, r.episodes, r.hyper)
+                if isinstance(eps, torch.Tensor):  # a population's (M,)
+                    w.eps.copy_(eps)
+                else:
+                    w.eps.fill_(eps)
             torch.rand((n,), generator=r.generator, device=w.u_act.device, out=w.u_act)
             draws = [env.step_draws(r.generator, n)]
             if w.fresh is None:
@@ -357,24 +401,58 @@ class GraphedLearner:
                 w.draws = tree_map(torch.clone, draws)
             else:
                 copy_into(w.draws, draws)
-            self.frame(_tensors((r.train.online, r.obs, r.env_states, r.replay, r.episodes,
-                                 r.ep_return, r.ep_length, r.return_window, r.window_cursor,
-                                 r.window_filled, w.fresh, w.draws, statics)))
+            self.frame(_tensors((r.train.online, r.hyper, r.obs, r.env_states, r.replay,
+                                 r.episodes, r.ep_return, r.ep_length, r.return_window,
+                                 r.window_cursor, r.window_filled, w.fresh, w.draws, statics)))
             replay.advance(r.replay)
             r.env_step += 1
-            if r.env_step % r.hyper.train_every == 0 and (
-                    r.replay.filled * n >= r.hyper.training_start):
+            gates = self._gates(r)
+            if gates is not None:
                 for _ in range(cfg.updates_per_step):
                     for u in (w.u_env, w.u_slot):
                         torch.rand(u.shape, generator=r.generator, device=u.device, out=u)
-                    self.learn(_tensors((r.train, r.replay, statics)))
-                    r.train.updates += 1
-                    r.train.opt_state.count += 1
-                loss_count += cfg.updates_per_step
+                    self.learn(_tensors((r.train, r.hyper, r.replay, statics)))
+                    self._updated(r, gates)
+                loss_count = loss_count + np.asarray(gates) * cfg.updates_per_step
             self.sync(r)
-        eps = epsilon_by_schedule(cfg, r.env_step * n, r.episodes, r.hyper)
-        return r, _read_metrics(r, w.loss_sum, loss_count, w.ep_delta, w.ret_delta, eps, cfg,
-                                None)
+        return r, self._metrics(r, loss_count)
+
+
+class GraphedPopulation(GraphedLearner):
+    """The superstep of a population of ``members`` learners as CUDA graph
+    launches, as :class:`GraphedLearner` runs one learner's: the frame
+    graph steps every member's envs, and graph L updates the members whose
+    train gate is open.  The gates are the host's decisions, written into
+    the static ``mask`` (M,) before graph L's replays; a frame on which no
+    gate is open replays no graph L, as the eager loop runs no update.  The
+    float hyperparameters are (M,) tensors the graphs are bound to, as to
+    the runner's: ``set_population_hyper`` makes new ones, and the graphs
+    start over with an eager call."""
+
+    def __init__(self, venv, env_params, replay, update, cfg, device, sync, members, gates):
+        self.members = members
+        super().__init__(venv, env_params, replay, update, cfg, device, sync)
+        self.gates = gates  # gates(r) -> (host gates, device mask), or None
+
+    def _baked(self, hyper) -> Any:
+        return None  # the floats are tensors, the cadences host ints
+
+    def _gates(self, r: RunnerState) -> Any:
+        opened = self.gates(r)
+        if opened is None:
+            return None
+        gates, mask = opened
+        self.work.mask.copy_(mask)
+        return gates
+
+    def _updated(self, r: RunnerState, gates) -> None:
+        advance_members(r.train, gates)
+
+    def _metrics(self, r: RunnerState, loss_count) -> SuperstepMetrics:
+        w = self.work
+        eps = epsilon_by_schedule(self.cfg, r.env_step * w.envs, r.episodes, r.hyper)
+        return _read_member_metrics(r, w.loss_sum, loss_count, w.ep_delta, w.ret_delta, eps,
+                                    self.cfg)
 
 
 def build_superstep(
@@ -523,6 +601,32 @@ def build_superstep(
     return init_runner, superstep
 
 
+def _read_member_metrics(r: RunnerState, loss_sum, loss_count, ep_delta, ret_delta, eps,
+                         cfg) -> SuperstepMetrics:
+    """A population superstep's metrics, in its one device->host read."""
+    threshold = math.inf if cfg.solve_threshold is None else cfg.solve_threshold
+    episodes, ep_d, ret_d, loss_s, mean, filled, eps_v = torch.stack([
+        r.episodes.to(torch.float64),
+        ep_delta.to(torch.float64),
+        ret_delta.to(torch.float64),
+        loss_sum.to(torch.float64),
+        _window_mean(r).to(torch.float64),
+        r.window_filled.to(torch.float64),
+        eps.to(torch.float64),
+    ]).cpu().numpy()
+    return SuperstepMetrics(
+        env_steps=r.env_step,
+        episodes=episodes.astype(np.int64),
+        episodes_delta=ep_d.astype(np.int64),
+        return_sum_delta=ret_d,
+        loss_sum=loss_s,
+        loss_count=loss_count,
+        window_mean=mean,
+        epsilon=eps_v,
+        solved=(filled >= cfg.return_window) & (mean >= threshold),
+    )
+
+
 def build_population_superstep(
     venv: VectorEnv,
     env_params: Any,
@@ -532,6 +636,7 @@ def build_population_superstep(
     cfg,
     device,
     members: int,
+    graphed_learner: bool = True,
 ) -> Tuple[Callable, Callable]:
     """Build ``(init_population, population_step)`` for ``members`` learners
     of ``cfg`` in lockstep: ``venv`` holds ``members · cfg.num_envs`` envs,
@@ -543,17 +648,21 @@ def build_population_superstep(
     ``seed``, and every member starts with its own buffer, counters and the
     config's hyperparameters.  ``population_step(runner) -> (runner,
     SuperstepMetrics)`` advances ``runner`` in place; each metric but
-    ``env_steps`` is an (M,) array."""
+    ``env_steps`` is an (M,) array.
+
+    ``population_step`` is a :class:`GraphedPopulation` where
+    ``graphed_learner`` is set, ``venv`` graphs its step (the lander) and
+    the replay is prioritized; else each frame runs eagerly, with the same
+    results."""
     device = torch.device(device)
     update = build_update_step(optimizer, cfg)
     num_envs = venv.num_envs // members
-    threshold = math.inf if cfg.solve_threshold is None else cfg.solve_threshold
     cadence = {}  # host cadence tuples as device tensors, made once each
 
-    def as_tensor(values) -> torch.Tensor:
-        if values not in cadence:
-            cadence[values] = torch.tensor(values, dtype=torch.int64, device=device)
-        return cadence[values]
+    def as_tensor(values, dtype=torch.int64) -> torch.Tensor:
+        if (values, dtype) not in cadence:
+            cadence[values, dtype] = torch.tensor(values, dtype=dtype, device=device)
+        return cadence[values, dtype]
 
     def init_population(seed: int) -> RunnerState:
         seeds = _seeds(seed, members + 1)
@@ -591,27 +700,32 @@ def build_population_superstep(
             window_filled=zero.clone(),
         )
 
-    def _maybe_train(r: RunnerState):
-        """``cfg.updates_per_step`` updates of the members whose cadence and
-        warm-up gate allow; ``(loss sum (M,), mask)``, or None if no gate is
-        open."""
+    def train_gates(r: RunnerState):
+        """Each member's cadence and warm-up gate, from host counters: the
+        host bools and the same as a device mask, or None if none is open."""
         h = r.hyper
         stored = r.replay.filled * num_envs
-        mask = [r.env_step % k == 0 and stored >= start
-                for k, start in zip(h.train_every, h.training_start)]
-        if not any(mask):
+        gates = tuple(r.env_step % k == 0 and stored >= start
+                      for k, start in zip(h.train_every, h.training_start))
+        return (gates, as_tensor(gates, torch.bool)) if any(gates) else None
+
+    def _maybe_train(r: RunnerState, loss_sum: torch.Tensor):
+        """``cfg.updates_per_step`` updates of the members whose gate is
+        open, each loss added into ``loss_sum`` (a closed gate's as 0);
+        the gates, or None if none is open."""
+        opened = train_gates(r)
+        if opened is None:
             return None
-        loss_sum = None
+        (gates, mask), h = opened, r.hyper
         for _ in range(cfg.updates_per_step):
             batch, info, weights = replay.sample_with_info(
                 r.replay, r.generator, cfg.batch_size, gamma=h.gamma, beta=h.per_beta
             )
-            _, loss, td = update(r.train, batch, weights, h, mask)
+            _, loss, td = update(r.train, batch, weights, h, mask, advance=False)
             replay.update_priorities(r.replay, info, td, mask)
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        if not all(mask):
-            loss_sum = torch.where(torch.tensor(mask, device=device), loss_sum, 0.0)
-        return loss_sum, mask
+            loss_sum.add_(torch.where(mask, loss, 0.0))
+            advance_members(r.train, gates)
+        return gates
 
     def _maybe_sync(r: RunnerState) -> None:
         """Each member's hard target sync on its own cadence; with
@@ -621,14 +735,18 @@ def build_population_superstep(
         if cfg.target_sync_mode == "steps":
             mask = [r.env_step % k == 0 for k in r.hyper.target_sync_every]
             if any(mask):
-                sync_target(r.train, mask)
+                sync_target(r.train, as_tensor(tuple(mask), torch.bool))
         elif cfg.target_sync_mode == "episodes":
             k = as_tensor(r.hyper.target_replace_episodes)
             do_sync = (r.episodes // k) > (r.last_sync_episodes // k)
             sync_target(r.train, do_sync)
-            r.last_sync_episodes = torch.where(do_sync, r.episodes, r.last_sync_episodes)
+            r.last_sync_episodes.copy_(torch.where(do_sync, r.episodes, r.last_sync_episodes))
         else:
             raise ValueError(f"unknown target_sync_mode {cfg.target_sync_mode!r}")
+
+    if graphed_learner and venv.graphed and replay.kind == "prioritized":
+        return init_population, GraphedPopulation(venv, env_params, replay, update, cfg, device,
+                                                  _maybe_sync, members, train_gates)
 
     def population_step(r: RunnerState) -> Tuple[RunnerState, SuperstepMetrics]:
         fresh = None if venv.env.batch_reset_cheap else venv.fresh_pool(r.generator, env_params)
@@ -649,34 +767,12 @@ def build_population_superstep(
             ep_delta = ep_delta + num_done
 
             r.env_step += 1
-            trained = _maybe_train(r)
-            if trained is not None:
-                loss_sum = loss_sum + trained[0]
-                loss_count += np.asarray(trained[1]) * cfg.updates_per_step
+            gates = _maybe_train(r, loss_sum)
+            if gates is not None:
+                loss_count += np.asarray(gates) * cfg.updates_per_step
             _maybe_sync(r)
 
         eps = epsilon_by_schedule(cfg, r.env_step * num_envs, r.episodes, r.hyper)
-        # the one device->host read of the superstep
-        episodes, ep_d, ret_d, loss_s, mean, filled, eps_v = torch.stack([
-            r.episodes.to(torch.float64),
-            ep_delta.to(torch.float64),
-            ret_delta.to(torch.float64),
-            loss_sum.to(torch.float64),
-            _window_mean(r).to(torch.float64),
-            r.window_filled.to(torch.float64),
-            eps.to(torch.float64),
-        ]).cpu().numpy()
-        metrics = SuperstepMetrics(
-            env_steps=r.env_step,
-            episodes=episodes.astype(np.int64),
-            episodes_delta=ep_d.astype(np.int64),
-            return_sum_delta=ret_d,
-            loss_sum=loss_s,
-            loss_count=loss_count,
-            window_mean=mean,
-            epsilon=eps_v,
-            solved=(filled >= cfg.return_window) & (mean >= threshold),
-        )
-        return r, metrics
+        return r, _read_member_metrics(r, loss_sum, loss_count, ep_delta, ret_delta, eps, cfg)
 
     return init_population, population_step

@@ -2,7 +2,7 @@
 
     python -m deep_q_learning_tpu_torch.measure [--preset lunar_per_scaled]
         [--set key=value ...] [--env-only | --kernels-only] [--eager]
-        [--eager-learner] [--baseline CHECKOUT]
+        [--eager-learner] [--members M] [--baseline CHECKOUT]
 
 1. Device time of each kernel and of its plain version at the main paths'
    shapes, and with a population's member axis (``lunar_per``'s at 8
@@ -36,6 +36,12 @@
    the host time of its launch, beside the wall time of a frame of those
    supersteps.  The learner's graphs write the runner in place, so their
    replays come last and leave the trainer advanced past its counters.
+   With ``--members M`` the same for a population of M learners of the
+   preset (``PopulationTrainer``; ``algos/superstep.py::GraphedPopulation``
+   on the lander with the prioritized replay, the eager population with
+   ``--eager-learner``): a steady superstep traced (the host's launches a
+   vector step, K1-K3 on the device, the busy share), two unprofiled
+   (aggregate env-steps/s) and each graph's replay.
 
 With ``--kernels-only``, only 1.  With
 ``--env-only``, neither: the preset's env alone, at its env count, steps
@@ -440,10 +446,10 @@ def learner_kernels(trace: "KernelTrace") -> dict:
     return {name: sum(trace.count(k) for k in kernels) for name, kernels in LEARNER_KERNELS.items()}
 
 
-def learner_graphs(trainer) -> dict:
-    """The learner's CUDA graphs of a trainer whose superstep is a
-    ``GraphedLearner`` (none otherwise), by what they run."""
-    frame, learn = getattr(trainer._superstep, "frame", None), getattr(trainer._superstep, "learn", None)
+def learner_graphs(superstep) -> dict:
+    """The learner's CUDA graphs of a superstep that is a ``GraphedLearner``
+    or a ``GraphedPopulation`` (none otherwise), by what they run."""
+    frame, learn = getattr(superstep, "frame", None), getattr(superstep, "learn", None)
     return {k: g for k, g in (("frame", frame), ("learner update", learn))
             if g is not None and g.graph is not None}
 
@@ -498,20 +504,28 @@ def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: boo
         print(f"  {e.key[6:]:28s} {e.cpu_time_total / 1e3:9.1f} ms host "
               f"({100 * e.cpu_time_total / 1e6 / wall:.1f} %), {e.count} calls")
 
+    graphs = {kind: g for (kind, *_), g in trainer.venv._graphs.items()}
+    graphs.update(learner_graphs(trainer._superstep))  # last: their replays write the runner
+    unprofiled(trainer.step, frames, cfg.num_envs, mode, graphs, card)
+
+
+def unprofiled(step: Callable[[], object], frames: int, envs: int, mode: str, graphs: dict,
+               card: str) -> None:
+    """Two supersteps of ``step()`` (``frames`` vector steps of ``envs``
+    envs each, all members') timed on the host clock, then each of
+    ``graphs`` replayed alone (:func:`replay_ms`), in order."""
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.step()
+        step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         print(f"unprofiled superstep ({mode}): {walls[-1] * 1e3:.1f} ms, "
-              f"{frames * cfg.num_envs / walls[-1]:.1f} env-steps/s, peak memory "
+              f"{frames * envs / walls[-1]:.1f} env-steps/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
     frame_ms = 1e3 * min(walls) / frames
-    graphs = {kind: g for (kind, *_), g in trainer.venv._graphs.items()}
-    graphs.update(learner_graphs(trainer))  # last: their replays write the runner
     for kind, g in graphs.items():
         host_ms, device_ms, nodes = replay_ms(g)
         print(f"graph of the {kind}: replay {device_ms:.3f} ms on the device (CUDA events over "
@@ -519,6 +533,39 @@ def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: boo
               f"host, captured in {g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call; a "
               f"frame of the faster unprofiled superstep {frame_ms:.3f} ms of wall, so one "
               f"replay is {100 * device_ms / frame_ms:.1f} % of it [{card}]")
+
+
+def profile_population(cfg, members: int, card: str, graphed_learner: bool = True) -> None:
+    """The population superstep of ``members`` learners of ``cfg``, as
+    :func:`profile_superstep` measures a single learner's: one steady
+    superstep traced (:func:`traced_kernels`: the host's launches a vector
+    step, K1-K3 on the device, the busy share), then two unprofiled
+    (aggregate env-steps/s, peak memory) and each graph's replay."""
+    from deep_q_learning_tpu_torch.parallel import PopulationTrainer
+
+    trainer = PopulationTrainer(cfg, members, eval_envs=1, device="cuda",
+                                graphed_learner=graphed_learner)
+    graphed = type(trainer._step).__name__ == "GraphedPopulation"
+    mode = (f"{members} members, " + ("graphed population" if graphed
+                                      else "eager population, graphed env step"))
+    runner = trainer.init(seed=0)
+    for _ in range(2):  # past the warm-up frames and the captures
+        trainer.step(runner)
+    metrics = []
+    trace = traced_kernels(lambda: metrics.append(trainer.step(runner)[1]))
+    frames = cfg.steps_per_superstep
+    print(f"profiled superstep ({mode}): wall {trace.wall_us / 1e3:.1f} ms, updates "
+          f"{metrics[-1].loss_count.tolist()}, device busy {trace.device_us / 1e3:.1f} ms "
+          f"({100 * trace.device_us / trace.wall_us:.1f} %), host launches "
+          f"{trace.host_launches / frames:.1f} per vector step ({trace.launches} kernels, "
+          f"{len(trace.per_graph_launch)} graphs, {trace.copies} copies and fills); the "
+          f"learner's kernels on the device {learner_kernels(trace)} [{card}]")
+    graphs = {}
+    if graphed:
+        venv = trainer._step.work.venv
+        graphs = {kind: g for (kind, *_), g in venv._graphs.items()}
+        graphs.update(learner_graphs(trainer._step))
+    unprofiled(lambda: trainer.step(runner), frames, cfg.num_envs * members, mode, graphs, card)
 
 
 REPLAYS = 5
@@ -707,10 +754,15 @@ def main(argv=None) -> int:
     ap.add_argument("--eager-learner", action="store_true",
                     help="run the frame eagerly around the env step's graph "
                          "(graphed_learner=False)")
+    ap.add_argument("--members", type=int, metavar="M",
+                    help="measure the superstep of a population of M learners of the preset "
+                         "instead of one learner's")
     ap.add_argument("--baseline", type=Path, metavar="CHECKOUT",
                     help="also time the TD and PER slot kernels of another checkout of "
                          "the port, in turns with this tree's")
     args = ap.parse_args(argv)
+    if args.members and args.eager:
+        ap.error("--members runs the env step graphed: use --eager-learner")
     if not torch.cuda.is_available():
         print("measure: torch.cuda.is_available() is False; this needs a GPU", file=sys.stderr)
         return 1
@@ -725,7 +777,9 @@ def main(argv=None) -> int:
         return 0
     kernel_device_times(card, args.baseline)
     learner_launches(card, args.baseline)
-    if not args.kernels_only:
+    if args.members:
+        profile_population(cfg, args.members, card, graphed_learner=not args.eager_learner)
+    elif not args.kernels_only:
         profile_superstep(cfg, card, graphed=not args.eager,
                           graphed_learner=not args.eager_learner)
     return 0

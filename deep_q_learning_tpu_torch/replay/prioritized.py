@@ -24,8 +24,8 @@ kernels only and run inside the learner's CUDA graphs
 The host ints ``cursor`` and ``total_adds`` mirror them, advanced by
 :meth:`PrioritizedReplay.advance`, for the host's gates and the
 checkpoint.  :meth:`PrioritizedReplay.write` is the device half of
-:meth:`~PrioritizedReplay.add`, and a single learner samples from the
-device counters (a population from the host mirrors).
+:meth:`~PrioritizedReplay.add`, and the sample reads the device counters
+(a single learner's and a population's).
 
 With ``members`` M (a population), the priorities of M members are one
 (M·N, C) array beside the shared storage, member ``m``'s rows at ``m·N``,
@@ -33,13 +33,13 @@ and ``max_priority`` is (M,).  Each member samples B from its own rows:
 level 1 over its N row sums, level 2 for all members in one call of the
 slot kernel (``slot_select_members``), importance weights normalised by
 its own batch max; a priority update changes only the members whose train
-gate is open.
+gate is open (a device mask, so that it too runs inside a CUDA graph).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -229,8 +229,9 @@ class PrioritizedReplay:
         own replay under ``jax.vmap``; level 2 for all members in one call."""
         members, n, b = self.members, self.num_envs, batch_size
         device = state.priorities.device
+        filled = torch.clamp(state.device_adds, max=self.capacity_per_env)
         mask = valid_slot_mask(
-            self.capacity_per_env, state.cursor, state.filled, self.n_step, device
+            self.capacity_per_env, state.device_cursor, filled, self.n_step, device
         )
         p = state.priorities * mask[None, :].to(torch.float32)  # (M·N, C)
         if uniforms is None:
@@ -261,7 +262,7 @@ class PrioritizedReplay:
             gamma.repeat_interleave(b), self.n_step, self.truncation_bootstrap,
         )
         # importance weights per member, normalised by its own batch max
-        n_valid = float(state.filled * n)
+        n_valid = (filled * n).to(torch.float32)
         w = (1.0 / (n_valid * p_sel).clamp(min=1e-12)) ** beta[:, None]
         w = w / w.max(dim=1, keepdim=True).values.clamp(min=1e-12)
         return split_members(batch, members), SampleInfo(rows, slot_idx), w
@@ -276,20 +277,23 @@ class PrioritizedReplay:
         state: PrioritizedReplayState,
         info: SampleInfo,
         td_errors: torch.Tensor,
-        mask: Optional[Sequence[bool]] = None,
+        mask=None,
     ) -> PrioritizedReplayState:
         """Set the sampled priorities to ``(|td| + ε)^α`` in place; duplicate
         pairs in one batch (the same transition) resolve max-wins.  With
-        members (``td_errors`` (M, B)), only the members whose ``mask`` is
-        True (all if None) change their priorities and max priority."""
+        members (``td_errors`` (M, B)), only the members whose ``mask`` (an
+        (M,) bool tensor on the device, or M host bools) is True (all if
+        None) change their priorities and max priority."""
         mag = td_errors.abs() + self.eps
         new_p = mag**self.alpha
         flat = state.priorities.view(-1)
         idx = info.env_idx * self.capacity_per_env + info.slot_idx
         keep = None
-        if mask is not None and not all(mask):
-            # a closed gate writes each sampled priority back as it was
-            keep = torch.tensor([bool(k) for k in mask], device=flat.device)
+        if mask is not None:
+            # a closed gate writes each sampled priority back as it was;
+            # where(True, new, old) is new bit for bit
+            keep = mask if isinstance(mask, torch.Tensor) else torch.tensor(
+                [bool(k) for k in mask], device=flat.device)
             new_p = torch.where(keep[:, None], new_p, flat[idx])
         flat.index_fill_(0, idx.reshape(-1), 0.0)
         flat.scatter_reduce_(0, idx.reshape(-1), new_p.reshape(-1), reduce="amax")

@@ -7,10 +7,10 @@ priorities, max priority, cursor and fill, the device generator's state,
 and every counter and the return window.
 
 A counter that the learner's CUDA graphs advance on the device (the Adam
-count, the replay's cursor and fill) is a host int mirrored by a device
-tensor (``envs/graphed.py::device_mirror``).  The checkpoint holds the int,
-read back from the tensor at save time and checked against the mirror;
-a restore writes it into both.
+count, one a member in a population; the replay's cursor and fill) is a
+host int mirrored by a device tensor (``envs/graphed.py::device_mirror``).
+The checkpoint holds the int, read back from the tensor at save time and
+checked against the mirror; a restore writes it into both.
 
 The runner is flattened to plain data before ``torch.save``: nested dicts
 and lists of CPU tensors, Python numbers and strings.  ``torch.load`` then
@@ -54,10 +54,11 @@ def _mirrors(obj: Any) -> dict:
 
 def _read_counter(obj: Any, host: str, device: str) -> Any:
     """The counter's value on the device (the host int where there is no
-    device tensor); raises where the two differ."""
+    device tensor; a list of ints, one a member, for a population's);
+    raises where the two differ."""
     value, tensor = getattr(obj, host), getattr(obj, device)
-    if tensor is not None and int(tensor) != value:
-        raise RuntimeError(f"{type(obj).__name__}.{device} holds {int(tensor)} on the device "
+    if tensor is not None and tensor.tolist() != value:
+        raise RuntimeError(f"{type(obj).__name__}.{device} holds {tensor.tolist()} on the device "
                            f"but its host mirror {host} is {value}")
     return value
 
@@ -76,6 +77,8 @@ def _to_tree(obj: Any) -> Any:
                 for f in dataclasses.fields(obj) if f.name not in mirrors.values()}
     if isinstance(obj, list):
         return [_to_tree(x) for x in obj]
+    if type(obj) is tuple:  # a population's cadences
+        return tuple(_to_tree(x) for x in obj)
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     raise TypeError(f"cannot checkpoint a {type(obj).__name__}")
@@ -108,12 +111,13 @@ def _from_tree(template: Any, saved: Any, where: str) -> Any:
         for host, dev in mirrors.items():
             tensor = getattr(template, dev)
             if tensor is not None:
-                values[dev] = torch.full_like(tensor, values[host])
+                values[dev] = torch.tensor(values[host], dtype=tensor.dtype, device=tensor.device)
         return dataclasses.replace(template, **values)
-    if isinstance(template, list):
-        if not isinstance(saved, list) or len(saved) != len(template):
-            raise ValueError(f"{where}: expected a list of {len(template)}")
-        return [_from_tree(t, s, f"{where}[{i}]") for i, (t, s) in enumerate(zip(template, saved))]
+    if isinstance(template, list) or type(template) is tuple:
+        kind = list if isinstance(template, list) else tuple
+        if not isinstance(saved, kind) or len(saved) != len(template):
+            raise ValueError(f"{where}: expected a {kind.__name__} of {len(template)}")
+        return kind(_from_tree(t, s, f"{where}[{i}]") for i, (t, s) in enumerate(zip(template, saved)))
     if type(saved) is not type(template):
         raise ValueError(
             f"{where}: the checkpoint holds a {type(saved).__name__}, the trainer a "

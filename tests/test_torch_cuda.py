@@ -32,6 +32,9 @@ twin.  The single learner's frame and update as CUDA graphs
 (``GraphedLearner``): the first training frames apply one update each
 (the Adam count 1, 2, 3, 4 and the runner bitwise the eager learner's
 after each), K1 and K2 counted in the profiler's trace once per update.
+The population's as CUDA graphs (``GraphedPopulation``): bitwise the
+eager population after every frame with mixed gates, across a change of
+hyperparameters that makes the graphs start over.
 S1 against the plain solver: bit for bit (every bit of every field,
 accumulator and flag) at N = 128, 1024 and 37, N = 2 at (180, 60) and the
 ragged N = 3, 33 and 129, with and without the early exit; over 100 calls
@@ -891,6 +894,62 @@ def test_first_graphed_training_frames_apply_one_update_each(cuda):
     # the update: eager at frame 3, captured and replayed at 4, replayed after
     assert captured == [False, False, False, True, True, True], captured
     assert graphed._superstep.frame.graph is not None
+
+
+def test_graphed_population_equals_eager_with_mixed_gates(cuda):
+    """The population's frame and update as CUDA graphs
+    (``GraphedPopulation``): 3 members of ``lunar_per`` at 16 envs with the
+    PER slot kernel, gates mixed (``train_every`` 1, 2, 3, member 2 from a
+    later warm-up), one frame a superstep against the eager population from
+    the same seed; after each frame the runners are bitwise equal and every
+    member's Adam count on the device is its host mirror.  Graph L makes
+    its eager call at the first training frame and is captured at the
+    next; new hyperparameters (``set_population_hyper``) make both graphs
+    start over, and the runners stay equal."""
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedPopulation
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.parallel import build_population, set_population_hyper
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = dataclasses.replace(lunar_per(), num_envs=16, hidden=(32, 32), batch_size=32,
+                              buffer_capacity=16 * 64, steps_per_superstep=1, training_start=32,
+                              return_window=4, use_pallas_sampler=True)
+    gates = dict(train_every=[1, 2, 3], training_start=[32, 32, 96])
+    runs = {}
+    for graphed in (True, False):
+        init, step, _ = build_population(cfg, 3, device="cuda", graphed_learner=graphed)
+        assert isinstance(step, GraphedPopulation) == graphed
+        runs[graphed] = step, set_population_hyper(init(0), **gates)
+    (g_step, g), (e_step, e) = runs[True], runs[False]
+
+    def same(a, b, where="runner"):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), where
+        elif isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        else:
+            assert a == b, where
+
+    captured = []
+    for frame in range(1, 13):
+        if frame == 9:
+            for r in (g, e):
+                set_population_hyper(r, learning_rate=[1e-3, 2e-4, 5e-4], per_beta=0.6)
+        gm, em = g_step(g)[1], e_step(e)[1]
+        assert gm.loss_count.tolist() == em.loss_count.tolist(), frame
+        same(ckpt._to_tree(g), ckpt._to_tree(e), f"frame {frame}")
+        opt = g.train.opt_state
+        assert opt.device_count.tolist() == opt.count, frame
+        captured.append(g_step.learn.graph is not None)
+    # member 0 at frames 2..12, member 1 at the even ones, member 2 at 6, 9 and 12
+    assert g.train.updates == [11, 6, 3], g.train.updates
+    # graph L: eager at frame 2, captured at 3; new tensors at 9: eager, captured at 10
+    assert captured == [False, False, True, True, True, True, True, True,
+                        False, True, True, True], captured
 
 
 def test_vel_tol_trainer_graphs_bitwise_eager(cuda):

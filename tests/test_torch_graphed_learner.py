@@ -20,7 +20,9 @@ depend on but the capture itself:
     from the same TD errors at 4 ulps);
   * Adam with its count on the device against optax over 30 steps (rtol
     1e-6, as ``tests/test_torch_optim.py`` holds the optimizer), and its
-    bias correction against the host's numpy one at every count to 60,000;
+    bias correction, read from a table of optax's float32 values, equal
+    to the host's numpy one at every count to 60,000 and to optax's
+    ``tree_bias_correction`` where the correctly rounded power is not;
   * ε in a float32 device scalar against the host float, on a grid of
     draws a few ulps either side of ε;
   * a checkpoint of the graphed learner restored and run on, bitwise.
@@ -239,26 +241,50 @@ def test_adam_with_a_device_count_matches_optax_over_30_steps():
         np.testing.assert_allclose(t.numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("decay,differ", [(0.9, []), (0.999, [2958, 3606])])
+@pytest.mark.parametrize("decay,differ", [(0.9, []), (0.999, [])])
 def test_device_bias_correction_is_the_correctly_rounded_power(decay, differ):
-    """The device count's bias correction against the host's numpy float32
-    one at every count to 60,000: equal but at ``differ``, where numpy's
-    scalar power is not the float32 nearest the exact power of the float32
-    decay and the device's is."""
-    from decimal import Decimal, getcontext
-
-    from deep_q_learning_tpu_torch.algos.dqn import _bias_correction, _device_bias_correction
+    """The device count's bias correction, read from the table of optax's
+    float32 values, against the host's numpy float32 one (optax's formula)
+    at every count to 60,000: equal everywhere (``differ`` is empty), also
+    at 0.999's counts 2958 and 3606, where the correctly rounded power of
+    the float32 decay is an ulp off numpy's and optax's.  The table ends at
+    the first count whose correction is 1.0f, and a count past it reads
+    1.0f."""
+    from deep_q_learning_tpu_torch.algos.dqn import (
+        _bias_correction,
+        _device_bias_correction,
+        bias_correction_table,
+    )
 
     counts = torch.arange(1, 60_001, dtype=torch.int32)
     device = _device_bias_correction(decay, counts).numpy()
     host = np.array([_bias_correction(decay, k) for k in range(1, 60_001)], dtype=np.float32)
     assert list(np.nonzero(device != host)[0] + 1) == differ
-    getcontext().prec = 60
-    base = np.float32(decay)
-    for k in differ:
-        nearest = np.float32(float(Decimal(float(base)) ** k))
-        assert base ** np.float32(k) != nearest
-        assert device[k - 1] == np.float32(1) - nearest
+    table = bias_correction_table(decay, "cpu")
+    last = {0.9: 165, 0.999: 17_321}[decay]  # the first count at 1.0f, checked with numpy
+    assert table.numel() == last + 1 and table[-1] == 1 and table[-2] < 1
+    assert bias_correction_table(decay, "cpu") is table  # made once
+    # one member's count, several members' counts
+    assert _device_bias_correction(decay, torch.tensor(2958, dtype=torch.int32)).shape == ()
+    pair = _device_bias_correction(decay, torch.tensor([0, 1], dtype=torch.int32))
+    assert pair[0] == pair[1] == host[0]
+
+
+@pytest.mark.parametrize("decay", [0.9, 0.999])
+def test_device_bias_correction_equals_optax(decay):
+    """The corrected moment ``m / (1 - decay**count)`` from the device
+    table against optax's ``tree_bias_correction`` on JAX's CPU, at the
+    counts where the correctly rounded power departs from optax's (2958,
+    3606) and on either side of the table's end for both decays."""
+    from deep_q_learning_tpu_torch.algos.dqn import _device_bias_correction
+
+    moments = np.array([1.0, 0.37, -2.5e-3, 7.0], dtype=np.float32)
+    for count in (1, 2, 164, 165, 2958, 3606, 17_320, 17_321, 60_000):
+        want = optax.tree_utils.tree_bias_correction(
+            jnp.asarray(moments), decay, jnp.asarray(count, jnp.int32))
+        bc = _device_bias_correction(decay, torch.tensor(count, dtype=torch.int32))
+        got = torch.tensor(moments) / bc
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=str(count))
 
 
 @pytest.mark.parametrize("eps", [0.1, 0.1 + 1e-12, 0.505, 1 / 3, 0.0200001, 0.999999999])
