@@ -52,7 +52,10 @@ Phases (each raises on failure, so any failure exits non-zero):
      busy share, the counters (the Adam count on the device equal to its
      mirror), the loss is finite, the online net trained, the target
      followed by Polyak averaging, peak memory under 1 GiB, and a greedy
-     evaluation returns finite returns; then the first training frames of
+     evaluation returns finite returns; F5's pair: ``epsilon_greedy`` with
+     a float ε and with a device tensor equal over 2^20 draws at four ε,
+     and the eager learner from the same seed bitwise the graphed one after
+     the same 512 exploring frames; then the first training frames of
      a one-frame superstep against the eager learner (the Adam count 1
      after the first, the runners bitwise after every frame); then an
      eager-learner ``Trainer`` restored from the graphed one's checkpoint,
@@ -93,16 +96,24 @@ Phases (each raises on failure, so any failure exits non-zero):
      frame of 64 landers from a short flight near the ground (touchdowns,
      contacts, crashes) on the card (S1) against the same frame on the CPU
      (the plain solver);
-  8. classic control on the card: ``cartpole_vector``, ``acrobot_vector`` and
-     ``mountain_car_vector`` at full width through ``Trainer``, cut in depth
-     only (``CLASSIC_RUNS``): check the counters (env steps; updates equal
-     to the trained frames times ``updates_per_step``), a finite loss,
-     completed episodes, that the online net trained, that no kernel ran
-     (all three run the plain TD loss, ``use_pallas=False``), and that the
-     cheap auto-reset ran: no reset pool, one ``reset_batch`` draw a frame;
-     print env-steps/s and the kernel launches per vector step of a steady
-     8-step superstep (``torch.profiler``); then one vector step of each env on
-     the card against the same step on the CPU, from the same states;
+  8. the uniform replay and classic control on the card:
+     ``cartpole_vector``, ``acrobot_vector``, ``mountain_car_vector`` and
+     ``lunar_dddqn_vector`` at full width through ``Trainer``, cut in depth
+     only (``CLASSIC_RUNS``), each frame as CUDA graph launches
+     (``GraphedLearner``: the classic envs inject their resets' draw, the
+     uniform sample scales its uniforms by the device fill), superstep by
+     superstep in turns with the eager learner from the same seed: metrics
+     and runners bitwise equal after each; the counters (env steps,
+     updates equal to the trained frames times ``updates_per_step``, the
+     replay's and Adam's device counters equal to their mirrors), a finite
+     loss, completed episodes, the online net trained, no kernel (all four
+     run the plain TD loss, ``use_pallas=False``), the resets as each env
+     draws them (a classic env's every frame, the lander's pool once a
+     superstep); the host's launches per vector step of a steady 8-step
+     graphed superstep (``torch.profiler``, at most
+     ``CLASSIC_HOST_LAUNCHES``), env-steps/s graphed and eager, each
+     graph's replay on the device; then one vector step of each classic env
+     on the card against the same step on the CPU, from the same states;
   9. a population at full width: ``lunar_per`` with 8 members of 128 rigid
      landers, dueling (256, 256), PER (128, 4096) a member, batch 256 and
      ``use_pallas_sampler=True`` through ``PopulationTrainer``, cut in depth
@@ -225,6 +236,9 @@ SUPERSTEPS = 4
 # learner's ~390-490), and the frame from which the trap check's learner runs
 SLICE_HOST_LAUNCHES = 40
 FIRST_TRAIN_FRAME = 3
+# F5's pair: epsilon_greedy with a float ε and with a device tensor over
+# 2^20 draws at the ε of artifacts/flagship_parting/division.py
+F5_DRAWS, F5_EPSILONS = 1 << 20, (0.9, 0.459, 0.01, 1 / 3)
 SCALED_SUPERSTEPS = 2
 TRACE_ATTEMPTS = 3  # a profiled superstep whose trace lost kernel records is run again
 # (N, C, B): lunar_per_scaled(1024), lunar_per, lunar_per_scaled(4096) (C = 2^19 / 4096),
@@ -312,11 +326,16 @@ FRAME_TIGHT_SHARE = 0.9
 #     policy's episode lasts the 500-step limit, so 512 steps end one per env;
 #   mountain_car_vector: 128 envs, 2 supersteps of 128 vector steps, with
 #     training_start cut to 16,384 (of 50,000) so that the learner runs.
+#   lunar_dddqn_vector: 128 rigid landers, 2 supersteps of 128 vector steps;
+#     the learner starts at vector step 157 (training_start 20,000).
+# Each graphed, in turns with its eager learner from the same seed.
 CLASSIC_RUNS = {  # preset: (supersteps, config cuts)
     "cartpole_vector": (3, {}),
     "acrobot_vector": (4, {}),
     "mountain_car_vector": (2, {"training_start": 16_384}),
+    "lunar_dddqn_vector": (2, {}),
 }
+CLASSIC_HOST_LAUNCHES = 40  # at most, a vector step of a steady graphed superstep (as phase 4)
 # one vector step card vs CPU, as the CPU tests hold the port to JAX
 # (tests/test_torch_envs_classic.py): CartPole and MountainCar 1e-6; Acrobot's
 # four RK4 stages of trigonometry carry the ulps of sin/cos further
@@ -1011,6 +1030,7 @@ def run_slice(torch, td_kernels, sample_kernels, card):
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     assert peak_mib < 1024, peak_mib
 
+    f5_pair(torch, trainer, metrics, card)
     ev = trainer.evaluate(seed=0)
     assert ev.returns.shape == (128,) and all(math.isfinite(x) for x in ev.returns)
     frame, learn = trainer._superstep.frame, trainer._superstep.learn
@@ -1035,6 +1055,42 @@ def run_slice(torch, td_kernels, sample_kernels, card):
         print(f"  the graph of the {name}: replay {device_ms:.3f} ms on the device (CUDA events), "
               f"{nodes} kernels, its launch {host_ms:.3f} ms of host; captured in "
               f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
+
+
+def f5_pair(torch, graphed, metrics, card):
+    """Phase 4, F5 (CUDA divides by a Python float as a multiply by its
+    float32 reciprocal, by a tensor as a true division): ``epsilon_greedy``
+    with a float ε against the device scalar the graphed frame reads, over
+    2^20 draws at each of F5_EPSILONS, the same actions; then the eager
+    learner from the graphed one's seed through as many supersteps as it
+    ran (``metrics``, 512 frames or more while ε explores): metrics and
+    runners bitwise equal."""
+    from deep_q_learning_tpu_torch.algos.dqn import epsilon_greedy
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.rand((F5_DRAWS,), generator=g, device="cuda")
+    q = torch.randn((F5_DRAWS, 4), generator=g, device="cuda")
+    explored = []
+    for eps in F5_EPSILONS:
+        static = torch.zeros((), device="cuda")
+        static.fill_(eps)
+        assert torch.equal(epsilon_greedy(None, q, eps, u=u),
+                           epsilon_greedy(None, q, static, u=u)), eps
+        explored.append(int((u < static).sum()))
+    cfg = graphed.cfg
+    eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
+    assert not isinstance(eager._superstep, GraphedLearner)
+    assert [eager.step() for _ in metrics] == metrics
+    same_tree(torch, runner_tree(graphed), runner_tree(eager), "F5 pair")
+    frames = len(metrics) * cfg.steps_per_superstep
+    assert frames >= 512 and metrics[-1].epsilon > 0.5, (frames, metrics[-1].epsilon)
+    print(f"  F5: epsilon_greedy with a float ε equals it with the device scalar over "
+          f"{F5_DRAWS} draws at ε {F5_EPSILONS} ({explored} explored); the eager learner from "
+          f"seed 0 bitwise the graphed one after {frames} frames (ε "
+          f"{metrics[0].epsilon:.3f} to {metrics[-1].epsilon:.3f}, {graphed.runner.train.updates} "
+          f"updates) [{card}]")
 
 
 def first_training_frames(torch, card):
@@ -1659,55 +1715,90 @@ def steady_launches(torch, cfg) -> float:
 
 
 def run_classic(torch, td_kernels, sample_kernels, preset, card):
-    """Phase 8: one classic-control preset at full width through the Trainer."""
+    """Phase 8: one uniform-replay preset at full width through the Trainer,
+    each frame as CUDA graph launches (``GraphedLearner``), superstep by
+    superstep in turns with the eager learner (``graphed_learner=False``)
+    from the same seed: metrics and runners bitwise equal after each, the
+    counters exact, no kernel launched (``use_pallas=False``), the resets
+    drawn as the env draws them (the classic envs' every frame, the
+    lander's pool once a superstep), the host's launches per vector step of
+    a steady superstep at most ``CLASSIC_HOST_LAUNCHES``; env-steps/s of
+    both, and each graph's replay on the device."""
     import dataclasses
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import PRESETS
+    from deep_q_learning_tpu_torch.measure import replay_ms
     from deep_q_learning_tpu_torch.train import Trainer
 
     supersteps, cuts = CLASSIC_RUNS[preset]
     cfg = dataclasses.replace(PRESETS[preset](), **cuts)
     assert cfg.replay == "uniform" and not cfg.use_pallas and not cfg.use_pallas_sampler
     trainer = Trainer(cfg, device="cuda").init(seed=0)
-    assert trainer.env.batch_reset_cheap
+    eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
+    assert isinstance(trainer._superstep, GraphedLearner) and trainer.venv.graphed
+    assert not isinstance(eager._superstep, GraphedLearner) and eager.venv.graphed
     calls = {}
     count_calls(trainer.venv, "fresh_pool", calls)
-    count_calls(trainer.env, "reset_batch", calls)
+    count_calls(trainer.env, "reset_draws", calls)
     online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
     torch.cuda.synchronize()
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
-    t0 = time.perf_counter()
-    metrics = [trainer.step() for _ in range(supersteps)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    metrics, eager_metrics, rates = [], [], {"graphed": [], "eager": []}
+    for i in range(supersteps):
+        for name, t, out in (("graphed", trainer, metrics), ("eager", eager, eager_metrics)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(t.step())
+            torch.cuda.synchronize()
+            rates[name].append(cfg.steps_per_superstep * cfg.num_envs / (time.perf_counter() - t0))
+        assert metrics[-1] == eager_metrics[-1], (preset, i)
+        same_tree(torch, runner_tree(trainer), runner_tree(eager), f"{preset} superstep {i + 1}")
     launches = dict(td_kernels.launches, **sample_kernels.launches)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
 
     vector_steps = supersteps * cfg.steps_per_superstep
-    env_steps = vector_steps * cfg.num_envs
     assert [m.env_steps for m in metrics] == [
         cfg.steps_per_superstep * (i + 1) for i in range(supersteps)]
-    assert trainer.runner.replay.total_adds == vector_steps
+    r = trainer.runner
+    assert r.replay.total_adds == int(r.replay.device_adds) == vector_steps
+    assert r.replay.cursor == int(r.replay.device_cursor) == vector_steps % cfg.capacity_per_env
     first = -(-cfg.training_start // cfg.num_envs)  # the first vector step that trains
     updates = sum(m.loss_count for m in metrics)
     assert updates == (vector_steps - first + 1) * cfg.updates_per_step > 0, updates
-    assert updates == trainer.runner.train.updates == trainer.runner.train.opt_state.count
+    opt = r.train.opt_state
+    assert updates == r.train.updates == opt.count == int(opt.device_count)
     assert not any(launches.values()) and not any(plain.values()), (launches, plain)
     assert all(math.isfinite(m.loss_sum) for m in metrics)
     assert metrics[-1].episodes > 0
     assert metrics[-1].episodes == sum(m.episodes_delta for m in metrics)
-    assert calls == {"fresh_pool": 0, "reset_batch": vector_steps}, calls
-    online = [p.detach() for p in trainer.runner.train.online.parameters()]
+    if trainer.env.batch_reset_cheap:  # one reset draw a frame, taken before the frame's graph
+        assert calls == {"fresh_pool": 0, "reset_draws": vector_steps}, calls
+    else:  # the lander: one reset pool a superstep
+        assert calls == {"fresh_pool": supersteps, "reset_draws": supersteps}, calls
+    online = [p.detach() for p in r.train.online.parameters()]
     assert sum(float((p - p0).norm()) for p, p0 in zip(online, online0)) > 0
     per_step = steady_launches(torch, cfg)
+    assert per_step <= CLASSIC_HOST_LAUNCHES, (preset, per_step)
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
-    print(f"  {preset} x{cfg.num_envs} envs: {env_steps} env steps in {seconds:.3f} s = "
-          f"{env_steps / seconds:.1f} env-steps/s, {updates} updates, "
-          f"{metrics[-1].episodes} episodes, window {metrics[-1].window_mean:.3f}; "
-          f"{per_step:.1f} kernel launches per vector step (torch.profiler, a steady "
-          f"{LAUNCH_STEPS}-step superstep) [{card}]")
+    print(f"  {preset} x{cfg.num_envs} envs: {vector_steps * cfg.num_envs} env steps a run, "
+          f"{updates} updates, {metrics[-1].episodes} episodes, window "
+          f"{metrics[-1].window_mean:.3f}; graphed learner and eager learner from one seed "
+          f"bitwise equal after each of {supersteps} supersteps (runners and metrics); "
+          f"{per_step:.1f} host launches per vector step of a steady {LAUNCH_STEPS}-step "
+          f"graphed superstep (torch.profiler; at most {CLASSIC_HOST_LAUNCHES}) [{card}]")
+    print(f"  {preset} env-steps/s by superstep in turns (the first graphed one with the "
+          f"graphs' eager calls and captures): graphed "
+          f"{', '.join(f'{x:.1f}' for x in rates['graphed'])}; eager learner "
+          f"{', '.join(f'{x:.1f}' for x in rates['eager'])} [{card}]")
+    frame, learn = trainer._superstep.frame, trainer._superstep.learn
+    for name, g in (("frame", frame), ("update (graph L)", learn)):
+        host_ms, device_ms, nodes = replay_ms(g)  # last: a replay writes the runner again
+        print(f"  {preset}: the graph of the {name}: replay {device_ms:.3f} ms on the device, "
+              f"{nodes} kernels, its launch {host_ms:.3f} ms of host; captured in "
+              f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
     return trainer
 
 
@@ -2964,6 +3055,9 @@ REF_TRAIN_SUPERSTEPS = 4
 # learner's ~390-490), and the frame from which the trap check's learner runs
 SLICE_HOST_LAUNCHES = 40
 FIRST_TRAIN_FRAME = 3
+# F5's pair: epsilon_greedy with a float ε and with a device tensor over
+# 2^20 draws at the ε of artifacts/flagship_parting/division.py
+F5_DRAWS, F5_EPSILONS = 1 << 20, (0.9, 0.459, 0.01, 1 / 3)
 
 
 def ref_observations(torch):
@@ -3250,12 +3344,13 @@ def main() -> int:
     check_jointed_frame(torch, card)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
-    print("phase 8: classic control on the card")
+    print("phase 8: the uniform replay and classic control on the card, graphed")
     t0 = time.perf_counter()
     for preset in CLASSIC_RUNS:
         t1 = time.perf_counter()
         trainer = run_classic(torch, td_kernels, sample_kernels, preset, card)
-        check_classic_step(torch, trainer, card)
+        if trainer.cfg.env_id in CLASSIC_TOL:  # the lander's step: phases 3, 4 and 7
+            check_classic_step(torch, trainer, card)
         print(f"  {preset} took {time.perf_counter() - t1:.1f} s")
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 

@@ -365,16 +365,21 @@ def epsilon_greedy(
 ) -> torch.Tensor:
     """Batched ε-greedy with ONE uniform per env: ``u < ε`` explores, and
     then ``u / ε`` is again uniform, so ``floor(u / ε · A)`` is a uniform
-    random action.  ``u`` may be injected; else it is drawn."""
+    random action.  ``u`` may be injected; else it is drawn.
+
+    A float ε is first put in a float32 tensor on ``u``'s device: CUDA
+    divides by a Python float as a multiply by its float32 reciprocal, and
+    by a tensor as a true division, so every caller (the eager frame, the
+    graphed frame's device scalar, a population's (N,) rates) divides the
+    same way."""
     n, num_actions = q_values.shape
     greedy = torch.argmax(q_values, dim=-1)
     if u is None:
         u = torch.rand((n,), generator=generator, device=q_values.device)
+    if not isinstance(epsilon, torch.Tensor):
+        epsilon = torch.full((), epsilon, dtype=torch.float32, device=u.device)
     explore = u < epsilon
-    if isinstance(epsilon, torch.Tensor):
-        safe_eps = torch.clamp(epsilon, min=1e-9)
-    else:
-        safe_eps = max(epsilon, 1e-9)
+    safe_eps = torch.clamp(epsilon, min=1e-9)
     random_actions = torch.clamp(
         (u / safe_eps * num_actions).to(torch.int32), max=num_actions - 1
     )

@@ -14,27 +14,28 @@ sample runs only on frames that train, and nothing in the per-frame loop
 reads a device value back.  Metrics are read once, at the end of the
 superstep.
 
-A single learner of the prioritized replay on the lander runs each frame
-as CUDA graph launches on the card (:class:`GraphedLearner`, the port's
-counterpart of that ``jit``): the random numbers are drawn first, in the
-eager order, into static buffers; then one graph of the frame (the actor's
-forward, ε-greedy on the drawn uniforms, the vector step with auto-reset,
-the replay write at the device cursor and the episode accounting) and, on
-a frame that trains, one graph of the learner update (the PER sample on
-the drawn uniforms, the forward, the TD kernels and the backward, the
-clip, Adam, the Polyak step and the priority write), replayed
+A single learner runs each frame as CUDA graph launches on the card
+(:class:`GraphedLearner`, the port's counterpart of that ``jit``) wherever
+its env injects its draws (the lander and the classic envs), with either
+replay: the random numbers are drawn first, in the eager order, into
+static buffers; then one graph of the frame (the actor's forward,
+ε-greedy on the drawn uniforms, the vector step with auto-reset, the
+replay write at the device cursor and the episode accounting) and, on a
+frame that trains, one graph of the learner update (the sample on the
+drawn uniforms, the forward, the TD kernels and the backward, the clip,
+Adam, the Polyak step and, for PER, the priority write), replayed
 ``updates_per_step`` times.  Every piece of state they touch is updated in
 place; the counters they advance live on the device, with host mirrors
 (``envs/graphed.py::device_mirror``).  On the CPU the same functions run
 directly on the same buffers.  The once-a-superstep reset pool is a graph
-of ``VectorEnv``'s.  ``graphed_learner=False``, a process group, the
-uniform replay and the classic envs (whose resets draw inside the step)
-run the frame eagerly, the lander's vector step still as ``VectorEnv``'s
-graph (``envs/base.py``, ``envs/graphed.py``); its outputs (``r.obs``,
-``r.env_states``, the transition) are overwritten by the next frame's
-step, and each is consumed before it: the replay write copies the
-transition, and the next step copies the observation and the states into
-its inputs.
+of ``VectorEnv``'s.  A hard target sync (every ``target_sync_every``
+frames, or on the episode count) runs eagerly between the graphs.
+``graphed_learner=False`` and a process group run the frame eagerly, the
+vector step still as ``VectorEnv``'s graph (``envs/base.py``,
+``envs/graphed.py``); its outputs (``r.obs``, ``r.env_states``, the
+transition) are overwritten by the next frame's step, and each is
+consumed before it: the replay write copies the transition, and the next
+step copies the observation and the states into its inputs.
 
 :func:`build_population_superstep` runs M learners in lockstep, where the
 JAX package ``jax.vmap``s this superstep: one vector env of M·N envs
@@ -43,8 +44,8 @@ M members, and per-member hyperparameters.  Its loop shares this module's
 per-frame helpers.  Each member's train and sync gates are host decisions
 as here; a member whose gate is closed is left as it was (a device
 ``mask`` in ``algos/dqn.py`` and the replays), as a closed ``lax.cond``
-under ``vmap`` is a select.  On the lander with the prioritized replay it
-runs as CUDA graph launches too (:class:`GraphedPopulation`): the same
+under ``vmap`` is a select.  It runs as CUDA graph launches too
+(:class:`GraphedPopulation`), on the same envs and replays: the same
 frame graph for every member's envs, and graph L for every member, the
 host writing the gates into a static mask before its replays; its Adam
 counts and replay counters live on the device.  The members draw their
@@ -277,8 +278,9 @@ class _LearnerWork:
         m = () if members is None else (members,)
         self.u_act = torch.zeros((venv.num_envs,), device=device)
         self.eps = torch.zeros(m, device=device)
-        self.u_env = torch.zeros(m + (cfg.batch_size,), device=device)
-        self.u_slot = torch.zeros(m + (cfg.batch_size,), device=device)
+        # the sampler's uniforms, in the dtypes its eager draw takes
+        self.u_env, self.u_slot = (torch.zeros(m + (cfg.batch_size,), dtype=dtype, device=device)
+                                   for dtype in replay.uniform_dtypes)
         self.mask = None if members is None else torch.zeros(m, dtype=torch.bool, device=device)
         self.loss_sum = torch.zeros(m, device=device)
         self.ep_delta = torch.zeros(m, dtype=torch.int64, device=device)
@@ -410,7 +412,8 @@ class GraphedLearner:
             if gates is not None:
                 for _ in range(cfg.updates_per_step):
                     for u in (w.u_env, w.u_slot):
-                        torch.rand(u.shape, generator=r.generator, device=u.device, out=u)
+                        torch.rand(u.shape, generator=r.generator, dtype=u.dtype,
+                                   device=u.device, out=u)
                     self.learn(_tensors((r.train, r.hyper, r.replay, statics)))
                     self._updated(r, gates)
                 loss_count = loss_count + np.asarray(gates) * cfg.updates_per_step
@@ -486,9 +489,11 @@ def build_superstep(
     count over the local ``num_envs``, as the JAX shard body computes it.
 
     The superstep is a :class:`GraphedLearner` where ``graphed_learner`` is
-    set, ``venv`` graphs its step (the lander), the replay is prioritized
-    and there is no ``group``; else each frame runs eagerly, with the same
-    results.  The learner under a process group stays eager: its
+    set, ``venv`` graphs its step (an env that injects its draws: the
+    lander and the classic envs) and there is no ``group``; else each
+    frame runs eagerly, with the same results: the eager sample draws the
+    same two uniforms, in the same shapes, dtypes and order, that the
+    graphed learner draws before graph L.  The learner under a process group stays eager: its
     all-reduce (gloo) cannot be captured."""
     device = torch.device(device)
     update = build_update_step(optimizer, cfg, group)
@@ -568,7 +573,7 @@ def build_superstep(
         else:
             raise ValueError(f"unknown target_sync_mode {cfg.target_sync_mode!r}")
 
-    if graphed_learner and venv.graphed and group is None and replay.kind == "prioritized":
+    if graphed_learner and venv.graphed and group is None:
         return init_runner, GraphedLearner(venv, env_params, replay, update, cfg, device,
                                            _maybe_sync)
 
@@ -651,9 +656,9 @@ def build_population_superstep(
     ``env_steps`` is an (M,) array.
 
     ``population_step`` is a :class:`GraphedPopulation` where
-    ``graphed_learner`` is set, ``venv`` graphs its step (the lander) and
-    the replay is prioritized; else each frame runs eagerly, with the same
-    results."""
+    ``graphed_learner`` is set and ``venv`` graphs its step (the lander and
+    the classic envs), with either replay; else each frame runs eagerly,
+    with the same results."""
     device = torch.device(device)
     update = build_update_step(optimizer, cfg)
     num_envs = venv.num_envs // members
@@ -744,7 +749,7 @@ def build_population_superstep(
         else:
             raise ValueError(f"unknown target_sync_mode {cfg.target_sync_mode!r}")
 
-    if graphed_learner and venv.graphed and replay.kind == "prioritized":
+    if graphed_learner and venv.graphed:
         return init_population, GraphedPopulation(venv, env_params, replay, update, cfg, device,
                                                   _maybe_sync, members, train_gates)
 

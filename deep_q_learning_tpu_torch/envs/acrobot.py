@@ -92,6 +92,9 @@ class Acrobot(Environment):
 
     # the reset is one bulk draw: auto-reset runs it every frame
     batch_reset_cheap = True
+    # the reset's draw can be taken first and injected, so VectorEnv runs
+    # the step with auto-reset as a CUDA graph (envs/graphed.py)
+    injects_draws = True
 
     def default_params(self) -> AcrobotParams:
         return AcrobotParams()
@@ -103,8 +106,14 @@ class Acrobot(Environment):
     def obs_shape(self, params) -> Tuple[int, ...]:
         return (6,)
 
+    def step_draws(self, generator, n):
+        return None  # a step draws nothing
+
+    def reset_draws(self, generator, n):
+        return uniform(generator, (n, 4), -0.1, 0.1)
+
     def reset_env(self, generator, n, params, draws=None):
-        init = uniform(generator, (n, 4), -0.1, 0.1) if draws is None else draws
+        init = self.reset_draws(generator, n) if draws is None else draws
         state = AcrobotState(
             theta1=init[:, 0],
             theta2=init[:, 1],

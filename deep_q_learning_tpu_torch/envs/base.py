@@ -133,16 +133,18 @@ class Transition:
 class VectorEnv:
     """``num_envs`` lockstep instances with auto-reset.
 
-    For an env that injects its draws (the lander, rigid and jointed),
-    ``step`` and ``fresh_pool`` draw their random numbers from the
-    generator, in the order the eager calls draw them, and run the rest
-    through a :class:`~deep_q_learning_tpu_torch.envs.graphed.GraphedStep`:
-    on a CUDA device one CUDA graph of the vector step, auto-reset
-    included, and one of the reset pool, each captured at its first call.
-    Their outputs are then the graph's static outputs, overwritten by the
-    next call: copy what must outlive it.  ``graphed=False`` runs every
-    call eagerly.  Other envs (the classic ones, whose ``reset_batch``
-    draws inside ``step``) always run eagerly."""
+    For an env that injects its draws (the lander, rigid and jointed, and
+    the classic envs), ``step`` and ``fresh_pool`` draw their random
+    numbers from the generator, in the order the eager calls draw them, and
+    run the rest through a
+    :class:`~deep_q_learning_tpu_torch.envs.graphed.GraphedStep`: on a CUDA
+    device one CUDA graph of the vector step, auto-reset included, and one
+    of the reset pool, each captured at its first call.  A step that draws
+    nothing (the classic envs': only their resets draw) has ``None`` for
+    its step draws.  The outputs are then the graph's static outputs,
+    overwritten by the next call: copy what must outlive it.
+    ``graphed=False``, or an env that does not inject its draws, runs every
+    call eagerly."""
 
     def __init__(self, env: Environment, num_envs: int, graphed: bool = True):
         self.env = env
@@ -227,7 +229,8 @@ class VectorEnv:
             prev_obs = self.env.get_obs(states, params)
         if not self.graphed:
             return self._step(generator, states, actions, params, prev_obs, fresh)
-        # the draws in the eager step's order: the step's, then the resets'
+        # the draws in the eager step's order: the step's (None where a step
+        # draws nothing), then the resets'
         draws = [self.env.step_draws(generator, self.num_envs)]
         if fresh is None:
             draws.append(self.env.reset_draws(generator, self.num_envs))

@@ -47,6 +47,9 @@ class CartPole(Environment):
 
     # the reset is one bulk draw: auto-reset runs it every frame
     batch_reset_cheap = True
+    # the reset's draw can be taken first and injected, so VectorEnv runs
+    # the step with auto-reset as a CUDA graph (envs/graphed.py)
+    injects_draws = True
 
     def default_params(self) -> CartPoleParams:
         return CartPoleParams()
@@ -58,8 +61,14 @@ class CartPole(Environment):
     def obs_shape(self, params) -> Tuple[int, ...]:
         return (4,)
 
+    def step_draws(self, generator, n):
+        return None  # a step draws nothing
+
+    def reset_draws(self, generator, n):
+        return uniform(generator, (n, 4), -0.05, 0.05)
+
     def reset_env(self, generator, n, params, draws=None):
-        init = uniform(generator, (n, 4), -0.05, 0.05) if draws is None else draws
+        init = self.reset_draws(generator, n) if draws is None else draws
         state = CartPoleState(
             x=init[:, 0],
             x_dot=init[:, 1],

@@ -41,6 +41,9 @@ class MountainCar(Environment):
 
     # the reset is one bulk draw: auto-reset runs it every frame
     batch_reset_cheap = True
+    # the reset's draw can be taken first and injected, so VectorEnv runs
+    # the step with auto-reset as a CUDA graph (envs/graphed.py)
+    injects_draws = True
 
     def default_params(self) -> MountainCarParams:
         return MountainCarParams()
@@ -52,8 +55,14 @@ class MountainCar(Environment):
     def obs_shape(self, params) -> Tuple[int, ...]:
         return (2,)
 
+    def step_draws(self, generator, n):
+        return None  # a step draws nothing
+
+    def reset_draws(self, generator, n):
+        return uniform(generator, (n,), -0.6, -0.4)
+
     def reset_env(self, generator, n, params, draws=None):
-        position = uniform(generator, (n,), -0.6, -0.4) if draws is None else draws
+        position = self.reset_draws(generator, n) if draws is None else draws
         state = MountainCarState(
             position=position,
             velocity=torch.zeros_like(position),

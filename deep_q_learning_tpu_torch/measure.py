@@ -2,7 +2,7 @@
 
     python -m deep_q_learning_tpu_torch.measure [--preset lunar_per_scaled]
         [--set key=value ...] [--env-only | --kernels-only] [--eager]
-        [--eager-learner] [--members M] [--baseline CHECKOUT]
+        [--eager-learner] [--members M] [--baseline CHECKOUT] [--pairs]
 
 1. Device time of each kernel and of its plain version at the main paths'
    shapes, and with a population's member axis (``lunar_per``'s at 8
@@ -26,10 +26,11 @@
    copies and fills) per vector step, the kernels of the learner in the
    trace (K1, K2 and K3 once per update), and the device's busy share of
    the wall time; then the wall time and env-steps/s of the next two
-   supersteps, unprofiled.  With the prioritized replay on the lander a
-   frame runs as CUDA graphs: the frame (actor, env step, replay write)
-   and, when it trains, the learner update (``algos/superstep.py::
-   GraphedLearner``), beside the reset pool's graph; ``--eager-learner``
+   supersteps, unprofiled.  A frame runs as CUDA graphs (every env of the
+   port injects its draws, with either replay): the frame (actor, env
+   step, replay write) and, when it trains, the learner update
+   (``algos/superstep.py::GraphedLearner``), beside the lander's reset
+   pool's graph; ``--eager-learner``
    runs the frame eagerly around the env step's graph, and ``--eager``
    runs everything eagerly (``graphed=False``).  Each graph is then
    replayed alone: its device time between CUDA events, its kernels and
@@ -37,13 +38,16 @@
    supersteps.  The learner's graphs write the runner in place, so their
    replays come last and leave the trainer advanced past its counters.
    With ``--members M`` the same for a population of M learners of the
-   preset (``PopulationTrainer``; ``algos/superstep.py::GraphedPopulation``
-   on the lander with the prioritized replay, the eager population with
-   ``--eager-learner``): a steady superstep traced (the host's launches a
-   vector step, K1-K3 on the device, the busy share), two unprofiled
+   preset (``PopulationTrainer``; ``algos/superstep.py::GraphedPopulation``,
+   the eager population with ``--eager-learner``): a steady superstep
+   traced (the host's launches a vector step, K1-K3 on the device, the
+   busy share), two unprofiled
    (aggregate env-steps/s) and each graph's replay.
 
-With ``--kernels-only``, only 1.  With
+With ``--kernels-only``, only 1.  With ``--pairs``, only 2, four times
+in one process: the graphed learner and the eager one
+(``--eager-learner``) in turns, graphed, eager, eager, graphed, so that
+the two compare on one card in one call.  With
 ``--env-only``, neither: the preset's env alone, at its env count, steps
 random actions from fresh resets; the wall time of each frame, then one
 frame under ``torch.profiler`` (kernel launches, device busy share).
@@ -408,11 +412,12 @@ def learner_launches(card: str, baseline: Optional[Path] = None) -> None:
 
 
 # the reset runs as one pool per superstep (fresh_pool: the lander) or, for
-# cheap resets (classic control), as a draw inside every venv.step
-# (env.reset_batch, a span nested in venv.step's)
+# cheap resets (classic control), inside every venv.step: its draw taken
+# before the step's graph (env.reset_draws), or eagerly (env.reset_batch),
+# a span nested in venv.step's
 PHASES = {
     "venv": ("fresh_pool", "step"),
-    "env": ("reset_batch",),
+    "env": ("reset_batch", "reset_draws"),
     "replay": ("add", "sample_with_info", "update_priorities"),
     "optimizer": ("apply",),
 }
@@ -754,6 +759,9 @@ def main(argv=None) -> int:
     ap.add_argument("--eager-learner", action="store_true",
                     help="run the frame eagerly around the env step's graph "
                          "(graphed_learner=False)")
+    ap.add_argument("--pairs", action="store_true",
+                    help="only the superstep, with the graphed learner and the eager one in "
+                         "turns (graphed, eager, eager, graphed) in this process")
     ap.add_argument("--members", type=int, metavar="M",
                     help="measure the superstep of a population of M learners of the preset "
                          "instead of one learner's")
@@ -763,6 +771,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.members and args.eager:
         ap.error("--members runs the env step graphed: use --eager-learner")
+    if args.pairs and (args.members or args.eager or args.eager_learner or args.env_only
+                       or args.kernels_only or args.baseline):
+        ap.error("--pairs measures one learner's superstep, graphed and eager, alone")
     if not torch.cuda.is_available():
         print("measure: torch.cuda.is_available() is False; this needs a GPU", file=sys.stderr)
         return 1
@@ -774,6 +785,10 @@ def main(argv=None) -> int:
     cfg = build_config(args.preset, args.set)
     if args.env_only:
         env_frames(cfg, card)
+        return 0
+    if args.pairs:
+        for graphed_learner in (True, False, False, True):
+            profile_superstep(cfg, card, graphed_learner=graphed_learner)
         return 0
     kernel_device_times(card, args.baseline)
     learner_launches(card, args.baseline)

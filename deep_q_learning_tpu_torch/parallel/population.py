@@ -10,8 +10,8 @@ the replay's ``members`` form, ``algos.dqn.MemberHyperParams``), and
 envs: each vector step is one set of launches for all members, where one
 learner's is one set for N envs.  The TD kernels take the member axis as
 their grid's second dimension, and the PER slot kernel runs over every
-member's rows in one launch (``ops/``).  With the prioritized replay on the
-lander each frame runs as CUDA graph launches for all members
+member's rows in one launch (``ops/``).  Each frame runs as CUDA graph
+launches for all members, on every env and with either replay
 (``algos/superstep.py::GraphedPopulation``); ``graphed_learner=False``
 runs the frame eagerly around the env step's graph, with the same results.
 

@@ -93,6 +93,8 @@ class PrioritizedReplay:
     ``members`` M, the buffers of M population members."""
 
     kind = "prioritized"
+    # the dtypes of the sample's two uniforms (u_env, u_slot)
+    uniform_dtypes = (torch.float32, torch.float32)
 
     def __init__(
         self,

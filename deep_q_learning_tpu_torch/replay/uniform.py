@@ -6,10 +6,21 @@ one contiguous row.  The four scalar fields (reward, action, terminated,
 truncated) are packed into one float32 ``aux`` lane, so an n-step window
 is a single gather (``replay/nstep.py``).
 
-The port updates the buffers in place.  The cursor and fill counters are
-Python ints: the host knows them without reading the device.  The
-prioritized replay also keeps them on the device, for the learner's CUDA
-graphs (``replay/prioritized.py``): :func:`write_row` takes either.
+The port updates the buffers in place.  The write cursor and the count of
+adds live on the device (``device_cursor``, ``device_adds``), as the JAX
+package's replay state carries them, so that a write and a sample launch
+kernels only and run inside the learner's CUDA graphs
+(``algos/superstep.py``); the host ints ``cursor`` and ``total_adds``
+mirror them (``envs/graphed.py::device_mirror``), advanced by
+:meth:`UniformReplay.advance`, for the host's gates and the checkpoint.
+:func:`write_row` takes a host int or a device cursor.
+
+The n-step sample scales two uniforms on the device by the device fill
+(:meth:`UniformReplay.sample_with_info`), where the JAX package draws
+``randint`` below a traced bound: a bound that changes every frame cannot
+be baked into a capture.  The slot's uniform is float64, so that every age
+rank keeps its share of 1/R to far better than 0.1 % at the largest ring
+(100,000 slots); a float32 ``u·R`` does not past about 2^14 ranks.
 
 A population of M members (``members=M``) keeps one storage of M·N env
 rows, member ``m``'s at ``m·N``: the members add in lockstep, so they share
@@ -24,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from deep_q_learning_tpu_torch.envs.base import Transition
+from deep_q_learning_tpu_torch.envs.graphed import device_mirror
 from deep_q_learning_tpu_torch.replay.nstep import assemble_learn_batch, split_members
 
 # packed-aux lane indices (RingStorage.aux trailing axis)
@@ -107,14 +119,28 @@ def write_row(storage: RingStorage, cursor, transition: Transition) -> None:
     storage.aux[cursor].copy_(pack_aux(transition))
 
 
+def scaled_index(u: torch.Tensor, bound) -> torch.Tensor:
+    """``min(floor(u · bound), bound - 1)`` as int64, on ``u``'s device:
+    an index uniform on ``[0, bound)`` from a uniform ``u`` on ``[0, 1)``.
+    ``bound`` is a host int or an int64 tensor that broadcasts against
+    ``u``; the product is taken in ``u``'s dtype."""
+    index = (u * bound).to(torch.int64)  # truncation is the floor: u·bound >= 0
+    if isinstance(bound, torch.Tensor):
+        return torch.minimum(index, bound - 1)
+    return index.clamp(max=bound - 1)
+
+
 @dataclasses.dataclass
 class ReplayState:
     """Ring-buffer state.  ``cursor`` is the next write slot (shared by all
-    envs); ``total_adds`` counts vector steps written."""
+    envs); ``total_adds`` counts vector steps written.  Both are host
+    mirrors of the device counters."""
 
     storage: RingStorage
-    cursor: int
-    total_adds: int
+    cursor: int = device_mirror("device_cursor")
+    total_adds: int = device_mirror("device_adds")
+    device_cursor: Optional[torch.Tensor] = None  # () int64, the cursor on the device
+    device_adds: Optional[torch.Tensor] = None  # () int64, total_adds on the device
 
     @property
     def capacity_per_env(self) -> int:
@@ -134,6 +160,8 @@ class UniformReplay:
     of M population members of ``num_envs`` envs each."""
 
     kind = "uniform"
+    # the dtypes of the sample's two uniforms (u_env, u_slot)
+    uniform_dtypes = (torch.float32, torch.float64)
 
     def __init__(
         self,
@@ -162,17 +190,32 @@ class UniformReplay:
                 f"example leaves must be batched ({self.rows} env rows), "
                 f"got obs shape {tuple(example.obs.shape)}"
             )
+        zero = torch.zeros((), dtype=torch.int64, device=example.obs.device)
         return ReplayState(
-            storage=alloc_storage(example, self.capacity_per_env), cursor=0, total_adds=0
+            storage=alloc_storage(example, self.capacity_per_env), cursor=0, total_adds=0,
+            device_cursor=zero, device_adds=zero.clone(),
         )
 
     def add(self, state: ReplayState, transition: Transition) -> ReplayState:
         """Write one vector step at the cursor slot (in place); overwrite the
         oldest on wraparound."""
-        write_row(state.storage, state.cursor, transition)
+        self.write(state, transition)
+        self.advance(state)
+        return state
+
+    def write(self, state: ReplayState, transition: Transition) -> None:
+        """The device half of :meth:`add`: the row at the device cursor and
+        the device counters advanced; the host mirrors are left to
+        :meth:`advance`."""
+        cursor = state.device_cursor
+        write_row(state.storage, cursor, transition)
+        cursor.copy_((cursor + 1) % self.capacity_per_env)
+        state.device_adds.add_(1)
+
+    def advance(self, state: ReplayState) -> None:
+        """The host mirrors of one :meth:`write`."""
         state.cursor = (state.cursor + 1) % self.capacity_per_env
         state.total_adds += 1
-        return state
 
     def sample(
         self,
@@ -221,19 +264,30 @@ class UniformReplay:
         batch_size: int,
         gamma: Optional[float] = None,
         beta: Optional[float] = None,
+        uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         """``(LearnBatch, None, ones)``.  Slots are drawn in age order so the
         n-step window never crosses the write cursor; ``beta`` is ignored
-        (uniform sampling has unit weights).  With members: B draws from
-        each member's rows, ``gamma`` (M,) float32 (each member's, required),
-        and every leaf (M, B, ...)."""
+        (uniform sampling has unit weights).
+
+        ``uniforms``: optional ``(u_env, u_slot)`` on ``[0, 1)``, float32
+        and float64 (:attr:`uniform_dtypes`), used instead of drawing them
+        from ``generator`` in that order.  From the device counters, with
+        ``R = max(fill - (n_step - 1), 1)``: ``env = min(⌊u_env·N⌋, N-1)``,
+        ``rank = min(⌊u_slot·R⌋, R-1)`` and ``slot = (cursor - fill + rank)
+        mod C``.  With members: B draws from each member's rows (``uniforms``
+        (M, B) each), ``gamma`` (M,) float32 (each member's, required), and
+        every leaf (M, B, ...)."""
         device = state.storage.aux.device
         shape = (batch_size,) if self.members is None else (self.members, batch_size)
-        env_idx = torch.randint(0, self.num_envs, shape, generator=generator, device=device)
-        max_rank = max(state.filled - (self.n_step - 1), 1)
-        rank = torch.randint(0, max_rank, shape, generator=generator, device=device)
-        start = (state.cursor - state.filled) % self.capacity_per_env
-        slot_idx = (start + rank) % self.capacity_per_env
+        if uniforms is None:
+            uniforms = tuple(torch.rand(shape, generator=generator, dtype=dtype, device=device)
+                             for dtype in self.uniform_dtypes)
+        u_env, u_slot = uniforms
+        filled = torch.clamp(state.device_adds, max=self.capacity_per_env)
+        env_idx = scaled_index(u_env, self.num_envs)
+        rank = scaled_index(u_slot, torch.clamp(filled - (self.n_step - 1), min=1))
+        slot_idx = (state.device_cursor - filled + rank) % self.capacity_per_env
         if self.members is None:
             batch = assemble_learn_batch(
                 state.storage, env_idx, slot_idx,

@@ -37,7 +37,8 @@ seeds.  ``--device cpu`` runs on the host instead (the summary's card is
 then ``cpu``).  ``--artifact JSON --preset P --seeds S`` writes one run's
 record from ``--out`` (every call's wall time and card, the curve, the
 solve and its greedy evaluation, and the JAX package's records of the
-preset beside them) and runs nothing.
+preset beside them) and runs nothing; ``--seeds S,...`` writes those runs'
+records and their count of solves.
 
 ``--population M``: ``lunar_per`` (or ``--preset``, one of ``POPULATION``)
 as one population of M members with the preset's hyperparameters and
@@ -275,15 +276,20 @@ def main(argv=None) -> int:
                     help="cut each call of a run at the first log point past this wall time; "
                          "the same command continues it")
     ap.add_argument("--artifact", type=Path, metavar="JSON",
-                    help="with --preset and one seed: write that run's record from --out "
-                         "to JSON (its calls, curve, solve and greedy evaluation), run nothing")
+                    help="with --preset and --seeds: write the runs' records from --out to "
+                         "JSON (each one's calls, curve, solve and greedy evaluation; with "
+                         "several seeds, their count of solves too), run nothing")
     args = ap.parse_args(argv)
     if args.artifact:
-        if not args.preset or not args.seeds or len(args.seeds) != 1:
-            ap.error("--artifact needs --preset and one seed")
-        rec = artifact(args.preset, args.seeds[0], args.out)
+        if not args.preset or not args.seeds:
+            ap.error("--artifact needs --preset and --seeds")
+        recs = [artifact(args.preset, seed, args.out) for seed in args.seeds]
+        rec = recs[0] if len(recs) == 1 else {
+            "preset": args.preset, "seeds": list(args.seeds),
+            "solved": sum(r["solved"] for r in recs), "runs": recs}
         args.artifact.write_text(json.dumps(rec, indent=1) + "\n")
-        print(json.dumps({k: v for k, v in rec.items() if k not in ("curve", "jax_references")}))
+        for r in recs:
+            print(json.dumps({k: v for k, v in r.items() if k not in ("curve", "jax_references")}))
         return 0
     if args.population:
         preset = args.preset or "lunar_per"

@@ -104,9 +104,10 @@ class Trainer:
     parameters, optimizer state, Q-values and everything else stay
     float32.  The lander's vector step and reset pool, in training and in
     evaluation, run as CUDA graphs on the card (``envs/base.py::
-    VectorEnv``), and with the prioritized replay so does each training
-    frame, the actor and the learner update included (``algos/superstep.py
-    ::GraphedLearner``); ``graphed=False`` runs them eagerly, with the same
+    VectorEnv``), the classic envs' too, and so does each training frame,
+    the actor and the learner update included, with either replay
+    (``algos/superstep.py::GraphedLearner``); ``graphed=False`` runs them
+    eagerly, with the same
     results, and ``graphed_learner=False`` runs the frame eagerly around
     the graphed vector step."""
 

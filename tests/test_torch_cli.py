@@ -220,7 +220,8 @@ def test_solves_drive_the_cli(argv, trains, tmp_path, monkeypatch):
         seed = int(args[args.index("--seed") + 1])
         with open(args[args.index("--history-out") + 1], "w") as f:
             f.write(json.dumps({"window_mean": 480.0, "eval_mean": 490.0}) + "\n")
-        return {"solved": seed != 1, "env_steps": 10, "wall_time_s": 2.0}
+        return {"solved": seed != 1, "env_steps": 10, "wall_time_s": 2.0,
+                "final_window_mean": 480.0, "episodes": 3, "updates": 4}
 
     monkeypatch.setattr(solves, "cli", fake_cli)
     assert solves.main([*argv, "--device", "cpu", "--out", str(tmp_path)]) == 0
@@ -233,6 +234,12 @@ def test_solves_drive_the_cli(argv, trains, tmp_path, monkeypatch):
     assert [(r["preset"], r["seed"]) for r in summary] == [t[:2] for t in trains]
     assert all(r["card"] == "cpu" and r["env_steps_per_s"] == 5.0 for r in summary)
     assert [r["greedy_eval"] is not None for r in summary] == [r["solved"] for r in summary]
+    if "--seeds" in argv and "," in argv[-1]:  # several seeds' records and their solves
+        out = tmp_path / "runs.json"
+        assert solves.main([*argv, "--out", str(tmp_path), "--artifact", str(out)]) == 0
+        rec = json.loads(out.read_text())
+        assert [r["seed"] for r in rec["runs"]] == rec["seeds"] == [0, 2, 3]
+        assert rec["solved"] == 3 and all(r["solve_env_steps"] == 10 for r in rec["runs"])
 
 
 def test_solves_resume_a_run_cut_by_its_time_limit(tmp_path, monkeypatch):

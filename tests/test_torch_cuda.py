@@ -35,6 +35,12 @@ after each), K1 and K2 counted in the profiler's trace once per update.
 The population's as CUDA graphs (``GraphedPopulation``): bitwise the
 eager population after every frame with mixed gates, across a change of
 hyperparameters that makes the graphs start over.
+F5: ``epsilon_greedy`` with a float ε equals it with a device tensor over
+2^20 draws, and a graphed ``lunar_per`` learner is bitwise its eager twin
+over 512 exploring frames.  The uniform replay's learner and the classic
+envs' step as CUDA graphs: bitwise ``graphed=False`` for the four
+uniform-replay presets; the card's float64 uniforms lie on the grid the
+rank-bias count assumes.
 S1 against the plain solver: bit for bit (every bit of every field,
 accumulator and flag) at N = 128, 1024 and 37, N = 2 at (180, 60) and the
 ragged N = 3, 33 and 129, with and without the early exit; over 100 calls
@@ -987,6 +993,106 @@ def test_vel_tol_trainer_graphs_bitwise_eager(cuda):
             assert a == b, where
 
     same(runs[True][1], runs[False][1])
+
+
+def _same_tree(a, b, where="runner"):
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), where
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _same_tree(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("eps", [0.9, 0.459, 0.01, 1 / 3])
+def test_epsilon_greedy_with_a_float_equals_a_device_tensor(cuda, eps):
+    """F5: CUDA divides by a Python float as a multiply by its float32
+    reciprocal, by a tensor as a true division.  ``epsilon_greedy`` puts a
+    float ε in a float32 tensor on the card first, so a float ε and the
+    device scalar the graphed frame reads give the same actions over 2^20
+    draws, at the four ε of ``artifacts/flagship_parting/division.py``."""
+    from deep_q_learning_tpu_torch.algos.dqn import epsilon_greedy
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = 1 << 20
+    u = torch.rand((n,), generator=g, device="cuda")
+    q = torch.randn((n, 4), generator=g, device="cuda")
+    static = torch.zeros((), device="cuda")
+    static.fill_(eps)
+    host, device = epsilon_greedy(None, q, eps, u=u), epsilon_greedy(None, q, static, u=u)
+    assert torch.equal(host, device)
+    explored = int((u < static).sum())
+    assert 0 < explored < n
+    # the explored draws cover every action
+    assert set(host[u < static].unique().tolist()) == {0, 1, 2, 3}
+
+
+def test_graphed_lunar_per_learner_equals_eager_over_512_exploring_frames(cuda):
+    """F5: a ``lunar_per`` single learner at full width, graphed and with
+    the eager learner (``graphed_learner=False``), from one seed: 4
+    supersteps of 128 frames, ε falling from 1.0 to 0.78 under
+    ``linear_step``, learning from frame 157; the metrics and the whole
+    runner bitwise equal after each superstep."""
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.train import Trainer
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = lunar_per()
+    assert cfg.eps_schedule == "linear_step"
+    graphed = Trainer(cfg, device="cuda").init(seed=0)
+    eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
+    assert isinstance(graphed._superstep, GraphedLearner)
+    assert not isinstance(eager._superstep, GraphedLearner)
+    for i in range(4):
+        gm, em = graphed.step(), eager.step()
+        assert gm == em, i
+        _same_tree(ckpt._to_tree(graphed.runner), ckpt._to_tree(eager.runner), f"superstep {i}")
+    assert gm.env_steps == 512 and 0.7 < gm.epsilon < 0.8 and graphed.runner.train.updates > 0
+
+
+@pytest.mark.parametrize("preset", ["cartpole_vector", "acrobot_vector", "mountain_car_vector",
+                                    "lunar_dddqn_vector"])
+def test_graphed_uniform_learner_equals_eager_on_the_card(cuda, preset):
+    """The uniform replay's learner and the classic envs' step as CUDA
+    graphs (``GraphedLearner``) against ``graphed=False`` at 64 envs and a
+    ring of 32 slots a row, 3 supersteps of 16 frames through the wrap, the
+    learner from frame 4: metrics and the whole runner bitwise."""
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
+    from deep_q_learning_tpu_torch.config import PRESETS
+    from deep_q_learning_tpu_torch.train import Trainer
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = dataclasses.replace(PRESETS[preset](), num_envs=64, buffer_capacity=64 * 32,
+                              batch_size=64, steps_per_superstep=16, training_start=256,
+                              max_steps_in_episode=20)
+    runs = {}
+    for graphed in (True, False):
+        tr = Trainer(cfg, device="cuda", graphed=graphed).init(seed=0)
+        assert isinstance(tr._superstep, GraphedLearner) == graphed
+        runs[graphed] = [tr.step() for _ in range(3)], ckpt._to_tree(tr.runner)
+    assert runs[True][0] == runs[False][0]
+    assert sum(m.loss_count for m in runs[True][0]) == 45 * cfg.updates_per_step
+    _same_tree(runs[True][1], runs[False][1])
+
+
+def test_cuda_float64_uniforms_lie_on_the_counted_grid(cuda):
+    """The card's float64 ``torch.rand`` takes curand's ``(2z + 1)·2^-54``
+    rounded to a double (z on [0, 2^53)): below 0.5 each value times 2^54
+    is an odd integer, above it an integer.  ``tests/
+    test_torch_graphed_uniform.py`` counts the uniform replay's rank bias
+    on this grid."""
+    u = torch.rand((1 << 20,), generator=torch.Generator(device="cuda").manual_seed(3),
+                   dtype=torch.float64, device="cuda").cpu().numpy()
+    k = u * 2.0**54
+    assert (k == np.floor(k)).all()
+    low = k[u < 0.5]
+    assert low.size > 0 and (low % 2 == 1).all()
 
 
 # ----------------------------------------------------------------------- S1

@@ -260,33 +260,37 @@ def test_reset_batch_distribution(env_id):
 
 @pytest.mark.parametrize("env_id", list(ENVS))
 def test_vector_env_cheap_autoreset(env_id):
-    """The per-frame auto-reset: no pool, one ``reset_batch`` draw a step;
-    finished envs restart at t = 0 and the transition keeps the true next
-    observation."""
+    """The per-frame auto-reset: no pool, one bulk reset draw
+    (``reset_draws``) a step, taken before the step where it is injected
+    (graphed) and inside ``reset_batch`` where it is not; finished envs
+    restart at t = 0 and the transition keeps the true next observation."""
     env, p = make_env(env_id)
-    assert env.batch_reset_cheap
+    assert env.batch_reset_cheap and env.injects_draws
     calls = []
-    reset_batch = env.reset_batch
-    env.reset_batch = lambda *a: calls.append(a) or reset_batch(*a)
+    reset_draws = env.reset_draws
+    env.reset_draws = lambda *a: calls.append(a) or reset_draws(*a)
     n = 64
-    venv = VectorEnv(env, n)
-    g = torch.Generator().manual_seed(2)
-    obs, states = venv.reset(g, p)
-    policy = ENVS[env_id][4]
-    rng = np.random.default_rng(2)
-    finished = 0
-    for t in range(250):
-        random = rng.integers(0, env.num_actions, n).astype(np.int32)
-        actions = torch.from_numpy(np.where(np.arange(n) % 2 == 0, policy(states, rng), random))
-        new_obs, states, tr = venv.step(g, states, actions, p, prev_obs=obs)
-        done = tr.terminated | tr.truncated
-        assert torch.equal(tr.obs, obs) and len(calls) == t + 1
-        assert torch.equal(new_obs[~done], tr.next_obs[~done])
-        assert (states.t[done] == 0).all() and (states.t[~done] > 0).all()
-        assert torch.equal(new_obs, env.get_obs(states, p))
-        finished += int(done.sum())
-        obs = new_obs
-    assert finished > 0
+    for graphed in (True, False):
+        venv = VectorEnv(env, n, graphed=graphed)
+        assert venv.graphed == graphed
+        g = torch.Generator().manual_seed(2)
+        obs, states = venv.reset(g, p)
+        calls.clear()
+        policy = ENVS[env_id][4]
+        rng = np.random.default_rng(2)
+        finished = 0
+        for t in range(250):
+            random = rng.integers(0, env.num_actions, n).astype(np.int32)
+            actions = torch.from_numpy(np.where(np.arange(n) % 2 == 0, policy(states, rng), random))
+            new_obs, states, tr = venv.step(g, states, actions, p, prev_obs=obs)
+            done = tr.terminated | tr.truncated
+            assert torch.equal(tr.obs, obs) and len(calls) == t + 1
+            assert torch.equal(new_obs[~done], tr.next_obs[~done])
+            assert (states.t[done] == 0).all() and (states.t[~done] > 0).all()
+            assert torch.equal(new_obs, env.get_obs(states, p))
+            finished += int(done.sum())
+            obs = new_obs.clone()  # a graphed step's output is overwritten by the next
+        assert finished > 0
 
 
 @pytest.mark.parametrize("env_id", list(ENVS))

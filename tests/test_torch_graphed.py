@@ -149,7 +149,16 @@ def test_step_without_a_pool_resets_through_the_stepper():
 
 
 def test_classic_envs_stay_eager():
-    assert not VectorEnv(CartPole(), 4).graphed
+    """The classic envs inject their resets' draw and so graph their vector
+    step; they stay eager under ``graphed=False``, as does an env that does
+    not inject its draws."""
+    assert VectorEnv(CartPole(), 4).graphed
+    assert not VectorEnv(CartPole(), 4, graphed=False).graphed
+
+    class Drawing(CartPole):
+        injects_draws = False
+
+    assert not VectorEnv(Drawing(), 4).graphed
 
 
 @pytest.fixture(scope="module")

@@ -12,8 +12,8 @@ replays depend on but the capture itself:
     learning from a later ``training_start``): every tensor and counter of
     the runners bitwise equal (the checkpoint tree reads the device
     counters back against their host mirrors), and the metrics;
-  * only a lander that graphs with the prioritized replay gets the graphed
-    population;
+  * which populations are graphed: every one with ``graphed_learner``, on
+    the lander and the classic envs, with either replay;
   * the members' PER sample from the device counters (the host mirrors
     left behind) against the JAX package's ``sample_with_info`` vmapped
     over the members' states, on injected uniforms, at fills below, at and
@@ -113,11 +113,16 @@ def test_graphed_population_equals_eager_bitwise(populations):
 
 
 def test_only_a_graphed_lander_with_per_gets_the_graphed_population():
+    """Every env of the port injects its draws, so every population with
+    ``graphed_learner`` set is graphed, with either replay, on the lander
+    and on the classic envs; ``graphed_learner=False`` is eager."""
     for cfg, graphed, want in (
         (dataclasses.replace(lunar_per(), **SMALL), True, True),
         (dataclasses.replace(lunar_per(), **SMALL), False, False),
-        (dataclasses.replace(lunar_per(), **SMALL, replay="uniform"), True, False),
-        (dataclasses.replace(cartpole_vector(), **SMALL, replay="prioritized"), True, False),
+        (dataclasses.replace(lunar_per(), **SMALL, replay="uniform"), True, True),
+        (dataclasses.replace(cartpole_vector(), **SMALL, replay="prioritized"), True, True),
+        (dataclasses.replace(cartpole_vector(), **SMALL), True, True),
+        (dataclasses.replace(cartpole_vector(), **SMALL), False, False),
     ):
         _, step, _ = build_population(cfg, 2, device="cpu", graphed_learner=graphed)
         assert isinstance(step, GraphedPopulation) == want, (cfg.env_id, cfg.replay, graphed)
