@@ -52,7 +52,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      busy share, the counters (the Adam count on the device equal to its
      mirror), the loss is finite, the online net trained, the target
      followed by Polyak averaging, peak memory under 1 GiB, and a greedy
-     evaluation returns finite returns; F5's pair: ``epsilon_greedy`` with
+     evaluation returns finite returns; the evaluator's check
+     (``eval_pair``): the graphed evaluator (each eval step one CUDA
+     graph) and its eager form in turns over 128 whole episodes, bitwise
+     (returns, lengths, ``truncated``), each evaluation's seconds, the step
+     graph's replay (phases 7, 8, 9 and 10 (a) run it too); F5's pair: ``epsilon_greedy`` with
      a float ε and with a device tensor equal over 2^20 draws at four ε,
      and the eager learner from the same seed bitwise the graphed one after
      the same 512 exploring frames; then the first training frames of
@@ -92,7 +96,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      replay of the reset pool; then an eager ``Trainer`` restored from the
      graphed one's checkpoint: one superstep each, runners bitwise equal,
      then env-steps/s in three alternating pairs (K1/K2 once per update,
-     no plain call); a greedy evaluation cut at 4 frames; then one jointed
+     no plain call); a greedy evaluation cut at 4 frames, then the
+     evaluator's check over whole episodes, S1 once in the eval step's
+     graph; then one jointed
      frame of 64 landers from a short flight near the ground (touchdowns,
      contacts, crashes) on the card (S1) against the same frame on the CPU
      (the plain solver);
@@ -114,6 +120,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``CLASSIC_HOST_LAUNCHES``), env-steps/s graphed and eager, each
      graph's replay on the device; then one vector step of each classic env
      on the card against the same step on the CPU, from the same states;
+     the evaluator's check on ``cartpole_vector``;
   9. a population at full width: ``lunar_per`` with 8 members of 128 rigid
      landers, dueling (256, 256), PER (128, 4096) a member, batch 256 and
      ``use_pallas_sampler=True`` through ``PopulationTrainer``, cut in depth
@@ -123,39 +130,49 @@ Phases (each raises on failure, so any failure exits non-zero):
      call, every member's counters exact (the Adam counts on the device)
      and its loss finite, a greedy evaluation of every member; aggregate
      env-steps/s, host launches per vector step, busy share and peak
-     memory; the eager population restored from its checkpoint, both with
+     memory; the evaluator's check on every member's 16 envs; the eager
+     population restored from its checkpoint, both with
      mixed gates and new learning rates (the graphs captured anew),
      bitwise after one superstep each, then in turns; each
      graph's replay ms, kernels and capture s; one population learner
      update card vs CPU; then the command line's ``hpo --population 4``,
      and two of its trials in process, graphed and eager, with each
      trial's captures;
- 10. runs over ranks and rollouts: first the kernels at a rank's shapes
-     (K1/K2 at B = 128, K3 at (64, 8192, 128)) against their plain versions
-     and timed; (a) world size 1 on NCCL: one superstep of
-     ``DistributedTrainer`` equal bitwise to ``Trainer``'s, ``lunar_per``
-     at full width with the PER slot kernel cut in depth only
-     (``DIST_SETS``: 2 supersteps of 32 vector steps, learning from 2048
-     stored transitions), each kernel launched once per update round and no
-     plain call, a profiled steady superstep (launches per vector step,
-     busy share, the ``grad_all_reduce`` span), then the same through
+ 10. runs over ranks and rollouts, every rank graphed (``GraphedLearner``
+     under a process group: the frame's graph, graph L1 of the update's
+     local gradients, the all-reduce, graph L2 of its step on the mean):
+     first the kernels at a rank's shapes (K1/K2 at B = 128, K3 at (64,
+     8192, 128)) against their plain versions and timed; (a) world size 1
+     on NCCL: ``DistributedTrainer`` equal bitwise to graphed ``Trainer``
+     after each superstep, ``lunar_per`` at full width with the PER slot
+     kernel cut in depth only (``DIST_SETS``: 2 supersteps of 32 vector
+     steps, learning from 2048 stored transitions), no plain call;
+     the evaluator's check on ``DistributedTrainer``'s evaluator;
+     env-steps/s of ``Trainer`` and of the rank graphed and eager, in
+     turns; steady 8-step supersteps traced: K1–K3 once per update on the
+     device, the host's launches per vector step (at most
+     ``RANK_HOST_LAUNCHES``) and the busy share; then the same through
      ``train --distributed`` with checkpoints and ``--resume`` in processes
      of their own; (b) two gloo ranks sharing the card (CUDA tensors), 64
-     landers and a batch of 128 each: learners bitwise equal, each rank's
-     kernels launched once per update round, the combined counters as in
-     (a); (c) ``multihost_ddqn`` at full width (8192 landers) for 2
-     supersteps of 16 vector steps; (d) ``dryrun_multichip(2)`` on the
-     card; (e) ``eval --rollout-dir --rollouts 2 --render gif`` of phase
-     6's checkpoint (a figure it cannot draw is reported, not written);
+     landers and a batch of 128 each, the graphed and the eager rank from
+     one seed in turns: learners bitwise equal after every superstep on
+     both ranks, the combined counters as in (a), env-steps/s of each, a
+     traced steady superstep of each rank; (c) ``multihost_ddqn`` at full
+     width (8192 landers) for 2 supersteps of 16 vector steps; (d)
+     ``dryrun_multichip(2)`` on the card; (e) ``eval --rollout-dir
+     --rollouts 2 --render gif`` of phase 6's checkpoint (a figure it
+     cannot draw is reported, not written);
  11. the host-compatibility path and the bf16 trunk: K1/K2 at the host
      agent's shapes (B = 64, A = 4 and 2) against their plain versions and
      timed; (a) ``HostAgent`` with ``lunar_ref_parity`` and ``use_pallas``
      over ``TimeFractionHostWrapper(TorchHostEnv(rigid lander))`` for
-     ``COMPAT_STEPS`` env steps: K1/K2 launched once per update and no
-     plain call, the buffer holding every env step, a finite loss, ε decayed
-     per episode, the online net trained; one update card vs CPU from the
-     agent's state; launches per env step (``torch.profiler``) and a greedy
-     ``evaluate(1)``; (b) ``make_host_env("torch")``: CartPole-v1 with the
+     ``COMPAT_STEPS`` env steps, its update one CUDA graph replay, then the
+     eager agent from the same seed: every loss and episode and the learner
+     bitwise, env-steps/s of each; no plain call, the buffer holding every
+     env step, a finite loss, ε decayed per episode, the online net
+     trained; one update card vs CPU from the agent's state; an episode of
+     each traced (host launches per env step, K1/K2 once per update on the
+     device) and a greedy ``evaluate(1)``; (b) ``make_host_env("torch")``: CartPole-v1 with the
      learner on the card (K1/K2 at A = 2) and a few frames of the jointed
      default LunarLander-v2; (c) the jointed ``TorchHostEnv`` with its step
      and reset as CUDA graphs, bitwise the eager one over 16 steps, with
@@ -178,8 +195,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      contact steps equal, flight error within 1e-5); (b) a live
      ``compare_lunar_stepwise`` where gymnasium imports, else one line
      saying so; (c) ``examples.engine_curve_compare --engine torch --env
-     CartPole-v1`` in a process of its own (K1/K2 once per update, no plain
-     call, the JSONL's lines), then ``examples.summarize_engine_curves``
+     CartPole-v1`` in a process of its own, traced (K1/K2 once per update on
+     the device, no plain call, the JSONL's lines), then ``examples.summarize_engine_curves``
      over its directory; (d) the rigid ``impact_sweep_torch`` (LAND, LAND,
      CRASH, CRASH); (c) and the CPU replay run beside (a);
  13. the reference-format scripts: (a) ``artifacts/lunar_ref_format`` (the
@@ -968,6 +985,60 @@ def check_slot_kernel(torch, sample_kernels, per_superstep, card):
     return dyadic_mismatches, times
 
 
+# the greedy evaluators, graphed against eager (phases 4, 7, 8, 9, 10): one
+# seed, whole episodes of the trainer's eval envs (128 a trainer, 16 a
+# member of phase 9's population), in turns graphed, eager, eager, graphed
+EVAL_SEED = 0
+
+
+def eval_pair(torch, label, evaluate, eval_venv, env_params, network, card, members=None,
+              solver=False):
+    """A greedy evaluation of ``network`` by a trainer's evaluator
+    (``evaluate``: each eval step one CUDA graph) and by its eager form
+    (``build_evaluator(..., graphed=False)`` on the same envs: the forward,
+    argmax and accounting launched one by one around the env step's graph),
+    in turns: returns, lengths and ``truncated`` bitwise equal; each
+    evaluation's seconds; the step graph's replay on the device, and with
+    ``solver`` S1 once in it.  Returns the seconds, graphed and eager."""
+    from deep_q_learning_tpu_torch.algos.evaluate import build_evaluator
+    from deep_q_learning_tpu_torch.measure import replay_ms, traced_kernels
+
+    eager = build_evaluator(eval_venv, env_params, env_params.max_steps_in_episode,
+                            members=members, graphed=False)
+    assert eager.graph is None and evaluate.graph is not None, label
+    results, seconds = [], {True: [], False: []}
+    for graphed in (True, False, False, True):
+        generator = torch.Generator(device="cuda").manual_seed(EVAL_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = (evaluate if graphed else eager)(network, generator)
+        torch.cuda.synchronize()
+        seconds[graphed].append(time.perf_counter() - t0)
+        results.append([x.cpu() for x in ev])
+    for other in results[1:]:
+        for a, b in zip(results[0], other):
+            assert a.dtype == b.dtype and torch.equal(a, b), label
+    step = evaluate.graph
+    assert step.graph is not None, f"{label}: the eval step was not captured"
+    returns, lengths, truncated = results[0]
+    assert torch.isfinite(returns).all() and not truncated.any(), label
+    host_ms, device_ms, nodes = replay_ms(step)
+    s1 = ""
+    if solver:
+        s1_count = traced_kernels(step.graph.replay).count(SOLVER_KERNEL)
+        assert s1_count == 1, s1_count
+        s1 = ", S1 once in it"
+    print(f"  eval {label}: {returns.numel()} greedy episodes, graphed bitwise eager (returns, "
+          f"lengths, truncated); mean return {float(returns.mean()):.2f}, mean length "
+          f"{float(lengths.float().mean()):.1f}, longest {int(lengths.max())}; seconds of one "
+          f"evaluation graphed {[round(x, 4) for x in seconds[True]]} (a network's first "
+          f"evaluation makes the step graph's eager call and capture), eager "
+          f"{[round(x, 4) for x in seconds[False]]}; the "
+          f"step's graph: replay {device_ms:.3f} ms on the device, {nodes} kernels{s1}, its "
+          f"launch {host_ms:.3f} ms of host [{card}]")
+    return seconds
+
+
 def run_slice(torch, td_kernels, sample_kernels, card):
     """Phase 4: lunar_per at full width through the Trainer, each frame as
     CUDA graph launches (``GraphedLearner``): the counters, a finite loss,
@@ -1033,6 +1104,8 @@ def run_slice(torch, td_kernels, sample_kernels, card):
     f5_pair(torch, trainer, metrics, card)
     ev = trainer.evaluate(seed=0)
     assert ev.returns.shape == (128,) and all(math.isfinite(x) for x in ev.returns)
+    eval_pair(torch, "lunar_per", trainer._evaluate, trainer.eval_venv, trainer.env_params,
+              trainer.runner.train.online, card)
     frame, learn = trainer._superstep.frame, trainer._superstep.learn
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
     print(f"  updates {updates}, episodes {metrics[-1].episodes}, window {metrics[-1].window_mean:.3f}, "
@@ -1415,6 +1488,8 @@ def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launche
     assert (ev.lengths <= JOINTED_EVAL_FRAMES).all()
     print(f"  greedy eval over {JOINTED_EVAL_FRAMES} frames (graphed): mean "
           f"{float(ev.returns.mean()):.3f}")
+    eval_pair(torch, "lunar_jointed_per", trainer._evaluate, trainer.eval_venv,
+              trainer.env_params, trainer.runner.train.online, card, solver=True)
     return launches
 
 
@@ -1943,6 +2018,8 @@ def run_population(torch, td_kernels, sample_kernels, card):
 
     ev = trainer.evaluate(runner, seed=0, max_steps=POP_EVAL_FRAMES)
     assert ev.returns.shape == (m, POP_EVAL_ENVS) and np.isfinite(ev.returns).all()
+    eval_pair(torch, f"the {m}-member lunar_per population", trainer._evaluate,
+              trainer.eval_venv, trainer._eval_env_params, runner.train.online, card, members=m)
     print(f"  supersteps: {[(mt.env_steps, mt.loss_count.tolist()) for mt in metrics]}")
     print(f"  {m} members: updates {runner.train.updates}, losses "
           f"{np.round(loss_sum / np.maximum(counts, 1), 5).tolist()}, episodes "
@@ -2168,6 +2245,10 @@ DIST_SETS = ["use_pallas_sampler=true", "steps_per_superstep=32", "training_star
 DIST_SUPERSTEPS = 2
 DIST_ROUNDS = DIST_SUPERSTEPS * 32 - 2048 // 128 + 1
 DIST_RANKS = 2  # (b): two gloo ranks that share the one card
+# (b): a third superstep, so that each kind has two without captures
+GLOO_SUPERSTEPS = DIST_SUPERSTEPS + 1
+GLOO_ROUNDS = GLOO_SUPERSTEPS * 32 - 2048 // 128 + 1
+RANK_HOST_LAUNCHES = 40  # at most, a vector step of a steady graphed rank (as phase 4)
 # (c) multihost_ddqn at full width (8192 rigid landers, uniform replay 2^19);
 # its training_start of 20,000 transitions opens at vector step 3
 MULTIHOST_CUTS = dict(steps_per_superstep=16)
@@ -2232,70 +2313,113 @@ def profile_steady(torch, trainer, steps):
             "updates": m.loss_count}
 
 
-def all_reduce_us(torch, network, calls=200):
-    """Host µs per call of the update's gradient all-reduce
-    (``algos.dqn.all_reduce_mean`` over the default group) on gradients of
-    ``network``'s shapes, the card synchronised once after ``calls`` calls:
-    every rank calls it as often."""
-    import torch.distributed as dist
-
-    from deep_q_learning_tpu_torch.algos.dqn import all_reduce_mean
-
-    grads = [torch.randn_like(p) for p in network.parameters()]
-    loss = torch.zeros((), device=grads[0].device)
+def all_reduce_us(torch, trainer, calls=200):
+    """Host µs per call of a rank's gradient all-reduce (the collective
+    between graphs L1 and L2: ``UpdateStep.all_reduce`` of the flat buffer
+    of the learner's gradients and loss), the card synchronised once after
+    ``calls`` calls: every rank calls it as often."""
+    update = trainer._superstep.work.update
+    train = trainer.runner.train
     for _ in range(10):
-        all_reduce_mean(grads, loss, dist.group.WORLD)
+        update.all_reduce(train)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
-        all_reduce_mean(grads, loss, dist.group.WORLD)
+        update.all_reduce(train)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+def rank_steady(torch, trainer, attempts, lockstep=False):
+    """A steady superstep of LAUNCH_STEPS vector steps, each with an
+    update, after one that makes each graph's eager call and capture:
+    supersteps traced (``measure.traced_kernels``) until one whose trace
+    lost no record, at most ``attempts``; with ``lockstep`` (ranks of more
+    than one process) every rank traces all ``attempts``, so that all take
+    as many supersteps, and keeps the first clean one.  Returns the host's
+    launches per vector step, K1–K3 on the device, this rank's updates in
+    it, and the device's busy share."""
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
+
+    trainer.step()
+    kept = None
+    for _ in range(attempts):
+        before = trainer.runner.train.updates
+        trace = traced_kernels(trainer.step)
+        clean = not trace.lost and not trace.per_graph_launch.count(0)
+        if kept is None and clean:
+            kept = trace, trainer.runner.train.updates - before
+        if kept is not None and not lockstep:
+            break
+    if kept is None:
+        raise RuntimeError(f"the profiler lost records in {attempts} traced supersteps")
+    trace, updates = kept
+    return {"launches_per_step": trace.host_launches / LAUNCH_STEPS,
+            "kernels": learner_kernels(trace), "updates": updates,
+            "graphs": len(trace.per_graph_launch), "busy": trace.device_us / trace.wall_us}
+
+
+def steady_text(s) -> str:
+    return (f"{s['launches_per_step']:.1f} host launches per vector step ({s['graphs']} graph "
+            f"launches in {LAUNCH_STEPS} vector steps), K1-K3 on the device {s['kernels']} for "
+            f"{s['updates']} updates, device busy {100 * s['busy']:.1f} % of the wall")
+
+
 def gloo_lunar_rank(shard, n, port):
     """Phase 10 (b): one of two gloo ranks that share the card, on lunar_per
-    split in two (64 landers and a batch of 128 a rank)."""
+    split in two (64 landers and a batch of 128 a rank): the graphed rank
+    and the eager rank from one seed, superstep by superstep in turns, the
+    learner's digest after each; then a steady graphed superstep traced."""
     import dataclasses
 
     import torch
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.ops import sample_kernels, td_kernels
     from deep_q_learning_tpu_torch.parallel import distributed_init
     from deep_q_learning_tpu_torch.train import DistributedTrainer
 
     distributed_init(f"localhost:{port}", n, shard, backend="gloo", device="cuda")
     cfg = dist_config()
-    trainer = DistributedTrainer(cfg, device="cuda").init(seed=0)
-    assert trainer.device == torch.device("cuda", 0), trainer.device
+    ranks = {"graphed": DistributedTrainer(cfg, device="cuda").init(seed=0),
+             "eager": DistributedTrainer(cfg, device="cuda", graphed_learner=False).init(seed=0)}
+    assert isinstance(ranks["graphed"]._superstep, GraphedLearner)
+    assert not isinstance(ranks["eager"]._superstep, GraphedLearner)
+    assert ranks["graphed"].device == torch.device("cuda", 0), ranks["graphed"].device
     # each rank's replay holds buffer_capacity transitions over its own envs,
     # as a JAX shard's does: (64, 2^19 / 64) rows of priorities
-    assert trainer.runner.replay.priorities.shape == RANK_SLOT[:2], trainer.runner.replay.priorities.shape
+    shape = ranks["graphed"].runner.replay.priorities.shape
+    assert shape == RANK_SLOT[:2], shape
     torch.cuda.synchronize()
     fresh_peak(torch)
-    td_kernels.reset_counts()
-    sample_kernels.reset_counts()
-    t0 = time.perf_counter()
-    metrics = [trainer.step() for _ in range(DIST_SUPERSTEPS)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    out = {
-        "metrics": [dataclasses.asdict(m) for m in metrics],
-        "updates": trainer.runner.train.updates,
-        "launches": dict(td_kernels.launches, **sample_kernels.launches),
-        "plain": dict(td_kernels.plain_calls, **sample_kernels.plain_calls),
-        "digest": learner_digest(trainer.runner.train),
-        "seconds": seconds,
-        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-        "all_reduce_us": all_reduce_us(torch, trainer.runner.train.online),
-    }
+    out = {kind: {"metrics": [], "digests": [], "seconds": [],
+                  "launches": dict.fromkeys(("td_loss_fwd", "td_loss_bwd", "per_slot_sample"), 0),
+                  "plain": dict.fromkeys(("td_loss_fwd", "td_loss_bwd", "per_slot_sample"), 0)}
+           for kind in ranks}
+    for i in range(GLOO_SUPERSTEPS):
+        for kind in (("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")):
+            tr, rec = ranks[kind], out[kind]
+            td_kernels.reset_counts()
+            sample_kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.step()
+            torch.cuda.synchronize()
+            rec["seconds"].append(time.perf_counter() - t0)
+            rec["metrics"].append(dataclasses.asdict(m))
+            rec["digests"].append(learner_digest(tr.runner.train))
+            for counts, into in ((dict(td_kernels.launches, **sample_kernels.launches), "launches"),
+                                 (dict(td_kernels.plain_calls, **sample_kernels.plain_calls),
+                                  "plain")):
+                for k, v in counts.items():
+                    rec[into][k] += v
+    for kind, tr in ranks.items():
+        out[kind]["updates"] = tr.runner.train.updates
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["all_reduce_us"] = all_reduce_us(torch, ranks["graphed"])
     short = dataclasses.replace(cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0)
-    steady = DistributedTrainer(short, device="cuda").init(seed=1)
-    if shard == 0:
-        out["steady"] = profile_steady(torch, steady, LAUNCH_STEPS)
-    else:
-        steady.step()
-        steady.step()
+    out["steady"] = rank_steady(torch, DistributedTrainer(short, device="cuda").init(seed=1),
+                                TRACE_ATTEMPTS, lockstep=True)
     return out
 
 
@@ -2315,78 +2439,97 @@ def run_distributed(torch, td_kernels, sample_kernels, card, cli_workdir):
     """Phase 10: (a) world size 1 on NCCL, in this process and through the
     command line; (b) two gloo ranks sharing the card; (c) multihost_ddqn at
     full width; (d) dryrun_multichip(2); (e) eval --rollout-dir on phase 6's
-    checkpoint.  Returns (b)'s rank-0 kernel launches."""
+    checkpoint.  Every rank runs graphed (``GraphedLearner``: graph L1, the
+    all-reduce, graph L2), in turns with the eager rank where timed.  A
+    kernel in a graph passes its wrapper's counter at the graph's eager
+    call and capture only: the wrappers count 2 a kernel, and K1–K3 are
+    counted on the device in the profiler's trace of a steady superstep.
+    Returns (b)'s rank-0 kernels in that trace."""
     import dataclasses
 
     import torch.distributed as dist
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import multihost_ddqn
+    from deep_q_learning_tpu_torch.measure import replay_ms
     from deep_q_learning_tpu_torch.parallel import distributed_init, dryrun_multichip, spawn_ranks
     from deep_q_learning_tpu_torch.train import DistributedTrainer, Trainer
 
     cfg = dist_config()
     zero = {"td_loss_fwd": 0, "td_loss_bwd": 0, "per_slot_sample": 0}
+    captured = dict.fromkeys(zero, 2)  # a graph's eager call and its capture
 
-    # (a) in this process: world size 1 on NCCL
+    # (a) in this process: world size 1 on NCCL, graphed, against graphed Trainer
     t_a = time.perf_counter()
     distributed_init(device="cuda")
     assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
-    short = dataclasses.replace(cfg, steps_per_superstep=2, training_start=0)
-    single, ranked = Trainer(short, device="cuda").init(seed=0), DistributedTrainer(
-        short, device="cuda").init(seed=0)
-    m_single, m_ranked = single.step(), ranked.step()
-    assert m_single == m_ranked and m_ranked.loss_count == 2, (m_single, m_ranked)
-    assert learner_digest(single.runner.train) == learner_digest(ranked.runner.train)
-    print("  (a) world size 1 on NCCL: a superstep of 2 updates equals Trainer's bitwise "
-          "(weights, target, Adam moments and count, metrics)")
-    # env-steps/s of Trainer and of DistributedTrainer on the same cut, in turns
+    single = Trainer(cfg, device="cuda").init(seed=0)
+    ranked = DistributedTrainer(cfg, device="cuda").init(seed=0)
+    assert isinstance(ranked._superstep, GraphedLearner) and ranked._superstep.group is not None
+    torch.cuda.synchronize()
+    fresh_peak(torch)
+    td_kernels.reset_counts()
+    sample_kernels.reset_counts()
+    metrics = []
+    for i in range(DIST_SUPERSTEPS):
+        m_single, m_ranked = single.step(), ranked.step()
+        assert m_single == m_ranked, (i, m_single, m_ranked)
+        same_tree(torch, runner_tree(single), runner_tree(ranked), f"superstep {i}")
+        metrics.append(m_ranked)
+    launches = dict(td_kernels.launches, **sample_kernels.launches)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    env_steps = metrics[-1].env_steps * cfg.num_envs
+    assert env_steps == DIST_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
+    assert sum(m.loss_count for m in metrics) == ranked.runner.train.updates == DIST_ROUNDS
+    # the single learner's graph L and the rank's graph L1 each: 2 + 2
+    assert launches == {k: 2 * v for k, v in captured.items()} and plain == zero, (launches, plain)
+    peak_a = torch.cuda.max_memory_allocated() / 2**20
+    reduce_a = all_reduce_us(torch, ranked)
+    eval_pair(torch, "DistributedTrainer's lunar_per (world 1)", ranked._evaluate,
+              ranked.eval_venv, ranked.env_params, ranked.runner.train.online, card)
+    # a replay of an in-place graph applies its work again: the rank is not used after
+    step = ranked._superstep
+    for name, g in (("frame", step.frame), ("update's local gradients (graph L1)", step.learn),
+                    ("update's step on the mean (graph L2)", step.learn_mean)):
+        host_ms, device_ms, nodes = replay_ms(g)
+        print(f"  (a) the rank's graph of the {name}: replay {device_ms:.3f} ms on the device "
+              f"(CUDA events), {nodes} kernels, its launch {host_ms:.3f} ms of host; captured in "
+              f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
+    print(f"  (a) world size 1 on NCCL, graphed: {DIST_SUPERSTEPS} supersteps of "
+          f"{cfg.steps_per_superstep} vector steps ({DIST_ROUNDS} updates) bitwise graphed "
+          f"Trainer's after each (metrics and the whole runner); each wrapper counted {launches} "
+          f"(the two learners' graphs' eager calls and captures), no plain call; peak memory "
+          f"{peak_a:.1f} MiB; the all-reduce alone {reduce_a:.1f} us a call [{card}]")
+    # env-steps/s of Trainer and of the rank, graphed and eager, on the same cut, in turns
     turns = []
-    for kind in (Trainer, DistributedTrainer, DistributedTrainer, Trainer):
-        t = kind(cfg, device="cuda").init(seed=0)
+    for kind, graphed in ((Trainer, True), (DistributedTrainer, True), (DistributedTrainer, False),
+                          (DistributedTrainer, False), (DistributedTrainer, True), (Trainer, True)):
+        t = kind(cfg, device="cuda", graphed_learner=graphed).init(seed=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(DIST_SUPERSTEPS):
             t.step()
         torch.cuda.synchronize()
-        turns.append((kind.__name__, DIST_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
+        name = "Trainer" if kind is Trainer else f"rank {'graphed' if graphed else 'eager'}"
+        turns.append((name, DIST_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
                       / (time.perf_counter() - t0)))
-    print(f"  (a) env-steps/s in turns on the same cut: "
+    print(f"  (a) env-steps/s in turns on the same cut ({DIST_SUPERSTEPS} supersteps each, the "
+          f"graphs' eager calls and captures included): "
           f"{', '.join(f'{name} {rate:.1f}' for name, rate in turns)} [{card}]")
-    steady_single = profile_steady(torch, Trainer(dataclasses.replace(
-        cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0), device="cuda").init(seed=1),
-        LAUNCH_STEPS)
-    print(f"  (a) Trainer's steady superstep on the same cut: "
-          f"{steady_single['launches_per_step']:.1f} launches per vector step, device busy "
-          f"{100 * steady_single['busy']:.1f} % of the wall [{card}]")
-    trainer = DistributedTrainer(cfg, device="cuda").init(seed=0)
-    torch.cuda.synchronize()
-    fresh_peak(torch)
-    td_kernels.reset_counts()
-    sample_kernels.reset_counts()
-    t0 = time.perf_counter()
-    metrics = [trainer.step() for _ in range(DIST_SUPERSTEPS)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(td_kernels.launches, **sample_kernels.launches)
-    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
-    env_steps = metrics[-1].env_steps * cfg.num_envs
-    assert env_steps == DIST_SUPERSTEPS * cfg.steps_per_superstep * cfg.num_envs
-    assert sum(m.loss_count for m in metrics) == trainer.runner.train.updates == DIST_ROUNDS
-    assert launches == dict.fromkeys(zero, DIST_ROUNDS) and plain == zero, (launches, plain)
-    peak_a = torch.cuda.max_memory_allocated() / 2**20
-    reduce_a = all_reduce_us(torch, trainer.runner.train.online)
-    steady_a = profile_steady(torch, DistributedTrainer(dataclasses.replace(
-        cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0), device="cuda").init(seed=1),
-        LAUNCH_STEPS)
-    print(f"  (a) lunar_per x128, world size 1 (NCCL): {env_steps} env steps in {seconds:.3f} s = "
-          f"{env_steps / seconds:.1f} env-steps/s, {DIST_ROUNDS} update rounds, launches "
-          f"{launches}, peak memory {peak_a:.1f} MiB; steady superstep: "
-          f"{steady_a['launches_per_step']:.1f} launches per vector step, device busy "
-          f"{100 * steady_a['busy']:.1f} % of the wall, grad_all_reduce "
-          f"{steady_a['all_reduce_us_per_update']:.1f} us of host time per update of "
-          f"{steady_a['wall_per_update_us']:.1f} us wall per vector step "
-          f"({100 * steady_a['all_reduce_us_per_update'] / steady_a['wall_per_update_us']:.1f} %) "
-          f"under the profiler; all_reduce_mean alone {reduce_a:.1f} us a call [{card}]")
+    short = dataclasses.replace(cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0)
+    steady_single = rank_steady(torch, Trainer(short, device="cuda").init(seed=1), TRACE_ATTEMPTS)
+    steady_a = rank_steady(torch, DistributedTrainer(short, device="cuda").init(seed=1),
+                           TRACE_ATTEMPTS)
+    steady_eager = rank_steady(torch, DistributedTrainer(short, device="cuda",
+                                                         graphed_learner=False).init(seed=1),
+                               TRACE_ATTEMPTS)
+    for s in (steady_single, steady_a, steady_eager):
+        assert s["updates"] == LAUNCH_STEPS, s
+        assert s["kernels"] == dict.fromkeys(zero, LAUNCH_STEPS), s
+    assert steady_a["launches_per_step"] <= RANK_HOST_LAUNCHES, steady_a
+    print(f"  (a) steady {LAUNCH_STEPS}-step supersteps on the same cut, traced: Trainer "
+          f"{steady_text(steady_single)}; the graphed rank {steady_text(steady_a)} (at most "
+          f"{RANK_HOST_LAUNCHES}); the eager rank {steady_text(steady_eager)} [{card}]")
 
     # (a) through the command line: train with checkpoints, then resume
     common = ["--preset", "lunar_per", "--distributed", "--quiet", "--log-every", "1"]
@@ -2399,52 +2542,63 @@ def run_distributed(torch, td_kernels, sample_kernels, card, cli_workdir):
             "--max-env-steps", str(DIST_SUPERSTEPS * per_superstep))
         assert first["env_steps"] == env_steps and first["updates"] == DIST_ROUNDS, first
         assert first["world_size"] == 1, first
-        assert counts == {"launches": dict.fromkeys(zero, DIST_ROUNDS), "plain": zero}, counts
+        assert counts == {"launches": captured, "plain": zero}, counts
         assert sorted(p.name for p in Path(wd).iterdir()) == [
             str(per_superstep), str(2 * per_superstep), "config.json"]
-        print(f"  (a) CLI train --distributed: {first}, kernels {counts['launches']} "
-              f"({took:.1f} s with start-up)")
+        print(f"  (a) CLI train --distributed: {first}, kernels {counts['launches']} (graph "
+              f"L1's eager call and capture) ({took:.1f} s with start-up)")
         resumed, counts, _, took = run_cli_counts(
             "train", *common, "--workdir", wd, "--resume",
             "--max-env-steps", str((DIST_SUPERSTEPS + 1) * per_superstep))
         more = cfg.steps_per_superstep
         assert resumed["env_steps"] == env_steps + per_superstep, resumed
         assert resumed["updates"] == DIST_ROUNDS + more, resumed
-        assert counts == {"launches": dict.fromkeys(zero, more), "plain": zero}, counts
+        assert counts == {"launches": captured, "plain": zero}, counts
         print(f"  (a) CLI train --distributed --resume: {resumed}, kernels {counts['launches']} "
               f"({took:.1f} s with start-up)")
     print(f"  (a) took {time.perf_counter() - t_a:.1f} s")
 
-    # (b) two gloo ranks on cuda:0, CUDA tensors
+    # (b) two gloo ranks on cuda:0, CUDA tensors, graphed and eager in turns
     t_b = time.perf_counter()
     ranks = spawn_ranks(gloo_lunar_rank, DIST_RANKS, timeout_s=300)
     for r in ranks:
-        assert r["updates"] == DIST_ROUNDS, r["updates"]
-        assert r["launches"] == dict.fromkeys(zero, DIST_ROUNDS) and r["plain"] == zero, r
-        assert r["metrics"] == ranks[0]["metrics"]
-    assert ranks[0]["digest"] == ranks[1]["digest"], "the two ranks' learners differ"
-    assert [m["env_steps"] for m in ranks[0]["metrics"]] == [m.env_steps for m in metrics]
-    assert [m["loss_count"] for m in ranks[0]["metrics"]] == [
+        for kind in ("graphed", "eager"):
+            rec = r[kind]
+            assert rec["updates"] == GLOO_ROUNDS, (kind, rec["updates"])
+            assert rec["plain"] == zero, (kind, rec["plain"])
+            assert rec["metrics"] == ranks[0]["graphed"]["metrics"], kind
+            assert rec["digests"] == ranks[0]["graphed"]["digests"], f"{kind} differs"
+        assert r["graphed"]["launches"] == captured, r["graphed"]["launches"]
+        assert r["eager"]["launches"] == dict.fromkeys(zero, GLOO_ROUNDS), r["eager"]["launches"]
+        assert r["steady"]["updates"] == LAUNCH_STEPS, r["steady"]
+        assert r["steady"]["kernels"] == dict.fromkeys(zero, LAUNCH_STEPS), r["steady"]
+        assert r["steady"]["launches_per_step"] <= RANK_HOST_LAUNCHES, r["steady"]
+    assert [m["env_steps"] for m in ranks[0]["graphed"]["metrics"][:DIST_SUPERSTEPS]] == [
+        m.env_steps for m in metrics]
+    assert [m["loss_count"] for m in ranks[0]["graphed"]["metrics"][:DIST_SUPERSTEPS]] == [
         DIST_RANKS * m.loss_count for m in metrics]
-    steady_b = ranks[0]["steady"]
-    seconds_b = max(r["seconds"] for r in ranks)
-    print(f"  (b) {DIST_RANKS} gloo ranks sharing the card, 64 landers and batch 128 a rank: "
-          f"{env_steps} env steps in {seconds_b:.3f} s = {env_steps / seconds_b:.1f} env-steps/s, "
-          f"{DIST_ROUNDS} update rounds and each kernel launched {DIST_ROUNDS} times on each "
-          f"rank, learners bitwise equal, peak memory {[round(r['peak_mib'], 1) for r in ranks]} "
-          f"MiB; rank 0's steady superstep: {steady_b['launches_per_step']:.1f} launches per "
-          f"vector step, device busy {100 * steady_b['busy']:.1f} % of the wall, grad_all_reduce "
-          f"{steady_b['all_reduce_us_per_update']:.1f} us of host time per update of "
-          f"{steady_b['wall_per_update_us']:.1f} us under the profiler; all_reduce_mean alone "
+    rates = {kind: [round(cfg.steps_per_superstep * cfg.num_envs / max(
+        r[kind]["seconds"][i] for r in ranks), 1) for i in range(GLOO_SUPERSTEPS)]
+        for kind in ("graphed", "eager")}
+    print(f"  (b) {DIST_RANKS} gloo ranks sharing the card, 64 landers and batch 128 a rank, "
+          f"graphed and eager in turns from one seed: learners bitwise equal after every "
+          f"superstep on both ranks ({GLOO_ROUNDS} update rounds); env-steps/s a superstep "
+          f"(the slower rank's wall) graphed {rates['graphed']} (the first with the graphs' "
+          f"eager calls and captures), eager {rates['eager']}; the graphed wrappers "
+          f"{ranks[0]['graphed']['launches']}, the eager {ranks[0]['eager']['launches']}; peak "
+          f"memory {[round(r['peak_mib'], 1) for r in ranks]} MiB; the all-reduce alone "
           f"{[round(r['all_reduce_us'], 1) for r in ranks]} us a call "
           f"({time.perf_counter() - t_b:.1f} s) [{card}]")
+    print(f"  (b) rank 0's steady graphed superstep, traced: {steady_text(ranks[0]['steady'])}; "
+          f"rank 1's {steady_text(ranks[1]['steady'])} (at most {RANK_HOST_LAUNCHES}) [{card}]")
 
-    # (c) multihost_ddqn at full width, world size 1
+    # (c) multihost_ddqn at full width, world size 1, graphed
     t_c = time.perf_counter()
     mh = dataclasses.replace(multihost_ddqn(), **MULTIHOST_CUTS)
     assert (mh.num_envs, mh.buffer_capacity, mh.hidden, mh.batch_size, mh.replay) == (
         8192, 1 << 19, (256, 256), 256, "uniform"), mh
     trainer = DistributedTrainer(mh, device="cuda").init(seed=0)
+    assert isinstance(trainer._superstep, GraphedLearner)
     torch.cuda.synchronize()
     fresh_peak(torch)
     td_kernels.reset_counts()
@@ -2458,27 +2612,31 @@ def run_distributed(torch, td_kernels, sample_kernels, card, cli_workdir):
     assert metrics_c[-1].env_steps == steps_c
     assert sum(m.loss_count for m in metrics_c) == trainer.runner.train.updates == rounds_c
     assert dict(td_kernels.launches, **sample_kernels.launches) == zero  # use_pallas is off
+    assert math.isfinite(sum(m.loss_sum for m in metrics_c))
     peak_c = torch.cuda.max_memory_allocated() / 2**20
-    steady_c = profile_steady(torch, DistributedTrainer(dataclasses.replace(
+    steady_c = rank_steady(torch, DistributedTrainer(dataclasses.replace(
         mh, steps_per_superstep=LAUNCH_STEPS, training_start=0), device="cuda").init(seed=1),
-        LAUNCH_STEPS)
-    print(f"  (c) multihost_ddqn x{mh.num_envs}, world size 1 (NCCL): {steps_c * mh.num_envs} env "
-          f"steps in {seconds:.3f} s = {steps_c * mh.num_envs / seconds:.1f} env-steps/s, "
-          f"{rounds_c} updates (the plain TD loss), peak memory {peak_c:.1f} MiB; steady "
-          f"superstep: {steady_c['launches_per_step']:.1f} launches per vector step, device busy "
-          f"{100 * steady_c['busy']:.1f} % of the wall ({time.perf_counter() - t_c:.1f} s) "
-          f"[{card}]")
+        TRACE_ATTEMPTS)
+    assert steady_c["launches_per_step"] <= RANK_HOST_LAUNCHES, steady_c
+    print(f"  (c) multihost_ddqn x{mh.num_envs}, world size 1 (NCCL), graphed: "
+          f"{steps_c * mh.num_envs} env steps in {seconds:.3f} s = "
+          f"{steps_c * mh.num_envs / seconds:.1f} env-steps/s (the graphs' eager calls and "
+          f"captures included), {rounds_c} updates (the plain TD loss), peak memory "
+          f"{peak_c:.1f} MiB; steady superstep: {steady_c['launches_per_step']:.1f} host "
+          f"launches per vector step, device busy {100 * steady_c['busy']:.1f} % of the wall "
+          f"({time.perf_counter() - t_c:.1f} s) [{card}]")
     dist.destroy_process_group()
 
     # (d) the flagship structure over two gloo ranks on the card
     t_d = time.perf_counter()
     reports = dryrun_multichip(DIST_RANKS, device="cuda")
     for r in reports:
-        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
-        assert r["launches"] == dict.fromkeys(zero, r["updates"]) and r["updates"] > 0, r
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0" and r["graphed"], r
+        assert r["launches"] == captured and r["updates"] > 2, r
         assert r["plain_calls"] == zero, r
-    print(f"  (d) dryrun_multichip({DIST_RANKS}): {reports[0]['metrics']}, each rank's kernels "
-          f"{reports[0]['launches']}, learners bitwise equal ({time.perf_counter() - t_d:.1f} s)")
+    print(f"  (d) dryrun_multichip({DIST_RANKS}), graphed: {reports[0]['metrics']}, "
+          f"{reports[0]['updates']} updates, each rank's wrappers {reports[0]['launches']}, "
+          f"learners bitwise equal ({time.perf_counter() - t_d:.1f} s)")
 
     # (e) greedy rollouts of phase 6's checkpoint
     t_e = time.perf_counter()
@@ -2499,7 +2657,7 @@ def run_distributed(torch, td_kernels, sample_kernels, card, cli_workdir):
           f"{[r['length'] for r in report['rollouts']]}, files "
           f"{sorted(p.name for p in rollout_dir.iterdir())} ({took:.1f} s with start-up)")
     print(f"  (e) took {time.perf_counter() - t_e:.1f} s")
-    return ranks[0]["launches"]
+    return ranks[0]["steady"]["kernels"]
 
 
 def check_rank_shapes(torch, td_kernels, sample_kernels, card):
@@ -2602,26 +2760,26 @@ def update_card_vs_cpu(torch, cfg, ts, batch, weights):
 
 
 def profile_host_steps(torch, agent, steps):
-    """Kernel launches, the device's copies by direction and its busy share,
-    per env step of one episode of ``agent`` learning on, cut at ``steps``
-    env steps (its reset included), from torch.profiler."""
-    done = agent._global_steps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        agent.run_episode(steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    n = agent._global_steps - done
-    events = prof.key_averages()
-    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                  for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    copies = {kind: sum(e.count for e in events if e.key.startswith(f"Memcpy {kind}")) / n
-              for kind in ("HtoD", "DtoH", "DtoD")}
-    return launches / n, copies, busy_us / 1e6 / wall, n
+    """What one episode of ``agent`` learning on, cut at ``steps`` env steps
+    (its reset included), put on the card, from the profiler's trace
+    (``measure.traced_kernels``): a :class:`KernelTrace`, its env steps, its
+    updates and K1/K2 in it.  An episode whose trace lost a record of K1 or
+    K2 or of a graph launch's kernels is reported, and the next episode is
+    traced, up to TRACE_ATTEMPTS times."""
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        done, updates = agent._global_steps, agent.train_state.updates
+        trace = traced_kernels(lambda: agent.run_episode(steps))
+        n, updates = agent._global_steps - done, agent.train_state.updates - updates
+        kernels = learner_kernels(trace)
+        whole = dict(td_loss_fwd=updates, td_loss_bwd=updates, per_slot_sample=0)
+        if updates and kernels == whole and not trace.per_graph_launch.count(0):
+            return trace, n, updates, kernels
+        print(f"  the profiler lost records in episode {attempt} of the trace ({trace.lost} of "
+              f"{trace.launches} kernel launches, K1/K2 {kernels} for {updates} updates); "
+              f"tracing the next")
+    raise RuntimeError(f"the profiler lost records in {TRACE_ATTEMPTS} episodes")
 
 
 def check_compat_shapes(torch, td_kernels, card):
@@ -2664,57 +2822,90 @@ def check_compat_shapes(torch, td_kernels, card):
     return err, times
 
 
-def run_compat_lander(torch, td_kernels, card):
-    """Phase 11 (a): HostAgent over the rigid lander on the card."""
+def compat_lander_agent(torch, cfg, graphed):
+    """Phase 11 (a)'s agent on a rigid lander of its own, from seed 0."""
     import dataclasses
-
-    import numpy as np
 
     from deep_q_learning_tpu_torch.compat.host_env import TimeFractionHostWrapper, TorchHostEnv
     from deep_q_learning_tpu_torch.compat.host_loop import HostAgent
-    from deep_q_learning_tpu_torch.config import lunar_ref_parity
     from deep_q_learning_tpu_torch.envs import LunarLander
 
-    cfg = dataclasses.replace(lunar_ref_parity(), use_pallas=True)
-    assert (cfg.hidden, cfg.batch_size, cfg.training_start, cfg.train_every) == (
-        (32, 64), 64, 250, 4), cfg
     lander = LunarLander()
     params = dataclasses.replace(lander.default_params(), jointed=False,
                                  max_steps_in_episode=cfg.max_steps_in_episode)
     env = TimeFractionHostWrapper(TorchHostEnv(lander, params, seed=0, device="cuda"),
                                   cfg.max_steps_in_episode)
-    agent = HostAgent(env, 9, 4, cfg, device="cuda")
-    online0 = [p.detach().clone() for p in agent.train_state.online.parameters()]
-    calls, records = {}, []
-    count_calls(agent, "_train_step", calls)
-    td_kernels.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    agent.training(max_episodes=10**6, verbose=False, max_total_steps=COMPAT_STEPS,
-                   on_episode=lambda *r: records.append(r))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(td_kernels.launches)
-    steps, updates = agent._global_steps, calls["_train_step"]
+    agent = HostAgent(env, 9, 4, cfg, device="cuda", graphed=graphed)
+    agent.losses = []
+    step = agent._train_step
+
+    def train_step():
+        agent.losses.append(step())
+        return agent.losses[-1]
+
+    agent._train_step = train_step
+    return agent
+
+
+def run_compat_lander(torch, td_kernels, card):
+    """Phase 11 (a): HostAgent over the rigid lander on the card, its update
+    one CUDA graph replay, then the eager agent from the same seed: every
+    loss, action and episode and the learner bitwise.  Returns K1/K2 on the
+    device in the traced episode."""
+    import dataclasses
+
+    import numpy as np
+
+    from deep_q_learning_tpu_torch.config import lunar_ref_parity
+
+    cfg = dataclasses.replace(lunar_ref_parity(), use_pallas=True)
+    assert (cfg.hidden, cfg.batch_size, cfg.training_start, cfg.train_every) == (
+        (32, 64), 64, 250, 4), cfg
+    agents, records, seconds, launches = {}, {}, {}, {}
+    for graphed in (True, False):
+        agent = agents[graphed] = compat_lander_agent(torch, cfg, graphed)
+        online0 = [p.detach().clone() for p in agent.train_state.online.parameters()]
+        records[graphed] = []
+        td_kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.training(max_episodes=10**6, verbose=False, max_total_steps=COMPAT_STEPS,
+                       on_episode=lambda *r, rec=records[graphed]: rec.append(r))
+        torch.cuda.synchronize()
+        seconds[graphed] = time.perf_counter() - t0
+        launches[graphed] = dict(td_kernels.launches)
+        assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+        moved = sum(float((p.detach() - p0).norm()) for p, p0 in
+                    zip(agent.train_state.online.parameters(), online0))
+        assert moved > 0
+    agent = agents[True]
+    steps, updates = agent._global_steps, len(agent.losses)
     # a stored transition a step; an update every 4th step from 250 stored
     assert agent.buffer.size == steps >= COMPAT_STEPS, (agent.buffer.size, steps)
     assert updates == steps // 4 - 249 // 4 == agent.train_state.updates, (updates, steps)
-    assert launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}, (launches, updates)
-    assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
+    assert updates == agent.train_state.opt_state.count == int(agent.train_state.opt_state.device_count)
+    assert launches == {True: {"td_loss_fwd": 2, "td_loss_bwd": 2},  # the graph's eager call, capture
+                        False: {"td_loss_fwd": updates, "td_loss_bwd": updates}}, launches
     assert math.isfinite(agent._last_loss), agent._last_loss
-    eps = [r[-1] for r in records]
+    eps = [r[-1] for r in records[True]]
     want = []
-    for _ in records:
+    for _ in records[True]:
         want.append(max((want[-1] if want else cfg.eps_start) * cfg.eps_decay, cfg.eps_min))
     assert eps == want and eps[-1] < cfg.eps_start, eps
-    moved = sum(float((p.detach() - p0).norm()) for p, p0 in
-                zip(agent.train_state.online.parameters(), online0))
-    assert moved > 0
-    sps = steps / seconds
-    print(f"  (a) HostAgent lunar_ref_parity + use_pallas, rigid lander on the card: {steps} "
-          f"env steps, {len(records)} episodes, {updates} updates (K1/K2 launched {launches}, "
-          f"no plain call), last loss {agent._last_loss:.5f}, eps {eps[-1]:.4f}; "
-          f"{seconds:.3f} s = {sps:.1f} env-steps/s [{card}]")
+    eager = agents[False]
+    assert agent.losses == eager.losses and records[True] == records[False]
+    ts, te = agent.train_state, eager.train_state
+    for a, b in zip([*ts.online.parameters(), *ts.target.parameters(), *ts.opt_state.mu,
+                     *ts.opt_state.nu, ts.opt_state.device_count],
+                    [*te.online.parameters(), *te.target.parameters(), *te.opt_state.mu,
+                     *te.opt_state.nu, te.opt_state.device_count]):
+        assert torch.equal(a, b)
+    print(f"  (a) HostAgent lunar_ref_parity + use_pallas, rigid lander on the card, its update "
+          f"one CUDA graph replay: {steps} env steps, {len(records[True])} episodes, {updates} "
+          f"updates (the wrappers {launches[True]}: the graph's eager call and capture), no plain "
+          f"call, last loss {agent._last_loss:.5f}, eps {eps[-1]:.4f}; then the eager agent from "
+          f"the same seed: every loss, episode and the learner bitwise; env-steps/s graphed "
+          f"{steps / seconds[True]:.1f}, eager {steps / seconds[False]:.1f} [{card}]")
 
     # one update on the card against the CPU, from the agent's own state
     obs, action, reward, next_obs, done = agent.buffer.sample(cfg.batch_size)
@@ -2727,17 +2918,26 @@ def run_compat_lander(torch, td_kernels, card):
     for a, c in zip(pg, pc):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)
     t0 = time.perf_counter()
-    per_step, copies, busy, n = profile_host_steps(torch, agent, COMPAT_PROFILED_STEPS)
+    traced = {}
+    for graphed in (True, False):
+        traced[graphed] = profile_host_steps(torch, agents[graphed], COMPAT_PROFILED_STEPS)
     t1 = time.perf_counter()
     returns = agent.evaluate(1)
     assert len(returns) == 1 and math.isfinite(returns[0]), returns
-    copied = ", ".join(f"{v:.2f} {k}" for k, v in copies.items())
-    print(f"  (a) an update card vs CPU from the agent's state: ok; {per_step:.1f} kernel "
-          f"launches and device copies {copied} per env step, device busy {100 * busy:.1f} % "
-          f"of the wall over an episode of {n} learning env steps and its reset "
-          f"(torch.profiler, {t1 - t0:.1f} s); greedy "
-          f"evaluate(1) return {returns[0]:.2f} in {time.perf_counter() - t1:.1f} s [{card}]")
-    return launches
+    for graphed, (trace, n, episode_updates, kernels) in traced.items():
+        print(f"  (a) the {'graphed' if graphed else 'eager'} agent over an episode of {n} "
+              f"learning env steps and its reset, {episode_updates} updates (torch.profiler's "
+              f"trace): {trace.host_launches / n:.1f} host launches per env step "
+              f"({trace.launches / n:.1f} kernels, {len(trace.per_graph_launch) / n:.2f} graphs, "
+              f"{trace.copies / n:.2f} copies and fills; {trace.lost} kernel launches with no "
+              f"record), K1/K2 on the device {kernels['td_loss_fwd']}/{kernels['td_loss_bwd']}, "
+              f"device busy "
+              f"{100 * trace.device_us / trace.wall_us:.1f} % of the wall [{card}]")
+    print(f"  (a) an update card vs CPU from the agent's state: ok; traced in "
+          f"{t1 - t0:.1f} s; greedy evaluate(1) return {returns[0]:.2f} in "
+          f"{time.perf_counter() - t1:.1f} s [{card}]")
+    kernels = traced[True][3]
+    return {k: kernels[k] for k in ("td_loss_fwd", "td_loss_bwd")}
 
 
 def run_compat_engines(torch, td_kernels, card):
@@ -2764,8 +2964,9 @@ def run_compat_engines(torch, td_kernels, card):
                                  max_total_steps=CARTPOLE_COMPAT_STEPS)
     seconds = time.perf_counter() - t0
     updates = agent.train_state.updates
-    assert updates == agent._global_steps // 4 - 63 // 4 > 0, updates
-    assert td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}
+    assert updates == agent._global_steps // 4 - 63 // 4 > 2, updates
+    # the update's graph: its eager call and capture
+    assert td_kernels.launches == {"td_loss_fwd": 2, "td_loss_bwd": 2}
     assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
     assert math.isfinite(agent._last_loss)
     print(f"  (b) make_host_env('torch', 'CartPole-v1'): {agent._global_steps} env steps, "
@@ -2808,7 +3009,7 @@ def run_compat_engines(torch, td_kernels, card):
     agent.training(max_episodes=10**6, verbose=False, max_total_steps=BOX2D_COMPAT_STEPS)
     seconds = time.perf_counter() - t0
     updates = agent.train_state.updates
-    assert updates > 0 and td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}
+    assert updates > 2 and td_kernels.launches == {"td_loss_fwd": 2, "td_loss_bwd": 2}
     print(f"  (c) make_host_env('box2d'): {agent._global_steps} env steps on the host, {updates} "
           f"updates on the card, {agent._global_steps / seconds:.1f} env-steps/s [{card}]")
 
@@ -3013,9 +3214,11 @@ CURVE_SETS = ["training_start=64", "max_steps_in_episode=500", "use_pallas=true"
 CURVE_COUNTS = (
     "import json, sys\n"
     "from deep_q_learning_tpu_torch.examples.engine_curve_compare import main\n"
+    "from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels\n"
     "from deep_q_learning_tpu_torch.ops import td_kernels\n"
-    "main(sys.argv[1:])\n"
-    "print(json.dumps({'launches': td_kernels.launches, 'plain': td_kernels.plain_calls}))\n"
+    "trace = traced_kernels(lambda: main(sys.argv[1:]))\n"
+    "print(json.dumps({'launches': td_kernels.launches, 'plain': td_kernels.plain_calls,\n"
+    "                  'device': learner_kernels(trace), 'lost': trace.lost}))\n"
 )
 # (d) the rigid impact sweep: artifacts/gym_parity.json's jax_rigid row at these speeds
 IMPACT_SPEEDS = [1.0, 1.5, 2.5, 3.0]
@@ -3261,8 +3464,12 @@ def run_gym_harness(torch, td_kernels, card, workdir):
     updates = final["global_steps"] // 4 - 63 // 4
     assert "meta" in lines[0] and lines[0]["meta"]["engine"] == "torch", lines[0]
     assert len(lines) == final["episodes"] + 2 and all("episode" in r for r in lines[1:-1])
-    assert updates > 0 and counts["launches"] == {"td_loss_fwd": updates,
-                                                  "td_loss_bwd": updates}, (counts, final)
+    # the update's graph: the wrappers count its eager call and capture, the
+    # profiler's trace every update on the device
+    assert updates > 2 and counts["launches"] == {"td_loss_fwd": 2, "td_loss_bwd": 2}, (
+        counts, final)
+    assert counts["device"] == {
+        "td_loss_fwd": updates, "td_loss_bwd": updates, "per_slot_sample": 0}, (counts, final)
     assert counts["plain"] == {"td_loss_fwd": 0, "td_loss_bwd": 0}, counts
     summary = summarize_engine_curves.main([
         "--curve-dir", str(workdir), "--out-json", str(Path(workdir) / "summary.json"),
@@ -3271,10 +3478,12 @@ def run_gym_harness(torch, td_kernels, card, workdir):
     assert summary["overlay"]["torch"]["seeds"] == 1, summary["overlay"]
     print(f"  (c) engine_curve_compare --engine torch --env CartPole-v1 in a process of its "
           f"own: {final['global_steps']} env steps, {final['episodes']} episodes, {updates} "
-          f"updates, K1/K2 launched {counts['launches']}, no plain call, eval mean "
+          f"updates, K1/K2 on the device {counts['device']} (the wrappers {counts['launches']}: "
+          f"the update graph's eager call and capture; {counts['lost']} kernel launches of the "
+          f"process with no record in the trace), no plain call, eval mean "
           f"{final['eval_mean']}; summarize_engine_curves wrote its JSON "
           f"({time.perf_counter() - t0:.1f} s with (a), (b), (d) beside it) [{card}]")
-    return counts["launches"]
+    return {k: counts["device"][k] for k in ("td_loss_fwd", "td_loss_bwd")}
 
 
 def main() -> int:
@@ -3351,6 +3560,9 @@ def main() -> int:
         trainer = run_classic(torch, td_kernels, sample_kernels, preset, card)
         if trainer.cfg.env_id in CLASSIC_TOL:  # the lander's step: phases 3, 4 and 7
             check_classic_step(torch, trainer, card)
+        if preset == "cartpole_vector":
+            eval_pair(torch, preset, trainer._evaluate, trainer.eval_venv, trainer.env_params,
+                      trainer.runner.train.online, card)
         print(f"  {preset} took {time.perf_counter() - t1:.1f} s")
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
@@ -3426,11 +3638,13 @@ def main() -> int:
     tpu_kernels = ("td_loss_fwd", "td_loss_bwd", "per_slot_sample")
     # The kernels at a rank's shapes in phase 10 (b) ("[rank]": K1/K2 at
     # B = 128, K3 at (64, 8192, 128)): ms and bound at those shapes, launches
-    # of rank 0 there.
+    # on the device in rank 0's traced steady superstep there (graph L1's
+    # replays).
     # The TD kernels on phase 11's paths: "[compat]", the host agent's update
-    # at (64, 4) (ms and bound there, launches of (a)); "[curves]", phase 12
-    # (c)'s engine_curve_compare on CartPole (ms, bound and error at (64, 2)
-    # from phase 11, launches of 12 (c)); "[bf16]", the bf16
+    # at (64, 4) (ms and bound there, launches on the device in (a)'s traced
+    # episode: the update graph's replays); "[curves]", phase 12 (c)'s
+    # engine_curve_compare on CartPole (ms, bound and error at (64, 2) from
+    # phase 11, launches on the device in 12 (c)'s trace); "[bf16]", the bf16
     # learner's, which feeds them lunar_per's f32 shapes (ms and bound at
     # B = 256 from phase 3, launches and error of (d)); "[examples]", phase 13
     # (b)'s train_lunar_lander, lunar_per's learner (ms, bound and error at

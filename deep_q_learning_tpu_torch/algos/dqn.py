@@ -390,54 +390,142 @@ def epsilon_greedy(
 # Gradient update
 # ---------------------------------------------------------------------------
 
-def all_reduce_mean(
-    grads: Sequence[torch.Tensor], loss: torch.Tensor, group
-) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """The gradients and the loss averaged over the ranks of ``group``, as
-    ``lax.pmean`` does: one ``all_reduce(SUM)`` of a flat buffer that holds
-    every gradient and the loss, then a division by the world size.  Every
-    rank gets the same buffer, so a replicated learner stays bitwise
-    replicated.  The profiler sees it as the span ``grad_all_reduce``."""
+def pmean_scale(world: int) -> float:
+    """``lax.pmean``'s factor over ``world`` ranks: XLA multiplies the sum
+    by the float32 reciprocal of the world size.  As a Python float it is
+    that float32 exactly, and a float32 tensor multiplied by it gives the
+    same bits on the CPU and on the card."""
+    return float(np.float32(1) / np.float32(world))
+
+
+def mean_of_sum(flat: torch.Tensor, world: int) -> torch.Tensor:
+    """``flat``, a sum over ``world`` ranks, made their mean in place as
+    ``lax.pmean`` makes it: times :func:`pmean_scale`.  A division by the
+    world size differs from it in the last bit where the world size is not
+    a power of two (a true division on the CPU; the card multiplies by the
+    reciprocal of a Python divisor, but divides by a tensor)."""
+    return flat.mul_(pmean_scale(world))
+
+
+def all_reduce_sum(flat: torch.Tensor, group) -> None:
+    """One ``all_reduce(SUM)`` of ``flat`` over the ranks of ``group``, in
+    place: every rank gets the same buffer.  It runs eagerly, between the
+    graphs of a graphed rank.  The profiler sees it as the span
+    ``grad_all_reduce``."""
     with torch.profiler.record_function("grad_all_reduce"):
-        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
         dist.all_reduce(flat, group=group)
-        flat /= dist.get_world_size(group)
-    parts = torch.split(flat, [g.numel() for g in grads] + [1])
-    return [p.view_as(g) for p, g in zip(parts, grads)], parts[-1].view(())
 
 
-def build_update_step(optimizer: Optimizer, cfg, group=None) -> Callable:
-    """Returns ``update(ts, batch, weights, hyper) -> (ts, loss, td)``, which
-    applies one gradient step to ``ts`` in place.  ``cfg.use_pallas`` routes
-    the TD and loss math through the CUDA kernel (``ops/td_kernels.py``).
+class UpdateStep:
+    """``update(ts, batch, weights, hyper=None, mask=None, advance=True) ->
+    (ts, loss, td)`` applies one gradient step to ``ts`` in place (see
+    :func:`build_update_step`).
 
-    With a process ``group`` (the ranks of ``parallel/distributed.py``), the
-    gradients and the loss are averaged over its ranks before the
-    optimizer's clip (:func:`all_reduce_mean`), so every rank clips and
-    steps on the same gradients; the TD errors, which go back to the local
-    priorities, stay local.  Without one the update is a single learner's."""
-    if cfg.ref_terminal_quirk and cfg.n_step != 1:
-        raise ValueError("ref_terminal_quirk reproduces 1-step semantics; set n_step=1")
-    if cfg.use_pallas:
-        if cfg.loss != "huber":
-            raise ValueError("use_pallas=True supports loss='huber' only")
-        if cfg.ref_terminal_quirk:
-            raise ValueError(
-                "use_pallas=True implements the FIXED terminal semantics; "
-                "disable ref_terminal_quirk"
+    With a process ``group`` (a rank of ``parallel/distributed.py``) it is
+    three stages, which the eager rank calls in this order and the graphed
+    rank (``algos/superstep.py::GraphedLearner``) runs as a CUDA graph, the
+    collective and a second graph:
+
+      * :meth:`local_gradients`: the loss, TD errors and gradients of this
+        rank's sub-batch; the gradients and the loss written into one flat
+        buffer (:meth:`flat`);
+      * :meth:`all_reduce`: one ``all_reduce(SUM)`` of that buffer
+        (:func:`all_reduce_sum`);
+      * :meth:`apply_mean`: the sums made means as ``lax.pmean`` makes
+        them (:func:`mean_of_sum`), split back into gradients, then the
+        optimizer's clip and step and the Polyak step.
+
+    So every rank clips and steps on the same gradients; the TD errors,
+    which go back to the local priorities, stay local."""
+
+    def __init__(self, optimizer: Optimizer, cfg, group=None):
+        if cfg.ref_terminal_quirk and cfg.n_step != 1:
+            raise ValueError("ref_terminal_quirk reproduces 1-step semantics; set n_step=1")
+        if cfg.use_pallas:
+            if cfg.loss != "huber":
+                raise ValueError("use_pallas=True supports loss='huber' only")
+            if cfg.ref_terminal_quirk:
+                raise ValueError(
+                    "use_pallas=True implements the FIXED terminal semantics; "
+                    "disable ref_terminal_quirk"
+                )
+            from deep_q_learning_tpu_torch.ops.td_kernels import build_fused_loss_fn
+
+            self.loss_fn = build_fused_loss_fn(double=cfg.double, huber_delta=cfg.huber_delta)
+        else:
+            self.loss_fn = build_loss_fn(
+                double=cfg.double,
+                loss=cfg.loss,
+                huber_delta=cfg.huber_delta,
+                ref_terminal_quirk=cfg.ref_terminal_quirk,
             )
-        from deep_q_learning_tpu_torch.ops.td_kernels import build_fused_loss_fn
+        self.optimizer, self.cfg, self.group = optimizer, cfg, group
+        self.world = 1 if group is None else dist.get_world_size(group)
+        self._flats: dict = {}  # device: the flat buffer
 
-        loss_fn = build_fused_loss_fn(double=cfg.double, huber_delta=cfg.huber_delta)
-    else:
-        loss_fn = build_loss_fn(
-            double=cfg.double,
-            loss=cfg.loss,
-            huber_delta=cfg.huber_delta,
-            ref_terminal_quirk=cfg.ref_terminal_quirk,
-        )
+    def flat(self, ts: TrainState) -> torch.Tensor:
+        """The float32 buffer of a rank's collective: every gradient of
+        ``ts.online``, flattened in parameter order, then the loss.  Made
+        once for each device and kept, so that a graph can write into it."""
+        params = list(ts.online.parameters())
+        size = sum(p.numel() for p in params) + 1
+        device = params[0].device
+        if device not in self._flats or self._flats[device].numel() != size:
+            self._flats[device] = torch.zeros((size,), device=device)
+        return self._flats[device]
 
-    def update(
+    def gradients(self, ts: TrainState, batch: LearnBatch, weights: torch.Tensor, mask=None):
+        """``(loss, td, grads)`` of ``ts.online`` on ``batch``; members are
+        independent, so the gradient of their summed losses is each
+        member's own."""
+        params = list(ts.online.parameters())
+        loss, td = self.loss_fn(ts.online, ts.target, batch, weights)
+        grads = torch.autograd.grad(loss if mask is None else loss.sum(), params)
+        return loss.detach(), td, grads
+
+    def local_gradients(self, ts: TrainState, batch: LearnBatch,
+                        weights: torch.Tensor) -> torch.Tensor:
+        """A rank's first stage: this rank's gradients and loss into
+        :meth:`flat`; returns its TD errors."""
+        loss, td, grads = self.gradients(ts, batch, weights)
+        torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)], out=self.flat(ts))
+        return td
+
+    def all_reduce(self, ts: TrainState) -> None:
+        """A rank's collective: :meth:`flat` summed over the ranks."""
+        all_reduce_sum(self.flat(ts), self.group)
+
+    def apply_mean(self, ts: TrainState, hyper, advance: bool = True) -> torch.Tensor:
+        """A rank's last stage: the optimizer's step on the mean of the
+        ranks' gradients; returns the mean loss (a view of :meth:`flat`,
+        overwritten by the next update)."""
+        flat = mean_of_sum(self.flat(ts), self.world)
+        params = list(ts.online.parameters())
+        parts = torch.split(flat, [p.numel() for p in params] + [1])
+        self.apply(ts, [g.view_as(p) for g, p in zip(parts, params)], hyper, None, None, advance)
+        return parts[-1].view(())
+
+    def apply(self, ts: TrainState, grads, hyper, mask, gates, advance: bool) -> None:
+        """The optimizer's clip and step, the Polyak step, and the host
+        counters unless ``advance`` is False."""
+        params = list(ts.online.parameters())
+        self.optimizer.apply(grads, ts.opt_state, params, hyper.learning_rate,
+                             hyper.max_grad_norm, mask, advance=advance and mask is None)
+        if self.cfg.target_tau is not None:
+            # Polyak soft target update every gradient step
+            tau = hyper.target_tau
+            write = _masked_writer(mask)
+            with torch.no_grad():
+                for t, p in zip(ts.target.parameters(), params):
+                    write(t, (1.0 - _member_view(tau, t)) * t + _member_view(tau, t) * p)
+        if advance:
+            if mask is None:
+                ts.updates += 1
+            else:
+                advance_members(ts, gates)
+
+    def __call__(
+        self,
         ts: TrainState,
         batch: LearnBatch,
         weights: torch.Tensor,
@@ -453,36 +541,32 @@ def build_update_step(optimizer: Optimizer, cfg, group=None) -> Callable:
         (``ts.updates`` and the optimizer's count mirror) to the caller: the
         update then launches kernels only, and can be captured in a CUDA
         graph.  A mask given as a tensor needs ``advance=False``."""
-        h = hyper if hyper is not None else HyperParams.from_config(cfg)
-        params = list(ts.online.parameters())
-        mask, gates = _member_mask(mask, params[0].device)
+        h = hyper if hyper is not None else HyperParams.from_config(self.cfg)
+        mask, gates = _member_mask(mask, next(ts.online.parameters()).device)
         if mask is not None and advance and gates is None:
             raise ValueError("a device mask advances no host mirror: pass advance=False")
-        loss, td = loss_fn(ts.online, ts.target, batch, weights)
-        # members are independent: the gradient of their summed losses is
-        # each member's own
-        grads = torch.autograd.grad(loss if mask is None else loss.sum(), params)
-        if group is not None:
-            if mask is not None:
-                raise ValueError("a population does not run under a process group")
-            grads, loss = all_reduce_mean(grads, loss, group)
-        optimizer.apply(grads, ts.opt_state, params, h.learning_rate, h.max_grad_norm, mask,
-                        advance=advance and mask is None)
-        if cfg.target_tau is not None:
-            # Polyak soft target update every gradient step
-            tau = h.target_tau
-            write = _masked_writer(mask)
-            with torch.no_grad():
-                for t, p in zip(ts.target.parameters(), params):
-                    write(t, (1.0 - _member_view(tau, t)) * t + _member_view(tau, t) * p)
-        if advance:
-            if mask is None:
-                ts.updates += 1
-            else:
-                advance_members(ts, gates)
-        return ts, loss.detach(), td
+        if self.group is None:
+            loss, td, grads = self.gradients(ts, batch, weights, mask)
+            self.apply(ts, grads, h, mask, gates, advance)
+            return ts, loss, td
+        if mask is not None:
+            raise ValueError("a population does not run under a process group")
+        td = self.local_gradients(ts, batch, weights)
+        self.all_reduce(ts)
+        return ts, self.apply_mean(ts, h, advance).clone(), td
 
-    return update
+
+def build_update_step(optimizer: Optimizer, cfg, group=None) -> UpdateStep:
+    """Returns ``update(ts, batch, weights, hyper) -> (ts, loss, td)``, which
+    applies one gradient step to ``ts`` in place (:class:`UpdateStep`).
+    ``cfg.use_pallas`` routes the TD and loss math through the CUDA kernel
+    (``ops/td_kernels.py``).
+
+    With a process ``group`` (the ranks of ``parallel/distributed.py``), the
+    gradients and the loss are averaged over its ranks before the
+    optimizer's clip, as ``lax.pmean`` averages them; the TD errors stay
+    local.  Without one the update is a single learner's."""
+    return UpdateStep(optimizer, cfg, group)
 
 
 def advance_members(ts: TrainState, gates: Sequence[bool]) -> None:

@@ -29,8 +29,10 @@ place; the counters they advance live on the device, with host mirrors
 (``envs/graphed.py::device_mirror``).  On the CPU the same functions run
 directly on the same buffers.  The once-a-superstep reset pool is a graph
 of ``VectorEnv``'s.  A hard target sync (every ``target_sync_every``
-frames, or on the episode count) runs eagerly between the graphs.
-``graphed_learner=False`` and a process group run the frame eagerly, the
+frames, or on the episode count) runs eagerly between the graphs.  A rank
+of a process group runs the same graphs, its update split in two at the
+gradient all-reduce, which runs eagerly between them.
+``graphed_learner=False`` runs the frame eagerly, the
 vector step still as ``VectorEnv``'s graph (``envs/base.py``,
 ``envs/graphed.py``); its outputs (``r.obs``, ``r.env_states``, the
 transition) are overwritten by the next frame's step, and each is
@@ -76,7 +78,7 @@ from deep_q_learning_tpu_torch.algos.dqn import (
     sync_target,
 )
 from deep_q_learning_tpu_torch.envs.base import Transition, VectorEnv
-from deep_q_learning_tpu_torch.envs.graphed import GraphedStep, copy_into, tree_map
+from deep_q_learning_tpu_torch.envs.graphed import GraphedStep, copy_into, tensors_of, tree_map
 
 
 @dataclasses.dataclass
@@ -248,33 +250,21 @@ def _read_metrics(r: RunnerState, loss_sum, loss_count: int, ep_delta, ret_delta
     )
 
 
-def _tensors(obj: Any) -> List[torch.Tensor]:
-    """The tensors of ``obj``, in a fixed order: a module's parameters and
-    buffers, and the tensors of dataclasses, lists and tuples; numbers,
-    generators and ``None`` hold none."""
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if isinstance(obj, torch.nn.Module):
-        return list(obj.parameters()) + list(obj.buffers())
-    if dataclasses.is_dataclass(obj):
-        return [t for f in dataclasses.fields(obj) for t in _tensors(getattr(obj, f.name))]
-    if isinstance(obj, (list, tuple)):
-        return [t for x in obj for t in _tensors(x)]
-    return []
-
-
 class _LearnerWork:
     """What the graphed learner's graphs run, and the static buffers they
     read and add into (:class:`GraphedLearner`).  It holds no graph, so the
     graphs' functions (its methods) make no reference cycle that would keep
     their memory until the garbage collector's next full pass.  With
     ``members`` M (:class:`GraphedPopulation`) the buffers have a member
-    axis, and the gate ``mask`` (M,) says which members an update changes."""
+    axis, and the gate ``mask`` (M,) says which members an update changes.
+    A rank of ``world`` ranks splits the update at its collective
+    (:meth:`learn_local`, :meth:`learn_mean`)."""
 
-    def __init__(self, venv, env_params, replay, update, cfg, device, members=None):
+    def __init__(self, venv, env_params, replay, update, cfg, device, members=None, world=1):
         self.venv, self.env_params, self.replay, self.update = venv, env_params, replay, update
         self.cfg, self.members = cfg, members
         self.envs = venv.num_envs // (members or 1)  # a member's
+        self.global_envs = self.envs * world  # the warm-up gate and linear_step ε count these
         m = () if members is None else (members,)
         self.u_act = torch.zeros((venv.num_envs,), device=device)
         self.eps = torch.zeros(m, device=device)
@@ -289,8 +279,8 @@ class _LearnerWork:
         self.runner = self.fresh = None
 
     def statics(self) -> List[torch.Tensor]:
-        return _tensors([self.u_act, self.eps, self.u_env, self.u_slot, self.mask, self.loss_sum,
-                         self.ep_delta, self.ret_delta])
+        return tensors_of([self.u_act, self.eps, self.u_env, self.u_slot, self.mask,
+                           self.loss_sum, self.ep_delta, self.ret_delta])
 
     def frame(self, *_bound) -> None:
         """One vector step of ``self.runner`` on the static buffers, in place."""
@@ -326,6 +316,25 @@ class _LearnerWork:
         self.replay.update_priorities(r.replay, info, td, *mask)
         self.loss_sum.add_(loss if self.mask is None else torch.where(self.mask, loss, 0.0))
 
+    def learn_local(self, *_bound) -> None:
+        """A rank's update up to its collective (graph L1): the sample on
+        the static uniforms, this rank's gradients and loss into the update's
+        flat buffer (``algos/dqn.py::UpdateStep``), and the local priority
+        write."""
+        r, h = self.runner, self.runner.hyper
+        batch, info, weights = self.replay.sample_with_info(
+            r.replay, None, self.cfg.batch_size, gamma=h.gamma, beta=h.per_beta,
+            uniforms=(self.u_env, self.u_slot))
+        td = self.update.local_gradients(r.train, batch, weights)
+        self.replay.update_priorities(r.replay, info, td)
+
+    def learn_mean(self, *_bound) -> None:
+        """A rank's update after its collective (graph L2): the optimizer's
+        step on the ranks' mean gradients, the mean loss added into
+        ``loss_sum``."""
+        r = self.runner
+        self.loss_sum.add_(self.update.apply_mean(r.train, r.hyper, advance=False))
+
 
 class GraphedLearner:
     """The superstep of a single learner as CUDA graph launches (module
@@ -339,14 +348,25 @@ class GraphedLearner:
     :attr:`frame` and :attr:`learn` are in-place ``GraphedStep``s bound to
     the runner's tensors: a restored runner (new tensors) starts each over
     with an eager call, and new hyperparameters (baked into a capture as
-    kernel arguments) make new ones."""
+    kernel arguments) make new ones.
+
+    A rank of a process ``group`` replays :attr:`learn` (graph L1: the
+    sample, the local gradients into the update's flat buffer, the priority
+    write), then runs the collective eagerly, then replays
+    :attr:`learn_mean` (graph L2: the mean, the clip, Adam and Polyak), the
+    three stages of ``algos/dqn.py::UpdateStep`` that the eager rank calls
+    in the same order.  Its frame graph is a single learner's; its warm-up
+    gate and ``linear_step`` ε count the envs of every rank, and its
+    metrics come back combined over the ranks."""
 
     members = None
 
-    def __init__(self, venv, env_params, replay, update, cfg, device, sync):
-        self.work = _LearnerWork(venv, env_params, replay, update, cfg, device, self.members)
-        self.cfg, self.sync = cfg, sync
-        self.hyper = self.frame = self.learn = None
+    def __init__(self, venv, env_params, replay, update, cfg, device, sync, group=None):
+        world = 1 if group is None else dist.get_world_size(group)
+        self.work = _LearnerWork(venv, env_params, replay, update, cfg, device, self.members,
+                                 world)
+        self.cfg, self.sync, self.group = cfg, sync, group
+        self.hyper = self.frame = self.learn = self.learn_mean = None
 
     def _baked(self, hyper) -> Any:
         """What a capture bakes in of ``hyper``: a single learner's floats."""
@@ -355,7 +375,8 @@ class GraphedLearner:
     def _gates(self, r: RunnerState) -> Any:
         """Whether this frame trains (host counters only), or None."""
         h = r.hyper
-        if r.env_step % h.train_every == 0 and r.replay.filled * self.work.envs >= h.training_start:
+        if (r.env_step % h.train_every == 0
+                and r.replay.filled * self.work.global_envs >= h.training_start):
             return True
         return None
 
@@ -366,9 +387,9 @@ class GraphedLearner:
 
     def _metrics(self, r: RunnerState, loss_count) -> SuperstepMetrics:
         w = self.work
-        eps = epsilon_by_schedule(self.cfg, r.env_step * w.envs, r.episodes, r.hyper)
-        return _read_metrics(r, w.loss_sum, loss_count, w.ep_delta, w.ret_delta, eps, self.cfg,
-                             None)
+        eps = epsilon_by_schedule(self.cfg, r.env_step * w.global_envs, r.episodes, r.hyper)
+        return _read_metrics(r, w.loss_sum, int(loss_count), w.ep_delta, w.ret_delta, eps,
+                             self.cfg, self.group)
 
     def __call__(self, r: RunnerState) -> Tuple[RunnerState, SuperstepMetrics]:
         w, cfg = self.work, self.cfg
@@ -377,20 +398,27 @@ class GraphedLearner:
         if self.frame is None or baked != self.hyper:
             name = f"the {cfg.env_id} {'population' if self.members else 'learner'}'s"
             self.frame = GraphedStep(w.frame, f"{name} frame", in_place=True)
-            self.learn = GraphedStep(w.learn, f"{name} update", in_place=True)
+            if self.group is None:
+                self.learn = GraphedStep(w.learn, f"{name} update", in_place=True)
+            else:
+                self.learn = GraphedStep(w.learn_local, f"{name} local gradients", in_place=True)
+                self.learn_mean = GraphedStep(w.learn_mean, f"{name} step on the mean",
+                                              in_place=True)
             self.hyper = baked
         w.runner = r
         w.fresh = None if env.batch_reset_cheap else venv.fresh_pool(r.generator, w.env_params)
         for total in (w.loss_sum, w.ep_delta, w.ret_delta):
             total.zero_()
         statics = w.statics()
+        if self.group is not None:
+            statics.append(w.update.flat(r.train))
         n = venv.num_envs
         loss_count = np.zeros(() if self.members is None else (self.members,), dtype=np.int64)
         for _ in range(cfg.steps_per_superstep):
             # the draws in the eager frame's order: the actor's, the step's,
             # the resets' (without a pool), then each update's two
             if cfg.eps_schedule == "linear_step":
-                eps = epsilon_by_schedule(cfg, r.env_step * w.envs, r.episodes, r.hyper)
+                eps = epsilon_by_schedule(cfg, r.env_step * w.global_envs, r.episodes, r.hyper)
                 if isinstance(eps, torch.Tensor):  # a population's (M,)
                     w.eps.copy_(eps)
                 else:
@@ -403,9 +431,9 @@ class GraphedLearner:
                 w.draws = tree_map(torch.clone, draws)
             else:
                 copy_into(w.draws, draws)
-            self.frame(_tensors((r.train.online, r.hyper, r.obs, r.env_states, r.replay,
-                                 r.episodes, r.ep_return, r.ep_length, r.return_window,
-                                 r.window_cursor, r.window_filled, w.fresh, w.draws, statics)))
+            self.frame(tensors_of((r.train.online, r.hyper, r.obs, r.env_states, r.replay,
+                                   r.episodes, r.ep_return, r.ep_length, r.return_window,
+                                   r.window_cursor, r.window_filled, w.fresh, w.draws, statics)))
             replay.advance(r.replay)
             r.env_step += 1
             gates = self._gates(r)
@@ -414,7 +442,11 @@ class GraphedLearner:
                     for u in (w.u_env, w.u_slot):
                         torch.rand(u.shape, generator=r.generator, dtype=u.dtype,
                                    device=u.device, out=u)
-                    self.learn(_tensors((r.train, r.hyper, r.replay, statics)))
+                    bound = tensors_of((r.train, r.hyper, r.replay, statics))
+                    self.learn(bound)
+                    if self.group is not None:
+                        w.update.all_reduce(r.train)
+                        self.learn_mean(bound)
                     self._updated(r, gates)
                 loss_count = loss_count + np.asarray(gates) * cfg.updates_per_step
             self.sync(r)
@@ -489,12 +521,14 @@ def build_superstep(
     count over the local ``num_envs``, as the JAX shard body computes it.
 
     The superstep is a :class:`GraphedLearner` where ``graphed_learner`` is
-    set, ``venv`` graphs its step (an env that injects its draws: the
-    lander and the classic envs) and there is no ``group``; else each
+    set and ``venv`` graphs its step (an env that injects its draws: the
+    lander and the classic envs), under a process group too; else each
     frame runs eagerly, with the same results: the eager sample draws the
     same two uniforms, in the same shapes, dtypes and order, that the
-    graphed learner draws before graph L.  The learner under a process group stays eager: its
-    all-reduce (gloo) cannot be captured."""
+    graphed learner draws before graph L, and a rank's eager update calls
+    the three stages that a graphed rank runs as graph L1, the collective
+    and graph L2.  The collective itself always runs eagerly (gloo's cannot
+    be captured), between the graphs."""
     device = torch.device(device)
     update = build_update_step(optimizer, cfg, group)
     num_envs = venv.num_envs
@@ -573,9 +607,9 @@ def build_superstep(
         else:
             raise ValueError(f"unknown target_sync_mode {cfg.target_sync_mode!r}")
 
-    if graphed_learner and venv.graphed and group is None:
+    if graphed_learner and venv.graphed:
         return init_runner, GraphedLearner(venv, env_params, replay, update, cfg, device,
-                                           _maybe_sync)
+                                           _maybe_sync, group)
 
     def superstep(r: RunnerState) -> Tuple[RunnerState, SuperstepMetrics]:
         # the lander's reset runs physics: one reset pool per superstep

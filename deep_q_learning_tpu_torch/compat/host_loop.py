@@ -19,8 +19,12 @@ solve threshold — with the heavy pieces swapped for the port's components:
 The network runs in float32 whatever ``cfg.compute_dtype`` says, as the
 JAX package's ``HostAgent`` builds it.  Each env step reads one action back
 from the device (the greedy forward) and each update samples on the host
-and copies the batch to the device: the path is bound by launches and
-host round trips, not by the card.
+and copies the batch into static device buffers; the update itself (the
+forward, the TD kernels and the backward, the clip, the optimizer and the
+Polyak step) is one CUDA graph replay on the card (``envs/graphed.py::
+GraphedStep``), its host counters advanced outside it, and its loss read
+back as the reference reads it.  On the CPU, or with ``graphed=False``,
+the same update runs eagerly.
 
 Env protocol: either the classic 4-tuple ``obs, r, done, info`` or the
 5-tuple ``obs, r, terminated, truncated, info`` step API; ``reset()`` may
@@ -42,6 +46,7 @@ from deep_q_learning_tpu_torch.algos.dqn import (
     make_optimizer,
     sync_target,
 )
+from deep_q_learning_tpu_torch.envs.graphed import GraphedStep, copy_into, tensors_of, tree_map
 from deep_q_learning_tpu_torch.models import QNetwork
 from deep_q_learning_tpu_torch.native import HostReplayBuffer
 from deep_q_learning_tpu_torch.replay.nstep import LearnBatch
@@ -63,10 +68,28 @@ def _reset_env(env):
     return np.asarray(obs, np.float32).reshape(-1)
 
 
-class HostAgent:
-    """Reference-architecture agent for host envs (compat path)."""
+class _UpdateWork:
+    """The agent's update on static device buffers (what its graph runs):
+    the batch, the importance weights (ones) and the loss.  It holds no
+    graph, so its method makes no reference cycle."""
 
-    def __init__(self, env, obs_dim: int, num_actions: int, cfg, device="cuda"):
+    def __init__(self, update, train_state, weights):
+        self.update, self.train_state, self.weights = update, train_state, weights
+        self.batch = None
+        self.loss = torch.zeros((), device=weights.device)
+
+    def learn(self, *_bound) -> None:
+        _, loss, _ = self.update(self.train_state, self.batch, self.weights, advance=False)
+        self.loss.copy_(loss)
+
+
+class HostAgent:
+    """Reference-architecture agent for host envs (compat path).  Its
+    update is one CUDA graph replay on the card; ``graphed=False`` runs it
+    eagerly, with the same results."""
+
+    def __init__(self, env, obs_dim: int, num_actions: int, cfg, device="cuda",
+                 graphed: bool = True):
         if cfg.n_step != 1:
             # the host buffer stores 1-step transitions and _train_step
             # builds a 1-step bootstrap; silently training a different
@@ -90,7 +113,10 @@ class HostAgent:
         self.train_state = init_train_state(network.to(self.device), self.optimizer)
         self.buffer = HostReplayBuffer(cfg.buffer_capacity, obs_dim, seed=cfg.seed)
         self._update = build_update_step(self.optimizer, cfg)
-        self._weights = torch.ones((cfg.batch_size,), dtype=torch.float32, device=self.device)
+        self.graphed = graphed
+        weights = torch.ones((cfg.batch_size,), dtype=torch.float32, device=self.device)
+        self._work = _UpdateWork(self._update, self.train_state, weights)
+        self._learn = GraphedStep(self._work.learn, "the host agent's update", in_place=True)
         self.epsilon = cfg.eps_start
         self.reward_history: List[float] = []
         self.episodes = 0
@@ -115,16 +141,27 @@ class HostAgent:
     def _train_step(self) -> float:
         obs, action, reward, next_obs, done = self.buffer.sample(self.cfg.batch_size)
         nonterm = 1.0 - done.astype(np.float32)
-        to_device = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-        batch = LearnBatch(
-            obs=to_device(obs),
-            action=to_device(action),
-            reward=to_device(reward),
-            next_obs=to_device(next_obs),
-            bootstrap=to_device(self.cfg.gamma * nonterm),
+        host = LearnBatch(
+            obs=torch.from_numpy(obs),
+            action=torch.from_numpy(action),
+            reward=torch.from_numpy(reward),
+            next_obs=torch.from_numpy(next_obs),
+            bootstrap=torch.from_numpy(self.cfg.gamma * nonterm),
         )
-        self.train_state, loss, _ = self._update(self.train_state, batch, self._weights)
-        return float(loss)
+        w = self._work
+        if not self.graphed:
+            batch = tree_map(lambda t: t.to(self.device), host)
+            self.train_state, loss, _ = self._update(self.train_state, batch, w.weights)
+            return float(loss)
+        if w.batch is None:
+            w.batch = tree_map(lambda t: t.to(self.device), host)
+        else:
+            copy_into(w.batch, host)  # into the graph's static buffers
+        w.train_state = self.train_state
+        self._learn(tensors_of((self.train_state, w.batch, w.weights, w.loss)))
+        self.train_state.updates += 1  # the host mirrors of the graph's update
+        self.train_state.opt_state.count += 1
+        return float(w.loss)
 
     # ----------------------------------------------------------- training
     def run_episode(self, max_steps: int) -> Tuple[float, int]:

@@ -74,6 +74,21 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
         f.name: tree_map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
 
 
+def tensors_of(obj: Any) -> List[torch.Tensor]:
+    """The tensors of ``obj``, in a fixed order: a module's parameters and
+    buffers, and the tensors of dataclasses, lists and tuples; numbers,
+    generators and ``None`` hold none.  What an in-place step is bound to."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, torch.nn.Module):
+        return list(obj.parameters()) + list(obj.buffers())
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj) for t in tensors_of(getattr(obj, f.name))]
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in tensors_of(x)]
+    return []
+
+
 def device_mirror(device_field: str):
     """A dataclass field for a host int that mirrors the device tensor in
     ``device_field``: a counter that CUDA graphs advance on the device and

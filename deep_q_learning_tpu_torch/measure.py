@@ -453,9 +453,11 @@ def learner_kernels(trace: "KernelTrace") -> dict:
 
 def learner_graphs(superstep) -> dict:
     """The learner's CUDA graphs of a superstep that is a ``GraphedLearner``
-    or a ``GraphedPopulation`` (none otherwise), by what they run."""
-    frame, learn = getattr(superstep, "frame", None), getattr(superstep, "learn", None)
-    return {k: g for k, g in (("frame", frame), ("learner update", learn))
+    or a ``GraphedPopulation`` (none otherwise), by what they run; a rank's
+    update is two graphs, its local gradients and its step on the mean."""
+    graphs = (("frame", "frame"), ("learner update", "learn"),
+              ("learner step on the mean", "learn_mean"))
+    return {k: g for k, g in ((k, getattr(superstep, name, None)) for k, name in graphs)
             if g is not None and g.graph is not None}
 
 

@@ -118,6 +118,7 @@ def _dryrun_rank(shard: int, n: int, port: int, device: str, backend: str) -> di
     import torch
     import torch.distributed as dist
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.ops import sample_kernels, td_kernels
 
     distributed_init(f"localhost:{port}", n, shard, backend=backend, device=device)
@@ -138,6 +139,7 @@ def _dryrun_rank(shard: int, n: int, port: int, device: str, backend: str) -> di
         "backend": dist.get_backend(),
         "metrics": aggregate_metrics(metrics, cfg, n),
         "updates": runner.train.updates,
+        "graphed": isinstance(superstep, GraphedLearner),
         "launches": dict(td_kernels.launches, **sample_kernels.launches),
         "plain_calls": dict(td_kernels.plain_calls, **sample_kernels.plain_calls),
         "learner_sha256": digest.hexdigest(),
@@ -151,7 +153,10 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> List[dict]:
     over gloo, CPU ranks are gloo).  Checks that the combined env steps are
     every rank's, the loss is finite and the learner is bitwise the same on
     every rank; returns each rank's report (its metrics, update count,
-    kernel launches and plain calls, learner digest), by rank."""
+    whether its superstep is graphed, kernel launches and plain calls,
+    learner digest), by rank.  A rank's superstep runs as CUDA graphs on
+    the card, where a kernel's wrapper counts the eager call and the
+    capture of its graph, not the replays."""
     import torch
 
     cuda = torch.device(device).type == "cuda"

@@ -5,7 +5,7 @@ the ranks of a process group (``parallel/mesh.py``), the learner is
 replicated.  Each rank steps its own envs and keeps its own replay, PER
 priorities and max priority, counters, generator and return window; it
 samples a local sub-batch, and the update averages the gradients over the
-ranks with one all-reduce (``algos/dqn.py::all_reduce_mean``), so the
+ranks with one all-reduce (``algos/dqn.py::UpdateStep``), so the
 replicated learner stays bitwise the same on every rank.  The rank's body
 is the single-device ``build_superstep`` with the group passed in, as the
 JAX shard body is the single-chip superstep plus one collective; its
@@ -54,7 +54,7 @@ def learner_checksum(online: torch.nn.Module) -> torch.Tensor:
 
 
 def build_distributed_superstep(
-    cfg, device, group=None
+    cfg, device, group=None, graphed_learner: bool = True
 ) -> Tuple[Callable, Callable, torch.nn.Module]:
     """Build ``(init_runner, superstep, network)`` for this rank of
     ``group`` (the default process group if None; ``distributed_init``
@@ -65,7 +65,9 @@ def build_distributed_superstep(
     all-reduce), the envs, replay and generator from ``(seed, rank)``.
     ``superstep(runner) -> (runner, SuperstepMetrics)`` runs the rank's
     body; the metrics are combined over the ranks, and their ``env_steps``
-    are vector steps (times the global ``cfg.num_envs`` for env steps)."""
+    are vector steps (times the global ``cfg.num_envs`` for env steps).
+    It runs as CUDA graph launches where ``graphed_learner`` is set and the
+    env injects its draws (``build_superstep``), else eagerly."""
     if group is None:
         if not dist.is_initialized():
             raise RuntimeError("no process group: call parallel.distributed_init() first")
@@ -86,7 +88,8 @@ def build_distributed_superstep(
     )
     replay = make_replay(cfg, num_envs=local_cfg.num_envs)
     init_local, superstep = build_superstep(
-        venv, env_params, network, make_optimizer(cfg), replay, local_cfg, device, group=group
+        venv, env_params, network, make_optimizer(cfg), replay, local_cfg, device, group=group,
+        graphed_learner=graphed_learner,
     )
 
     def init_runner(seed: int):

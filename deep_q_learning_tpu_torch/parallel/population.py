@@ -12,8 +12,9 @@ learner's is one set for N envs.  The TD kernels take the member axis as
 their grid's second dimension, and the PER slot kernel runs over every
 member's rows in one launch (``ops/``).  Each frame runs as CUDA graph
 launches for all members, on every env and with either replay
-(``algos/superstep.py::GraphedPopulation``); ``graphed_learner=False``
-runs the frame eagerly around the env step's graph, with the same results.
+(``algos/superstep.py::GraphedPopulation``), and so does each greedy eval
+step of every member's envs (``algos/evaluate.py``); ``graphed_learner=False``
+runs both eagerly around the env step's graph, with the same results.
 
 Notes (as in the JAX package):
   * Static config (shapes, network, replay kind, schedule and sync modes)
@@ -124,9 +125,10 @@ class PopulationTrainer:
         # the eval env is the training env's engine (VERDICT r3 weak #2 of
         # the JAX package: a rigid-engine population scored on the jointed one)
         self._eval_env_params = env_params
+        self.eval_venv = VectorEnv(env, eval_envs * num_members)
         self._evaluate = build_evaluator(
-            VectorEnv(env, eval_envs * num_members), env_params,
-            env_params.max_steps_in_episode
+            self.eval_venv, env_params,
+            env_params.max_steps_in_episode, members=num_members, graphed=graphed_learner,
         )
 
     def init(self, seed: int = 0):
@@ -141,13 +143,8 @@ class PopulationTrainer:
         """Greedy evaluation of every member's policy, ``eval_envs`` episodes
         each, all M·E envs at once; numpy arrays (M, E)."""
         m, e = self.num_members, self.eval_envs
-        online = runner.train.online
-
-        def policy(obs: torch.Tensor) -> torch.Tensor:
-            return online(obs.view(m, e, -1)).view(m * e, -1)
-
         generator = torch.Generator(device=runner.obs.device).manual_seed(seed)
-        ev = self._evaluate(policy, generator, max_steps)
+        ev = self._evaluate(runner.train.online, generator, max_steps)
         return EvalResult(*(x.view(m, e).cpu().numpy() for x in ev))
 
     def run(

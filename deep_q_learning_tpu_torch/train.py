@@ -106,10 +106,10 @@ class Trainer:
     evaluation, run as CUDA graphs on the card (``envs/base.py::
     VectorEnv``), the classic envs' too, and so does each training frame,
     the actor and the learner update included, with either replay
-    (``algos/superstep.py::GraphedLearner``); ``graphed=False`` runs them
-    eagerly, with the same
-    results, and ``graphed_learner=False`` runs the frame eagerly around
-    the graphed vector step."""
+    (``algos/superstep.py::GraphedLearner``), and each greedy eval step
+    (``algos/evaluate.py``); ``graphed=False`` runs them eagerly, with the
+    same results, and ``graphed_learner=False`` runs the frame and the eval
+    step eagerly around the graphed vector step."""
 
     def __init__(self, cfg, device="cuda", workdir: Optional[str] = None, graphed: bool = True,
                  graphed_learner: bool = True):
@@ -134,9 +134,10 @@ class Trainer:
             cfg, self.device, graphed_learner=graphed_learner,
         )
         # >= 10 parallel greedy episodes (the reference evaluates 10)
-        eval_venv = VectorEnv(self.env, min(max(cfg.num_envs, 10), 128), graphed=graphed)
+        self.eval_venv = VectorEnv(self.env, min(max(cfg.num_envs, 10), 128), graphed=graphed)
         self._evaluate = build_evaluator(
-            eval_venv, self.env_params, self.env_params.max_steps_in_episode
+            self.eval_venv, self.env_params, self.env_params.max_steps_in_episode,
+            graphed=graphed_learner,
         )
         self.runner = None
         self.history: List[Dict[str, float]] = []
@@ -310,9 +311,16 @@ class DistributedTrainer(Trainer):
     rank 0 prints.  ``evaluate`` evaluates the replicated learner and gives
     the same result on every rank.  Checkpoints are step directories
     (``utils/checkpoint.py``); ``config.json`` records the world size, and
-    a restore under another world size raises."""
+    a restore under another world size raises.
 
-    def __init__(self, cfg, device="cuda", workdir: Optional[str] = None, group=None):
+    Each frame runs as CUDA graph launches, as :class:`Trainer`'s, the
+    update split in two graphs at the gradient all-reduce, which runs
+    eagerly between them (``algos/superstep.py::GraphedLearner``), and
+    each greedy eval step is a graph; ``graphed_learner=False`` runs them
+    eagerly, with the same results."""
+
+    def __init__(self, cfg, device="cuda", workdir: Optional[str] = None, group=None,
+                 graphed_learner: bool = True):
         from deep_q_learning_tpu_torch.parallel.distributed import build_distributed_superstep
         from deep_q_learning_tpu_torch.parallel.mesh import rank_device
 
@@ -324,7 +332,7 @@ class DistributedTrainer(Trainer):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         self._init_runner, self._superstep, self.network = build_distributed_superstep(
-            cfg, self.device, group
+            cfg, self.device, group, graphed_learner
         )
         self.world_size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
@@ -333,9 +341,10 @@ class DistributedTrainer(Trainer):
             cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
             param_overrides=cfg.env_param_overrides(),
         )
+        self.eval_venv = VectorEnv(self.env, 128)
         self._evaluate = build_evaluator(
-            VectorEnv(self.env, 128), self.env_params,
-            self.env_params.max_steps_in_episode,
+            self.eval_venv, self.env_params,
+            self.env_params.max_steps_in_episode, graphed=graphed_learner,
         )
         self.runner = None
         self.history: List[Dict[str, float]] = []

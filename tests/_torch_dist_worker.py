@@ -4,8 +4,10 @@ The test module spawns ``WORLD`` of these once (``parallel.spawn_ranks``:
 ``torch.multiprocessing``, spawn), joined over ``tcp://localhost:<port>``.
 Each rank runs every scenario below on the CPU at tiny widths and returns
 one report: counters and metrics per superstep, digests of its learner (online
-and target weights, Adam moments and count), and the results of one
-all-reduced update from the inputs the test prepared.  It imports no JAX.
+and target weights, Adam moments and count) and of its whole runner, the same
+from the eager rank (``graphed_learner=False``) beside the graphed one, and
+the results of one all-reduced update from the inputs the test prepared.  It
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -53,26 +55,53 @@ def learner_digest(train) -> str:
     return h.hexdigest()
 
 
+def runner_digest(runner) -> str:
+    """sha256 of every tensor of a runner (learner, replay, env states,
+    counters, window) and of its host counters."""
+    from deep_q_learning_tpu_torch.envs.graphed import tensors_of
+
+    h = hashlib.sha256()
+    for t in tensors_of(runner):
+        h.update(t.detach().cpu().numpy().tobytes())
+    h.update(repr((runner.env_step, runner.train.updates, runner.train.opt_state.count,
+                   runner.replay.cursor, runner.replay.total_adds)).encode())
+    return h.hexdigest()
+
+
 def _metrics(m) -> dict:
     return dataclasses.asdict(m)
 
 
+def _step(tr) -> tuple:
+    """One superstep: its metrics, the learner's digest and the runner's."""
+    m = _metrics(tr.step())
+    return m, learner_digest(tr.runner.train), runner_digest(tr.runner)
+
+
 def _counters(cfg, workdir: str) -> dict:
-    """Supersteps of ``cfg``; a checkpoint, one more superstep, and two
-    restores that each take that superstep again; then a restore under a
-    world size of 1, which must be refused."""
+    """Supersteps of ``cfg``, graphed (``GraphedLearner``), and the same
+    supersteps of the eager rank from the same seed; a checkpoint, one more
+    superstep, and two restores that each take that superstep again, and
+    the eager rank restored from the graphed one's checkpoint taking it
+    too; then a restore under a world size of 1, which must be refused."""
     import torch.distributed as dist
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.train import DistributedTrainer
 
     tr = DistributedTrainer(cfg, device="cpu", workdir=workdir).init(seed=7)
-    metrics = [_metrics(tr.step()) for _ in range(SUPERSTEPS)]
+    eager = DistributedTrainer(cfg, device="cpu", graphed_learner=False).init(seed=7)
+    steps = [_step(tr) for _ in range(SUPERSTEPS)]
+    metrics = [m for m, _, _ in steps]
     out = {
         "metrics": metrics,
         "local_episodes": int(tr.runner.episodes),
         "updates": tr.runner.train.updates,
         "digest": learner_digest(tr.runner.train),
         "last_sync_episodes": int(tr.runner.last_sync_episodes),
+        "graphed": [type(t._superstep) is GraphedLearner for t in (tr, eager)],
+        "graphed_steps": steps,
+        "eager_steps": [_step(eager) for _ in range(SUPERSTEPS)],
     }
     step = metrics[-1]["env_steps"] * cfg.num_envs
     tr.save(step)
@@ -82,6 +111,8 @@ def _counters(cfg, workdir: str) -> dict:
         t2.restore(step)
         restored = learner_digest(t2.runner.train)
         out["resumed"].append((_metrics(t2.step()), learner_digest(t2.runner.train), restored))
+    e2 = DistributedTrainer(cfg, device="cpu", workdir=workdir, graphed_learner=False).restore(step)
+    out["eager_resumed"] = (_metrics(e2.step()), learner_digest(e2.runner.train))
     solo = dist.new_group([0])  # every rank takes part in making it
     if dist.get_rank() == 0:
         try:
@@ -145,6 +176,9 @@ def run(shard: int, world: int, port: int, workdir: str, inputs: dict) -> dict:
                               os.path.join(workdir, "episodes")),
         "exp_episode": _counters(cartpole_cfg(eps_schedule="exp_episode", eps_decay=0.9),
                                  os.path.join(workdir, "exp_episode")),
+        "per": _counters(cartpole_cfg(replay="prioritized", use_pallas=True,
+                                      use_pallas_sampler=True),
+                         os.path.join(workdir, "per")),
         "update": {p: _update(p, inputs, shard) for p in (False, True)},
         "reduce": _reduce(shard),
     }

@@ -306,6 +306,38 @@ def test_host_agent_bookkeeping_matches_jax(stop, truncation_bootstrap, monkeypa
     assert sum(ends) == sum(ends[i] for i in last)
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_host_agent_graphed_update_equals_eager(use_pallas):
+    """The agent's update through its in-place step (``graphed=True``: one
+    CUDA graph replay on the card, a direct call on the CPU, on the static
+    batch buffers) against the eager update, from one seed: every loss and
+    action, the learner (weights, target, Adam moments and count) and the
+    host counters bitwise over at least 50 updates."""
+    cfg = DQNConfig(**dict(CORRIDOR, use_pallas=use_pallas, target_replace_episodes=3,
+                           solve_threshold=None))
+    agents = [HostAgent(TinyCorridorEnv(), 5, 2, cfg, device="cpu", graphed=g)
+              for g in (True, False)]
+    for agent in agents:
+        agent.losses = []
+
+        def train_step(step=agent._train_step, agent=agent):
+            agent.losses.append(step())
+            return agent.losses[-1]
+
+        agent._train_step = train_step
+        agent.training(max_episodes=40, verbose=False)
+    graphed, eager = agents
+    assert len(graphed.losses) >= 50 and graphed.losses == eager.losses
+    assert graphed.env.log == eager.env.log
+    ts_g, ts_e = graphed.train_state, eager.train_state
+    assert ts_g.updates == ts_e.updates == ts_g.opt_state.count == int(ts_g.opt_state.device_count)
+    for x, y in zip([*ts_g.online.parameters(), *ts_g.target.parameters(), *ts_g.opt_state.mu,
+                     *ts_g.opt_state.nu],
+                    [*ts_e.online.parameters(), *ts_e.target.parameters(), *ts_e.opt_state.mu,
+                     *ts_e.opt_state.nu]):
+        assert torch.equal(x, y)
+
+
 def test_host_agent_solves_corridor():
     """The counterpart of ``tests/test_native_compat.py``'s solve, on the port."""
     agent = HostAgent(TinyCorridorEnv(), obs_dim=5, num_actions=2, cfg=DQNConfig(**CORRIDOR),

@@ -23,7 +23,10 @@ under the all-reduce.  The host-compat agent's update on the GPU vs the
 CPU at rtol 1e-4; a bf16-trunk update on the GPU vs the CPU: the loss
 rtol 1e-3, every parameter within 2.1 lr and at most 1 % beyond lr / 10.
 The gymnasium harness's CUDA-graph replay of a jointed frame: bitwise the
-eager frame.  ``VectorEnv``'s CUDA graphs of the lander's vector step and
+eager frame.  A rank's superstep as CUDA graphs (graph L1, the all-reduce,
+graph L2): bitwise the eager rank and, at world size 1, the graphed
+``Trainer``.  The greedy evaluators with each eval step one CUDA graph and
+the host agent's update one graph replay: bitwise their eager forms.  ``VectorEnv``'s CUDA graphs of the lander's vector step and
 reset pool: bitwise the eager step over 64 jointed frames with auto-resets
 and over two ``lunar_per`` supersteps (the whole runner); a graphed step
 runs the kernels the eager step runs, the jointed solver's kernel S1 once
@@ -616,13 +619,19 @@ def test_classic_env_step_on_gpu_matches_cpu(cuda, env_id):
 
 def test_world_one_nccl_distributed_trainer_equals_trainer(cuda):
     """A world-1 NCCL group: ``DistributedTrainer`` on lunar_per's learner
-    (the TD kernels under the all-reduce) takes the same superstep as
-    ``Trainer``, bitwise, and each kernel launches once per update."""
+    (the TD kernels under the all-reduce), graphed (graph L1, the
+    all-reduce, graph L2), takes the same supersteps as the graphed
+    ``Trainer``, bitwise (metrics and the whole runner); each kernel's
+    wrapper counts graph L1's eager call and capture, and the profiler's
+    trace counts each kernel once per update on the device."""
     import torch.distributed as dist
 
+    from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
     from deep_q_learning_tpu_torch.parallel import distributed_init
     from deep_q_learning_tpu_torch.train import DistributedTrainer, Trainer
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
 
     cfg = dataclasses.replace(lunar_per(), steps_per_superstep=4, training_start=0,
                               use_pallas_sampler=True)
@@ -631,26 +640,56 @@ def test_world_one_nccl_distributed_trainer_equals_trainer(cuda):
         assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
         single = Trainer(cfg, device="cuda").init(seed=0)
         ranked = DistributedTrainer(cfg, device="cuda").init(seed=0)
+        assert isinstance(ranked._superstep, GraphedLearner)
         m_single = single.step()
         td_kernels.reset_counts()
         sample_kernels.reset_counts()
         assert ranked.step() == m_single
-        assert td_kernels.launches == {"td_loss_fwd": 4, "td_loss_bwd": 4}
-        assert sample_kernels.launches == {"per_slot_sample": 4}
-        for a, b in zip([*single.runner.train.online.parameters(), *single.runner.train.opt_state.nu],
-                        [*ranked.runner.train.online.parameters(), *ranked.runner.train.opt_state.nu]):
-            assert torch.equal(a, b)
+        assert td_kernels.launches == {"td_loss_fwd": 2, "td_loss_bwd": 2}
+        assert sample_kernels.launches == {"per_slot_sample": 2}
+        _same_tree(ckpt._to_tree(single.runner), ckpt._to_tree(ranked.runner))
+        trace = traced_kernels(ranked.step)
+        assert learner_kernels(trace) == {"td_loss_fwd": 4, "td_loss_bwd": 4,
+                                          "per_slot_sample": 4}
     finally:
         dist.destroy_process_group()
 
 
 def test_dryrun_multichip_one_rank_on_the_card(cuda):
+    """One NCCL rank of the flagship's structure, graphed: 4 updates, each
+    kernel's wrapper counting graph L1's eager call and capture."""
     from deep_q_learning_tpu_torch.parallel import dryrun_multichip
 
     (report,) = dryrun_multichip(1, device="cuda")
-    assert report["backend"] == "nccl" and report["updates"] == 4
-    assert report["launches"] == {"td_loss_fwd": 4, "td_loss_bwd": 4, "per_slot_sample": 4}
+    assert report["backend"] == "nccl" and report["updates"] == 4 and report["graphed"]
+    assert report["launches"] == {"td_loss_fwd": 2, "td_loss_bwd": 2, "per_slot_sample": 2}
     assert not any(report["plain_calls"].values())
+
+
+def test_graphed_rank_equals_eager_rank_on_the_card(cuda):
+    """A world-1 NCCL rank on lunar_per at 64 envs with the PER sampler,
+    graphed and eager (``graphed_learner=False``) from one seed: metrics
+    and the whole runner bitwise after each of 3 supersteps."""
+    import torch.distributed as dist
+
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.parallel import distributed_init
+    from deep_q_learning_tpu_torch.train import DistributedTrainer
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = dataclasses.replace(lunar_per(), num_envs=64, steps_per_superstep=16,
+                              training_start=512, use_pallas_sampler=True)
+    distributed_init(device="cuda")
+    try:
+        graphed = DistributedTrainer(cfg, device="cuda").init(seed=0)
+        eager = DistributedTrainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
+        for i in range(3):
+            assert graphed.step() == eager.step(), i
+            _same_tree(ckpt._to_tree(graphed.runner), ckpt._to_tree(eager.runner),
+                       f"superstep {i}")
+        assert graphed.runner.train.updates == 41
+    finally:
+        dist.destroy_process_group()
 
 
 class _Corridor:
@@ -707,8 +746,9 @@ def test_host_agent_update_on_gpu_matches_cpu(cuda):
     td_kernels.reset_counts()
     agent.training(max_episodes=40, verbose=False)
     updates = agent.train_state.updates
-    assert updates > 0 and np.isfinite(agent._last_loss)
-    assert td_kernels.launches == {"td_loss_fwd": updates, "td_loss_bwd": updates}
+    assert updates > 2 and np.isfinite(agent._last_loss)
+    # the update's graph: its eager call and its capture
+    assert td_kernels.launches == {"td_loss_fwd": 2, "td_loss_bwd": 2}
     assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
     obs, action, reward, next_obs, done = agent.buffer.sample(cfg.batch_size)
     batch = dict(obs=torch.from_numpy(obs), action=torch.from_numpy(action),
@@ -719,6 +759,93 @@ def test_host_agent_update_on_gpu_matches_cpu(cuda):
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-6)
     for a, c in zip(pg, pc):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)
+
+
+def test_host_agent_graphed_update_equals_eager_on_the_card(cuda):
+    """The compat agent's update as one CUDA graph replay against the eager
+    update, from one seed, with ``use_pallas``: every loss and the learner
+    (weights, target, Adam moments and count) bitwise over at least 50
+    updates."""
+    from deep_q_learning_tpu_torch.compat.host_loop import HostAgent
+    from deep_q_learning_tpu_torch.config import DQNConfig
+
+    cfg = DQNConfig(num_envs=1, batch_size=32, buffer_capacity=4096, training_start=64,
+                    dueling=False, hidden=(32,), learning_rate=3e-3, optimizer="adam",
+                    gamma=0.9, eps_decay=0.95, eps_min=0.01, train_every=2,
+                    target_replace_episodes=3, max_steps_in_episode=20, use_pallas=True,
+                    solve_threshold=None)
+    agents = []
+    for graphed in (True, False):
+        agent = HostAgent(_Corridor(), 5, 2, cfg, device="cuda", graphed=graphed)
+        agent.losses = []
+        step = agent._train_step
+
+        def train_step(step=step, agent=agent):
+            agent.losses.append(step())
+            return agent.losses[-1]
+
+        agent._train_step = train_step
+        agent.training(max_episodes=80, verbose=False)
+        agents.append(agent)
+    g, e = agents
+    assert len(g.losses) >= 50 and g.losses == e.losses
+    assert g._learn.graph is not None and e._learn.graph is None
+    ts_g, ts_e = g.train_state, e.train_state
+    assert ts_g.updates == ts_e.updates == int(ts_g.opt_state.device_count)
+    for a, b in zip([*ts_g.online.parameters(), *ts_g.target.parameters(), *ts_g.opt_state.mu,
+                     *ts_g.opt_state.nu],
+                    [*ts_e.online.parameters(), *ts_e.target.parameters(), *ts_e.opt_state.mu,
+                     *ts_e.opt_state.nu]):
+        assert torch.equal(a, b)
+
+
+def _eval_pair(evaluate, venv, env_params, network, max_steps=None, members=None):
+    """``evaluate`` (graphed) and its eager form on the same envs, from one
+    seed, twice each: every result bitwise equal; the graphed step captured."""
+    from deep_q_learning_tpu_torch.algos.evaluate import build_evaluator
+
+    eager = build_evaluator(venv, env_params, env_params.max_steps_in_episode, members=members,
+                            graphed=False)
+    out = []
+    for fn in (evaluate, eager, evaluate, eager):
+        ev = fn(network, torch.Generator(device="cuda").manual_seed(1), max_steps)
+        out.append([x.cpu() for x in ev])
+    for other in out[1:]:
+        for a, b in zip(out[0], other):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert evaluate.graph.graph is not None
+    return out[0]
+
+
+@pytest.mark.parametrize("preset", ["lunar_per", "lunar_jointed_per", "cartpole_vector"])
+def test_graphed_evaluator_equals_eager_on_the_card(cuda, preset):
+    """Each greedy eval step as one CUDA graph (the jointed lander's with S1
+    inside it) against the eager evaluator, 128 episodes (64 frames of the
+    jointed lander), bitwise; then a new runner's network, bitwise too."""
+    from deep_q_learning_tpu_torch.config import PRESETS
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    tr = Trainer(PRESETS[preset](), device="cuda").init(seed=0)
+    max_steps = 64 if preset == "lunar_jointed_per" else None
+    for seed in (0, 1):
+        if seed:
+            tr.init(seed=seed)
+        ret, length, truncated = _eval_pair(tr._evaluate, tr.eval_venv, tr.env_params,
+                                            tr.runner.train.online, max_steps)
+        assert ret.shape == (128,) and torch.isfinite(ret).all()
+        assert (length <= tr.env_params.max_steps_in_episode).all()
+
+
+def test_graphed_population_evaluator_equals_eager_on_the_card(cuda):
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.parallel import PopulationTrainer
+
+    cfg = dataclasses.replace(lunar_per(), num_envs=16, hidden=(64, 64))
+    trainer = PopulationTrainer(cfg, 3, eval_envs=8, device="cuda")
+    runner = trainer.init(seed=0)
+    ret, _, _ = _eval_pair(trainer._evaluate, trainer.eval_venv, trainer._eval_env_params,
+                           runner.train.online, members=3)
+    assert ret.shape == (24,) and torch.isfinite(ret).all()
 
 
 def test_bf16_update_on_gpu_matches_cpu(cuda):

@@ -8,7 +8,11 @@ and run every multi-rank scenario at tiny widths; the JAX side runs here on
 Tolerances: the learner is bitwise the same on both ranks (online and
 target weights, Adam moments and count), in ``steps`` and ``episodes``
 sync modes; a resumed superstep is bitwise the uninterrupted one; the
-world-1 ``DistributedTrainer`` is bitwise ``Trainer``; the counters
+graphed rank (graph L1, the collective, graph L2) is bitwise the eager rank
+on both ranks, superstep by superstep, whole runners included, and after a
+resume; the world-1 ``DistributedTrainer`` is bitwise ``Trainer``, graphed
+and eager; the mean of the ranks' sums is bitwise ``lax.pmean``'s at 2, 3
+and 4 shards; the counters
 (env steps, updates per superstep, the first update frame) are exact
 against the JAX program, and so are the metric reductions (max, sum, mean,
 min) and ``exp_episode`` ε per shard (float32 ulps: rtol 1e-6); the
@@ -38,7 +42,8 @@ from deep_q_learning_tpu.parallel import aggregate_metrics as jax_aggregate
 from deep_q_learning_tpu.parallel import build_distributed_superstep as jax_distributed
 from deep_q_learning_tpu.parallel import make_env_mesh
 from deep_q_learning_tpu.replay.nstep import LearnBatch as JaxBatch
-from deep_q_learning_tpu_torch.algos.superstep import METRIC_REDUCTIONS
+from deep_q_learning_tpu_torch.algos.dqn import mean_of_sum
+from deep_q_learning_tpu_torch.algos.superstep import METRIC_REDUCTIONS, GraphedLearner
 from deep_q_learning_tpu_torch.parallel import dryrun_multichip, local_config, spawn_ranks
 from deep_q_learning_tpu_torch.parallel.mesh import distributed_init, rank_device
 from deep_q_learning_tpu_torch.train import DistributedTrainer, Trainer
@@ -99,6 +104,49 @@ def test_two_ranks_keep_the_learner_bitwise_equal(ranks, mode):
         assert a["last_sync_episodes"] == b["last_sync_episodes"] > 0
         assert a["last_sync_episodes"] <= a["metrics"][-1]["episodes"]
         assert a["local_episodes"] + b["local_episodes"] == a["metrics"][-1]["episodes"]
+
+
+@pytest.mark.parametrize("mode", ["steps", "episodes", "exp_episode", "per"])
+def test_graphed_rank_equals_eager_rank_bitwise(ranks, mode):
+    """The graphed rank (``GraphedLearner`` under the group: graph L1, the
+    eager all-reduce, graph L2) against the eager rank from the same seed:
+    the metrics, the learner and the whole runner after every superstep, on
+    both ranks; and the eager rank restored from the graphed one's
+    checkpoint takes the next superstep as the graphed restores do.
+    ``per``: the prioritized replay with both kernels' plain versions, the
+    TD errors written into the local priorities inside graph L1."""
+    for r in ranks:
+        got = r[mode]
+        assert got["graphed"] == [True, False]
+        assert got["updates"] > 0, "no update ran"
+        assert got["graphed_steps"] == got["eager_steps"]
+        assert got["eager_resumed"] == got["resumed"][0]
+    assert ranks[0][mode]["graphed_steps"][-1][1] == ranks[1][mode]["graphed_steps"][-1][1]
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_mean_of_sum_is_pmean_bitwise(world):
+    """``mean_of_sum`` (F6) against ``lax.pmean`` under ``shard_map`` over
+    ``world`` of conftest's virtual CPU devices, on the same float32 sums
+    (``lax.psum`` of the same shards): XLA multiplies the sum by the
+    float32 reciprocal of the world size.  At 3 shards a true division
+    differs from it in about a third of the elements."""
+    from jax.sharding import Mesh
+
+    rng = np.random.default_rng(world)
+    shards = (rng.standard_normal((world, 100_000)) * 10.0 ** rng.integers(-6, 3, 100_000)
+              ).astype(np.float32)
+    mesh = Mesh(np.array(jax.devices()[:world]), ("env",))
+    both = shard_map(lambda x: (jax.lax.psum(x, "env"), jax.lax.pmean(x, "env")), mesh=mesh,
+                     in_specs=P("env"), out_specs=(P(), P()), check_vma=False)
+    total, mean = (np.asarray(x).reshape(-1) for x in jax.jit(both)(shards))
+    ours = mean_of_sum(torch.from_numpy(total.copy()), world).numpy()
+    np.testing.assert_array_equal(ours, mean)
+    divided = (torch.from_numpy(total.copy()) / world).numpy()
+    if world == 3:
+        assert (divided != mean).mean() > 0.2
+    else:  # a power of two: the reciprocal is exact
+        np.testing.assert_array_equal(divided, mean)
 
 
 def test_counters_match_jax(ranks, mesh2):
@@ -219,6 +267,32 @@ def world_one():
     distributed_init(device="cpu")  # idempotent
     yield
     dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("graphed", [True, False], ids=["graphed", "eager"])
+def test_world_one_rank_equals_trainer_graphed_and_eager(world_one, graphed):
+    """At world size 1 the rank's three update stages are the single
+    learner's update, bitwise: the graphed rank against the graphed
+    ``Trainer``, the eager rank against the eager one, whole runners.  The
+    rank's greedy evaluator (its eval step graphed, or eager) equals the
+    eager form on its envs."""
+    from deep_q_learning_tpu_torch.algos.evaluate import build_evaluator
+
+    cfg = worker.cartpole_cfg(replay="prioritized")
+    single = Trainer(cfg, device="cpu", graphed_learner=graphed).init(seed=5)
+    ranked = DistributedTrainer(cfg, device="cpu", graphed_learner=graphed).init(seed=5)
+    assert isinstance(ranked._superstep, GraphedLearner) is graphed
+    assert isinstance(single._superstep, GraphedLearner) is graphed
+    for _ in range(3):
+        assert dataclasses.asdict(ranked.step()) == dataclasses.asdict(single.step())
+        assert worker.runner_digest(ranked.runner) == worker.runner_digest(single.runner)
+    assert single.runner.train.updates > 0
+    assert (ranked._evaluate.graph is not None) is graphed
+    eager = build_evaluator(ranked.eval_venv, ranked.env_params, 30, graphed=False)
+    got = ranked.evaluate(seed=2, max_steps=30)
+    want = eager(ranked.runner.train.online, torch.Generator().manual_seed(2))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
 
 
 def test_world_one_distributed_trainer_equals_trainer(world_one, tmp_path):
