@@ -40,17 +40,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      against the plain version's as a CUDA graph, beside its bound (the
      operations the states need: ``solver_kernels.needed_work``); the
      plain solver's kernel launches at 128 landers;
-  4. run the ``lunar_per`` slice at full width through ``Trainer``, each
-     frame as CUDA graph launches (``algos/superstep.py::GraphedLearner``:
-     the frame's graph with the actor, the vector step and the replay
-     write, the learner update's graph L): 4 supersteps (512 vector steps
-     of 128 envs), the last under the profiler; check that the TD kernels
-     ran on the device once per learner update there (counted in the
-     trace: a graph's replay passes no wrapper's counter) and no plain
-     version ran, the host's launches per vector step (kernels, graphs,
-     copies and fills; at most ``SLICE_HOST_LAUNCHES``) and the device's
-     busy share, the counters (the Adam count on the device equal to its
-     mirror), the loss is finite, the online net trained, the target
+  4. run the ``lunar_per`` slice at full width through ``Trainer``
+     (``algos/superstep.py::GraphedLearner``): 5 supersteps (640 vector
+     steps of 128 envs), the first three frame by frame as CUDA graph
+     launches (the frame's graph with the actor, the vector step and the
+     replay write, the learner update's graph L), the fourth capturing the
+     steady superstep as one graph (P2g: the draws, the cadence and the
+     sync inside) and the fifth, under the profiler, one replay of it;
+     check that the TD kernels ran on the device once per learner update
+     there (counted in the trace: a graph's replay passes no wrapper's
+     counter) and no plain version ran, the host's launches per vector
+     step (kernels, graphs, copies and fills; at most
+     ``WHOLE_HOST_LAUNCHES``) and the device's busy share, the counters
+     (the Adam count on the device equal to its mirror), the loss is finite, the online net trained, the target
      followed by Polyak averaging, peak memory under 1 GiB, and a greedy
      evaluation returns finite returns; the evaluator's check
      (``eval_pair``): the graphed evaluator (each eval step one CUDA
@@ -59,19 +61,26 @@ Phases (each raises on failure, so any failure exits non-zero):
      graph's replay (phases 7, 8, 9 and 10 (a) run it too); F5's pair: ``epsilon_greedy`` with
      a float ε and with a device tensor equal over 2^20 draws at four ε,
      and the eager learner from the same seed bitwise the graphed one after
-     the same 512 exploring frames; then the first training frames of
-     a one-frame superstep against the eager learner (the Adam count 1
-     after the first, the runners bitwise after every frame); then an
+     the same 640 exploring frames; then the same trainer frame by frame
+     (``max_graphs = 0``) from the same seed, bitwise after each
+     superstep, and ``whole_vs_frames``: a steady superstep of each
+     traced (host launches a vector step, busy share), env-steps/s in
+     turns, the superstep graph's nodes, capture and instantiation
+     seconds, peak memory; then the first training frames of
+     a one-frame superstep frame by frame against the eager learner (the
+     Adam count 1 after the first, the runners bitwise after every
+     frame); then an
      eager-learner ``Trainer`` restored from the graphed one's checkpoint,
      one superstep each bitwise, and env-steps/s in three alternating
      pairs; each graph's replay on the device, its kernels and its capture
-     time; then one learner update on the card is held against the same
-     update on the CPU;
+     time, the superstep's graph last; then one learner update on the
+     card is held against the same update on the CPU;
   5. run ``lunar_per_scaled(1024)`` with ``use_pallas_sampler=True`` at
-     full width through ``Trainer``'s graphed learner: 2 supersteps (256
+     full width through ``Trainer``'s graphed learner: 4 supersteps (512
      vector steps of 1024 envs), and check that the PER slot kernel and the
-     TD kernels ran on the device once per learner update in the second,
-     profiled, and no plain version ran;
+     TD kernels ran on the device once per learner update in the fourth,
+     profiled, one replay of the superstep's graph, and no plain version
+     ran;
   6. drive the same configuration through the command line: ``train`` one
      superstep with a checkpoint, ``train --resume`` one more, ``eval``;
   7. run ``lunar_jointed_per`` (the jointed 3-body lander, solver
@@ -101,23 +110,30 @@ Phases (each raises on failure, so any failure exits non-zero):
      graph; then one jointed
      frame of 64 landers from a short flight near the ground (touchdowns,
      contacts, crashes) on the card (S1) against the same frame on the CPU
-     (the plain solver);
+     (the plain solver); then P2g: the trainer from seed 0 and the same
+     trainer frame by frame, bitwise after each of 4 supersteps (the
+     third the steady superstep's capture), ``whole_vs_frames``, S1 once
+     a frame and once for the pool in the traced replay;
   8. the uniform replay and classic control on the card:
      ``cartpole_vector``, ``acrobot_vector``, ``mountain_car_vector`` and
      ``lunar_dddqn_vector`` at full width through ``Trainer``, cut in depth
      only (``CLASSIC_RUNS``), each frame as CUDA graph launches
      (``GraphedLearner``: the classic envs inject their resets' draw, the
      uniform sample scales its uniforms by the device fill), superstep by
-     superstep in turns with the eager learner from the same seed: metrics
-     and runners bitwise equal after each; the counters (env steps,
+     superstep in turns with the eager learner and the graphed learner
+     frame by frame (``max_graphs = 0``) from the same seed: metrics and
+     runners bitwise equal after each, the last superstep the capture of
+     the steady superstep's graph (P2g); the counters (env steps,
      updates equal to the trained frames times ``updates_per_step``, the
      replay's and Adam's device counters equal to their mirrors), a finite
      loss, completed episodes, the online net trained, no kernel (all four
      run the plain TD loss, ``use_pallas=False``), the resets as each env
      draws them (a classic env's every frame, the lander's pool once a
-     superstep); the host's launches per vector step of a steady 8-step
-     graphed superstep (``torch.profiler``, at most
-     ``CLASSIC_HOST_LAUNCHES``), env-steps/s graphed and eager, each
+     superstep, the superstep graph's at its capture); ``whole_vs_frames``
+     (the host's launches per vector step of a steady superstep as one
+     replay, at most ``WHOLE_SUPERSTEP_LAUNCHES`` a superstep, and frame by
+     frame, at most ``CLASSIC_HOST_LAUNCHES``); env-steps/s graphed and
+     eager, each
      graph's replay on the device; then one vector step of each classic env
      on the card against the same step on the CPU, from the same states;
      the evaluator's check on ``cartpole_vector``;
@@ -134,7 +150,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      population restored from its checkpoint, both with
      mixed gates and new learning rates (the graphs captured anew),
      bitwise after one superstep each, then in turns; each
-     graph's replay ms, kernels and capture s; one population learner
+     graph's replay ms, kernels and capture s; P2g: the population with
+     the config's gates and each member's learning rate, graphed against
+     itself frame by frame, bitwise after each of 4 supersteps (the third
+     the capture), ``whole_vs_frames``, K1–K3 once an update round in the
+     traced replay; one population learner
      update card vs CPU; then the command line's ``hpo --population 4``,
      and two of its trials in process, graphed and eager, with each
      trial's captures;
@@ -212,13 +232,15 @@ Phases (each raises on failure, so any failure exits non-zero):
      network's; (a)'s process runs beside (b);
  14. run ``lunar_jointed_scaled(1024)`` with ``use_pallas_sampler=True`` at
      full width through ``Trainer`` (1,024 jointed landers at (120, 40)),
-     cut in depth only (``JOINTED_SCALED_CUTS``): 3 supersteps of 128
-     vector steps from 2048 stored transitions; K1–K3 once per update and
-     no plain call (TD, sampler or solver) and S1 once per vector step and
-     reset pool on the device (the profiled third superstep), the
-     counters, a finite loss, the online net trained, peak memory under
-     1 GiB; env-steps/s of the second superstep and the frame's and the
-     update's graph replays on the device;
+     cut in depth only (``JOINTED_SCALED_CUTS``): 4 supersteps of 128
+     vector steps from 2048 stored transitions, the second capturing the
+     steady superstep's graph (its cadence from the first on); K1–K3 once
+     per update and no plain call (TD, sampler or solver) and S1 once per
+     vector step and reset pool on the device (the profiled fourth
+     superstep, one replay), the counters, a finite loss, the online net
+     trained, peak memory under 1 GiB; env-steps/s of the third superstep
+     and the frame's, the update's and the superstep's graph replays on
+     the device;
 then print the kernels' record as one JSON line (K1, K2, K3 and S1, with
 each kernel's bound, ``bound_ms``), then the result line.
 
@@ -247,17 +269,16 @@ TD_SHAPES = [(256, 4), (1024, 4), (4096, 4), (300, 4), (37, 2)]
 # B of lunar_per and lunar_jointed_per, lunar_per_scaled(1024), lunar_per_scaled(4096)
 TD_TIMED = (256, 1024, 4096)
 TD_STABLE_B, TD_STABLE_CALLS = 4096, 100
-SUPERSTEPS = 4
-# phase 4: the host's launches (kernels, graphs, copies and fills) per vector
-# step of a steady lunar_per superstep with the graphed learner (the eager
-# learner's ~390-490), and the frame from which the trap check's learner runs
-SLICE_HOST_LAUNCHES = 40
-FIRST_TRAIN_FRAME = 3
+# phase 4: warm-up, its end, the steady superstep frame by frame, its
+# graph's capture, then one replay (profiled)
+SUPERSTEPS = 5
+FIRST_TRAIN_FRAME = 3  # the frame from which the trap check's learner runs
 # F5's pair: epsilon_greedy with a float ε and with a device tensor over
 # 2^20 draws at the ε of artifacts/flagship_parting/division.py
 F5_DRAWS, F5_EPSILONS = 1 << 20, (0.9, 0.459, 0.01, 1 / 3)
-SCALED_SUPERSTEPS = 2
+SCALED_SUPERSTEPS = 4  # the fourth, profiled, one replay of the superstep's graph
 TRACE_ATTEMPTS = 3  # a profiled superstep whose trace lost kernel records is run again
+TRACE_PAD_GROWTH = 4  # each time with the profiling session idle this much longer around it
 # (N, C, B): lunar_per_scaled(1024), lunar_per, lunar_per_scaled(4096) (C = 2^19 / 4096),
 # then C % 4 != 0 on misaligned rows (the scalar path) and C past 1024 * 16 (the chunk loop)
 SLOT_SHAPES = [(1024, 512, 1024), (128, 4096, 256), (4096, 128, 4096), (5, 37, 64), (3, 20000, 64)]
@@ -286,13 +307,14 @@ JOINTED_CUTS = dict(steps_per_superstep=16, training_start=1792)
 JOINTED_SUPERSTEPS = 2
 JOINTED_EVAL_FRAMES = 4  # Trainer.evaluate's default runs max_steps_in_episode = 1000 frames
 JOINTED_FRAMES = 8  # graphed frames held bitwise against eager frames
+JOINTED_WHOLE_SUPERSTEPS = 4  # P2g: the warm-up's end, the steady frame by frame, capture, replay
 # phase 14: lunar_jointed_scaled(1024) with use_pallas_sampler, cut in depth
 # only: 3 supersteps of the preset's 128 vector steps (the first captures the
 # step graph, the second is timed, the third profiled), the learner from
 # 2048 stored transitions (vector step 2 of 1024 landers; the preset's
 # 20,000 open at vector step 20)
 JOINTED_SCALED_CUTS = dict(training_start=2048, use_pallas_sampler=True)
-JOINTED_SCALED_SUPERSTEPS = 3
+JOINTED_SCALED_SUPERSTEPS = 4
 # the member axis of the TD kernels: (M, B, A), and (M, B) on misaligned rows
 TD_MEMBER_SHAPES = [(8, 256, 4), (10, 256, 4), (8, 1024, 4)]
 TD_MEMBER_MISALIGNED = (3, 37, 4)
@@ -312,10 +334,10 @@ SLOT_MEMBERS = (8, 128, 4096, 256)
 POP_MEMBERS = 8
 POP_CUTS = dict(steps_per_superstep=32, training_start=2048, use_pallas_sampler=True)
 POP_SUPERSTEPS = 3
+POP_WHOLE_SUPERSTEPS = 4  # P2g: the warm-up's end, the steady frame by frame, capture, replay
 POP_EVAL_ENVS, POP_EVAL_FRAMES = 16, 64
 POP_HYPER = dict(train_every=[1, 2, 3, 1, 2, 3, 1, 1], training_start=[2048] * 7 + [14_336],
                  learning_rate=[1e-4 * (k + 1) for k in range(8)])
-POP_HOST_LAUNCHES = 40  # at most, a vector step of the graphed population (the eager: ~435)
 # the search's trials in process: 2 trials of 4 members, graphed and eager
 POP_TRIALS = [{"learning_rate": lr} for lr in (1e-4, 3e-4, 6e-4, 1e-3)]
 # the CLI's search: 8 trials in rounds of 4, 2 supersteps (32,768 env steps) a trial
@@ -346,13 +368,13 @@ FRAME_TIGHT_SHARE = 0.9
 #   lunar_dddqn_vector: 128 rigid landers, 2 supersteps of 128 vector steps;
 #     the learner starts at vector step 157 (training_start 20,000).
 # Each graphed, in turns with its eager learner from the same seed.
-CLASSIC_RUNS = {  # preset: (supersteps, config cuts)
+CLASSIC_RUNS = {  # preset: (supersteps, config cuts); the last captures the steady superstep
     "cartpole_vector": (3, {}),
     "acrobot_vector": (4, {}),
-    "mountain_car_vector": (2, {"training_start": 16_384}),
-    "lunar_dddqn_vector": (2, {}),
+    "mountain_car_vector": (3, {"training_start": 16_384}),
+    "lunar_dddqn_vector": (4, {}),
 }
-CLASSIC_HOST_LAUNCHES = 40  # at most, a vector step of a steady graphed superstep (as phase 4)
+CLASSIC_HOST_LAUNCHES = 40  # at most, a vector step of a steady superstep frame by frame
 # one vector step card vs CPU, as the CPU tests hold the port to JAX
 # (tests/test_torch_envs_classic.py): CartPole and MountainCar 1e-6; Acrobot's
 # four RK4 stages of trigonometry carry the ulps of sin/cos further
@@ -1079,7 +1101,10 @@ def run_slice(torch, td_kernels, sample_kernels, card):
     assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_per
     assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
     per_step = trace.host_launches / cfg.steps_per_superstep
-    assert per_step <= SLICE_HOST_LAUNCHES, (per_step, trace.launches, trace.copies)
+    assert per_step <= WHOLE_HOST_LAUNCHES, (per_step, trace.launches, trace.copies)
+    assert trainer._superstep.runs == {"frames": SUPERSTEPS - 2,
+                                       "whole": len(metrics) - (SUPERSTEPS - 2)}, (
+        trainer._superstep.runs)
 
     updates = sum(m.loss_count for m in metrics)
     loss_sum = sum(m.loss_sum for m in metrics)
@@ -1117,8 +1142,16 @@ def run_slice(torch, td_kernels, sample_kernels, card):
     print(f"  the last superstep, profiled: {steady} updates, K1/K2 on the device {launches}, no "
           f"plain call; {per_step:.1f} host launches per vector step ({trace.launches} kernels, "
           f"{len(trace.per_graph_launch)} graphs, {trace.copies} copies and fills in "
-          f"{cfg.steps_per_superstep} vector steps; at most {SLICE_HOST_LAUNCHES}), device busy "
-          f"{100 * trace.device_us / trace.wall_us:.1f} % of {trace.wall_us / 1e3:.1f} ms [{card}]")
+          f"{cfg.steps_per_superstep} vector steps, the superstep one replay; at most "
+          f"{WHOLE_HOST_LAUNCHES}), device busy {100 * trace.device_us / trace.wall_us:.1f} % of "
+          f"{trace.wall_us / 1e3:.1f} ms [{card}]")
+    frames = Trainer(cfg, device="cuda").init(seed=0)
+    frames._superstep.max_graphs = 0
+    lockstep(torch, "lunar_per", {"frames": Learner(frames)}, len(metrics))
+    same_tree(torch, runner_tree(frames), runner_tree(trainer), "lunar_per frames vs whole")
+    whole = whole_vs_frames(torch, "lunar_per", Learner(trainer), Learner(frames),
+                            cfg.steps_per_superstep, cfg.num_envs, card)
+    del frames
     first_training_frames(torch, card)
     slice_pairs(torch, trainer, cfg, workdir, td_kernels, card)
     shutil.rmtree(workdir, ignore_errors=True)
@@ -1128,6 +1161,7 @@ def run_slice(torch, td_kernels, sample_kernels, card):
         print(f"  the graph of the {name}: replay {device_ms:.3f} ms on the device (CUDA events), "
               f"{nodes} kernels, its launch {host_ms:.3f} ms of host; captured in "
               f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
+    superstep_replay_ms(torch, "lunar_per", whole["graph"], card)
 
 
 def f5_pair(torch, graphed, metrics, card):
@@ -1182,6 +1216,7 @@ def first_training_frames(torch, card):
     cfg = dataclasses.replace(lunar_per(), steps_per_superstep=1,
                               training_start=FIRST_TRAIN_FRAME * 128)
     graphed = Trainer(cfg, device="cuda").init(seed=0)
+    graphed._superstep.max_graphs = 0  # frame by frame: no one-frame superstep graph
     eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
     counts = []
     for frame in range(1, FIRST_TRAIN_FRAME + 4):
@@ -1234,8 +1269,8 @@ def slice_pairs(torch, trainer, cfg, workdir, td_kernels, card):
 def run_scaled(torch, td_kernels, sample_kernels, card):
     """Phase 5: lunar_per_scaled(1024) with the PER slot kernel, at full
     width through the Trainer's graphed learner: K1, K2 and K3 once per
-    update on the device in the second superstep, profiled, and no plain
-    call."""
+    update on the device in the last superstep, profiled, one replay of the
+    superstep's graph, and no plain call."""
     import dataclasses
 
     from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
@@ -1276,15 +1311,23 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
     assert math.isfinite(loss_sum), loss_sum
     assert float(trainer.runner.replay.max_priority) > 0
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    assert peak_mib < 1024, peak_mib
     per_step = trace.host_launches / cfg.steps_per_superstep
+    assert per_step <= WHOLE_HOST_LAUNCHES, per_step
+    runs = trainer._superstep.runs
+    assert runs == {"frames": SCALED_SUPERSTEPS - 2,
+                    "whole": len(metrics) - (SCALED_SUPERSTEPS - 2)}, runs
+    graph = steady_graph(Learner(trainer))
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
-    print(f"  updates {updates}; the second superstep, profiled: {steady} updates, K1-K3 on the "
-          f"device {launches}, no plain call, {per_step:.1f} host launches per vector step, "
-          f"device busy {100 * trace.device_us / trace.wall_us:.1f} %; episodes "
-          f"{metrics[-1].episodes}")
+    print(f"  updates {updates}; the last superstep, profiled, one replay of its graph "
+          f"({graph.nodes} nodes, captured in {graph.capture_s:.3f} s, instantiated in "
+          f"{graph.instantiate_s:.3f} s; supersteps run as one replay / frame by frame "
+          f"{runs['whole']} / {runs['frames']}): {steady} updates, K1-K3 on the device "
+          f"{launches}, no plain call, {per_step:.3f} host launches per vector step, device busy "
+          f"{100 * trace.device_us / trace.wall_us:.1f} %; episodes {metrics[-1].episodes}")
     print(f"  lunar_per_scaled x{cfg.num_envs} envs, use_pallas_sampler: "
-          f"{timed_steps} env steps of the first "
-          f"superstep (with the graphs' eager calls and captures) in {seconds:.3f} s = "
+          f"{timed_steps} env steps of the first {SCALED_SUPERSTEPS - 1} "
+          f"supersteps (with the graphs' eager calls and captures) in {seconds:.3f} s = "
           f"{timed_steps / seconds:.1f} env-steps/s, "
           f"peak memory {peak_mib:.1f} MiB [{card}]")
     return launches
@@ -1354,19 +1397,187 @@ def traced_superstep(step, where: str):
     kernel launch or a CUDA graph launch has no kernel (the profiler lost
     its records: phase 4's lost the kernels of up to 12 of its 257 graph
     launches in two of four whole runs of this script, and none in nine
-    traces of the same superstep in processes of their own) is reported,
-    and ``step`` runs and is traced again, up to TRACE_ATTEMPTS times."""
-    from deep_q_learning_tpu_torch.measure import traced_kernels
+    traces of the same superstep in processes of their own; late in this
+    script the losses fall within a few ms of a session's start or end,
+    and phase 13 (b) lost three lone replays' records in a row) is
+    reported, and ``step`` runs and is traced again, up to TRACE_ATTEMPTS
+    times, each time with the session idle TRACE_PAD_GROWTH times longer
+    around the span."""
+    from deep_q_learning_tpu_torch.measure import PAD_S, traced_kernels
 
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        trace = traced_kernels(step)
+        pad_s = PAD_S * TRACE_PAD_GROWTH ** (attempt - 1)
+        trace = traced_kernels(step, pad_s=pad_s)
         empty = trace.per_graph_launch.count(0)
         if not trace.lost and not empty:
             return trace, attempt
+        lost_ms = [round(t / 1e3, 2) for t in trace.lost_at_us]
         print(f"  {where}: the profiler lost records in superstep {attempt} of the trace "
               f"({trace.lost} of {trace.launches} kernel launches and {empty} of "
-              f"{len(trace.per_graph_launch)} graph launches with no kernel); tracing the next")
+              f"{len(trace.per_graph_launch)} graph launches with no kernel, launched "
+              f"{lost_ms[:3]}..{lost_ms[-3:]} ms into the span of {trace.wall_us / 1e3:.1f} ms, "
+              f"the session idle {pad_s} s around it); tracing the next")
     raise RuntimeError(f"{where}: the profiler lost records in {TRACE_ATTEMPTS} supersteps")
+
+
+class Learner:
+    """A learner driven superstep by superstep: a ``Trainer``, or a
+    population's runner and step."""
+
+    def __init__(self, trainer=None, runner=None, step=None):
+        self.trainer, self.population = trainer, (runner, step)
+
+    @property
+    def superstep(self):
+        """The ``GraphedLearner`` (or ``GraphedPopulation``) that runs it."""
+        return self.trainer._superstep if self.trainer is not None else self.population[1]
+
+    @property
+    def runner(self):
+        return self.trainer.runner if self.trainer is not None else self.population[0]
+
+    def step(self):
+        """One superstep; its metrics."""
+        if self.trainer is not None:
+            return self.trainer.step()
+        runner, step = self.population
+        return step(runner)[1]
+
+
+def same_metrics(a, b, where) -> None:
+    """Bitwise equality of two ``SuperstepMetrics`` (a population's arrays too)."""
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = np.asarray(getattr(a, f.name)), np.asarray(getattr(b, f.name))
+        assert x.dtype == y.dtype and np.array_equal(x, y, equal_nan=True), (where, f.name, x, y)
+
+
+def lockstep(torch, label, learners: dict, supersteps: int) -> list:
+    """``supersteps`` supersteps of each of ``learners`` (one seed) in
+    turns: the metrics and runners of each equal bitwise to the first's after
+    every superstep.  Returns the first's metrics."""
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    (first, lead), *others = learners.items()
+    metrics = []
+    for i in range(supersteps):
+        metrics.append(lead.step())
+        for name, other in others:
+            same_metrics(other.step(), metrics[-1], f"{label}: {name} superstep {i + 1}")
+        tree = ckpt._to_tree(lead.runner)
+        for name, other in others:
+            same_tree(torch, ckpt._to_tree(other.runner), tree, f"{label}: {name} vs {first} "
+                      f"after superstep {i + 1}")
+    return metrics
+
+
+def steady_graph(learner):
+    """The superstep graph (a ``GraphedStep``) that ``learner``'s next
+    superstep replays."""
+    from deep_q_learning_tpu_torch.measure import superstep_graph
+
+    graph = superstep_graph(learner.superstep, learner.runner)
+    assert graph is not None, "the next superstep has no graph"
+    return graph
+
+
+# P2g: env-steps/s of the superstep as one graph and frame by frame, in turns
+WHOLE_TURNS = ("whole", "frames", "frames", "whole", "whole", "frames")
+# at most, the host's launches of a steady superstep that runs as one
+# replay (the replay, the fills of the generators' seeds and offsets, the ε
+# table's copy and the metrics' read), a superstep and, at lunar_per's 128
+# frames, a vector step
+WHOLE_SUPERSTEP_LAUNCHES = 32
+WHOLE_HOST_LAUNCHES = 1.0
+
+
+def whole_vs_frames(torch, label, whole, frames, frames_per, envs, card) -> dict:
+    """P2g: ``whole``, a ``Learner`` whose steady supersteps replay the
+    superstep's graph, against ``frames``, the same learner from the same
+    seed frame by frame (``max_graphs = 0``), both past the capture and in
+    step: env-steps/s in turns (WHOLE_TURNS), the two bitwise equal after
+    each pair, then one steady superstep of each traced
+    (``traced_superstep``: the host's launches a vector step, the kernels of
+    the superstep's graph, the device's busy share), bitwise after it; the
+    graph's nodes, capture and instantiation seconds, and the peak memory
+    since the caller's ``fresh_peak`` (under 1 GiB).  ``frames_per`` vector steps of ``envs``
+    envs a superstep.  Returns the numbers and the graph; a replay of the
+    graph alone (``superstep_replay_ms``) is the caller's, last."""
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    assert frames.superstep.max_graphs == 0 and whole.superstep.max_graphs > 0
+    graph = steady_graph(whole)
+    rates = {"whole": [], "frames": []}
+    for i, name in enumerate(WHOLE_TURNS):  # before the traces: no profiler has run on them
+        learner = whole if name == "whole" else frames
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner.step()
+        torch.cuda.synchronize()
+        rates[name].append(frames_per * envs / (time.perf_counter() - t0))
+        if i % 2:
+            same_tree(torch, ckpt._to_tree(frames.runner), ckpt._to_tree(whole.runner),
+                      f"{label}: frames vs whole in turns")
+    runs = dict(whole.superstep.runs)
+    traces, taken = {}, {}
+    for name, learner in (("whole", whole), ("frames", frames)):
+        traces[name], taken[name] = traced_superstep(learner.step, f"{label} ({name})")
+    for name, learner in (("whole", whole), ("frames", frames)):  # back in step
+        for _ in range(max(taken.values()) - taken[name]):
+            learner.step()
+    replays = whole.superstep.runs["whole"] - runs["whole"]
+    assert replays == max(taken.values()), (label, replays, taken)
+    assert len(traces["whole"].per_graph_launch) == 1, (label, traces["whole"].per_graph_launch)
+    same_tree(torch, ckpt._to_tree(frames.runner), ckpt._to_tree(whole.runner),
+              f"{label}: frames vs whole after the traced superstep")
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    assert peak_mib < 1024, (label, peak_mib)
+    per_step = {name: t.host_launches / frames_per for name, t in traces.items()}
+    t = traces["whole"]
+    assert t.host_launches <= WHOLE_SUPERSTEP_LAUNCHES, (label, t.launches, t.copies)
+    print(f"  {label}, P2g: a steady superstep as one replay of its graph ({graph.nodes} nodes, "
+          f"{t.per_graph_launch[0]} kernels on the device, captured in {graph.capture_s:.3f} s, "
+          f"instantiated in {graph.instantiate_s:.3f} s, its capture reserving "
+          f"{graph.pool_bytes / 2**20:.1f} MiB), bitwise the same learner frame by "
+          f"frame after every superstep; supersteps run as one replay / frame by frame "
+          f"{whole.superstep.runs['whole']} / {whole.superstep.runs['frames']}; host launches a "
+          f"vector step {per_step['whole']:.3f} ({t.launches} kernels, "
+          f"{len(t.per_graph_launch)} graphs, {t.copies} copies and fills in {frames_per} "
+          f"vector steps) against {per_step['frames']:.2f} frame by frame; device busy "
+          f"{100 * t.device_us / t.wall_us:.1f} % of {t.wall_us / 1e3:.1f} ms against "
+          f"{100 * traces['frames'].device_us / traces['frames'].wall_us:.1f} % of "
+          f"{traces['frames'].wall_us / 1e3:.1f} ms (profiled); peak memory "
+          f"{peak_mib:.1f} MiB [{card}]")
+    print(f"  {label} env-steps/s in turns: one replay "
+          f"{', '.join(f'{x:.1f}' for x in rates['whole'])}; frame by frame "
+          f"{', '.join(f'{x:.1f}' for x in rates['frames'])} [{card}]")
+    return {"graph": graph, "per_step": per_step, "rates": rates, "peak_mib": peak_mib,
+            "trace": t}
+
+
+def superstep_replay_ms(torch, label, graph, card, replays=2) -> float:
+    """The device ms of a replay of a superstep's graph alone (CUDA events
+    over ``replays`` back-to-back replays), and the host ms of its launch.
+    Each applies a superstep to the runner past its host mirrors: the
+    runner is not to be used after."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    host = 0.0
+    for _ in range(replays):
+        t0 = time.perf_counter()
+        graph.graph.replay()
+        host += time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / replays
+    print(f"  {label}: the superstep's graph replayed alone, {ms:.3f} ms on the device "
+          f"(CUDA events over {replays} replays), its launch {1e3 * host / replays:.3f} ms of "
+          f"host [{card}]")
+    return ms
 
 
 def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launches, card):
@@ -1493,6 +1704,80 @@ def run_jointed(torch, td_kernels, sample_kernels, solver_kernels, plain_launche
     return launches
 
 
+def jointed_whole(torch, card):
+    """Phase 7, P2g: ``lunar_jointed_per`` at JOINTED_CUTS from one seed,
+    the graphed trainer against itself frame by frame (``max_graphs =
+    0``): bitwise after each of JOINTED_WHOLE_SUPERSTEPS supersteps (the
+    warm-up's end, the steady superstep frame by frame, its capture and a
+    replay), then ``whole_vs_frames``: in the traced replay S1 once a
+    vector step and once for the reset pool, K1/K2 once an update; the
+    graph replayed alone."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.config import lunar_jointed_per
+    from deep_q_learning_tpu_torch.measure import learner_kernels
+    from deep_q_learning_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(lunar_jointed_per(), **JOINTED_CUTS)
+    fresh_peak(torch)
+    whole, frames = (Trainer(cfg, device="cuda").init(seed=0) for _ in range(2))
+    frames._superstep.max_graphs = 0
+    lockstep(torch, "lunar_jointed_per", {"whole": Learner(whole), "frames": Learner(frames)},
+             JOINTED_WHOLE_SUPERSTEPS)
+    assert whole._superstep.runs == {"frames": 2, "whole": JOINTED_WHOLE_SUPERSTEPS - 2}, (
+        whole._superstep.runs)
+    out = whole_vs_frames(torch, "lunar_jointed_per", Learner(whole), Learner(frames),
+                          cfg.steps_per_superstep, cfg.num_envs, card)
+    s1 = out["trace"].count(SOLVER_KERNEL)
+    kernels = learner_kernels(out["trace"])
+    f = cfg.steps_per_superstep
+    assert s1 == f + 1 and kernels == {"td_loss_fwd": f, "td_loss_bwd": f, "per_slot_sample": 0}, (
+        s1, kernels)
+    print(f"  lunar_jointed_per, P2g: in the traced replay S1 {s1} times ({f} vector steps and "
+          f"the reset pool), K1/K2 {kernels['td_loss_fwd']} times [{card}]")
+    superstep_replay_ms(torch, "lunar_jointed_per", out["graph"], card)
+
+
+def population_whole(torch, card):
+    """Phase 9, P2g: the lunar_per population of POP_MEMBERS at POP_CUTS,
+    each member its own learning rate (the gates the config's, one pattern
+    a steady superstep), graphed against itself frame by frame
+    (``max_graphs = 0``) from one seed: bitwise after each of
+    POP_WHOLE_SUPERSTEPS supersteps (the warm-up's end, the steady one
+    frame by frame, its capture, a replay), then ``whole_vs_frames``: K1–K3
+    once an update round in the traced replay; the graph replayed alone."""
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.measure import learner_kernels
+    from deep_q_learning_tpu_torch.parallel import build_population, set_population_hyper
+
+    cfg = dataclasses.replace(lunar_per(), **POP_CUTS)
+    fresh_peak(torch)
+    learners = {}
+    for name in ("whole", "frames"):
+        init, step, _ = build_population(cfg, POP_MEMBERS, device="cuda")
+        if name == "frames":
+            step.max_graphs = 0
+        runner = set_population_hyper(init(0), learning_rate=POP_HYPER["learning_rate"])
+        learners[name] = Learner(runner=runner, step=step)
+    lockstep(torch, "lunar_per population", learners, POP_WHOLE_SUPERSTEPS)
+    whole = learners["whole"]
+    assert whole.superstep.runs == {"frames": 2, "whole": POP_WHOLE_SUPERSTEPS - 2}, (
+        whole.superstep.runs)
+    label = f"lunar_per population of {POP_MEMBERS}"
+    out = whole_vs_frames(torch, label, whole, learners["frames"], cfg.steps_per_superstep,
+                          cfg.num_envs * POP_MEMBERS, card)
+    kernels = learner_kernels(out["trace"])
+    f = cfg.steps_per_superstep
+    assert kernels == dict.fromkeys(("td_loss_fwd", "td_loss_bwd", "per_slot_sample"), f), kernels
+    counts = whole.runner.train.opt_state.count
+    assert counts == whole.runner.train.opt_state.device_count.tolist() and len(set(counts)) == 1
+    print(f"  {label}, P2g: K1-K3 {kernels} in the traced replay ({f} update rounds of every "
+          f"member), the members' Adam counts {counts[0]} [{card}]")
+    superstep_replay_ms(torch, label, out["graph"], card)
+
+
 def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
     """Phase 14: lunar_jointed_scaled(1024) at full width through the
     Trainer: 1,024 jointed landers at (120, 40), dueling (256, 256), PER
@@ -1527,7 +1812,8 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
         walls.append(time.perf_counter() - t0)
 
     superstep()  # captures the frame's and the update's graphs
-    superstep()  # timed
+    superstep()  # the same cadence again: captures the superstep's graph
+    superstep()  # timed, one replay
     trace, _ = traced_superstep(superstep, "phase 14")
     s1_events = trace.count(SOLVER_KERNEL)
     launches = learner_kernels(trace)
@@ -1552,20 +1838,30 @@ def run_jointed_scaled(torch, td_kernels, sample_kernels, solver_kernels, card):
     assert moved > 0, moved
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     assert peak_mib < 1024, peak_mib
-    rate = cfg.steps_per_superstep * cfg.num_envs / walls[1]
+    runs = trainer._superstep.runs
+    assert runs == {"frames": 1, "whole": len(metrics) - 1}, runs
+    per_step = trace.host_launches / cfg.steps_per_superstep
+    assert trace.host_launches <= WHOLE_SUPERSTEP_LAUNCHES, (trace.launches, trace.copies)
+    graph = steady_graph(Learner(trainer))
+    rate = cfg.steps_per_superstep * cfg.num_envs / walls[2]
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
-    print(f"  updates {updates}; the third superstep, profiled: K1-K3 {launches} on the device "
+    print(f"  the superstep's graph (P2g; its cadence from the first superstep on): {graph.nodes} "
+          f"nodes, captured in {graph.capture_s:.3f} s, instantiated in "
+          f"{graph.instantiate_s:.3f} s; supersteps run as one replay / frame by frame "
+          f"{runs['whole']} / {runs['frames']} [{card}]")
+    print(f"  updates {updates}; the last superstep, profiled: K1-K3 {launches} on the device "
           f"({steady} updates), S1 {s1_events} times ({cfg.steps_per_superstep} vector steps + "
-          f"its reset pool), no plain call, {trace.host_launches / cfg.steps_per_superstep:.1f} "
-          f"host launches per vector step, device busy "
-          f"{100 * trace.device_us / trace.wall_us:.1f} %; episodes {metrics[-1].episodes}, "
+          f"its reset pool), no plain call, {per_step:.3f} host launches per vector step, device "
+          f"busy {100 * trace.device_us / trace.wall_us:.1f} %; episodes {metrics[-1].episodes}, "
           f"peak memory {peak_mib:.1f} MiB [{card}]")
     # last: a replay of the learner's graphs writes the runner again
     host_ms, device_ms, nodes = replay_ms(trainer._superstep.frame)
     learn_host, learn_device, learn_nodes = replay_ms(trainer._superstep.learn)
+    superstep_replay_ms(torch, "lunar_jointed_scaled(1024)", graph, card)
     print(f"  lunar_jointed_scaled x{cfg.num_envs} envs, use_pallas_sampler: supersteps of "
-          f"{cfg.steps_per_superstep} frames {', '.join(f'{w:.3f}' for w in walls)} s (captures, "
-          f"timed, profiled): {rate:.1f} env-steps/s in the second; the frame graph's replay "
+          f"{cfg.steps_per_superstep} frames {', '.join(f'{w:.3f}' for w in walls)} s (frame "
+          f"by frame, the superstep's capture, timed, profiled): {rate:.1f} env-steps/s in the "
+          f"third, one replay; the frame graph's replay "
           f"(actor, vector step, replay write) {device_ms:.3f} ms on the device ({nodes} "
           f"kernels), its launch {host_ms:.3f} ms of host; the update's {learn_device:.3f} ms "
           f"({learn_nodes} kernels), its launch {learn_host:.3f} ms [{card}]")
@@ -1662,22 +1958,26 @@ def jointed_pairs(torch, trainer, cfg, workdir, td_kernels, sample_kernels, card
     eager = Trainer(cfg, device="cuda", workdir=workdir, graphed=False).restore()
     assert not eager.venv.graphed
     rates = {"graphed": [], "eager": []}
-    td_kernels.reset_counts()
     sample_kernels.reset_counts()
     updates = eager_updates = 0
+    eager_launches = dict.fromkeys(("td_loss_fwd", "td_loss_bwd"), 0)
     for i, name in enumerate(["graphed", "eager", "eager", "graphed", "graphed", "eager"]):
         t = trainer if name == "graphed" else eager
+        td_kernels.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = t.step()
         torch.cuda.synchronize()
         rates[name].append(cfg.steps_per_superstep * cfg.num_envs / (time.perf_counter() - t0))
         updates += m.loss_count
-        eager_updates += m.loss_count if name == "eager" else 0
+        if name == "eager":  # the graphed trainer's count its captures only
+            eager_updates += m.loss_count
+            for k in eager_launches:
+                eager_launches[k] += td_kernels.launches[k]
         if i == 1:  # both from the same checkpoint, one superstep each
             same_tree(torch, runner_tree(trainer), runner_tree(eager))
-    assert td_kernels.launches == {"td_loss_fwd": eager_updates, "td_loss_bwd": eager_updates}, (
-        td_kernels.launches, eager_updates)
+    assert eager_launches == {"td_loss_fwd": eager_updates, "td_loss_bwd": eager_updates}, (
+        eager_launches, eager_updates)
     assert not any(dict(td_kernels.plain_calls, **sample_kernels.plain_calls).values())
     print(f"  one superstep graphed and one eager from the same checkpoint: runners bitwise "
           f"equal (parameters, Adam moments and count, replay ring, priorities and counters, "
@@ -1774,21 +2074,6 @@ def count_calls(obj, name: str, counts: dict) -> None:
 LAUNCH_STEPS = 8  # the vector steps of the superstep whose launches are counted
 
 
-def steady_launches(torch, cfg) -> float:
-    """Kernel launches per vector step of a steady superstep of ``cfg`` (every
-    frame trains), counted by torch.profiler on a second trainer whose
-    supersteps are LAUNCH_STEPS long: the profiler's cost grows with the
-    events it records."""
-    import dataclasses
-
-    from deep_q_learning_tpu_torch.train import Trainer
-
-    short = dataclasses.replace(cfg, steps_per_superstep=LAUNCH_STEPS, training_start=0)
-    steady = profile_steady(torch, Trainer(short, device="cuda").init(seed=1), LAUNCH_STEPS)
-    assert steady["updates"] == LAUNCH_STEPS * cfg.updates_per_step
-    return steady["launches_per_step"]
-
-
 def run_classic(torch, td_kernels, sample_kernels, preset, card):
     """Phase 8: one uniform-replay preset at full width through the Trainer,
     each frame as CUDA graph launches (``GraphedLearner``), superstep by
@@ -1809,7 +2094,10 @@ def run_classic(torch, td_kernels, sample_kernels, preset, card):
     supersteps, cuts = CLASSIC_RUNS[preset]
     cfg = dataclasses.replace(PRESETS[preset](), **cuts)
     assert cfg.replay == "uniform" and not cfg.use_pallas and not cfg.use_pallas_sampler
+    fresh_peak(torch)
     trainer = Trainer(cfg, device="cuda").init(seed=0)
+    frames = Trainer(cfg, device="cuda").init(seed=0)
+    frames._superstep.max_graphs = 0
     eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
     assert isinstance(trainer._superstep, GraphedLearner) and trainer.venv.graphed
     assert not isinstance(eager._superstep, GraphedLearner) and eager.venv.graphed
@@ -1829,8 +2117,9 @@ def run_classic(torch, td_kernels, sample_kernels, preset, card):
             out.append(t.step())
             torch.cuda.synchronize()
             rates[name].append(cfg.steps_per_superstep * cfg.num_envs / (time.perf_counter() - t0))
-        assert metrics[-1] == eager_metrics[-1], (preset, i)
-        same_tree(torch, runner_tree(trainer), runner_tree(eager), f"{preset} superstep {i + 1}")
+        assert metrics[-1] == eager_metrics[-1] == frames.step(), (preset, i)
+        for other in (eager, frames):
+            same_tree(torch, runner_tree(other), runner_tree(trainer), f"{preset} superstep {i + 1}")
     launches = dict(td_kernels.launches, **sample_kernels.launches)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
 
@@ -1849,21 +2138,28 @@ def run_classic(torch, td_kernels, sample_kernels, preset, card):
     assert all(math.isfinite(m.loss_sum) for m in metrics)
     assert metrics[-1].episodes > 0
     assert metrics[-1].episodes == sum(m.episodes_delta for m in metrics)
-    if trainer.env.batch_reset_cheap:  # one reset draw a frame, taken before the frame's graph
+    # the last superstep the capture of the steady superstep's graph, which
+    # draws inside it: its host calls made at the capture only
+    assert trainer._superstep.runs == {"frames": supersteps - 1, "whole": 1}, (
+        trainer._superstep.runs)
+    if trainer.env.batch_reset_cheap:  # one reset draw a frame, before the frame's graph
         assert calls == {"fresh_pool": 0, "reset_draws": vector_steps}, calls
-    else:  # the lander: one reset pool a superstep
-        assert calls == {"fresh_pool": supersteps, "reset_draws": supersteps}, calls
+    else:  # the lander: one reset pool a superstep, the graph's inside it
+        assert calls == {"fresh_pool": supersteps - 1, "reset_draws": supersteps}, calls
     online = [p.detach() for p in r.train.online.parameters()]
     assert sum(float((p - p0).norm()) for p, p0 in zip(online, online0)) > 0
-    per_step = steady_launches(torch, cfg)
+    whole = whole_vs_frames(torch, preset, Learner(trainer), Learner(frames),
+                            cfg.steps_per_superstep, cfg.num_envs, card)
+    per_step = whole["per_step"]["frames"]
     assert per_step <= CLASSIC_HOST_LAUNCHES, (preset, per_step)
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
     print(f"  {preset} x{cfg.num_envs} envs: {vector_steps * cfg.num_envs} env steps a run, "
           f"{updates} updates, {metrics[-1].episodes} episodes, window "
           f"{metrics[-1].window_mean:.3f}; graphed learner and eager learner from one seed "
-          f"bitwise equal after each of {supersteps} supersteps (runners and metrics); "
-          f"{per_step:.1f} host launches per vector step of a steady {LAUNCH_STEPS}-step "
-          f"graphed superstep (torch.profiler; at most {CLASSIC_HOST_LAUNCHES}) [{card}]")
+          f"bitwise equal after each of {supersteps} supersteps (runners and metrics), and the "
+          f"graphed learner frame by frame; {per_step:.1f} host launches per vector step of a "
+          f"steady superstep frame by frame (torch.profiler; at most {CLASSIC_HOST_LAUNCHES}), "
+          f"{whole['per_step']['whole']:.3f} as one replay [{card}]")
     print(f"  {preset} env-steps/s by superstep in turns (the first graphed one with the "
           f"graphs' eager calls and captures): graphed "
           f"{', '.join(f'{x:.1f}' for x in rates['graphed'])}; eager learner "
@@ -1874,6 +2170,7 @@ def run_classic(torch, td_kernels, sample_kernels, preset, card):
         print(f"  {preset}: the graph of the {name}: replay {device_ms:.3f} ms on the device, "
               f"{nodes} kernels, its launch {host_ms:.3f} ms of host; captured in "
               f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
+    superstep_replay_ms(torch, preset, whole["graph"], card)
     return trainer
 
 
@@ -1980,24 +2277,28 @@ def run_population(torch, td_kernels, sample_kernels, card):
     metrics = [trainer.step(runner)[1]]  # each graph's eager call and capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics.append(trainer.step(runner)[1])
+    metrics.append(trainer.step(runner)[1])  # the steady cadence, frame by frame
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    metrics.append(trainer.step(runner)[1])  # the steady cadence again: its graph's capture
     trace, _ = traced_superstep(lambda: metrics.append(trainer.step(runner)[1]), "phase 9")
     steady = cfg.steps_per_superstep
     launches = learner_kernels(trace)
     assert metrics[-1].loss_count.tolist() == [steady] * m, metrics[-1].loss_count
     assert launches == {"td_loss_fwd": steady, "td_loss_bwd": steady,
                         "per_slot_sample": steady}, (launches, steady)
+    assert trainer._step.runs == {"frames": 2, "whole": len(metrics) - 2}, trainer._step.runs
     wrapped = dict(td_kernels.launches, **sample_kernels.launches)
-    assert wrapped == {"td_loss_fwd": 2, "td_loss_bwd": 2, "per_slot_sample": 2}, wrapped
+    # graph L's eager call and capture, and the superstep graph's capture
+    assert wrapped == dict.fromkeys(("td_loss_fwd", "td_loss_bwd", "per_slot_sample"),
+                                    2 + steady), wrapped
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
     assert not any(plain.values()), plain
     per_step = trace.host_launches / steady
-    assert per_step <= POP_HOST_LAUNCHES, (per_step, trace.launches, trace.copies)
+    assert trace.host_launches <= WHOLE_SUPERSTEP_LAUNCHES, (trace.launches, trace.copies)
 
     vector_steps = len(metrics) * steady
-    rounds = vector_steps - cfg.training_start // cfg.num_envs + 1  # vector steps 16..96
+    rounds = vector_steps - cfg.training_start // cfg.num_envs + 1  # vector steps 16..128
     assert [mt.env_steps for mt in metrics] == [steady * (i + 1) for i in range(len(metrics))]
     assert runner.replay.total_adds == int(runner.replay.device_adds) == vector_steps
     counts = sum(mt.loss_count for mt in metrics)
@@ -2028,11 +2329,12 @@ def run_population(torch, td_kernels, sample_kernels, card):
     print(f"  lunar_per population {m} x {cfg.num_envs} envs, graphed: the second superstep "
           f"{env_steps} env steps in {seconds:.3f} s = {env_steps / seconds:.1f} aggregate "
           f"env-steps/s; peak memory {peak_mib:.1f} MiB [{card}]")
-    print(f"  the third superstep, profiled: {steady} update rounds, K1/K2/K3 on the device "
-          f"{launches}, the wrappers {wrapped} (graph L's eager call and capture), no plain "
-          f"call; {per_step:.1f} host launches per vector step ({trace.launches} kernels, "
-          f"{len(trace.per_graph_launch)} graphs, {trace.copies} copies and fills in {steady} "
-          f"vector steps; at most {POP_HOST_LAUNCHES}), device busy "
+    print(f"  the fourth superstep, profiled, one replay of its graph: {steady} update rounds, "
+          f"K1/K2/K3 on the device {launches}, the wrappers {wrapped} (graph L's eager call "
+          f"and capture, the superstep graph's capture), no plain call; {per_step:.3f} host "
+          f"launches per vector step ({trace.launches} kernels, {len(trace.per_graph_launch)} "
+          f"graphs, {trace.copies} copies and fills in {steady} vector steps; at most "
+          f"{WHOLE_SUPERSTEP_LAUNCHES} a superstep), device busy "
           f"{100 * trace.device_us / trace.wall_us:.1f} % of {trace.wall_us / 1e3:.1f} ms "
           f"[{card}]")
     population_pairs(torch, trainer, runner, cfg, td_kernels, card)
@@ -2289,10 +2591,13 @@ def profile_steady(torch, trainer, steps):
     """The host's launches per vector step (kernels, CUDA graphs, copies and
     fills), the device's busy share of the wall and the host time of the
     ``grad_all_reduce`` span per update, from torch.profiler over one
-    steady superstep of ``steps`` vector steps (after one to warm)."""
+    steady superstep of ``steps`` vector steps (after two to warm: the
+    frame by frame graphs' eager calls and captures, then a single
+    learner's capture of the superstep's graph)."""
     from deep_q_learning_tpu_torch.measure import host_launches
 
-    trainer.step()
+    for _ in range(2):
+        trainer.step()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -2332,8 +2637,9 @@ def all_reduce_us(torch, trainer, calls=200):
 
 def rank_steady(torch, trainer, attempts, lockstep=False):
     """A steady superstep of LAUNCH_STEPS vector steps, each with an
-    update, after one that makes each graph's eager call and capture:
-    supersteps traced (``measure.traced_kernels``) until one whose trace
+    update, after two that make each graph's eager call and capture (a
+    single learner's second captures its superstep's graph): supersteps
+    traced (``measure.traced_kernels``) until one whose trace
     lost no record, at most ``attempts``; with ``lockstep`` (ranks of more
     than one process) every rank traces all ``attempts``, so that all take
     as many supersteps, and keeps the first clean one.  Returns the host's
@@ -2341,7 +2647,8 @@ def rank_steady(torch, trainer, attempts, lockstep=False):
     it, and the device's busy share."""
     from deep_q_learning_tpu_torch.measure import learner_kernels, traced_kernels
 
-    trainer.step()
+    for _ in range(2):
+        trainer.step()
     kept = None
     for _ in range(attempts):
         before = trainer.runner.train.updates
@@ -3253,14 +3560,6 @@ REF_EVAL_EPISODES = 10
 # of 128 vector steps, the learner from vector step 157 (20,000 stored over 128
 # envs), so two whole supersteps past training_start, as phase 4
 REF_TRAIN_SUPERSTEPS = 4
-# phase 4: the host's launches (kernels, graphs, copies and fills) per vector
-# step of a steady lunar_per superstep with the graphed learner (the eager
-# learner's ~390-490), and the frame from which the trap check's learner runs
-SLICE_HOST_LAUNCHES = 40
-FIRST_TRAIN_FRAME = 3
-# F5's pair: epsilon_greedy with a float ε and with a device tensor over
-# 2^20 draws at the ε of artifacts/flagship_parting/division.py
-F5_DRAWS, F5_EPSILONS = 1 << 20, (0.9, 0.459, 0.01, 1 / 3)
 
 
 def ref_observations(torch):
@@ -3344,6 +3643,9 @@ def run_reference_format(torch, td_kernels, card, workdir):
         assert torch.equal(read_back, trained), float((read_back - trained).abs().max())
         rollout = np.load(Path(workdir) / "rollout_0.npz")
         assert math.isfinite(float(rollout["ret"])) and int(rollout["length"]) > 0
+        # the evaluator's process is done before the profiler starts: no other
+        # process is on the card while this one is traced
+        stdout, stderr = evaluate.communicate(timeout=300)
         # one more superstep of the script's trainer under the profiler: K1/K2
         # on the device once per update (a graph's replay passes no counter)
         more = []
@@ -3359,8 +3661,6 @@ def run_reference_format(torch, td_kernels, card, workdir):
               f"ref_format pair read back with Q-values bitwise the trained network's; "
               f"rollout return {float(rollout['ret']):.1f} over {int(rollout['length'])} "
               f"frames; {seconds:.1f} s [{card}]")
-
-        stdout, stderr = evaluate.communicate(timeout=300)
     finally:
         if evaluate.poll() is None:
             evaluate.kill()
@@ -3551,6 +3851,7 @@ def main() -> int:
     jointed_launches = run_jointed(torch, td_kernels, sample_kernels, solver_kernels,
                                    plain_solver_launches, card)
     check_jointed_frame(torch, card)
+    jointed_whole(torch, card)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
     print("phase 8: the uniform replay and classic control on the card, graphed")
@@ -3569,6 +3870,7 @@ def main() -> int:
     print("phase 9: a lunar_per population of 8 members")
     t0 = time.perf_counter()
     population_launches_run = run_population(torch, td_kernels, sample_kernels, card)
+    population_whole(torch, card)
     check_population_update_vs_cpu(torch)
     run_hpo_cli(card)
     run_hpo_trials(torch, card)

@@ -342,7 +342,11 @@ def epsilon_by_schedule(cfg, env_steps: float, episodes, hyper: Optional[HyperPa
     device-side episode count (a tensor), rescaled by ``num_envs`` to keep
     the reference's per-env decay rate, and returns a tensor.  With
     :class:`MemberHyperParams` (and ``episodes`` (M,)) both return an (M,)
-    float32 tensor, each member's from its own values and episodes."""
+    float32 tensor, each member's from its own values and episodes; there
+    ``env_steps`` may be a host int or an int64 device tensor (a whole
+    superstep's graph counts on the device), with equal bits: either is
+    rounded to float32 and multiplied by the reciprocal of the decay steps,
+    as a host number divided by a tensor is."""
     h = hyper if hyper is not None else HyperParams.from_config(cfg)
     if cfg.eps_schedule == "exp_episode":
         per_env_episodes = episodes.to(torch.float32) / cfg.num_envs
@@ -350,7 +354,7 @@ def epsilon_by_schedule(cfg, env_steps: float, episodes, hyper: Optional[HyperPa
         return torch.clamp(eps, min=h.eps_min)
     elif cfg.eps_schedule == "linear_step":
         if isinstance(h.eps_decay_steps, torch.Tensor):
-            frac = torch.clamp(env_steps / h.eps_decay_steps, 0.0, 1.0)
+            frac = torch.clamp(h.eps_decay_steps.reciprocal() * env_steps, 0.0, 1.0)
         else:
             frac = min(max(env_steps / h.eps_decay_steps, 0.0), 1.0)
         return h.eps_start + frac * (h.eps_min - h.eps_start)

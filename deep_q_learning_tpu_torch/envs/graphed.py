@@ -19,11 +19,16 @@ owns static input buffers and the call's outputs, and
 So on both devices an output is overwritten by the next call: a caller
 that keeps one past the next call copies it first.  Each call copies its
 arguments into the static inputs, except an argument that already is the
-static input (a copy onto itself).  The function must take no random
-numbers from a generator and read nothing back to the host: its caller
-draws the random numbers first and passes them in (``Environment.
-step_draws`` and ``reset_draws``).  A capture that fails raises; nothing
-falls back to the eager call.
+static input (a copy onto itself).  The function reads nothing back to
+the host.  It takes no random numbers from a generator, its caller drawing
+them first and passing them in (``Environment.step_draws`` and
+``reset_draws``), unless the step is given that ``generator``: the
+generator is then registered with the graph before the capture, so that a
+replay takes from it the numbers the captured calls would have taken
+(CUDA's Philox generator reads its seed and offset from the device at
+each replay and advances its offset on the host by the graph's whole
+consumption), in the order of the eager call.  A capture that fails
+raises; nothing falls back to the eager call.
 
 ``in_place=True`` is for a function that writes its results into tensors
 it is given (the learner's update, ``algos/superstep.py``), where a second
@@ -35,14 +40,21 @@ device the first call with those tensors runs eagerly on a side stream
 replays it once, and later calls replay it.  A call with tensors at other
 addresses (a restored runner) starts over with an eager call.  Python code
 in the function runs at the eager call and at the capture only, never at a
-replay: host counters belong outside it.
+replay: host counters belong outside it.  ``warm_up=False`` skips the eager
+call, for a function whose every operation has already run in this
+process (the whole superstep, after its frames ran as graphs of their
+own): the first call captures and replays.  Such a graph is captured
+with its ``cudaGraph_t`` kept, so that its capture and its
+instantiation are timed apart and its nodes counted.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import gc
 import time
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -134,17 +146,23 @@ class GraphedStep:
     ``in_place``, ``fn`` writes into its arguments' tensors (module
     docstring)."""
 
-    def __init__(self, fn: Callable, name: str = "step", in_place: bool = False):
+    def __init__(self, fn: Callable, name: str = "step", in_place: bool = False,
+                 generator: Optional[torch.Generator] = None, warm_up: bool = True):
         self.fn = fn
         self.name = name
         self.in_place = in_place
+        self.generator = generator  # registered with the graph: fn draws from it
+        self.warm_up = warm_up
         self.inputs = None  # the static inputs: a clone of the first call's arguments
         self.outputs = None  # the static outputs
         self.graph = None
         self.bound = None  # in place: the addresses of the tensors the graph was made for
         # host seconds of the eager warm-up call and of the capture (with the
-        # graph's instantiation), on a CUDA device
-        self.warmup_s = self.capture_s = None
+        # graph's instantiation, but where warm_up is off), on a CUDA device;
+        # without warm-up, the instantiation's seconds, the graph's nodes and
+        # the device memory its capture reserved (its private pool)
+        self.warmup_s = self.capture_s = self.instantiate_s = self.nodes = None
+        self.pool_bytes = None
 
     def __call__(self, *args):
         if self.in_place:
@@ -175,8 +193,9 @@ class GraphedStep:
         bound = tuple(t.data_ptr() for t in leaves)
         if bound != self.bound:  # other tensors: this call is the warm-up
             self.graph, self.bound = None, bound
-            self._eager_on_side_stream(args)
-            return
+            if self.warm_up:
+                self._eager_on_side_stream(args)
+                return
         if self.graph is None:
             self._capture(args)
         self.graph.replay()
@@ -196,7 +215,16 @@ class GraphedStep:
     def _capture(self, args):
         """Capture ``fn(*args)`` into ``self.graph``; returns its outputs."""
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        # a collection during the capture may free an unreachable graph, whose
+        # reset is a CUDA call the capture refuses: collect first, and hold
+        # the collector off while capturing
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph(keep_graph=not self.warm_up)
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
         try:
             # thread_local: another thread's CUDA work (a process group's)
             # may go on during the capture; this thread's may not sync
@@ -207,6 +235,26 @@ class GraphedStep:
                 f"CUDA graph capture of {self.name} failed: the call must launch kernels only, "
                 f"with no read back to the host; build it with graphed=False to run it "
                 f"eagerly") from err
-        self.graph = graph
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
+        if not self.warm_up:
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+            self.nodes = graph_nodes(graph.raw_cuda_graph())
+            t0 = time.perf_counter()
+            graph.instantiate()
+            self.instantiate_s = time.perf_counter() - t0
+        self.graph = graph
         return outputs
+
+
+def graph_nodes(raw_graph: int) -> int:
+    """The nodes of a captured ``cudaGraph_t`` (kernels, copies and fills),
+    counted by libcuda's ``cuGraphGetNodes``."""
+    count = ctypes.c_size_t(0)
+    status = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(raw_graph), None, ctypes.byref(count))
+    if status != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {status}")
+    return count.value

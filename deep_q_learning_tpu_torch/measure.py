@@ -26,9 +26,15 @@
    copies and fills) per vector step, the kernels of the learner in the
    trace (K1, K2 and K3 once per update), and the device's busy share of
    the wall time; then the wall time and env-steps/s of the next two
-   supersteps, unprofiled.  A frame runs as CUDA graphs (every env of the
-   port injects its draws, with either replay): the frame (actor, env
-   step, replay write) and, when it trains, the learner update
+   supersteps, unprofiled.  A steady superstep is one CUDA graph (every env
+   of the port injects its draws, with either replay): the warm-up runs
+   supersteps until the next one's cadence has its graph (at most
+   ``WARM_SUPERSTEPS``), and its span ``phase/graph.superstep`` holds the
+   replay; the line ``superstep graph`` gives its nodes, its capture and
+   instantiation seconds, its replay alone on the device and the share of
+   the supersteps that ran as one replay.  A superstep whose cadence is
+   new runs frame by frame as CUDA graphs: the frame (actor, env step,
+   replay write) and, when it trains, the learner update
    (``algos/superstep.py::GraphedLearner``), beside the lander's reset
    pool's graph; ``--eager-learner``
    runs the frame eagerly around the env step's graph, and ``--eager``
@@ -461,6 +467,56 @@ def learner_graphs(superstep) -> dict:
             if g is not None and g.graph is not None}
 
 
+# the learner's graph launches, by the spans around them: the frame's and the
+# update's, frame by frame, and the superstep's graph with its host mirrors
+GRAPH_SPANS = {"frame": "phase/graph.frame", "learn": "phase/graph.learn",
+               "replay_superstep": "phase/graph.superstep"}
+# supersteps run before the profiled one, at most: until the next superstep's
+# cadence has its graph (warm-up, its end, the steady cadence frame by frame,
+# its capture)
+WARM_SUPERSTEPS = 8
+
+
+def warm_up(step: Callable[[], object], superstep, runner: Callable[[], object]) -> int:
+    """Supersteps of ``step()`` until the next one replays its superstep's
+    graph (a ``GraphedLearner``'s ``superstep`` bound to ``runner()``), at
+    least 2, at most WARM_SUPERSTEPS; without one, 2.  Returns how many."""
+    for n in range(1, WARM_SUPERSTEPS + 1):
+        step()
+        if n >= 2 and (superstep_graph(superstep, runner()) is not None
+                       or not hasattr(superstep, "supersteps")):
+            return n
+    return WARM_SUPERSTEPS
+
+
+def superstep_graph(superstep, r):
+    """The graph that ``superstep``'s next superstep of ``r`` replays, or None."""
+    if not hasattr(superstep, "supersteps"):
+        return None
+    graph = superstep.supersteps.get(superstep.key(r))
+    return None if graph is None else graph[0]
+
+
+def superstep_line(superstep, graph, card: str, replays: int = 2) -> None:
+    """The superstep graph's nodes, capture and instantiation seconds, its
+    device time alone (CUDA events over ``replays`` replays, each applying a
+    superstep past the runner's counters: last), and the share of
+    supersteps that ran as one replay."""
+    runs = superstep.runs
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.graph.replay()
+    end.record()
+    end.synchronize()
+    print(f"superstep graph: {graph.nodes} nodes, captured in {graph.capture_s:.3f} s, "
+          f"instantiated in {graph.instantiate_s:.3f} s, replay alone "
+          f"{start.elapsed_time(end) / replays:.3f} ms on the device (CUDA events over "
+          f"{replays}); supersteps run as one replay {runs['whole']} of "
+          f"{runs['whole'] + runs['frames']} [{card}]")
+
+
 def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: bool = True) -> None:
     from deep_q_learning_tpu_torch.train import Trainer
 
@@ -473,11 +529,10 @@ def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: boo
         obj = getattr(trainer, owner)
         for m in methods:
             setattr(obj, m, _span(getattr(obj, m), f"phase/{owner}.{m}"))
-    for _ in range(2):  # past the warm-up frames: every superstep now trains
-        trainer.step()
-    for name in ("frame", "learn") if learner else ():
-        graphed_step = getattr(trainer._superstep, name)
-        setattr(trainer._superstep, name, _span(graphed_step, f"phase/graph.{name}"))
+    warm = warm_up(trainer.step, trainer._superstep, lambda: trainer.runner)
+    graph = superstep_graph(trainer._superstep, trainer.runner)
+    for name, span in GRAPH_SPANS.items() if learner else ():
+        setattr(trainer._superstep, name, _span(getattr(trainer._superstep, name), span))
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -497,12 +552,15 @@ def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: boo
                          and any(k in e.key for k in names))
                for name, names in LEARNER_KERNELS.items()}
     frames = cfg.steps_per_superstep
-    print(f"profiled superstep ({mode}): wall {wall * 1e3:.1f} ms, {m.loss_count} updates, "
+    if graph is not None:
+        mode += ", one replay of its graph"
+    print(f"profiled superstep ({mode}, after {warm} supersteps): wall {wall * 1e3:.1f} ms, "
+          f"{m.loss_count} updates, "
           f"device busy {device_us_total / 1e3:.1f} ms ({100 * device_us_total / 1e6 / wall:.1f} %), "
           f"host launches {launches}: {sum(launches.values()) / frames:.1f} per vector step; "
           f"the learner's kernels on the device {kernels} [{card}]")
     if learner:
-        for name in ("frame", "learn"):
+        for name in GRAPH_SPANS:
             setattr(trainer._superstep, name, getattr(trainer._superstep, name).__wrapped__)
     spans = sorted((e for e in events if e.key.startswith("phase/")
                     and e.device_type == torch.autograd.DeviceType.CPU),
@@ -514,6 +572,8 @@ def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: boo
     graphs = {kind: g for (kind, *_), g in trainer.venv._graphs.items()}
     graphs.update(learner_graphs(trainer._superstep))  # last: their replays write the runner
     unprofiled(trainer.step, frames, cfg.num_envs, mode, graphs, card)
+    if graph is not None:
+        superstep_line(trainer._superstep, graph, card)
 
 
 def unprofiled(step: Callable[[], object], frames: int, envs: int, mode: str, graphs: dict,
@@ -556,12 +616,15 @@ def profile_population(cfg, members: int, card: str, graphed_learner: bool = Tru
     mode = (f"{members} members, " + ("graphed population" if graphed
                                       else "eager population, graphed env step"))
     runner = trainer.init(seed=0)
-    for _ in range(2):  # past the warm-up frames and the captures
-        trainer.step(runner)
+    warm = warm_up(lambda: trainer.step(runner), trainer._step, lambda: runner)
+    graph = superstep_graph(trainer._step, runner)
+    if graph is not None:
+        mode += ", one replay of its graph"
     metrics = []
     trace = traced_kernels(lambda: metrics.append(trainer.step(runner)[1]))
     frames = cfg.steps_per_superstep
-    print(f"profiled superstep ({mode}): wall {trace.wall_us / 1e3:.1f} ms, updates "
+    print(f"profiled superstep ({mode}, after {warm} supersteps): wall "
+          f"{trace.wall_us / 1e3:.1f} ms, updates "
           f"{metrics[-1].loss_count.tolist()}, device busy {trace.device_us / 1e3:.1f} ms "
           f"({100 * trace.device_us / trace.wall_us:.1f} %), host launches "
           f"{trace.host_launches / frames:.1f} per vector step ({trace.launches} kernels, "
@@ -573,6 +636,8 @@ def profile_population(cfg, members: int, card: str, graphed_learner: bool = Tru
         graphs = {kind: g for (kind, *_), g in venv._graphs.items()}
         graphs.update(learner_graphs(trainer._step))
     unprofiled(lambda: trainer.step(runner), frames, cfg.num_envs * members, mode, graphs, card)
+    if graph is not None:
+        superstep_line(trainer._step, graph, card)
 
 
 REPLAYS = 5
@@ -583,6 +648,12 @@ REPLAYS = 5
 # a session (3-6 in most of chip_smoke.py's; the kernels ran: their outputs
 # were checked bitwise), so they fall outside the span
 WARM_LAUNCHES = 32
+# Idle seconds of a profiling session before and after the span it counts:
+# the profiler has dropped the records of launches made within a few ms of
+# a session's start (after its warm-up launches) or of its end, most often
+# late in a long process; the session holds its ends away from the span's
+# launches
+PAD_S = 0.05
 SPAN = "traced_kernels"
 # replays in the span that counts a graph's kernels: the last two must agree
 TRACED_REPLAYS = 4
@@ -596,7 +667,9 @@ class KernelTrace:
     ``per_graph_launch``, their count for each graph launch in order).
     ``copies`` counts the host's copy and fill calls, ``device_us`` the
     device time of the kernels, copies and fills matched to the span's
-    calls, and ``wall_us`` the span's wall time on the host."""
+    calls, ``wall_us`` the span's wall time on the host, and ``lost_at_us``
+    when each launch with no kernel in the trace (a kernel launch or a
+    graph launch) was made, in µs after the span began."""
 
     launches: int
     launched: collections.Counter
@@ -605,6 +678,7 @@ class KernelTrace:
     copies: int = 0
     device_us: float = 0.0
     wall_us: float = 0.0
+    lost_at_us: list = dataclasses.field(default_factory=list)
 
     @property
     def host_launches(self) -> int:
@@ -622,14 +696,16 @@ class KernelTrace:
         return sum(c for k, c in (self.launched + self.graphed).items() if name in k)
 
 
-def traced_kernels(fn: Callable[[], object]) -> KernelTrace:
+def traced_kernels(fn: Callable[[], object], pad_s: float = PAD_S) -> KernelTrace:
     """What ``fn()`` ran on the card, under ``torch.profiler``: every
     kernel launch call and CUDA graph launch the host made inside a span
     around ``fn()`` (and a sync), and the kernels matched to them by the
     trace's correlation ids; the kernels of a graph's replay carry the
     graph launch's.  Copies and fills are not kernels; host API calls
     (``cuLaunchKernel`` of cuBLAS among them) are never counted as
-    kernels, whatever the profiler's summary makes of them."""
+    kernels, whatever the profiler's summary makes of them.  The session
+    stays idle ``pad_s`` seconds after its warm-up launches and again after
+    the span."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -637,9 +713,11 @@ def traced_kernels(fn: Callable[[], object]) -> KernelTrace:
         for _ in range(WARM_LAUNCHES):
             warm.add_(1)
         torch.cuda.synchronize()
+        time.sleep(pad_s)
         with torch.profiler.record_function(SPAN):
             fn()
             torch.cuda.synchronize()
+        time.sleep(pad_s)
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
@@ -656,6 +734,9 @@ def traced_kernels(fn: Callable[[], object]) -> KernelTrace:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     by_id = collections.Counter(e["args"]["correlation"] for e in kernels)
     ours = launch_ids | set(graph_ids) | copy_ids
+    launched = launch_ids | set(graph_ids)
+    lost_at = sorted(e["ts"] - t0 for e in calls
+                     if e["args"]["correlation"] in launched and not by_id[e["args"]["correlation"]])
     return KernelTrace(
         launches=sum("LaunchKernel" in e["name"] for e in calls),
         launched=collections.Counter(
@@ -667,7 +748,8 @@ def traced_kernels(fn: Callable[[], object]) -> KernelTrace:
         device_us=sum(e["dur"] for e in events
                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                       and e.get("args", {}).get("correlation") in ours),
-        wall_us=span["dur"])
+        wall_us=span["dur"],
+        lost_at_us=lost_at)
 
 
 def replay_ms(graphed) -> tuple:

@@ -160,10 +160,10 @@ class PrioritizedReplay:
         cursor.copy_((cursor + 1) % self.capacity_per_env)
         state.device_adds.add_(1)
 
-    def advance(self, state: PrioritizedReplayState) -> None:
-        """The host mirrors of one :meth:`write`."""
-        state.cursor = (state.cursor + 1) % self.capacity_per_env
-        state.total_adds += 1
+    def advance(self, state: PrioritizedReplayState, k: int = 1) -> None:
+        """The host mirrors of ``k`` :meth:`write` calls."""
+        state.cursor = (state.cursor + k) % self.capacity_per_env
+        state.total_adds += k
 
     def sample_with_info(
         self,

@@ -7,8 +7,9 @@ priorities, max priority, cursor and fill, the device generator's state,
 and every counter and the return window.
 
 A counter that the learner's CUDA graphs advance on the device (the Adam
-count, one a member in a population; the replay's cursor and fill) is a
-host int mirrored by a device tensor (``envs/graphed.py::device_mirror``).
+count, one a member in a population; the replay's cursor and fill; the
+runner's frame count, on which a superstep's graph decides its syncs) is
+a host int mirrored by a device tensor (``envs/graphed.py::device_mirror``).
 The checkpoint holds the int, read back from the tensor at save time and
 checked against the mirror; a restore writes it into both.
 

@@ -864,6 +864,7 @@ def test_bf16_update_on_gpu_matches_cpu(cuda):
     trainer = Trainer(cfg, device="cuda").init(seed=0)
     td_kernels.reset_counts()
     trainer.step()  # the learner's graphs: an eager call, then the capture
+    trainer.step()  # the same cadence again: the superstep's graph captured
     # counted on the device: a replay does not pass the wrappers' counters
     assert learner_kernels(traced_kernels(trainer.step)) == {
         "td_loss_fwd": 4, "td_loss_bwd": 4, "per_slot_sample": 0}
@@ -989,7 +990,9 @@ def test_first_graphed_training_frames_apply_one_update_each(cuda):
     """The learner's graph runs its first call eagerly and captures on the
     second, so no frame applies its update twice: one ``lunar_per`` frame a
     superstep at full width, learning from the third, through the graphed
-    learner and the eager one from the same seed.  After each training
+    learner frame by frame (``max_graphs = 0``: a repeated one-frame
+    pattern would otherwise run as its superstep's graph) and the eager one
+    from the same seed.  After each training
     frame the Adam count is the number of updates (1 after the first, an
     eager call; 2 after the capture and its replay; then replays) and the
     runners are bitwise equal."""
@@ -1000,6 +1003,7 @@ def test_first_graphed_training_frames_apply_one_update_each(cuda):
 
     cfg = dataclasses.replace(lunar_per(), steps_per_superstep=1, training_start=3 * 128)
     graphed = Trainer(cfg, device="cuda").init(seed=0)
+    graphed._superstep.max_graphs = 0  # frame by frame: no one-frame superstep graph
     eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
     assert isinstance(graphed._superstep, GraphedLearner)
     assert not isinstance(eager._superstep, GraphedLearner) and eager.venv.graphed
@@ -1034,8 +1038,9 @@ def test_graphed_population_equals_eager_with_mixed_gates(cuda):
     (``GraphedPopulation``): 3 members of ``lunar_per`` at 16 envs with the
     PER slot kernel, gates mixed (``train_every`` 1, 2, 3, member 2 from a
     later warm-up), one frame a superstep against the eager population from
-    the same seed; after each frame the runners are bitwise equal and every
-    member's Adam count on the device is its host mirror.  Graph L makes
+    the same seed, frame by frame (``max_graphs = 0``); after each frame the
+    runners are bitwise equal and every member's Adam count on the device
+    is its host mirror.  Graph L makes
     its eager call at the first training frame and is captured at the
     next; new hyperparameters (``set_population_hyper``) make both graphs
     start over, and the runners stay equal."""
@@ -1052,6 +1057,8 @@ def test_graphed_population_equals_eager_with_mixed_gates(cuda):
     for graphed in (True, False):
         init, step, _ = build_population(cfg, 3, device="cuda", graphed_learner=graphed)
         assert isinstance(step, GraphedPopulation) == graphed
+        if graphed:
+            step.max_graphs = 0  # frame by frame
         runs[graphed] = step, set_population_hyper(init(0), **gates)
     (g_step, g), (e_step, e) = runs[True], runs[False]
 
@@ -1134,6 +1141,152 @@ def _same_tree(a, b, where="runner"):
             _same_tree(x, y, f"{where}[{i}]")
     else:
         assert a == b, where
+
+
+def test_a_capture_survives_unreachable_graphs(cuda):
+    """A garbage collection during a capture that frees an unreachable CUDA
+    graph resets it, a CUDA call the capture refuses, and the capture
+    fails (seen in this file's bf16 test after earlier tests' trainers).
+    ``GraphedStep`` collects before it captures and holds the collector off
+    while capturing: with unreachable graphs in reference cycles and a
+    collection due at nearly every allocation, its capture succeeds and
+    its replays apply the call."""
+    import gc
+
+    from deep_q_learning_tpu_torch.envs.graphed import GraphedStep
+
+    def garbage_graph():
+        x = torch.zeros(1024, device="cuda")
+        step = GraphedStep(lambda *_: x.add_(1), "garbage", in_place=True)
+        for _ in range(2):  # the eager call, then the capture and its replay
+            step(x)
+        cycle = [step]
+        cycle.append(cycle)  # unreachable once this returns: only a collection frees it
+
+    y = torch.zeros(1024, device="cuda")
+
+    def affine(*_):
+        for _ in range(8):  # Python objects made during the capture
+            y.mul_(2).add_(1)
+
+    survivor = GraphedStep(affine, "survivor", in_place=True)
+    threshold = gc.get_threshold()
+    try:
+        for _ in range(3):
+            garbage_graph()
+        gc.set_threshold(1)
+        for _ in range(3):  # the eager call, the capture and a replay
+            survivor(y)
+    finally:
+        gc.set_threshold(*threshold)
+    assert survivor.graph is not None
+    assert float(y[0]) == 2.0 ** 24 - 1  # 24 doublings and increments of 0
+
+
+def _superstep_draws(g):
+    """Every draw a superstep's graph takes, in its shapes and dtypes: the
+    actor's uniforms, the rigid lander's reset pool and step draws at 128
+    envs, CartPole's reset draws at 4096, a single learner's and an
+    8-member population's sampler uniforms (float32 and float64)."""
+    from deep_q_learning_tpu_torch.config import lunar_per
+    from deep_q_learning_tpu_torch.envs import make_env
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+
+    lander, _ = make_env("LunarLander-v2", True, 1000,
+                         param_overrides=lunar_per().env_param_overrides())
+    cartpole, _ = make_env("CartPole-v1", False, 500)
+    out = [torch.rand((128,), generator=g, device="cuda")]
+    out += tree_leaves(lander.reset_draws(g, 128)) + tree_leaves(lander.step_draws(g, 128))
+    out += tree_leaves(cartpole.reset_draws(g, 4096))
+    for shape in ((256,), (8, 256)):
+        out += [torch.rand(shape, generator=g, device="cuda", dtype=dtype)
+                for dtype in (torch.float32, torch.float64)]
+    return out
+
+
+def test_captured_draws_equal_eager_draws(cuda):
+    """A superstep's graph draws from the runner's generator, registered
+    with the graph (``GraphedStep(..., generator=g)``): every draw of
+    :func:`_superstep_draws`, captured in one in-place graph and replayed
+    5 times (the first at the capture), equals the same draws taken eagerly
+    from a twin generator of the same seed, bitwise, and the generators'
+    states are equal after every replay; a generator restored from the
+    state after the third replay (a checkpoint's) draws what the fourth
+    replay draws.  Uncaptured draws from ``g`` between replays continue
+    from the replays' offset."""
+    from deep_q_learning_tpu_torch.envs.graphed import GraphedStep
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    twin = torch.Generator(device="cuda").manual_seed(7)
+    static = [torch.empty_like(x) for x in _superstep_draws(torch.Generator(device="cuda"))]
+
+    def fn(*_bound):
+        for buf, x in zip(static, _superstep_draws(g)):
+            buf.copy_(x)
+
+    step = GraphedStep(fn, "the draws", in_place=True, generator=g, warm_up=False)
+    replays = []
+    for i in range(5):
+        step(static)
+        replays.append([x.clone() for x in static])
+        for got, want in zip(static, _superstep_draws(twin)):
+            assert got.dtype == want.dtype and torch.equal(got, want), i
+        assert torch.equal(g.get_state(), twin.get_state()), i
+        if i == 2:
+            saved = g.get_state()
+        if i == 3:  # an eager draw between replays, from both
+            assert torch.equal(torch.rand(33, generator=g, device="cuda"),
+                               torch.rand(33, generator=twin, device="cuda"))
+    assert step.graph is not None and step.nodes >= len(static)
+    restored = torch.Generator(device="cuda")
+    restored.set_state(saved)
+    for got, want in zip(_superstep_draws(restored), replays[3]):
+        assert torch.equal(got, want)
+
+
+WHOLE_CASES = {  # preset: config cuts (full width, cut in depth)
+    "lunar_per": dict(steps_per_superstep=16, training_start=20 * 128, use_pallas_sampler=True),
+    "cartpole_vector": dict(steps_per_superstep=16, training_start=20 * 4096,
+                            target_sync_every=5),
+    "lunar_ref_parity": dict(num_envs=8, steps_per_superstep=16, training_start=8 * 22,
+                             target_replace_episodes=2, max_steps_in_episode=24,
+                             lander_engine="rigid"),
+}
+
+
+@pytest.mark.parametrize("preset", sorted(WHOLE_CASES))
+def test_whole_superstep_graph_equals_frames_and_eager(cuda, preset, tmp_path):
+    """A steady superstep as one CUDA graph (its draws, train cadence and
+    target sync inside): the graphed learner as it chooses (a pattern's
+    graph at its second sighting), frame by frame (``max_graphs = 0``) and
+    with the eager learner, from one seed, over 6 supersteps whose warm-up
+    ends in the second: runners (the generator's state, every counter
+    against its mirror) and metrics bitwise equal after each, the last
+    three supersteps one replay each; then the whole-graph learner's
+    checkpoint restored, and 3 supersteps each, bitwise."""
+    from deep_q_learning_tpu_torch import config
+    from deep_q_learning_tpu_torch.train import Trainer
+    from deep_q_learning_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = dataclasses.replace(getattr(config, preset)(), **WHOLE_CASES[preset])
+    whole = Trainer(cfg, device="cuda", workdir=str(tmp_path)).init(seed=0)
+    frames = Trainer(cfg, device="cuda").init(seed=0)
+    frames._superstep.max_graphs = 0
+    eager = Trainer(cfg, device="cuda", graphed_learner=False).init(seed=0)
+    for i in range(6):
+        m = whole.step()
+        assert frames.step() == m == eager.step(), i
+        for other in (frames, eager):
+            _same_tree(ckpt._to_tree(other.runner), ckpt._to_tree(whole.runner), f"superstep {i}")
+    assert whole._superstep.runs == {"frames": 3, "whole": 3}
+    (graph, _), = whole._superstep.supersteps.values()
+    assert graph.nodes > 0 and graph.instantiate_s is not None
+    whole.save(step=whole.runner.env_step * cfg.num_envs)
+    resumed = Trainer(cfg, device="cuda", workdir=str(tmp_path)).restore()
+    for i in range(3):
+        assert resumed.step() == whole.step(), i
+        _same_tree(ckpt._to_tree(resumed.runner), ckpt._to_tree(whole.runner), f"resumed {i}")
+    assert resumed._superstep.runs == {"frames": 1, "whole": 2}  # its graph anew
 
 
 @pytest.mark.parametrize("eps", [0.9, 0.459, 0.01, 1 / 3])
