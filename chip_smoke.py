@@ -39,7 +39,16 @@ Phases (each raises on failure, so any failure exits non-zero):
      flag; bitwise over 100 calls and a graph replay; its device time
      against the plain version's as a CUDA graph, beside its bound (the
      operations the states need: ``solver_kernels.needed_work``); the
-     plain solver's kernel launches at 128 landers;
+     plain solver's kernel launches at 128 landers; then R1, the rigid
+     lander's step: the card's sinf, sincosf and tanhf bitwise torch's over
+     3.2M values, the kernel through ``step_env`` and ``reset_env`` against
+     ``step_env_reference`` and ``reset_env_reference`` bit for bit on every
+     lane at N = 1, 128, 1024 and 8192, wind off and on, on states of a
+     300-frame flight of 1024 landers (``envs/heuristic.py::rigid_inputs``:
+     touchdowns, rests, hull hits, leg overloads, landers off the screen,
+     truncations, all counted) and on the reset frame, one launch a call and
+     no plain call; bitwise over 100 calls and a graph replay; its device
+     time against the plain version's as CUDA graphs, beside its bound;
   4. run the ``lunar_per`` slice at full width through ``Trainer``
      (``algos/superstep.py::GraphedLearner``): 5 supersteps (640 vector
      steps of 128 envs), the first three frame by frame as CUDA graph
@@ -48,8 +57,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      steady superstep as one graph (P2g: the draws, the cadence and the
      sync inside) and the fifth, under the profiler, one replay of it;
      check that the TD kernels ran on the device once per learner update
-     there (counted in the trace: a graph's replay passes no wrapper's
-     counter) and no plain version ran, the host's launches per vector
+     and R1 once per vector step and reset pool there (counted in the
+     trace: a graph's replay passes no wrapper's counter) and no plain
+     version ran, the host's launches per vector
      step (kernels, graphs, copies and fills; at most
      ``WHOLE_HOST_LAUNCHES``) and the device's busy share, the counters
      (the Adam count on the device equal to its mirror), the loss is finite, the online net trained, the target
@@ -78,9 +88,9 @@ Phases (each raises on failure, so any failure exits non-zero):
   5. run ``lunar_per_scaled(1024)`` with ``use_pallas_sampler=True`` at
      full width through ``Trainer``'s graphed learner: 4 supersteps (512
      vector steps of 1024 envs), and check that the PER slot kernel and the
-     TD kernels ran on the device once per learner update in the fourth,
-     profiled, one replay of the superstep's graph, and no plain version
-     ran;
+     TD kernels ran on the device once per learner update and R1 once per
+     vector step and reset pool in the fourth, profiled, one replay of the
+     superstep's graph, and no plain version ran;
   6. drive the same configuration through the command line: ``train`` one
      superstep with a checkpoint, ``train --resume`` one more, ``eval``;
   7. run ``lunar_jointed_per`` (the jointed 3-body lander, solver
@@ -142,7 +152,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``use_pallas_sampler=True`` through ``PopulationTrainer``, cut in depth
      only (``POP_CUTS``), each frame as CUDA graph launches
      (``GraphedPopulation``): each kernel once per update round for all
-     members in the profiler's trace of a steady superstep and no plain
+     members and R1 once per vector step and reset pool of all members'
+     landers in the profiler's trace of a steady superstep and no plain
      call, every member's counters exact (the Adam counts on the device)
      and its loss finite, a greedy evaluation of every member; aggregate
      env-steps/s, host launches per vector step, busy share and peak
@@ -241,8 +252,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      trained, peak memory under 1 GiB; env-steps/s of the third superstep
      and the frame's, the update's and the superstep's graph replays on
      the device;
-then print the kernels' record as one JSON line (K1, K2, K3 and S1, with
-each kernel's bound, ``bound_ms``), then the result line.
+then print the kernels' record as one JSON line (K1, K2, K3, S1 and R1,
+with each kernel's bound, ``bound_ms``), then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without printing a result where CUDA is absent.
@@ -424,6 +435,22 @@ SOLVER_CONDITIONING = {
     },
 }
 SOLVER_KERNEL = "assembly_step_kernel"  # S1's name in the profiler's trace
+# R1, the rigid lander's step, against its plain version on the card, at N of
+# the host env (1), lunar_per (128), lunar_per_scaled(1024) and the 8-member
+# population (1024), and multihost_ddqn (8192), the wind off (every preset)
+# and on: on pre-step states of a flight of RIGID_ENVS landers over
+# RIGID_FRAMES frames (envs/heuristic.py::rigid_inputs, its episodes cut at
+# RIGID_MAX_STEPS frames so that some states truncate), bit for bit on every
+# lane, and on the reset frame likewise
+RIGID_SOURCE = "deep_q_learning_tpu_torch/csrc/lander_rigid.cu"
+RIGID_KERNEL = "rigid_step_kernel"  # R1's name in the profiler's trace
+RIGID_NS = (1, 128, 1024, 8192)
+RIGID_ENVS, RIGID_FRAMES, RIGID_MAX_STEPS = 1024, 300, 200
+RIGID_STABLE_CALLS = 100
+# the card's sinf, sincosf and tanhf, which R1 calls, against torch.sin,
+# torch.cos and torch.tanh: angles, the wind pattern's sine arguments at
+# every index a flight reaches and tanh's arguments
+RIGID_MATH_ANGLES, RIGID_MATH_INDEX, RIGID_MATH_TANH = 1 << 21, 12_000, 1 << 20
 # the jointed step graph's replay with the plain solver in it, 128 landers at
 # (120, 40) (NVIDIA H100 80GB HBM3): every kernel the eager step launched
 PLAIN_STEP_REPLAY_KERNELS = 55_935
@@ -715,6 +742,115 @@ def check_solver_kernel(torch, solver_kernels, card):
     print(f"  the plain solver alone at N=128 (120, 40): {plain.launches} kernel launches, "
           f"{plain.lost} of them with no kernel in the profiler's trace [{card}]")
     return err, times, plain.launches
+
+
+def rigid_lanes(torch, got, want):
+    """Per lane, whether every bit of every output of two rigid steps (or
+    reset frames) is equal; and the largest gap of their float outputs."""
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+
+    a, b = tree_leaves(list(got)), tree_leaves(list(want))
+    assert len(a) == len(b), (len(a), len(b))
+    n = a[0].shape[0]
+    same = torch.ones(n, dtype=torch.bool, device=a[0].device)
+    gap = 0.0
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape, (x.dtype, y.dtype, x.shape, y.shape)
+        if x.is_floating_point():
+            gap = max(gap, float((x.double() - y.double()).abs().max()))
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        same &= (x == y).reshape(n, -1).all(1)
+    return same, gap
+
+
+def check_rigid_math(torch, lander_kernels, card) -> None:
+    """The card's sinf, sincosf and tanhf (what R1 calls) bitwise
+    torch.sin, torch.cos and torch.tanh on the card; cosf alone reported."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    idx = torch.arange(-RIGID_MATH_INDEX, RIGID_MATH_INDEX, device="cuda").to(torch.float32)
+    x = torch.cat([(torch.rand(RIGID_MATH_ANGLES, generator=g, device="cuda") - 0.5) * 8.0,
+                   idx * 0.02, idx * (math.pi * 0.01),
+                   (torch.rand(RIGID_MATH_TANH, generator=g, device="cuda") - 0.5) * 6.0])
+    out = lander_kernels.device_math(x)
+    differ = {name: int((out[i].view(torch.int32) != ref.view(torch.int32)).sum())
+              for i, (name, ref) in enumerate((("sinf", torch.sin(x)), ("cosf", torch.cos(x)),
+                                               ("sincosf sine", torch.sin(x)),
+                                               ("sincosf cosine", torch.cos(x)),
+                                               ("tanhf", torch.tanh(x))))}
+    used = {k: v for k, v in differ.items() if k != "cosf"}
+    assert not any(used.values()), differ
+    print(f"  R1's math on the card against torch's over {x.shape[0]} values: values that differ "
+          f"in any bit {differ} [{card}]")
+
+
+def check_rigid_kernel(torch, lander_kernels, card):
+    """Phase 3, R1: the card's math functions (:func:`check_rigid_math`);
+    the kernel through ``LunarLander.step_env`` and ``reset_env`` against
+    ``step_env_reference`` and ``reset_env_reference`` on the card, bit for
+    bit on every lane at RIGID_NS with the wind off and on, one launch a
+    call and no plain call; what the states cover; bitwise over 100 calls
+    and a graph replay; its device time beside the plain version's as CUDA
+    graphs and its bound (``measure.rigid_device_times``).  Returns
+    (largest gap, ``{(n, kind): (kernel ms, plain ms, work)}``)."""
+    from deep_q_learning_tpu_torch.envs import LunarLander
+    from deep_q_learning_tpu_torch.envs.graphed import tree_map
+    from deep_q_learning_tpu_torch.envs.heuristic import rigid_cover, rigid_inputs
+    from deep_q_learning_tpu_torch.envs.lunar_lander import sample_reset_draws
+    from deep_q_learning_tpu_torch.measure import rigid_device_times, rigid_params
+
+    check_rigid_math(torch, lander_kernels, card)
+    env, largest, timing_inputs = LunarLander(), 0.0, {}
+    for wind in (False, True):
+        params = rigid_params(wind, RIGID_MAX_STEPS)
+        g = torch.Generator(device="cuda").manual_seed(20 + wind)
+        t0 = time.perf_counter()
+        inputs = rigid_inputs(env, params, max(RIGID_NS), g, envs=RIGID_ENVS, frames=RIGID_FRAMES)
+        cover = {k: int(v.sum()) for k, v in rigid_cover(env, params, *inputs).items()}
+        assert all(v > 0 for v in cover.values()), (wind, cover)
+        print(f"  R1 states (wind {'on' if wind else 'off'}; N={max(RIGID_NS)} of a "
+              f"{RIGID_FRAMES}-frame flight of {RIGID_ENVS} landers, made in "
+              f"{time.perf_counter() - t0:.1f} s): {cover}")
+        for n in RIGID_NS:
+            state, action, draws = tree_map(lambda t: t[:n].contiguous(), inputs)
+            rd = sample_reset_draws(g, n)
+            lander_kernels.reset_counts()
+            got = env.step_env(None, state, action, params, draws)
+            got_reset = env.reset_env(None, n, params, rd)
+            assert lander_kernels.launches == {"rigid_step": 2}, lander_kernels.launches
+            assert lander_kernels.plain_calls == {"rigid_step": 0}, lander_kernels.plain_calls
+            want = env.step_env_reference(None, state, action, params, draws)
+            want_reset = env.reset_env_reference(None, n, params, rd)
+            for kind, (g_, w_) in (("step", (got, want)), ("reset", (got_reset, want_reset))):
+                same, gap = rigid_lanes(torch, g_, w_)
+                assert bool(same.all()), ("R1 differs from the plain version", kind, n, wind,
+                                          int((~same).sum()), gap)
+                largest = max(largest, gap)
+            print(f"  R1 vs plain N={n} wind {'on' if wind else 'off'}: the step and the reset "
+                  f"frame bitwise equal on all {n} lanes")
+            if not wind:
+                timing_inputs[n] = (state, action, draws)
+
+    params = rigid_params()
+    state, action, draws = timing_inputs[1024]
+    call = lambda: env.step_env(None, state, action, params, draws)  # noqa: E731
+    first = call()
+    for _ in range(RIGID_STABLE_CALLS - 1):
+        assert bool(rigid_lanes(torch, first, call())[0].all()), "R1 call"
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bool(rigid_lanes(torch, first, captured)[0].all()), "R1 graph replay"
+    print(f"  R1 N=1024: {RIGID_STABLE_CALLS} calls and a CUDA-graph replay bitwise equal")
+    times = {key: (k_us / 1e3, p_us / 1e3, work) for key, (k_us, p_us, work)
+             in rigid_device_times(card, timing_inputs).items()}
+    return largest, times
 
 
 def result_leaves(out):
@@ -1061,15 +1197,17 @@ def eval_pair(torch, label, evaluate, eval_venv, env_params, network, card, memb
     return seconds
 
 
-def run_slice(torch, td_kernels, sample_kernels, card):
+def run_slice(torch, td_kernels, sample_kernels, lander_kernels, card):
     """Phase 4: lunar_per at full width through the Trainer, each frame as
     CUDA graph launches (``GraphedLearner``): the counters, a finite loss,
     the online net trained and the target following by Polyak averaging;
-    in the last superstep, profiled, K1/K2 once per update on the device,
-    the host's launches per vector step and the device's busy share; peak
-    memory under 1 GiB; a greedy evaluation; the eager learner restored
-    from the graphed one's checkpoint, one superstep each bitwise, then
-    env-steps/s in alternating pairs; graph L's replay on the device."""
+    in the last superstep, profiled, K1/K2 once per update and R1 once per
+    vector step and reset pool on the device, no plain call, the host's
+    launches per vector step and the device's busy share; peak memory
+    under 1 GiB; a greedy evaluation; the eager learner restored from the
+    graphed one's checkpoint, one superstep each bitwise, then env-steps/s
+    in alternating pairs; graph L's replay on the device.  Returns R1's
+    launches in the profiled superstep."""
     from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import lunar_per
     from deep_q_learning_tpu_torch.measure import learner_kernels, replay_ms
@@ -1086,18 +1224,22 @@ def run_slice(torch, td_kernels, sample_kernels, card):
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
+    lander_kernels.reset_counts()
     t0 = time.perf_counter()
     metrics = [trainer.step() for _ in range(SUPERSTEPS - 1)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    # the last superstep under the profiler, every frame training: K1/K2 on
-    # the device (a graph's replay passes none of the wrappers' counters)
+    # the last superstep under the profiler, every frame training: K1/K2 and
+    # R1 on the device (a graph's replay passes none of the wrappers' counters)
     trace, _ = traced_superstep(lambda: metrics.append(trainer.step()), "phase 4")
     launches = learner_kernels(trace)
     steady = metrics[-1].loss_count
     assert steady == cfg.steps_per_superstep, steady
     assert launches == {"td_loss_fwd": steady, "td_loss_bwd": steady, "per_slot_sample": 0}, (
         launches, steady, collections.Counter(trace.per_graph_launch), trace.lost)
+    rigid = trace.count(RIGID_KERNEL)
+    assert rigid == cfg.steps_per_superstep + 1, (rigid, cfg.steps_per_superstep)
+    assert lander_kernels.plain_calls == {"rigid_step": 0}, lander_kernels.plain_calls
     assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_per
     assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
     per_step = trace.host_launches / cfg.steps_per_superstep
@@ -1139,8 +1281,11 @@ def run_slice(torch, td_kernels, sample_kernels, card):
           f"env steps of the first {SUPERSTEPS - 1} supersteps in {seconds:.3f} s = "
           f"{timed_steps / seconds:.1f} env-steps/s (with "
           f"the graphs' eager calls and captures), peak memory {peak_mib:.1f} MiB [{card}]")
-    print(f"  the last superstep, profiled: {steady} updates, K1/K2 on the device {launches}, no "
-          f"plain call; {per_step:.1f} host launches per vector step ({trace.launches} kernels, "
+    print(f"  the last superstep, profiled: {steady} updates, K1/K2 on the device {launches}, R1 "
+          f"{rigid} times ({cfg.steps_per_superstep} vector steps and the reset pool; the "
+          f"wrapper {lander_kernels.launches['rigid_step']} launches in the eager calls and "
+          f"captures), no plain call; {per_step:.1f} host launches per vector step "
+          f"({trace.launches} kernels, "
           f"{len(trace.per_graph_launch)} graphs, {trace.copies} copies and fills in "
           f"{cfg.steps_per_superstep} vector steps, the superstep one replay; at most "
           f"{WHOLE_HOST_LAUNCHES}), device busy {100 * trace.device_us / trace.wall_us:.1f} % of "
@@ -1162,6 +1307,7 @@ def run_slice(torch, td_kernels, sample_kernels, card):
               f"{nodes} kernels, its launch {host_ms:.3f} ms of host; captured in "
               f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
     superstep_replay_ms(torch, "lunar_per", whole["graph"], card)
+    return rigid
 
 
 def f5_pair(torch, graphed, metrics, card):
@@ -1266,11 +1412,12 @@ def slice_pairs(torch, trainer, cfg, workdir, td_kernels, card):
           f"{', '.join(f'{x:.1f}' for x in rates['eager'])} [{card}]")
 
 
-def run_scaled(torch, td_kernels, sample_kernels, card):
+def run_scaled(torch, td_kernels, sample_kernels, lander_kernels, card):
     """Phase 5: lunar_per_scaled(1024) with the PER slot kernel, at full
     width through the Trainer's graphed learner: K1, K2 and K3 once per
-    update on the device in the last superstep, profiled, one replay of the
-    superstep's graph, and no plain call."""
+    update and R1 once per vector step and reset pool on the device in the
+    last superstep, profiled, one replay of the superstep's graph, and no
+    plain call."""
     import dataclasses
 
     from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
@@ -1288,6 +1435,7 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
+    lander_kernels.reset_counts()
     t0 = time.perf_counter()
     metrics = [trainer.step() for _ in range(SCALED_SUPERSTEPS - 1)]
     torch.cuda.synchronize()
@@ -1295,7 +1443,9 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
     # the last superstep under the profiler: the kernels on the device
     trace, _ = traced_superstep(lambda: metrics.append(trainer.step()), "phase 5")
     launches = learner_kernels(trace)
-    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    rigid = trace.count(RIGID_KERNEL)
+    assert rigid == cfg.steps_per_superstep + 1, (rigid, cfg.steps_per_superstep)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls, **lander_kernels.plain_calls)
 
     updates = sum(m.loss_count for m in metrics)
     steady = metrics[-1].loss_count
@@ -1323,7 +1473,8 @@ def run_scaled(torch, td_kernels, sample_kernels, card):
           f"({graph.nodes} nodes, captured in {graph.capture_s:.3f} s, instantiated in "
           f"{graph.instantiate_s:.3f} s; supersteps run as one replay / frame by frame "
           f"{runs['whole']} / {runs['frames']}): {steady} updates, K1-K3 on the device "
-          f"{launches}, no plain call, {per_step:.3f} host launches per vector step, device busy "
+          f"{launches}, R1 {rigid} times, no plain call, {per_step:.3f} host launches per vector "
+          f"step, device busy "
           f"{100 * trace.device_us / trace.wall_us:.1f} %; episodes {metrics[-1].episodes}")
     print(f"  lunar_per_scaled x{cfg.num_envs} envs, use_pallas_sampler: "
           f"{timed_steps} env steps of the first {SCALED_SUPERSTEPS - 1} "
@@ -2238,11 +2389,12 @@ def check_learner_vs_cpu(torch, td_kernels):
     print("  learner update on the card vs the CPU plain path: ok")
 
 
-def run_population(torch, td_kernels, sample_kernels, card):
+def run_population(torch, td_kernels, sample_kernels, lander_kernels, card):
     """Phase 9: lunar_per, 8 members at full width, through PopulationTrainer,
     each frame as CUDA graph launches (``GraphedPopulation``): the counters,
     every member trained with a finite loss; in the third superstep,
-    profiled, K1/K2/K3 once per update round on the device (a graph's
+    profiled, K1/K2/K3 once per update round and R1 once per vector step
+    and reset pool (of all members' landers) on the device (a graph's
     replay passes no wrapper's counter: the wrappers count graph L's eager
     call and its capture only), the host's launches per vector step and
     the device's busy share; peak memory under 1 GiB; a greedy evaluation;
@@ -2274,6 +2426,7 @@ def run_population(torch, td_kernels, sample_kernels, card):
 
     td_kernels.reset_counts()
     sample_kernels.reset_counts()
+    lander_kernels.reset_counts()
     metrics = [trainer.step(runner)[1]]  # each graph's eager call and capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2292,8 +2445,10 @@ def run_population(torch, td_kernels, sample_kernels, card):
     # graph L's eager call and capture, and the superstep graph's capture
     assert wrapped == dict.fromkeys(("td_loss_fwd", "td_loss_bwd", "per_slot_sample"),
                                     2 + steady), wrapped
-    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls)
+    plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls, **lander_kernels.plain_calls)
     assert not any(plain.values()), plain
+    launches["lander_rigid_step"] = trace.count(RIGID_KERNEL)
+    assert launches["lander_rigid_step"] == steady + 1, launches
     per_step = trace.host_launches / steady
     assert trace.host_launches <= WHOLE_SUPERSTEP_LAUNCHES, (trace.launches, trace.copies)
 
@@ -2330,7 +2485,7 @@ def run_population(torch, td_kernels, sample_kernels, card):
           f"{env_steps} env steps in {seconds:.3f} s = {env_steps / seconds:.1f} aggregate "
           f"env-steps/s; peak memory {peak_mib:.1f} MiB [{card}]")
     print(f"  the fourth superstep, profiled, one replay of its graph: {steady} update rounds, "
-          f"K1/K2/K3 on the device {launches}, the wrappers {wrapped} (graph L's eager call "
+          f"K1/K2/K3 and R1 on the device {launches}, the wrappers {wrapped} (graph L's eager call "
           f"and capture, the superstep graph's capture), no plain call; {per_step:.3f} host "
           f"launches per vector step ({trace.launches} kernels, {len(trace.per_graph_launch)} "
           f"graphs, {trace.copies} copies and fills in {steady} vector steps; at most "
@@ -3799,18 +3954,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from deep_q_learning_tpu_torch import native
-    from deep_q_learning_tpu_torch.ops import build, sample_kernels, solver_kernels, td_kernels
+    from deep_q_learning_tpu_torch.ops import (
+        build,
+        lander_kernels,
+        sample_kernels,
+        solver_kernels,
+        td_kernels,
+    )
 
     print("phase 2: build")
     t0 = time.perf_counter()
     # one nvcc per source and g++ for the host replay buffer, together
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         futures = [pool.submit(td_kernels._lib), pool.submit(sample_kernels._lib),
-                   pool.submit(solver_kernels._lib), pool.submit(native.load_library)]
+                   pool.submit(solver_kernels._lib), pool.submit(lander_kernels._lib),
+                   pool.submit(native.load_library)]
         for fut in futures:
             fut.result()
     print(f"  native/replay_buffer.cc: g++ into {native.build_library().relative_to(REPO)}")
-    for source in ("td_loss.cu", "per_sample.cu", "lander_solver.cu"):
+    for source in ("td_loss.cu", "per_sample.cu", "lander_solver.cu", "lander_rigid.cu"):
         print(f"  {source}: nvcc {build.build_seconds.get(source, 0.0):.2f} s (0 = reused a build)")
         for kernel, use in build.ptxas_summary(build.ptxas_reports.get(source, "")).items():
             print(f"    {kernel}: {use['registers']} registers, {use['smem']} B shared, "
@@ -3832,14 +3994,15 @@ def main() -> int:
     member_err["per_slot_sample"] = 0  # dyadic priorities: exact
     solver_err, solver_times, plain_solver_launches = check_solver_kernel(
         torch, solver_kernels, card)
+    rigid_err, rigid_times = check_rigid_kernel(torch, lander_kernels, card)
 
     print("phase 4: lunar_per slice")
-    run_slice(torch, td_kernels, sample_kernels, card)
+    slice_rigid = run_slice(torch, td_kernels, sample_kernels, lander_kernels, card)
     check_learner_vs_cpu(torch, td_kernels)
     torch.cuda.synchronize()
 
     print("phase 5: lunar_per_scaled(1024) with use_pallas_sampler")
-    launches = run_scaled(torch, td_kernels, sample_kernels, card)
+    launches = run_scaled(torch, td_kernels, sample_kernels, lander_kernels, card)
 
     print("phase 6: the command line on the card")
     (REPO / "build").mkdir(exist_ok=True)
@@ -3869,7 +4032,8 @@ def main() -> int:
 
     print("phase 9: a lunar_per population of 8 members")
     t0 = time.perf_counter()
-    population_launches_run = run_population(torch, td_kernels, sample_kernels, card)
+    population_launches_run = run_population(torch, td_kernels, sample_kernels, lander_kernels,
+                                             card)
     population_whole(torch, card)
     check_population_update_vs_cpu(torch)
     run_hpo_cli(card)
@@ -3924,10 +4088,17 @@ def main() -> int:
     # kernels on phase 14's path (K1/K2 at B = 1024, K3 at (1024, 512, 1024),
     # S1 at N = 1024 from phase 3), launches from phase 14.  No single PyTorch
     # call computes S1 either
+    # R1: ms, bound and error at lunar_per's 128 landers (phase 3), launches
+    # from phase 4's profiled superstep; "[members]": at the population's
+    # 8 x 128 landers, one call of 1024 (phase 3), launches from phase 9's.
+    # No single PyTorch call computes R1 either
     timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]],
-                 assembly_step=solver_times[128, 120, 40])
-    launches = dict(launches, **jointed_launches)
+                 assembly_step=solver_times[128, 120, 40],
+                 lander_rigid_step=rigid_times[128, "step"])
+    launches = dict(launches, **jointed_launches, lander_rigid_step=slice_rigid)
     err["assembly_step"] = solver_err[128]
+    err["lander_rigid_step"] = member_err["lander_rigid_step"] = rigid_err
+    member_times["lander_rigid_step"] = rigid_times[1024, "step"]
     scaled_timed = dict(times[1024], per_slot_sample=slot_times[SLOT_SHAPES[0]],
                         assembly_step=solver_times[1024, 120, 40])
     scaled_err = dict(err, assembly_step=solver_err[1024])
@@ -3936,8 +4107,10 @@ def main() -> int:
         "td_loss_bwd": (TD_SOURCE, "deep_q_learning_tpu/ops/td_kernels.py:97"),
         "per_slot_sample": (PER_SOURCE, "deep_q_learning_tpu/ops/sample_kernels.py:52"),
         "assembly_step": (SOLVER_SOURCE, "deep_q_learning_tpu/envs/lander_solver.py:305"),
+        "lander_rigid_step": (RIGID_SOURCE, "deep_q_learning_tpu/envs/lunar_lander.py:630"),
     }
     tpu_kernels = ("td_loss_fwd", "td_loss_bwd", "per_slot_sample")
+    lander = ("td_loss_fwd", "td_loss_bwd", "per_slot_sample", "lander_rigid_step")
     # The kernels at a rank's shapes in phase 10 (b) ("[rank]": K1/K2 at
     # B = 128, K3 at (64, 8192, 128)): ms and bound at those shapes, launches
     # on the device in rank 0's traced steady superstep there (graph L1's
@@ -3953,7 +4126,7 @@ def main() -> int:
     # B = 256 from phase 3, launches of (b)).
     td_only = ("td_loss_fwd", "td_loss_bwd")
     runs = [("", launches, err, timed, kernels), ("[members]", population_launches_run, member_err,
-                                                  member_times, tpu_kernels),
+                                                  member_times, lander),
             ("[rank]", rank_launches, rank_err, rank_times, tpu_kernels),
             ("[compat]", compat_launches, compat_err[COMPAT_SHAPES[0]],
              compat_times[COMPAT_SHAPES[0]], td_only),
@@ -3961,7 +4134,8 @@ def main() -> int:
              td_only),
             ("[bf16]", bf16_launches, bf16_err, times[256], td_only),
             ("[examples]", examples_launches, err, times[256], td_only),
-            ("[jointed_scaled]", scaled_launches, scaled_err, scaled_timed, kernels)]
+            ("[jointed_scaled]", scaled_launches, scaled_err, scaled_timed, tpu_kernels + (
+                "assembly_step",))]
     record = {"kernels": [
         {
             "name": name + suffix,

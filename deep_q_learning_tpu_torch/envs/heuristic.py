@@ -1,5 +1,6 @@
 """Heuristic LunarLander controller (``deep_q_learning_tpu/envs/heuristic.py``),
-batched, and a short flight of landers near the ground that it drives.
+batched, and the flights of landers that it drives for checks and
+measurements of the physics.
 
 The controller is the classic open-source demo: target an angle
 proportional to the horizontal offset and speed, a hover height
@@ -12,6 +13,8 @@ import dataclasses
 
 import torch
 
+from deep_q_learning_tpu_torch.envs import lunar_lander as ll
+from deep_q_learning_tpu_torch.envs.base import tree_where
 from deep_q_learning_tpu_torch.envs.lunar_lander import _terrain_height
 
 
@@ -126,3 +129,71 @@ def solver_inputs(env, params, n: int, generator: torch.Generator, envs: int = 1
     torque = torch.where(wind, uniform(-1.5, 1.5), 0.0)
     return (hull, st.leg1_body, st.leg2_body, st.terrain.contiguous(), fx,
             torch.zeros_like(fx), torque, params.gravity, st.solver_acc)
+
+
+def rigid_inputs(env, params, n: int, generator: torch.Generator, envs: int = 1024,
+                 frames: int = 300):
+    """``LunarLander.step_env`` inputs of ``n`` lanes of the rigid lander,
+    for checks and measurements of its step (R1): the pre-step states,
+    actions and dispersion draws of ``envs`` landers over ``frames``
+    frames, half of them started from fresh resets and half just above the
+    ground (:func:`touchdown_states`), the even-numbered flown by
+    :func:`heuristic_action` and the others at random; a lander that
+    finishes restarts from a fresh reset.  So the states hold flight,
+    touchdowns on one leg and on both, landers coming to rest, crashes,
+    landers leaving the screen and, where ``params.max_steps_in_episode`` is
+    below ``frames``, truncations (:func:`rigid_cover` counts them).  Of
+    the ``n`` lanes taken, the steps that end an episode come first, as
+    many as there are, then others at random, all in a random order;
+    returns ``(state, action, draws)``."""
+    from deep_q_learning_tpu_torch.envs.graphed import tree_map
+
+    device = generator.device
+    _, top = env.reset_env(generator, envs, params)
+    _, low = touchdown_states(env, params, envs, generator, frames=0)
+    st = tree_where(torch.arange(envs, device=device) < envs // 2, top, low)
+    obs = env.get_obs(st, params)
+    heuristic = torch.arange(envs, device=device) % 2 == 0
+    kept = []
+    for _ in range(frames):
+        random = torch.randint(0, 4, (envs,), generator=generator, device=device,
+                               dtype=torch.int32)
+        actions = torch.where(heuristic, heuristic_action(obs), random)
+        draws = env.step_draws(generator, envs)
+        obs, nxt, _, terminated, truncated = env.step_env(None, st, actions, params, draws)
+        done = terminated | truncated
+        kept.append((st, actions, draws, done))
+        fresh_obs, fresh = env.reset_env(generator, envs, params)
+        st, obs = tree_where(done, fresh, nxt), tree_where(done, fresh_obs, obs)
+    st, actions, draws, ends = (_cat_states([k[i] for k in kept]) for i in range(4))
+    order = torch.randperm(frames * envs, generator=generator, device=device)
+    first = torch.argsort((~ends[order]).to(torch.int8), stable=True)
+    lanes = order[first[:n]]
+    lanes = lanes[torch.randperm(lanes.shape[0], generator=generator, device=device)]
+    return tree_map(lambda x: x[lanes].contiguous(), (st, actions, draws))
+
+
+def rigid_cover(env, params, state, action, draws) -> dict:
+    """What a rigid step from these inputs meets, from the plain version:
+    the lanes in flight, on one leg and on both after the step, the hull's
+    corners hitting the ground, a leg's normal impulse over ``J_CRASH``
+    without a hull hit, the lander leaving the screen, coming to rest and
+    reaching the episode's limit; with the wind on, the airborne lanes it
+    pushes.  ``{name: (N,) bool}``."""
+    obs, new, reward, _, truncated = env.step_env_reference(None, state, action, params, draws)
+    _, game_over, _ = env._physics_step(state, action, params,
+                                        draws / ll.SCALE * params.dispersion_scale)
+    cos_n, sin_n = torch.cos(new.angle), torch.sin(new.angle)
+    hull_hit = torch.zeros_like(new.leg1)
+    for bx in ll.HULL_BOTTOM[:2]:
+        by = ll.HULL_BOTTOM[2]
+        hx = new.x + bx * cos_n - by * sin_n
+        hy = new.y + bx * sin_n + by * cos_n
+        hull_hit = hull_hit | (hy <= _terrain_height(new.terrain, hx) + 0.01)
+    cover = {"flight": ~new.leg1 & ~new.leg2, "one leg": new.leg1 ^ new.leg2,
+             "two legs": new.leg1 & new.leg2, "hull hit": hull_hit,
+             "overload": game_over & ~hull_hit, "off screen": obs[:, 0].abs() >= 1.0,
+             "rest": reward == 100.0, "truncated": truncated}
+    if params.enable_wind:
+        cover["wind"] = ~(state.leg1 | state.leg2)
+    return cover

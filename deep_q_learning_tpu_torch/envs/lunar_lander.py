@@ -14,6 +14,11 @@ again:
   * ``rigid``: one rigid body with two leg-tip contacts and the calibrated
     joint-overload threshold ``J_CRASH``.
 
+In rigid mode a step, and the reset's physics frame, on CUDA tensors is one
+hand-written kernel, R1 (``ops/lander_kernels.py``, bitwise the plain
+version on the card); CPU tensors take the plain versions,
+``step_env_reference`` and ``reset_env_reference``.
+
 Randomness: the reset draws (terrain heights, kick force, wind indices)
 and the per-frame dispersion draw come from the caller's generator, or
 are injected through ``draws`` (:class:`ResetDraws`, or an ``(N, 2)``
@@ -156,6 +161,20 @@ def _terrain_height(terrain: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return h0 * (1.0 - frac) + h1 * frac
 
 
+def smoothed_terrain(raw: torch.Tensor, params) -> torch.Tensor:
+    """The ``(N, CHUNKS)`` surface heights from the reset's ``(N, CHUNKS +
+    1)`` draws: the helipad substituted BEFORE the 3-tap smoothing, whose
+    window wraps at the left edge like gym's height[i-1] at i=0."""
+    device = raw.device
+    if not params.random_terrain:
+        raw = torch.full_like(raw, HELIPAD_Y)
+    idx = torch.arange(CHUNKS + 1, device=device)
+    raw = torch.where((idx - CHUNKS // 2).abs() <= 2, HELIPAD_Y, raw)
+    prev = raw[:, torch.arange(-1, CHUNKS - 1, device=device) % (CHUNKS + 1)]
+    nxt = raw[:, 1 : CHUNKS + 1]
+    return 0.33 * (prev + raw[:, :CHUNKS] + nxt)
+
+
 def _wind_pattern(idx: torch.Tensor) -> torch.Tensor:
     """gymnasium v3's deterministic wind: tanh(sin(2kx) + sin(pi kx)), k=0.01."""
     f = idx.to(torch.float32)
@@ -224,19 +243,37 @@ class LunarLander(Environment):
         params: LunarLanderParams,
         draws: Optional[ResetDraws] = None,
     ):
+        """``n`` fresh episodes, ``(obs, state)``: the smoothed terrain, then
+        gym's first physics frame with the kick.  In rigid mode that frame is
+        the kernel R1 on CUDA tensors (``ops/lander_kernels.py``; it
+        launches or raises) and :meth:`reset_env_reference`, the plain
+        version, on CPU tensors; the jointed engine always takes
+        :meth:`reset_env_reference`."""
+        from deep_q_learning_tpu_torch.ops import lander_kernels
+
         if draws is None:
             draws = sample_reset_draws(generator, n)
-        raw = draws.terrain
-        device = raw.device
-        if not params.random_terrain:
-            raw = torch.full_like(raw, HELIPAD_Y)
-        # helipad substituted BEFORE the 3-tap smoothing, whose window wraps
-        # at the left edge like gym's height[i-1] at i=0
-        idx = torch.arange(CHUNKS + 1, device=device)
-        raw = torch.where((idx - CHUNKS // 2).abs() <= 2, HELIPAD_Y, raw)
-        prev = raw[:, torch.arange(-1, CHUNKS - 1, device=device) % (CHUNKS + 1)]
-        nxt = raw[:, 1 : CHUNKS + 1]
-        terrain = 0.33 * (prev + raw[:, :CHUNKS] + nxt)
+        if params.jointed:
+            return self.reset_env_reference(None, n, params, draws)
+        if draws.terrain.device.type != "cpu":
+            return lander_kernels.rigid_reset_kernel(
+                smoothed_terrain(draws.terrain, params), draws.kick.contiguous(),
+                draws.wind.contiguous(), params)
+        lander_kernels.plain_calls["rigid_step"] += 1
+        return self.reset_env_reference(None, n, params, draws)
+
+    def reset_env_reference(
+        self,
+        generator: torch.Generator,
+        n: int,
+        params: LunarLanderParams,
+        draws: Optional[ResetDraws] = None,
+    ):
+        """The plain version of :meth:`reset_env`, both engines."""
+        if draws is None:
+            draws = sample_reset_draws(generator, n)
+        terrain = smoothed_terrain(draws.terrain, params)
+        device = terrain.device
 
         def full(v, dtype=torch.float32):
             return torch.full((n,), v, dtype=dtype, device=device)
@@ -605,6 +642,32 @@ class LunarLander(Environment):
         params: LunarLanderParams,
         draws: Optional[torch.Tensor] = None,
     ):
+        """One transition, ``(obs, state, reward, terminated, truncated)``.
+        In rigid mode the kernel R1 on CUDA tensors (``ops/lander_kernels.py``;
+        it launches or raises) and :meth:`step_env_reference`, the plain
+        version, on CPU tensors; the jointed engine always takes
+        :meth:`step_env_reference`, whose solver step is S1 on the card."""
+        from deep_q_learning_tpu_torch.ops import lander_kernels
+
+        if draws is None:
+            draws = sample_step_draws(generator, action.shape[0])
+        if params.jointed:
+            return self.step_env_reference(None, state, action, params, draws)
+        if state.x.device.type != "cpu":
+            return lander_kernels.rigid_step_kernel(
+                state, action.to(torch.int32), params, draws.contiguous())
+        lander_kernels.plain_calls["rigid_step"] += 1
+        return self.step_env_reference(None, state, action, params, draws)
+
+    def step_env_reference(
+        self,
+        generator: torch.Generator,
+        state: LunarLanderState,
+        action: torch.Tensor,
+        params: LunarLanderParams,
+        draws: Optional[torch.Tensor] = None,
+    ):
+        """The plain version of :meth:`step_env`, both engines."""
         if draws is None:
             draws = sample_step_draws(generator, action.shape[0])
         # dispersion is drawn every frame (gym draws before the engine gate)

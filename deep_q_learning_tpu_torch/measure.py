@@ -12,7 +12,10 @@
    the share of it the kernel reaches, and the kernel's launches per steady
    superstep on each preset that runs it.  S1, the jointed solver's step,
    at ``SOLVER_SHAPES`` on states of a flight of landers, its plain version
-   as a CUDA graph of one call (~56k kernels).  With ``--baseline CHECKOUT``
+   as a CUDA graph of one call (~56k kernels).  R1, the rigid lander's
+   step, at ``RIGID_SHAPES`` (and its reset frame) on states of a flight of
+   landers, its plain version as a CUDA graph of 10 calls.  With
+   ``--baseline CHECKOUT``
    (another checkout of the port, e.g. an earlier commit unpacked with
    ``git archive``), its TD kernels, its PER slot kernel and its S1 are
    timed too, each built from that checkout's own source, in turns with
@@ -98,6 +101,14 @@ MEMBER_SLOT = (8, 128, 4096, 256)
 # a CUDA graph of one call replayed PLAIN_SOLVER_REPLAYS times
 SOLVER_SHAPES = ((128, 120, 40), (1024, 120, 40), (2, 180, 60))
 PLAIN_SOLVER_REPLAYS = 3
+# R1, the rigid lander's step: N of the host env (1), lunar_per's single
+# learner (128), lunar_per_scaled(1024) and lunar_per's 8-member population
+# (1024), multihost_ddqn (8192), with the wind off as in every preset; the
+# reset frame at 128.  Its plain version, ~700 kernels a step, is timed as
+# a CUDA graph of PLAIN_RIGID_CALLS calls
+RIGID_SHAPES = (1, 128, 1024, 8192)
+RIGID_RESET_N = 128
+PLAIN_RIGID_CALLS = 10
 
 
 def card_line() -> str:
@@ -242,6 +253,57 @@ def solver_device_times(card: str, inputs: Optional[dict] = None,
     return times
 
 
+def rigid_params(enable_wind: bool = False, max_steps: Optional[int] = None):
+    """The rigid lander's params of the lander presets (wind off), or with
+    the wind on, and another episode limit."""
+    from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLanderParams
+
+    params = LunarLanderParams(jointed=False, enable_wind=enable_wind)
+    if max_steps is not None:
+        params = dataclasses.replace(params, max_steps_in_episode=max_steps)
+    return params
+
+
+def rigid_device_times(card: str, inputs: Optional[dict] = None) -> dict:
+    """R1 and its plain version at RIGID_SHAPES, and the reset frame at
+    RIGID_RESET_N: device µs a call of the kernel (a CUDA graph of
+    GRAPH_CALLS calls) and of the plain version (a graph of
+    PLAIN_RIGID_CALLS calls), beside the bound of the call's work
+    (``lander_kernels.rigid_step_work``).  ``inputs`` maps each N to
+    ``step_env``'s ``(state, action, draws)`` with the wind off; by
+    default the states of a flight of landers
+    (``envs/heuristic.py::rigid_inputs``).  The reset's plain version is
+    the whole ``reset_env_reference``, its terrain smoothing (a few
+    kernels) included.  Prints a line a shape and returns ``{(n, kind):
+    (kernel us, plain us, work)}``, kind ``"step"`` or ``"reset"``."""
+    from deep_q_learning_tpu_torch.envs import LunarLander
+    from deep_q_learning_tpu_torch.envs.heuristic import rigid_inputs
+    from deep_q_learning_tpu_torch.envs.lunar_lander import sample_reset_draws, smoothed_terrain
+    from deep_q_learning_tpu_torch.ops import lander_kernels
+
+    env, params = LunarLander(), rigid_params()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    for n in RIGID_SHAPES:
+        state, action, draws = (inputs[n] if inputs is not None
+                                else rigid_inputs(env, params, n, g))
+        k = device_us(lambda: lander_kernels.rigid_step_kernel(state, action, params, draws))
+        r = device_us(lambda: env.step_env_reference(None, state, action, params, draws),
+                      calls=PLAIN_RIGID_CALLS)
+        times[n, "step"] = (k, r, lander_kernels.rigid_step_work(n))
+    n = RIGID_RESET_N
+    rd = sample_reset_draws(g, n)
+    terrain = smoothed_terrain(rd.terrain, params)
+    k = device_us(lambda: lander_kernels.rigid_reset_kernel(terrain, rd.kick, rd.wind, params))
+    r = device_us(lambda: env.reset_env_reference(None, n, params, rd), calls=PLAIN_RIGID_CALLS)
+    times[n, "reset"] = (k, r, lander_kernels.rigid_step_work(n, reset=True))
+    for (n, kind), (k, r, work) in times.items():
+        print(f"lander_rigid_step (R1) {kind} N={n}: device {k:.2f} us kernel, {r:.2f} us plain "
+              f"as a CUDA graph of {PLAIN_RIGID_CALLS} calls ({r / k:.0f}x); "
+              f"{bound_text(work, k)} [{card}]")
+    return times
+
+
 def solver_lanes_differ(a, b) -> int:
     """Lanes of two ``assembly_step`` results that differ in any bit of any
     field, accumulator or flag."""
@@ -263,6 +325,7 @@ def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
     per_superstep = launches_per_superstep()
     print(f"kernel launches per steady superstep, by preset: {per_superstep}")
     solver_device_times(card, baseline=baseline)
+    rigid_device_times(card)
     g = torch.Generator(device="cuda").manual_seed(0)
     base_sk = load_baseline(baseline, "sample_kernels") if baseline is not None else None
     for n, c, b in SLOT_SHAPES:
@@ -440,6 +503,10 @@ def _span(fn, name):
 # the learner's kernels by their names in the profiler's trace
 LEARNER_KERNELS = {"td_loss_fwd": ("td_loss_fwd_kernel",), "td_loss_bwd": ("td_loss_bwd_kernel",),
                    "per_slot_sample": ("slot_warp_kernel", "slot_block_kernel")}
+# the envs' kernels by their names in the profiler's trace: R1 (the rigid
+# lander's step) and S1 (the jointed solver's)
+ENV_KERNELS = {"lander_rigid_step": ("rigid_step_kernel",),
+               "assembly_step": ("assembly_step_kernel",)}
 # the host's calls that put work on the card one by one
 HOST_LAUNCHES = {"kernels": ("cudaLaunchKernel", "cuLaunchKernel"), "graphs": ("cudaGraphLaunch",),
                  "copies and fills": ("cudaMemcpyAsync", "cudaMemsetAsync")}
@@ -550,7 +617,7 @@ def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: boo
     launches = host_launches(events)
     kernels = {name: sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                          and any(k in e.key for k in names))
-               for name, names in LEARNER_KERNELS.items()}
+               for name, names in {**LEARNER_KERNELS, **ENV_KERNELS}.items()}
     frames = cfg.steps_per_superstep
     if graph is not None:
         mode += ", one replay of its graph"
@@ -558,7 +625,7 @@ def profile_superstep(cfg, card: str, graphed: bool = True, graphed_learner: boo
           f"{m.loss_count} updates, "
           f"device busy {device_us_total / 1e3:.1f} ms ({100 * device_us_total / 1e6 / wall:.1f} %), "
           f"host launches {launches}: {sum(launches.values()) / frames:.1f} per vector step; "
-          f"the learner's kernels on the device {kernels} [{card}]")
+          f"the learner's and the env's kernels on the device {kernels} [{card}]")
     if learner:
         for name in GRAPH_SPANS:
             setattr(trainer._superstep, name, getattr(trainer._superstep, name).__wrapped__)

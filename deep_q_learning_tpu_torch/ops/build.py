@@ -30,11 +30,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the jointed solver rounds every product and sum, as PyTorch's elementwise
-# kernels do (csrc/lander_solver.cu)
-SOURCE_FLAGS = {"lander_solver.cu": ("--fmad=false",)}
+# the landers' steps round every product and sum, as PyTorch's elementwise
+# kernels do (csrc/lander_solver.cu, csrc/lander_rigid.cu)
+SOURCE_FLAGS = {"lander_solver.cu": ("--fmad=false",), "lander_rigid.cu": ("--fmad=false",)}
 # the headers a source includes from csrc/, hashed with it
-SOURCE_HEADERS = {"lander_solver.cu": ("lander_solver.cuh",)}
+SOURCE_HEADERS = {"lander_solver.cu": ("lander_solver.cuh",),
+                  "lander_rigid.cu": ("lander_rigid.cuh",)}
 
 # seconds spent in nvcc by this process, and ptxas's report, by source file name
 build_seconds: dict = {}

@@ -48,7 +48,10 @@ S1 against the plain solver: bit for bit (every bit of every field,
 accumulator and flag) at N = 128, 1024 and 37, N = 2 at (180, 60) and the
 ragged N = 3, 33 and 129, with and without the early exit; over 100 calls
 and a graph replay; its wrapper refuses a wrong dtype, a non-contiguous
-input and mixed devices."""
+input and mixed devices.  R1, the rigid lander's step, against its plain
+versions through ``step_env`` and ``reset_env``: bit for bit at N = 1, 37,
+128, 129, 1024 and 8192 with the wind off and on, over a graph replay; its
+wrapper's refusals."""
 
 import dataclasses
 
@@ -1476,3 +1479,78 @@ def test_solver_kernel_wrapper_refuses_what_it_does_not_take(cuda):
         assembly_step_kernel(hull, leg1, leg2, wide, fx, fy, torque, gravity, acc)
     with pytest.raises(ValueError, match="is on cpu"):
         assembly_step_kernel(hull, leg1, leg2, terrain, fx, fy.cpu(), torque, gravity, acc)
+
+
+# R1, the rigid lander's step: N of the host env, lunar_per, the population
+# and lunar_per_scaled(1024), multihost_ddqn, and ragged counts (a block of
+# the kernel part-full)
+RIGID_CASES = [1, 37, 128, 129, 1024, 8192]
+
+
+def _rigid_case(n, wind, seed):
+    from deep_q_learning_tpu_torch.envs import LunarLander
+    from deep_q_learning_tpu_torch.envs.heuristic import rigid_inputs
+    from deep_q_learning_tpu_torch.measure import rigid_params
+
+    env, params = LunarLander(), rigid_params(wind, max_steps=100)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return env, params, rigid_inputs(env, params, n, g, envs=256, frames=150), g
+
+
+@pytest.mark.parametrize("wind", [False, True], ids=["calm", "wind"])
+@pytest.mark.parametrize("n", RIGID_CASES)
+def test_rigid_kernel_matches_plain(cuda, n, wind):
+    """R1 through ``step_env`` and ``reset_env`` against
+    ``step_env_reference`` and ``reset_env_reference`` on the card, from a
+    flight of landers (resets, touchdowns, crashes, rests, truncations):
+    every bit of every output, one launch a call and no plain call."""
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+    from deep_q_learning_tpu_torch.ops import lander_kernels
+
+    env, params, (state, action, draws), g = _rigid_case(n, wind, seed=n)
+    rd = env.reset_draws(g, n)
+    lander_kernels.reset_counts()
+    got = env.step_env(None, state, action, params, draws)
+    got_reset = env.reset_env(None, n, params, rd)
+    assert lander_kernels.launches == {"rigid_step": 2}
+    assert lander_kernels.plain_calls == {"rigid_step": 0}
+    want = env.step_env_reference(None, state, action, params, draws)
+    want_reset = env.reset_env_reference(None, n, params, rd)
+    for i, (a, b) in enumerate(zip(tree_leaves([got, got_reset]),
+                                   tree_leaves([want, want_reset]))):
+        assert _same_bits(a, b), i
+
+
+def test_rigid_kernel_is_bitwise_stable_over_a_graph_replay(cuda):
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+
+    env, params, (state, action, draws), _ = _rigid_case(1024, True, seed=3)
+    call = lambda: env.step_env(None, state, action, params, draws)  # noqa: E731
+    first = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(tree_leaves(list(first)), tree_leaves(list(captured))):
+            assert _same_bits(a, b)
+
+
+def test_rigid_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    import dataclasses
+
+    from deep_q_learning_tpu_torch.ops.lander_kernels import rigid_step_kernel
+
+    env, params, (state, action, draws), _ = _rigid_case(16, False, seed=6)
+    with pytest.raises(TypeError, match="dtype"):
+        rigid_step_kernel(state, action.long(), params, draws)
+    with pytest.raises(ValueError, match="contiguous"):
+        rigid_step_kernel(state, action, params, torch.zeros((2, 16), device=cuda).t())
+    with pytest.raises(ValueError, match="is on cpu"):
+        rigid_step_kernel(dataclasses.replace(state, vx=state.vx.cpu()), action, params, draws)
