@@ -8,7 +8,8 @@
 // as ~56k elementwise kernels a frame at the presets' (120, 40) passes.
 // This kernel runs the whole step, every pass, for one env per group of
 // kGroup (4) lanes of a warp; the body is lander_solver.cuh, shared with the
-// host build of the CPU tests.
+// host build of the CPU tests and with J1 (lander_jointed.cu), which runs it
+// inside the jointed lander's whole frame on the presets' path.
 //
 // What bounds it on the card: neither bytes nor operations.  A call reads
 // 232 bytes and writes 180 bytes an env, and the plain version does ~53k
@@ -51,48 +52,6 @@
 
 #include "lander_solver.cuh"
 
-namespace {
-
-// The card's lanes for lander_solver.cuh: this thread is rank r of its
-// group, and a read is a shuffle within the group's kGroup lanes.  Every
-// lane of the warp takes part in every shuffle and vote (the body keeps the
-// warp converged), so all name the whole warp: a constant mask lets the
-// compiler issue them without checking which lanes arrived.
-struct WarpLanes {
-  static constexpr int kLocal = 1;
-  static constexpr unsigned kWarp = 0xffffffffu;
-  int r;
-
-  __host__ __device__ int rank(int) const { return r; }
-
-  template <class T>
-  __host__ __device__ T read(const T (&v)[1], int src) const {
-#ifdef __CUDA_ARCH__
-    static_assert(sizeof(T) % 4 == 0, "shuffled in 32-bit words");
-    constexpr int kWords = sizeof(T) / 4;
-    unsigned w[kWords];
-    memcpy(w, &v[0], sizeof(T));
-#pragma unroll
-    for (int q = 0; q < kWords; ++q) w[q] = __shfl_sync(kWarp, w[q], src, lander::kGroup);
-    T out;
-    memcpy(&out, w, sizeof(T));
-    return out;
-#else
-    return v[0];
-#endif
-  }
-
-  __host__ __device__ bool any(bool p) const {
-#ifdef __CUDA_ARCH__
-    return __any_sync(kWarp, p);
-#else
-    return p;
-#endif
-  }
-};
-
-}  // namespace
-
 __global__ void __launch_bounds__(lander::kThreads)
 assembly_step_kernel(lander::IO io, lander::Consts k, int n, int vel_iters, int pos_iters) {
   int i = (blockIdx.x * lander::kThreads + threadIdx.x) / lander::kGroup;
@@ -100,7 +59,7 @@ assembly_step_kernel(lander::IO io, lander::Consts k, int n, int vel_iters, int 
   // nothing (a warp past it has no live group and leaves)
   int first = (blockIdx.x * lander::kThreads + (threadIdx.x & ~31)) / lander::kGroup;
   if (first >= n) return;
-  WarpLanes lanes{static_cast<int>(threadIdx.x) & (lander::kGroup - 1)};
+  lander::WarpLanes lanes{static_cast<int>(threadIdx.x) & (lander::kGroup - 1)};
   lander::assembly_step_env(io, k, i < n ? i : n - 1, i < n, vel_iters, pos_iters, lanes);
 }
 

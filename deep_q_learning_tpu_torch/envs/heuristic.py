@@ -131,10 +131,11 @@ def solver_inputs(env, params, n: int, generator: torch.Generator, envs: int = 1
             torch.zeros_like(fx), torque, params.gravity, st.solver_acc)
 
 
-def rigid_inputs(env, params, n: int, generator: torch.Generator, envs: int = 1024,
-                 frames: int = 300):
-    """``LunarLander.step_env`` inputs of ``n`` lanes of the rigid lander,
-    for checks and measurements of its step (R1): the pre-step states,
+def lander_step_inputs(env, params, n: int, generator: torch.Generator, envs: int = 1024,
+                       frames: int = 300):
+    """``LunarLander.step_env`` inputs of ``n`` lanes, for checks and
+    measurements of the lander's step (R1 in rigid mode, J1 in jointed
+    mode): the pre-step states,
     actions and dispersion draws of ``envs`` landers over ``frames``
     frames, half of them started from fresh resets and half just above the
     ground (:func:`touchdown_states`), the even-numbered flown by
@@ -142,7 +143,8 @@ def rigid_inputs(env, params, n: int, generator: torch.Generator, envs: int = 10
     finishes restarts from a fresh reset.  So the states hold flight,
     touchdowns on one leg and on both, landers coming to rest, crashes,
     landers leaving the screen and, where ``params.max_steps_in_episode`` is
-    below ``frames``, truncations (:func:`rigid_cover` counts them).  Of
+    below ``frames``, truncations (:func:`rigid_cover` and
+    :func:`jointed_cover` count them).  Of
     the ``n`` lanes taken, the steps that end an episode come first, as
     many as there are, then others at random, all in a random order;
     returns ``(state, action, draws)``."""
@@ -193,6 +195,24 @@ def rigid_cover(env, params, state, action, draws) -> dict:
     cover = {"flight": ~new.leg1 & ~new.leg2, "one leg": new.leg1 ^ new.leg2,
              "two legs": new.leg1 & new.leg2, "hull hit": hull_hit,
              "overload": game_over & ~hull_hit, "off screen": obs[:, 0].abs() >= 1.0,
+             "rest": reward == 100.0, "truncated": truncated}
+    if params.enable_wind:
+        cover["wind"] = ~(state.leg1 | state.leg2)
+    return cover
+
+
+def jointed_cover(env, params, state, action, draws) -> dict:
+    """What a jointed step from these inputs meets, from the plain version:
+    the lanes in flight, on one leg and on both after the step, a joint at
+    its limit, the hull hitting the ground, the lander leaving the screen,
+    asleep, coming to rest and reaching the episode's limit; with the wind
+    on, the airborne lanes it pushes.  ``{name: (N,) bool}``."""
+    obs, new, reward, _, truncated = env.step_env_reference(None, state, action, params, draws)
+    off = obs[:, 0].abs() >= 1.0
+    acc = new.solver_acc
+    cover = {"flight": ~new.leg1 & ~new.leg2, "one leg": new.leg1 ^ new.leg2,
+             "two legs": new.leg1 & new.leg2, "joint limit": (acc.s1 != 0) | (acc.s2 != 0),
+             "hull hit": (reward == -100.0) & ~off, "off screen": off, "asleep": new.sleep > 0,
              "rest": reward == 100.0, "truncated": truncated}
     if params.enable_wind:
         cover["wind"] = ~(state.leg1 | state.leg2)

@@ -32,7 +32,9 @@ runs as one kernel instead, S1 (``csrc/lander_solver.cu``, bound in
 ``ops/solver_kernels.py``), which computes the same operations for one env
 per thread: :func:`assembly_step` launches it on CUDA tensors and runs
 :func:`assembly_step_reference`, the plain version kept here, on CPU
-tensors.
+tensors.  The lander's step on the card runs S1's body inside its own
+kernel, J1 (``ops/jointed_kernels.py``), so S1's launch serves its checks
+and the plain jointed step (``LunarLander.step_env_reference``).
 """
 
 from __future__ import annotations

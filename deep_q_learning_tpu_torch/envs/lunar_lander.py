@@ -14,9 +14,10 @@ again:
   * ``rigid``: one rigid body with two leg-tip contacts and the calibrated
     joint-overload threshold ``J_CRASH``.
 
-In rigid mode a step, and the reset's physics frame, on CUDA tensors is one
-hand-written kernel, R1 (``ops/lander_kernels.py``, bitwise the plain
-version on the card); CPU tensors take the plain versions,
+A step, and the reset's physics frame, on CUDA tensors is one hand-written
+kernel a frame: J1 for the jointed engine (``ops/jointed_kernels.py``, S1's
+solve inside it) and R1 for the rigid one (``ops/lander_kernels.py``), each
+bitwise the plain version on the card; CPU tensors take the plain versions,
 ``step_env_reference`` and ``reset_env_reference``.
 
 Randomness: the reset draws (terrain heights, kick force, wind indices)
@@ -28,6 +29,7 @@ uniform tensor on ``[-1, 1)`` for a step).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -244,22 +246,26 @@ class LunarLander(Environment):
         draws: Optional[ResetDraws] = None,
     ):
         """``n`` fresh episodes, ``(obs, state)``: the smoothed terrain, then
-        gym's first physics frame with the kick.  In rigid mode that frame is
-        the kernel R1 on CUDA tensors (``ops/lander_kernels.py``; it
-        launches or raises) and :meth:`reset_env_reference`, the plain
-        version, on CPU tensors; the jointed engine always takes
-        :meth:`reset_env_reference`."""
-        from deep_q_learning_tpu_torch.ops import lander_kernels
+        gym's first physics frame with the kick.  On CUDA tensors that frame
+        is a kernel (it launches or raises): J1 for the jointed engine
+        (``ops/jointed_kernels.py``), R1 for the rigid one
+        (``ops/lander_kernels.py``); on CPU tensors
+        :meth:`reset_env_reference`, the plain version."""
+        from deep_q_learning_tpu_torch.ops import jointed_kernels, lander_kernels
 
         if draws is None:
             draws = sample_reset_draws(generator, n)
-        if params.jointed:
-            return self.reset_env_reference(None, n, params, draws)
         if draws.terrain.device.type != "cpu":
-            return lander_kernels.rigid_reset_kernel(
-                smoothed_terrain(draws.terrain, params), draws.kick.contiguous(),
-                draws.wind.contiguous(), params)
-        lander_kernels.plain_calls["rigid_step"] += 1
+            terrain = smoothed_terrain(draws.terrain, params)
+            kick, wind = draws.kick.contiguous(), draws.wind.contiguous()
+            if params.jointed:
+                return jointed_kernels.jointed_reset_kernel(
+                    terrain, dataclasses.replace(draws, kick=kick, wind=wind), params)
+            return lander_kernels.rigid_reset_kernel(terrain, kick, wind, params)
+        if params.jointed:
+            jointed_kernels.plain_calls["jointed_step"] += 1
+        else:
+            lander_kernels.plain_calls["rigid_step"] += 1
         return self.reset_env_reference(None, n, params, draws)
 
     def reset_env_reference(
@@ -268,8 +274,11 @@ class LunarLander(Environment):
         n: int,
         params: LunarLanderParams,
         draws: Optional[ResetDraws] = None,
+        *,
+        solve=None,
     ):
-        """The plain version of :meth:`reset_env`, both engines."""
+        """The plain version of :meth:`reset_env`, both engines; ``solve``
+        as :meth:`step_env_reference`'s."""
         if draws is None:
             draws = sample_reset_draws(generator, n)
         terrain = smoothed_terrain(draws.terrain, params)
@@ -308,8 +317,7 @@ class LunarLander(Environment):
         # gym's reset ends with one nop physics frame that carries the
         # initial random force.  The action is a nop, so the frame's engine
         # dispersion has no effect and is passed as zeros.
-        phys = self._physics_step_jointed if params.jointed else self._physics_step
-        state, _, _ = phys(
+        state, _, _ = self._physics(params, solve)(
             state, full(0, torch.int32), params,
             disp=torch.zeros((n, 2), device=device), kick_force=draws.kick,
         )
@@ -540,13 +548,21 @@ class LunarLander(Environment):
         )
         return new_state, game_over, rest
 
+    def _physics(self, params, solve=None):
+        """The physics frame of ``params``' engine, the jointed one with
+        ``solve`` as its solver step."""
+        if params.jointed:
+            return functools.partial(self._physics_step_jointed, solve=solve)
+        return self._physics_step
+
     # ----------------------------------------------- jointed 3-body physics
-    def _physics_step_jointed(self, state, action, params, disp, kick_force=None):
+    def _physics_step_jointed(self, state, action, params, disp, kick_force=None, solve=None):
         """One Box2D frame of the 3-body assembly: engine impulses on the
         hull (hull mass and inertia; gym applies them before
-        ``world.Step``), then ``lander_solver.assembly_step``.
-        ``game_over`` is the hull touching the terrain, with no calibrated
-        threshold.  Returns ``(state', game_over, rest)``."""
+        ``world.Step``), then ``solve``, by default
+        ``lander_solver.assembly_step``.  ``game_over`` is the hull
+        touching the terrain, with no calibrated threshold.  Returns
+        ``(state', game_over, rest)``."""
         dt = 1.0 / lander_solver.FPS
         sin_a = torch.sin(state.angle)
         cos_a = torch.cos(state.angle)
@@ -603,7 +619,8 @@ class LunarLander(Environment):
         omega = omega + (rsx * jsy - rsy * jsx) * IIH
 
         hull = Body(cx=comx, cy=comy, a=state.angle, vx=vx, vy=vy, w=omega)
-        hull, leg1, leg2, touch1, touch2, hull_hit, still, acc = lander_solver.assembly_step(
+        solve = solve or lander_solver.assembly_step
+        hull, leg1, leg2, touch1, touch2, hull_hit, still, acc = solve(
             hull, state.leg1_body, state.leg2_body, state.terrain, fx, fy, torque,
             params.gravity, acc=state.solver_acc, dt=dt,
             vel_iters=params.vel_iters, pos_iters=params.pos_iters, vel_tol=params.vel_tol,
@@ -643,20 +660,22 @@ class LunarLander(Environment):
         draws: Optional[torch.Tensor] = None,
     ):
         """One transition, ``(obs, state, reward, terminated, truncated)``.
-        In rigid mode the kernel R1 on CUDA tensors (``ops/lander_kernels.py``;
-        it launches or raises) and :meth:`step_env_reference`, the plain
-        version, on CPU tensors; the jointed engine always takes
-        :meth:`step_env_reference`, whose solver step is S1 on the card."""
-        from deep_q_learning_tpu_torch.ops import lander_kernels
+        On CUDA tensors a kernel (it launches or raises): J1 for the jointed
+        engine (``ops/jointed_kernels.py``), R1 for the rigid one
+        (``ops/lander_kernels.py``); on CPU tensors
+        :meth:`step_env_reference`, the plain version."""
+        from deep_q_learning_tpu_torch.ops import jointed_kernels, lander_kernels
 
         if draws is None:
             draws = sample_step_draws(generator, action.shape[0])
-        if params.jointed:
-            return self.step_env_reference(None, state, action, params, draws)
         if state.x.device.type != "cpu":
-            return lander_kernels.rigid_step_kernel(
-                state, action.to(torch.int32), params, draws.contiguous())
-        lander_kernels.plain_calls["rigid_step"] += 1
+            kernel = (jointed_kernels.jointed_step_kernel if params.jointed
+                      else lander_kernels.rigid_step_kernel)
+            return kernel(state, action.to(torch.int32), params, draws.contiguous())
+        if params.jointed:
+            jointed_kernels.plain_calls["jointed_step"] += 1
+        else:
+            lander_kernels.plain_calls["rigid_step"] += 1
         return self.step_env_reference(None, state, action, params, draws)
 
     def step_env_reference(
@@ -666,13 +685,19 @@ class LunarLander(Environment):
         action: torch.Tensor,
         params: LunarLanderParams,
         draws: Optional[torch.Tensor] = None,
+        *,
+        solve=None,
     ):
-        """The plain version of :meth:`step_env`, both engines."""
+        """The plain version of :meth:`step_env`, both engines.  The
+        jointed engine's solve is ``solve``: by default
+        ``lander_solver.assembly_step`` (S1 on the card), or
+        ``lander_solver.assembly_step_reference`` for the plain solver on
+        either device."""
         if draws is None:
             draws = sample_step_draws(generator, action.shape[0])
         # dispersion is drawn every frame (gym draws before the engine gate)
         disp = draws / SCALE * params.dispersion_scale
-        phys = self._physics_step_jointed if params.jointed else self._physics_step
+        phys = self._physics(params, solve)
         new_state, game_over, rest = phys(state, action, params, disp)
 
         m_power = torch.where(action == 2, 1.0, 0.0)

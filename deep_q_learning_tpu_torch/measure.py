@@ -109,6 +109,13 @@ PLAIN_SOLVER_REPLAYS = 3
 RIGID_SHAPES = (1, 128, 1024, 8192)
 RIGID_RESET_N = 128
 PLAIN_RIGID_CALLS = 10
+# J1, the jointed lander's frame around S1: N of lunar_jointed_per (128) and
+# lunar_jointed_scaled(1024) at the presets' (120, 40) passes, the wind off
+# (every preset) and on; the reset frame at both.  Its plain version (S1
+# and ~200 elementwise kernels a step) is timed as a CUDA graph of one call
+# replayed PLAIN_JOINTED_REPLAYS times
+JOINTED_SHAPES = (128, 1024)
+PLAIN_JOINTED_REPLAYS = 20
 
 
 def card_line() -> str:
@@ -272,12 +279,12 @@ def rigid_device_times(card: str, inputs: Optional[dict] = None) -> dict:
     (``lander_kernels.rigid_step_work``).  ``inputs`` maps each N to
     ``step_env``'s ``(state, action, draws)`` with the wind off; by
     default the states of a flight of landers
-    (``envs/heuristic.py::rigid_inputs``).  The reset's plain version is
+    (``envs/heuristic.py::lander_step_inputs``).  The reset's plain version is
     the whole ``reset_env_reference``, its terrain smoothing (a few
     kernels) included.  Prints a line a shape and returns ``{(n, kind):
     (kernel us, plain us, work)}``, kind ``"step"`` or ``"reset"``."""
     from deep_q_learning_tpu_torch.envs import LunarLander
-    from deep_q_learning_tpu_torch.envs.heuristic import rigid_inputs
+    from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs
     from deep_q_learning_tpu_torch.envs.lunar_lander import sample_reset_draws, smoothed_terrain
     from deep_q_learning_tpu_torch.ops import lander_kernels
 
@@ -286,7 +293,7 @@ def rigid_device_times(card: str, inputs: Optional[dict] = None) -> dict:
     times = {}
     for n in RIGID_SHAPES:
         state, action, draws = (inputs[n] if inputs is not None
-                                else rigid_inputs(env, params, n, g))
+                                else lander_step_inputs(env, params, n, g))
         k = device_us(lambda: lander_kernels.rigid_step_kernel(state, action, params, draws))
         r = device_us(lambda: env.step_env_reference(None, state, action, params, draws),
                       calls=PLAIN_RIGID_CALLS)
@@ -300,6 +307,65 @@ def rigid_device_times(card: str, inputs: Optional[dict] = None) -> dict:
     for (n, kind), (k, r, work) in times.items():
         print(f"lander_rigid_step (R1) {kind} N={n}: device {k:.2f} us kernel, {r:.2f} us plain "
               f"as a CUDA graph of {PLAIN_RIGID_CALLS} calls ({r / k:.0f}x); "
+              f"{bound_text(work, k)} [{card}]")
+    return times
+
+
+def jointed_params(enable_wind: bool = False, max_steps: Optional[int] = None):
+    """The jointed lander's params of the jointed presets ((120, 40) passes,
+    the wind off), or with the wind on, and another episode limit."""
+    from deep_q_learning_tpu_torch.envs.lunar_lander import LunarLanderParams
+
+    params = LunarLanderParams(vel_iters=120, pos_iters=40, enable_wind=enable_wind)
+    if max_steps is not None:
+        params = dataclasses.replace(params, max_steps_in_episode=max_steps)
+    return params
+
+
+def jointed_device_times(card: str, inputs: Optional[dict] = None) -> dict:
+    """J1 and its plain version at JOINTED_SHAPES, the wind off and on, and
+    the reset frame: device µs a call of the kernel (a CUDA graph of
+    GRAPH_CALLS calls) and of the plain version (a graph of one call
+    replayed PLAIN_JOINTED_REPLAYS times), beside the bound of the call's
+    work (``jointed_kernels.jointed_step_work`` at the position passes each
+    env ran, ``jointed_kernels.position_passes``).  ``inputs`` maps each
+    (N, wind) to ``step_env``'s ``(state, action, draws)``; by default the
+    states of a flight of landers (``envs/heuristic.py::lander_step_inputs`` with
+    the jointed engine).  The reset's plain version is the whole
+    ``reset_env_reference``, its terrain smoothing included.  Prints a line
+    a shape and returns ``{(n, kind): (kernel us, plain us, work)}``, kind
+    ``"step"``, ``"wind"`` or ``"reset"``."""
+    from deep_q_learning_tpu_torch.envs import LunarLander
+    from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs
+    from deep_q_learning_tpu_torch.envs.lunar_lander import sample_reset_draws, smoothed_terrain
+    from deep_q_learning_tpu_torch.ops import jointed_kernels
+
+    env = LunarLander()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    for n in JOINTED_SHAPES:
+        for wind in (False, True):
+            params = jointed_params(wind)
+            state, action, draws = (inputs[n, wind] if inputs is not None
+                                    else lander_step_inputs(env, params, n, g, envs=n, frames=60))
+            ran = jointed_kernels.position_passes(params, state, action, draws)
+            k = device_us(lambda: jointed_kernels.jointed_step_kernel(state, action, params, draws))
+            r = device_us(lambda: env.step_env_reference(None, state, action, params, draws),
+                          calls=1, replays=PLAIN_JOINTED_REPLAYS)
+            work = jointed_kernels.jointed_step_work(n, params.vel_iters, ran, wind)
+            times[n, "wind" if wind else "step"] = (k, r, work)
+        params = jointed_params()
+        rd = sample_reset_draws(g, n)
+        terrain = smoothed_terrain(rd.terrain, params)
+        k = device_us(lambda: jointed_kernels.jointed_reset_kernel(terrain, rd, params))
+        r = device_us(lambda: env.reset_env_reference(None, n, params, rd), calls=1,
+                      replays=PLAIN_JOINTED_REPLAYS)
+        ran = jointed_kernels.position_passes(params, terrain=terrain, reset_draws=rd)
+        times[n, "reset"] = (k, r, jointed_kernels.jointed_step_work(
+            n, params.vel_iters, ran, reset=True))
+    for (n, kind), (k, r, work) in times.items():
+        print(f"lander_jointed_step (J1) {kind} N={n} (120, 40): device {k:.2f} us kernel, "
+              f"{r:.2f} us plain (S1 inside) as a CUDA graph of one call ({r / k:.1f}x); "
               f"{bound_text(work, k)} [{card}]")
     return times
 
@@ -326,6 +392,7 @@ def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
     print(f"kernel launches per steady superstep, by preset: {per_superstep}")
     solver_device_times(card, baseline=baseline)
     rigid_device_times(card)
+    jointed_device_times(card)
     g = torch.Generator(device="cuda").manual_seed(0)
     base_sk = load_baseline(baseline, "sample_kernels") if baseline is not None else None
     for n, c, b in SLOT_SHAPES:
@@ -504,8 +571,10 @@ def _span(fn, name):
 LEARNER_KERNELS = {"td_loss_fwd": ("td_loss_fwd_kernel",), "td_loss_bwd": ("td_loss_bwd_kernel",),
                    "per_slot_sample": ("slot_warp_kernel", "slot_block_kernel")}
 # the envs' kernels by their names in the profiler's trace: R1 (the rigid
-# lander's step) and S1 (the jointed solver's)
+# lander's step), J1 (the jointed lander's) and S1 (the jointed solver's
+# alone, which J1 runs inside it)
 ENV_KERNELS = {"lander_rigid_step": ("rigid_step_kernel",),
+               "lander_jointed_step": ("jointed_step_kernel",),
                "assembly_step": ("assembly_step_kernel",)}
 # the host's calls that put work on the card one by one
 HOST_LAUNCHES = {"kernels": ("cudaLaunchKernel", "cuLaunchKernel"), "graphs": ("cudaGraphLaunch",),
@@ -734,9 +803,12 @@ class KernelTrace:
     ``per_graph_launch``, their count for each graph launch in order).
     ``copies`` counts the host's copy and fill calls, ``device_us`` the
     device time of the kernels, copies and fills matched to the span's
-    calls, ``wall_us`` the span's wall time on the host, and ``lost_at_us``
+    calls, ``wall_us`` the span's wall time on the host, ``lost_at_us``
     when each launch with no kernel in the trace (a kernel launch or a
-    graph launch) was made, in µs after the span began."""
+    graph launch) was made, in µs after the span began, ``lost_in`` that
+    launch's API call and the innermost host op around it, and
+    ``orphans`` the kernels of the session whose correlation id matches
+    no host call in the trace, by name."""
 
     launches: int
     launched: collections.Counter
@@ -746,6 +818,8 @@ class KernelTrace:
     device_us: float = 0.0
     wall_us: float = 0.0
     lost_at_us: list = dataclasses.field(default_factory=list)
+    lost_in: list = dataclasses.field(default_factory=list)
+    orphans: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     @property
     def host_launches(self) -> int:
@@ -802,8 +876,18 @@ def traced_kernels(fn: Callable[[], object], pad_s: float = PAD_S) -> KernelTrac
     by_id = collections.Counter(e["args"]["correlation"] for e in kernels)
     ours = launch_ids | set(graph_ids) | copy_ids
     launched = launch_ids | set(graph_ids)
-    lost_at = sorted(e["ts"] - t0 for e in calls
-                     if e["args"]["correlation"] in launched and not by_id[e["args"]["correlation"]])
+    lost = sorted((e for e in calls
+                   if e["args"]["correlation"] in launched and not by_id[e["args"]["correlation"]]),
+                  key=lambda e: e["ts"])
+    ops = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation")]
+
+    def op_around(call) -> str:
+        around = [op for op in ops if op["tid"] == call["tid"]
+                  and op["ts"] <= call["ts"] <= op["ts"] + op["dur"]]
+        return min(around, key=lambda op: op["dur"])["name"] if around else "no op"
+
+    host_ids = {e["args"]["correlation"] for e in events
+                if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
     return KernelTrace(
         launches=sum("LaunchKernel" in e["name"] for e in calls),
         launched=collections.Counter(
@@ -816,7 +900,10 @@ def traced_kernels(fn: Callable[[], object], pad_s: float = PAD_S) -> KernelTrac
                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                       and e.get("args", {}).get("correlation") in ours),
         wall_us=span["dur"],
-        lost_at_us=lost_at)
+        lost_at_us=[e["ts"] - t0 for e in lost],
+        lost_in=[f"{e['name']} in {op_around(e)}" for e in lost],
+        orphans=collections.Counter(e["name"] for e in kernels
+                                    if e["args"]["correlation"] not in host_ids))
 
 
 def replay_ms(graphed) -> tuple:
@@ -894,6 +981,32 @@ def env_frames(cfg, card: str) -> None:
     print(f"profiled vector step: wall {wall * 1e3:.1f} ms, {launches} kernel launches "
           f"({wall * 1e6 / max(launches, 1):.2f} us of wall each), device busy {busy / 1e3:.1f} ms "
           f"({100 * busy / 1e6 / wall:.1f} %) [{card}]")
+    graphed_vector_step(env, params, n, g, st, card)
+
+
+def graphed_vector_step(env, params, n: int, g: torch.Generator, st, card: str) -> None:
+    """The env's vector step with its auto-reset from a reset pool as
+    ``VectorEnv`` runs it in a CUDA graph (the learner's frame graph holds
+    the same kernels): its replay alone (:func:`replay_ms`: device ms,
+    kernels, the host's launch) and the env kernels among its kernels."""
+    from deep_q_learning_tpu_torch.envs import VectorEnv
+
+    venv = VectorEnv(env, n)
+    if not venv.graphed:
+        return
+    pool = venv.fresh_pool(g, params)
+    obs = env.get_obs(st, params)
+    actions = torch.randint(0, env.num_actions, (n,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    for _ in range(2):  # the capture, then a replay
+        obs, st, _ = venv.step(g, st, actions, params, prev_obs=obs, fresh=pool)
+    step = next(graph for (kind, *_), graph in venv._graphs.items() if kind == "step")
+    host_ms, device_ms, nodes = replay_ms(step)
+    trace = traced_kernels(step.graph.replay)
+    kernels = {name: sum(trace.count(k) for k in names) for name, names in ENV_KERNELS.items()}
+    print(f"the vector step's graph (auto-reset from the pool included): replay {device_ms:.3f} "
+          f"ms on the device, {nodes} kernels, the env's among them {kernels}, its launch "
+          f"{host_ms:.3f} ms of host [{card}]")
 
 
 def main(argv=None) -> int:

@@ -4,6 +4,7 @@ Each kernel module gives the bytes and float operations a call needs at
 its shapes (``*_work``); :func:`bound_us` turns them into the least time an
 H100 SXM could take for the call, at its published peaks."""
 
+from deep_q_learning_tpu_torch.ops.jointed_kernels import jointed_step_kernel, jointed_step_work
 from deep_q_learning_tpu_torch.ops.solver_kernels import assembly_step_kernel, assembly_step_work
 from deep_q_learning_tpu_torch.ops.td_kernels import build_fused_loss_fn, fused_td_loss
 

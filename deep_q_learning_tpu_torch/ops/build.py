@@ -31,11 +31,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # the landers' steps round every product and sum, as PyTorch's elementwise
-# kernels do (csrc/lander_solver.cu, csrc/lander_rigid.cu)
-SOURCE_FLAGS = {"lander_solver.cu": ("--fmad=false",), "lander_rigid.cu": ("--fmad=false",)}
-# the headers a source includes from csrc/, hashed with it
-SOURCE_HEADERS = {"lander_solver.cu": ("lander_solver.cuh",),
-                  "lander_rigid.cu": ("lander_rigid.cuh",)}
+# kernels do (csrc/lander_solver.cu, csrc/lander_rigid.cu, csrc/lander_jointed.cu)
+SOURCE_FLAGS = {"lander_solver.cu": ("--fmad=false",), "lander_rigid.cu": ("--fmad=false",),
+                "lander_jointed.cu": ("--fmad=false",)}
 
 # seconds spent in nvcc by this process, and ptxas's report, by source file name
 build_seconds: dict = {}
@@ -62,7 +60,6 @@ def load_library(source_name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
     its build is missing or stale, and load it.  Cached per process."""
     source = csrc_dir / source_name
     flags = NVCC_FLAGS + SOURCE_FLAGS.get(source_name, ())
-    headers = [csrc_dir / h for h in SOURCE_HEADERS.get(source_name, ())]
 
     def compile_to(out: Path) -> None:
         t0 = time.perf_counter()
@@ -78,18 +75,19 @@ def load_library(source_name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
         build_seconds[source_name] = time.perf_counter() - t0
         ptxas_reports[source_name] = proc.stdout + proc.stderr
 
-    return ctypes.CDLL(str(cached_build(source, flags, BUILD_DIR, compile_to, headers)))
+    return ctypes.CDLL(str(cached_build(source, flags, BUILD_DIR, compile_to)))
 
 
-def cached_build(source: Path, flags, build_dir: Path, compile_to, headers=()) -> Path:
+def cached_build(source: Path, flags, build_dir: Path, compile_to) -> Path:
     """The library built from ``source`` with ``flags``: under ``build_dir``,
-    named after a hash of the source, the ``headers`` it includes and the
-    flags, so an edited source is rebuilt.  Where it is missing,
+    named after a hash of the source, the headers it includes
+    (:func:`included`) and the flags, so an edited source or header is
+    rebuilt.  Where it is missing,
     ``compile_to(path)`` writes it to a temporary path that then replaces it
     atomically (a loader sees all or nothing).  One build at a time: processes that start together (the
     ranks of a run that share a checkout) wait on a file lock and then find
     the library; the kernel releases the lock if its holder dies."""
-    content = source.read_bytes() + b"".join(Path(h).read_bytes() for h in headers)
+    content = source.read_bytes() + b"".join(h.read_bytes() for h in included(source))
     digest = hashlib.sha256(content + " ".join(flags).encode()).hexdigest()
     lib_path = build_dir / f"{source.stem}-{digest[:16]}.so"
     if not lib_path.exists():
@@ -102,6 +100,22 @@ def cached_build(source: Path, flags, build_dir: Path, compile_to, headers=()) -
                     compile_to(out)
                     os.replace(out, lib_path)
     return lib_path
+
+
+def included(source: Path) -> list:
+    """The headers ``source`` includes by a quoted name from its own
+    directory, and theirs in turn (``csrc/lander_jointed.cu`` includes
+    ``lander_jointed.cuh``, which includes ``lander_frame.cuh`` and
+    ``lander_solver.cuh``); a CPU test's host build of a ``.cuh`` takes
+    them too."""
+    found, todo = [], [source]
+    while todo:
+        for name in re.findall(r'^#include "([^"]+)"', todo.pop().read_text(), re.M):
+            path = source.parent / name
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
 
 
 def ptxas_summary(report: str) -> dict:

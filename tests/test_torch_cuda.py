@@ -29,9 +29,9 @@ graph L2): bitwise the eager rank and, at world size 1, the graphed
 the host agent's update one graph replay: bitwise their eager forms.  ``VectorEnv``'s CUDA graphs of the lander's vector step and
 reset pool: bitwise the eager step over 64 jointed frames with auto-resets
 and over two ``lunar_per`` supersteps (the whole runner); a graphed step
-runs the kernels the eager step runs, the jointed solver's kernel S1 once
-among them; a ``lander_vel_tol > 0`` trainer graphs, bitwise its eager
-twin.  The single learner's frame and update as CUDA graphs
+runs the kernels the eager step runs, the jointed lander's kernel J1 once
+among them and the solver's S1 not on its own; a ``lander_vel_tol > 0``
+trainer graphs, bitwise its eager twin.  The single learner's frame and update as CUDA graphs
 (``GraphedLearner``): the first training frames apply one update each
 (the Adam count 1, 2, 3, 4 and the runner bitwise the eager learner's
 after each), K1 and K2 counted in the profiler's trace once per update.
@@ -51,7 +51,10 @@ and a graph replay; its wrapper refuses a wrong dtype, a non-contiguous
 input and mixed devices.  R1, the rigid lander's step, against its plain
 versions through ``step_env`` and ``reset_env``: bit for bit at N = 1, 37,
 128, 129, 1024 and 8192 with the wind off and on, over a graph replay; its
-wrapper's refusals."""
+wrapper's refusals.  J1, the jointed lander's frame around S1, against its
+plain versions (S1 inside them) through ``step_env`` and ``reset_env``: bit
+for bit at N = 37, 128 and 1024 with the wind off and on, and on the reset
+frame; over 100 calls and a graph replay; its wrapper's refusals."""
 
 import dataclasses
 
@@ -899,8 +902,9 @@ def test_graphed_jointed_vector_step_equals_eager(cuda):
     every frame's obs, states and transition bitwise.  Then the kernels one
     graphed step runs on the card (its replay and its draws) equal the
     kernels the eager step launches, by name and count, every launch matched
-    to its kernel in the profiler's trace; S1 once among them and a few
-    hundred in all (the plain solver alone is ~56k)."""
+    to its kernel in the profiler's trace; J1 once among them, S1 not on
+    its own (its body runs inside J1), and a few dozen in all (the plain
+    solver alone is ~56k)."""
     from deep_q_learning_tpu_torch.envs import VectorEnv
     from deep_q_learning_tpu_torch.envs.graphed import tree_leaves, tree_map
     from deep_q_learning_tpu_torch.envs.heuristic import touchdown_states
@@ -938,8 +942,9 @@ def test_graphed_jointed_vector_step_equals_eager(cuda):
     assert gt.lost == et.lost == 0 and not et.graphed, (gt, et)
     assert gt.graphed + gt.launched == et.launched, (gt, et)
     assert g_kernels == et.launches and gt.launches < 10, (g_kernels, et.launches, gt.launches)
-    s1 = "assembly_step_kernel"
-    assert gt.count(s1) == et.count(s1) == 1 and g_kernels < 2_000, (gt, et)
+    j1, s1 = "jointed_step_kernel", "assembly_step_kernel"
+    assert gt.count(j1) == et.count(j1) == 1 and g_kernels < 2_000, (gt, et)
+    assert gt.count(s1) == et.count(s1) == 0, (gt, et)
 
 
 def test_graphed_lunar_per_superstep_equals_eager(cuda):
@@ -1489,12 +1494,12 @@ RIGID_CASES = [1, 37, 128, 129, 1024, 8192]
 
 def _rigid_case(n, wind, seed):
     from deep_q_learning_tpu_torch.envs import LunarLander
-    from deep_q_learning_tpu_torch.envs.heuristic import rigid_inputs
+    from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs
     from deep_q_learning_tpu_torch.measure import rigid_params
 
     env, params = LunarLander(), rigid_params(wind, max_steps=100)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return env, params, rigid_inputs(env, params, n, g, envs=256, frames=150), g
+    return env, params, lander_step_inputs(env, params, n, g, envs=256, frames=150), g
 
 
 @pytest.mark.parametrize("wind", [False, True], ids=["calm", "wind"])
@@ -1554,3 +1559,100 @@ def test_rigid_kernel_wrapper_refuses_what_it_does_not_take(cuda):
         rigid_step_kernel(state, action, params, torch.zeros((2, 16), device=cuda).t())
     with pytest.raises(ValueError, match="is on cpu"):
         rigid_step_kernel(dataclasses.replace(state, vx=state.vx.cpu()), action, params, draws)
+
+
+# J1, the jointed lander's frame around S1: N of lunar_jointed_per (128),
+# lunar_jointed_scaled(1024) and a ragged count (37: a warp and a block of
+# the kernel part-full)
+JOINTED_CASES = [37, 128, 1024]
+
+
+def _jointed_case(n, wind, seed):
+    from deep_q_learning_tpu_torch.envs import LunarLander
+    from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs
+    from deep_q_learning_tpu_torch.measure import jointed_params
+
+    env, params = LunarLander(), jointed_params(wind, max_steps=100)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return env, params, lander_step_inputs(env, params, n, g, envs=256, frames=150), g
+
+
+@pytest.mark.parametrize("wind", [False, True], ids=["calm", "wind"])
+@pytest.mark.parametrize("n", JOINTED_CASES)
+def test_jointed_kernel_matches_plain(cuda, n, wind):
+    """J1 through ``step_env`` and ``reset_env`` against
+    ``step_env_reference`` and ``reset_env_reference`` on the card, with the
+    plain solver (``assembly_step_reference``, no S1 launch) inside them and
+    again with S1 inside, from a flight of jointed landers (resets,
+    touchdowns, joint limits, crashes, rests, truncations): every bit of
+    every output, one launch a call, no plain call and no launch of S1."""
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+    from deep_q_learning_tpu_torch.envs.lander_solver import assembly_step_reference
+    from deep_q_learning_tpu_torch.ops import jointed_kernels, solver_kernels
+
+    env, params, (state, action, draws), g = _jointed_case(n, wind, seed=n)
+    rd = env.reset_draws(g, n)
+    jointed_kernels.reset_counts()
+    solver_kernels.reset_counts()
+    got = env.step_env(None, state, action, params, draws)
+    got_reset = env.reset_env(None, n, params, rd)
+    assert jointed_kernels.launches == {"jointed_step": 2}
+    assert jointed_kernels.plain_calls == {"jointed_step": 0}
+    assert solver_kernels.launches == {"assembly_step": 0}
+    for solve, s1 in ((assembly_step_reference, 0), (None, 2)):
+        want = env.step_env_reference(None, state, action, params, draws, solve=solve)
+        want_reset = env.reset_env_reference(None, n, params, rd, solve=solve)
+        assert solver_kernels.launches == {"assembly_step": s1}
+        for i, (a, b) in enumerate(zip(tree_leaves([got, got_reset]),
+                                       tree_leaves([want, want_reset]))):
+            assert _same_bits(a, b), (s1, i)
+
+
+@pytest.mark.parametrize("kind", ["step", "reset"])
+def test_jointed_kernel_is_bitwise_stable_over_100_calls_and_a_graph_replay(cuda, kind):
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+
+    env, params, (state, action, draws), g = _jointed_case(1024, True, seed=3)
+    rd = env.reset_draws(g, 1024)
+    if kind == "step":
+        call = lambda: env.step_env(None, state, action, params, draws)  # noqa: E731
+    else:
+        call = lambda: env.reset_env(None, 1024, params, rd)  # noqa: E731
+    first = call()
+    for _ in range(99):
+        for a, b in zip(tree_leaves(list(first)), tree_leaves(list(call()))):
+            assert _same_bits(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(tree_leaves(list(first)), tree_leaves(list(captured))):
+            assert _same_bits(a, b)
+
+
+def test_jointed_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    from deep_q_learning_tpu_torch.ops.jointed_kernels import (
+        jointed_reset_kernel,
+        jointed_step_kernel,
+    )
+
+    env, params, (state, action, draws), g = _jointed_case(16, False, seed=6)
+    with pytest.raises(TypeError, match="dtype"):
+        jointed_step_kernel(state, action.long(), params, draws)
+    with pytest.raises(ValueError, match="contiguous"):
+        jointed_step_kernel(state, action, params, torch.zeros((2, 16), device=cuda).t())
+    leg = dataclasses.replace(state.leg2_body, w=state.leg2_body.w.cpu())
+    with pytest.raises(ValueError, match="is on cpu"):
+        jointed_step_kernel(dataclasses.replace(state, leg2_body=leg), action, params, draws)
+    rd = env.reset_draws(g, 16)
+    with pytest.raises(ValueError, match="is on cpu"):
+        jointed_reset_kernel(state.terrain, dataclasses.replace(rd, kick=rd.kick.cpu()), params)
+    with pytest.raises(ValueError, match="rigid"):
+        jointed_step_kernel(state, action, dataclasses.replace(params, jointed=False), draws)

@@ -4,12 +4,23 @@
 * ``train_lunar_lander`` at a tiny cut writes the curves, the pickle pair
   and the rollouts; the pair loads through the JAX package's
   ``load_params_pickle`` and gives the JAX ``QNetwork``'s Q-values within
-  rtol 1e-5 (atol 1e-5) of the trained network's, with the optimizer's
+  float32 rounding (below) of the trained network's, with the optimizer's
   count equal to the updates.
 * ``evaluate_checkpoint`` reads the pair the JAX package wrote
-  (``artifacts/lunar_ref_format``) with JAX's Q-values (rtol and atol
-  1e-5), the pair the port wrote (its greedy returns equal to the trained
-  network's own evaluation, bitwise), and a port run directory.
+  (``artifacts/lunar_ref_format``) with JAX's Q-values (within float32
+  rounding), the pair the port wrote (its greedy returns equal to the
+  trained network's own evaluation, bitwise), and a port run directory.
+
+Q-values are held to the float32 error of the products, not to a flat
+tolerance: XLA's CPU dot and PyTorch's CPU matmul sum a 256-wide product in
+orders that depend on the host (its vector width and the libraries' kernels),
+and the dueling head subtracts Q-values of ~500, so a flat rtol/atol of 1e-5
+sits at the size of that rounding and fails on some hosts (on an AMD EPYC
+with AVX512, 2 of 1,024 values by 8.9e-5 at |Q| ~ 500-580).  A float64
+forward of the same weights gives each Q-value's exact value; JAX's float32
+result is that far from it (its conditioning, the largest gap over the
+values, as the solver's tests measure theirs), and the port's must lie
+within 4x that gap plus 4 float32 ulps of |Q| on every value.
 """
 
 import json
@@ -32,10 +43,9 @@ CUT = ["num_envs=8", "steps_per_superstep=16", "hidden=16,16", "batch_size=16",
        "buffer_capacity=512", "training_start=64", "max_steps_in_episode=60",
        "return_window=4"]
 SETS = [a for kv in CUT for a in ("--set", kv)]
-# as tests/test_torch_legacy_checkpoint.py holds this pair: the dueling head
-# subtracts Q-values of ~500 here, so a Q-value near 0 carries ~1e-5 of
-# float32 rounding from another summation order
-Q_TOL = dict(rtol=1e-5, atol=1e-5)
+# the port's Q-values lie within CONDITIONING x JAX's float32 gap from a
+# float64 forward, plus ULPS float32 ulps of |Q| (the module docstring)
+CONDITIONING, ULPS = 4.0, 4
 
 
 def _obs(n, dim=9, seed=0):
@@ -46,6 +56,33 @@ def _jax_q(directory, obs, hidden):
     params, _ = jax_load_params_pickle(str(directory))
     net = FlaxQNetwork(num_actions=4, hidden=hidden, dueling=True)
     return np.asarray(net.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(obs)))
+
+
+def _q64(directory, obs, hidden):
+    """The dueling network's Q-values from the pair's weights, in float64."""
+    params, _ = jax_load_params_pickle(str(directory))
+    p = jax.tree.map(lambda x: np.asarray(x, np.float64), params["params"])
+
+    def dense(x, name):
+        return x @ p[name]["kernel"] + p[name]["bias"]
+
+    x = obs.astype(np.float64)
+    for i in range(len(hidden)):
+        x = np.maximum(dense(x, f"trunk_{i}"), 0.0)
+    adv = dense(x, "advantage")
+    return dense(x, "value") + adv - adv.mean(-1, keepdims=True)
+
+
+def _assert_q_close(got, jax_q, q64):
+    """``got`` within CONDITIONING x JAX's float32 gap to the float64
+    Q-values, plus ULPS float32 ulps of |Q|, on every value."""
+    conditioning = float(np.abs(jax_q - q64).max())
+    ulp = np.spacing(np.abs(q64).astype(np.float32)).astype(np.float64)
+    gap = np.abs(got.astype(np.float64) - q64)
+    bound = CONDITIONING * conditioning + ULPS * ulp
+    far = gap > bound
+    assert not far.any(), (int(far.sum()), float(gap.max()), conditioning,
+                           np.argwhere(far)[:5].tolist())
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +108,8 @@ def test_train_writes_the_pair_the_jax_package_reads(trained):
     obs = _obs(256, seed=1)
     with torch.no_grad():
         want = trainer.runner.train.online(torch.from_numpy(obs)).numpy()
-    np.testing.assert_allclose(_jax_q(workdir / "ref_format", obs, (16, 16)), want, **Q_TOL)
+    ref = workdir / "ref_format"
+    _assert_q_close(want, _jax_q(ref, obs, (16, 16)), _q64(ref, obs, (16, 16)))
     _, opt_state = jax_load_params_pickle(str(workdir / "ref_format"))
     counts = {int(leaf) for path, leaf in jax.tree_util.tree_flatten_with_path(opt_state)[0]
               if jax.tree_util.keystr(path).endswith(".count")}
@@ -85,7 +123,7 @@ def test_evaluate_reads_the_jax_written_pair_with_jax_q_values(capsys, tmp_path)
     obs = _obs(256, seed=2)
     with torch.no_grad():
         got = net(torch.from_numpy(obs)).numpy()
-    np.testing.assert_allclose(got, _jax_q(REF_FORMAT, obs, (256, 256)), **Q_TOL)
+    _assert_q_close(got, _jax_q(REF_FORMAT, obs, (256, 256)), _q64(REF_FORMAT, obs, (256, 256)))
 
     out = evaluate_checkpoint.main(["--ckpt", str(REF_FORMAT), "--device", "cpu",
                                     "--episodes", "3", "--out", str(tmp_path)])

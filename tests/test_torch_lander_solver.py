@@ -120,10 +120,17 @@ def _settled():
 
 
 @pytest.fixture(scope="module")
-def frame_inputs():
+def rollout_states():
+    """Every collected pre-step state (numpy leaves): the rollouts over
+    random and flat terrain, then the settle harness's lander."""
+    return _cat([_rollout(True, 1), _rollout(False, 2), _settled()])
+
+
+@pytest.fixture(scope="module")
+def frame_inputs(rollout_states):
     """``assembly_step`` inputs from every collected state: the hull at its
     COM, wind-like forces on half the lanes."""
-    s = _cat([_rollout(True, 1), _rollout(False, 2), _settled()])
+    s = rollout_states
     n = s.x.shape[0]
     rng = np.random.default_rng(0)
     on = rng.random(n) < 0.5

@@ -37,7 +37,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from deep_q_learning_tpu_torch.envs import LunarLander
 from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
-from deep_q_learning_tpu_torch.envs.heuristic import rigid_cover, rigid_inputs
+from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs, rigid_cover
 from deep_q_learning_tpu_torch.envs.lunar_lander import (
     CHUNKS,
     ResetDraws,
@@ -73,7 +73,7 @@ def host():
     lib = ctypes.CDLL(str(build.cached_build(source, CXX_FLAGS, build.BUILD_DIR, compile_to)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lander_rigid_host.argtypes = [ptr, ptr, i32]
-    lib.lander_rigid_math_host.argtypes = [ptr, ptr, i32, i32]
+    lib.lander_math_host.argtypes = [ptr, ptr, i32, i32]
     lib.lander_rigid_sizes.argtypes = [ptr]
     lk.check_sizes(lib)
     return lib
@@ -87,7 +87,8 @@ def _host_launch(lib):
 
 class _LibmMath:
     """``torch.sin``, ``cos``, ``tanh`` and ``sqrt`` replaced by the C
-    library's (through the host library) while the block runs."""
+    library's (through a host library's ``lander_math_host``,
+    ``csrc/lander_frame.cuh``) while the block runs."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -96,7 +97,7 @@ class _LibmMath:
         def fn(x):
             x = x.contiguous()
             out = torch.empty_like(x)
-            self.lib.lander_rigid_math_host(x.data_ptr(), out.data_ptr(), x.numel(), which)
+            self.lib.lander_math_host(x.data_ptr(), out.data_ptr(), x.numel(), which)
             return out
         return fn
 
@@ -246,11 +247,11 @@ def test_step_and_reset_on_cpu_tensors_are_the_plain_version():
 
 
 def test_rigid_inputs_cover_the_step():
-    """``rigid_inputs`` (the smoke's states, here at a small size on the
+    """``lander_step_inputs`` (the smoke's states, here at a small size on the
     CPU): the lanes' shapes, the ending steps first, and what they cover."""
     env, p = _params(True, max_steps_in_episode=60)
     g = torch.Generator().manual_seed(2)
-    st, actions, draws = rigid_inputs(env, p, 256, g, envs=64, frames=80)
+    st, actions, draws = lander_step_inputs(env, p, 256, g, envs=64, frames=80)
     assert st.x.shape == (256,) and st.terrain.shape == (256, CHUNKS) and draws.shape == (256, 2)
     assert actions.dtype == torch.int32 and st.x.is_contiguous()
     cover = rigid_cover(env, p, st, actions, draws)

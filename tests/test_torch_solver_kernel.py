@@ -11,12 +11,13 @@ and crashes, and the settled lander; against JAX the tight tolerances on
 conditioning gap (JAX float32 vs float64, measured here at each iteration
 count), the contact, hull-hit and limit flags exact, the sleep flag only
 near a threshold.  Against the plain version the same gates, and more:
-the host build calls the C library's sinf/cosf where PyTorch's CPU kernels
-call their own (they differ in the last ulp on some inputs), so with the
-plain version's ``torch.sin``/``torch.cos`` replaced by the C library's,
-every lane must be bitwise equal.  That holds the kernel's body to the plain
-version operation for operation, the position loop's early break against
-its masked loop included.
+the host build calls the C library's sinf, cosf and sqrtf where PyTorch's
+CPU kernels compute their own (they differ in the last ulp on some inputs,
+and on some hosts torch's float32 sqrt is not correctly rounded), so with
+the plain version's ``torch.sin``, ``torch.cos`` and ``torch.sqrt``
+replaced by the C library's, every lane must be bitwise equal.  That holds
+the kernel's body to the plain version operation for operation, the
+position loop's early break against its masked loop included.
 """
 
 import ctypes
@@ -43,7 +44,9 @@ from test_torch_lander_solver import (  # noqa: F401  (fixtures)
     _jax_step,
     _t,
     frame_inputs,
+    rollout_states,
 )
+from test_torch_rigid_kernel import _LibmMath
 
 CXX_FLAGS = ("-x", "c++", "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
              "-Wno-unknown-pragmas")
@@ -62,7 +65,7 @@ def host():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lander_solver_host.argtypes = [ptr, ptr, i32, i32, i32, i32]
     lib.lander_collide_host.argtypes = [ptr] * 5 + [i32, ptr, ptr]
-    lib.lander_trig_host.argtypes = [ptr, ptr, i32, i32]
+    lib.lander_math_host.argtypes = [ptr, ptr, i32, i32]
     lib.lander_retrig_host.argtypes = [ptr, ptr, i32, ptr, ptr]
     lib.lander_solver_sizes.argtypes = [ptr]
     sk.check_sizes(lib)
@@ -94,29 +97,6 @@ def _host_step(lib, inputs, vel, pos, vel_tol=0.0, return_iters=False, return_po
 def _plain_step(inputs, vel, pos, **kw):
     *args, acc = _inputs(inputs)
     return T.assembly_step_reference(*args, acc=acc, vel_iters=vel, pos_iters=pos, **kw)
-
-
-class _LibmTrig:
-    """``torch.sin``/``torch.cos`` replaced by the C library's sinf/cosf
-    (through the host library) while the block runs."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def _fn(self, which):
-        def trig(x):
-            x = x.contiguous()
-            out = torch.empty_like(x)
-            self.lib.lander_trig_host(x.data_ptr(), out.data_ptr(), x.numel(), which)
-            return out
-        return trig
-
-    def __enter__(self):
-        self.saved = torch.sin, torch.cos
-        torch.sin, torch.cos = self._fn(0), self._fn(1)
-
-    def __exit__(self, *exc):
-        torch.sin, torch.cos = self.saved
 
 
 def _lanes_equal(a, b, n):
@@ -166,7 +146,7 @@ def test_host_body_matches_jax_and_plain(host, frame_inputs, conditioning_at, ve
     n = len(ref[3])
     share = float(_lanes_equal(got, plain, n).float().mean())
     print(f"({vel}, {pos}): float32 conditioning {conditioning}; vs JAX largest gaps {gaps}, {misses} of {n} lanes past the tight "
-          f"tolerances; bitwise the plain version (PyTorch's sin/cos) on {100 * share:.1f} % "
+          f"tolerances; bitwise the plain version (PyTorch's own sin, cos and sqrt) on {100 * share:.1f} % "
           f"of the lanes")
 
 
@@ -197,8 +177,9 @@ BITWISE_CASES = [pytest.param(vel, pos, None, id=f"{vel}-{pos}") for vel, pos in
 
 @pytest.mark.parametrize("vel,pos,n", BITWISE_CASES)
 def test_host_body_is_the_plain_version_bitwise(host, frame_inputs, vel, pos, n):  # noqa: F811
-    """With the same sinf/cosf, the host build and the plain version agree
-    bit for bit on every lane: every other operation rounds the same.  The
+    """With the same sinf, cosf and sqrtf, the host build and the plain
+    version agree bit for bit on every lane: every other operation rounds
+    the same.  The
     host build runs the kernel's lane groups (every lane of a group in
     turn, its shuffles reads of the other lanes' values) over the launch's
     envs, so this holds the group decomposition itself to the plain
@@ -206,7 +187,7 @@ def test_host_body_is_the_plain_version_bitwise(host, frame_inputs, vel, pos, n)
     every group running the passes a warp's other groups would make it run
     (the dropped passes and the selects of the kernel's converged warp)."""
     inputs = frame_inputs if n is None else _lanes(frame_inputs, n)
-    with _LibmTrig(host):
+    with _LibmMath(host):
         plain = _plain_step(inputs, vel, pos)
     for others in (False, True):
         got = _host_step(host, inputs, vel, pos, others=others)
@@ -237,8 +218,8 @@ def test_sin_cos_reused_only_for_the_same_angle_bits(host):
     host.lander_retrig_host(prev.data_ptr(), a.data_ptr(), len(pairs), c.data_ptr(), s.data_ptr())
     assert bool(((c == -2.0) & (s == -2.0) == kept).all()), (c, s)
     want_s, want_c = torch.empty_like(a), torch.empty_like(a)
-    host.lander_trig_host(a.data_ptr(), want_s.data_ptr(), len(pairs), 0)
-    host.lander_trig_host(a.data_ptr(), want_c.data_ptr(), len(pairs), 1)
+    host.lander_math_host(a.data_ptr(), want_s.data_ptr(), len(pairs), 0)
+    host.lander_math_host(a.data_ptr(), want_c.data_ptr(), len(pairs), 1)
     bits = lambda t: t.view(torch.int32)  # noqa: E731
     assert torch.equal(bits(s)[~kept], bits(want_s)[~kept])
     assert torch.equal(bits(c)[~kept], bits(want_c)[~kept])
@@ -249,7 +230,8 @@ def test_vel_tol_branch_matches_jax_and_plain(host, frame_inputs, conditioning_a
     """The early-exit branch: each lane stops once its accumulators change
     by less than vel_tol in a pass and keeps its state.  ``used`` equals the
     plain version's exactly, and JAX's where test_torch_lander_solver.py
-    allows; every lane bitwise the plain version with the same sin/cos."""
+    allows; every lane bitwise the plain version with the same sin, cos and
+    sqrt."""
     vel, pos = ITERS[0]
     kw = dict(vel_iters=vel, pos_iters=pos, vel_tol=1e-4, return_iters=True)
     ref = _jax_step(frame_inputs, **kw)
@@ -261,7 +243,7 @@ def test_vel_tol_branch_matches_jax_and_plain(host, frame_inputs, conditioning_a
     assert (used.numpy() != ref[8]).mean() <= 0.01
     plain = _plain_step(frame_inputs, vel, pos, vel_tol=1e-4, return_iters=True)
     assert torch.equal(used, plain[8])
-    with _LibmTrig(host):
+    with _LibmMath(host):
         plain = _plain_step(frame_inputs, vel, pos, vel_tol=1e-4, return_iters=True)
     assert bool(_lanes_equal(got, plain, len(used)).all()) and torch.equal(used, plain[8])
     got = _host_step(host, frame_inputs, vel, pos, vel_tol=1e-4, return_iters=True, others=True)
@@ -271,14 +253,14 @@ def test_vel_tol_branch_matches_jax_and_plain(host, frame_inputs, conditioning_a
 def test_position_loop_break_equals_the_masked_loop(host, frame_inputs):  # noqa: F811
     """The body leaves the position loop after the first pass that meets
     Box2D's slop test, where the plain version runs every pass with the
-    lane masked: with the same sin/cos, the two agree bit for bit at 40 and
-    at 60 passes, and a lane that stopped after k passes has at 40 passes
-    the values of a run cut to k."""
+    lane masked: with the same sin, cos and sqrt, the two agree bit for bit
+    at 40 and at 60 passes, and a lane that stopped after k passes has at 40
+    passes the values of a run cut to k."""
     vel = ITERS[0][0]
     out = {}
     for pos in (40, 60):
         got = _host_step(host, frame_inputs, vel, pos, return_pos_iters=True)
-        with _LibmTrig(host):
+        with _LibmMath(host):
             plain = _plain_step(frame_inputs, vel, pos)
         assert bool(_lanes_equal(got[:8], plain, len(got[3])).all()), pos
         out[pos] = got
