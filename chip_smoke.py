@@ -700,7 +700,10 @@ def solver_args(torch, n, vel, pos, seed):
 
 
 def check_solver_kernel(torch, solver_kernels, card):
-    """Phase 3, S1: the kernel against assembly_step_reference on the card
+    """Phase 3, S1: the branch-free sin/cos and reciprocal of S1's and J1's
+    passes bitwise the card's sincosf and division on every float of their
+    ranges (``solver_kernels.fast_math_mismatches``); the kernel against
+    assembly_step_reference on the card
     at SOLVER_CASES under the gates of tests/test_torch_lander_solver.py,
     the share of lanes bitwise equal; the coverage of the states; bitwise
     stable over 100 calls and a graph replay; its device time beside the
@@ -712,6 +715,12 @@ def check_solver_kernel(torch, solver_kernels, card):
     from deep_q_learning_tpu_torch.measure import SOLVER_SHAPES, solver_device_times, traced_kernels
 
     kernel = solver_kernels.assembly_step_kernel
+    t0 = time.perf_counter()
+    differ = solver_kernels.fast_math_mismatches()
+    assert not any(differ.values()), ("the passes' math differs from the card's", differ)
+    print(f"  S1 and J1's branch-free sin/cos and reciprocal against the card's sincosf and "
+          f"1.0f / b on every float of their ranges ({solver_kernels.FAST_MATH_VALUES} values, "
+          f"{time.perf_counter() - t0:.2f} s): {differ} differ in any bit [{card}]")
     inputs, err = {}, {}
     for n, vel, pos, tol in SOLVER_CASES:
         if (n, vel, pos) not in inputs:

@@ -33,7 +33,7 @@
 
 #include "lander_jointed.cuh"
 
-__global__ void __launch_bounds__(lander::kThreads)
+__global__ void __launch_bounds__(lander::kThreads, 1)
 jointed_step_kernel(jointed::IO io, jointed::Consts k, int n) {
   int i = (blockIdx.x * lander::kThreads + threadIdx.x) / lander::kGroup;
   // a group past the last env runs the last env with its warp and stores

@@ -19,17 +19,25 @@
 // one long chain of dependent operations (sequential impulse passes, IEEE
 // divisions, sin/cos), and the call lasts as long as its slowest warp: 120
 // velocity passes and, where a lander has not settled, up to 40 position
-// passes.  A division without fast math is a reciprocal, Newton steps and a
-// checked slow path that the compiler keeps in order, and a warp alone on
-// its scheduler waits out every latency.  So the design shortens the chain
-// an env's lanes walk:
-//   * the group's lanes hold the env's state alike and split what is
-//     independent: the two legs' contact solves and position passes, a
-//     joint's three divisions, a position joint's sin/cos and divisions,
-//     the hull's vertices (lander_solver.cuh);
-//   * only what a select keeps is computed: in a velocity pass a lane
-//     divides once a joint (again only where a limit is violated) and a
-//     leg's contacts divide only in a 2x2 block;
+// passes.  A division without fast math is a reciprocal, a Newton step
+// and a checked call to a slow path, and sincosf a checked call to a long
+// reduction: branches that split the pass into pieces the compiler cannot
+// interleave, each piece waiting out its latencies, and a shuffle or a
+// vote waits for the whole warp (with them J1 took ~1,230 cycles a
+// velocity pass and ~2,950 a position pass on an H100,
+// artifacts/rigid_kernel/j1_profile.py).  So
+// the design shortens the chain an env's lanes walk (lander_solver.cuh):
+//   * a pass holds no branch, no vote and no shuffle but one read of the
+//     legs: every lane solves both joints whole, the plain version's
+//     selects are selects here too, divisions are Markstein's correction
+//     from a reciprocal rounded to nearest (a velocity pass's once a
+//     frame), sin and cos the card's sincosf written out, the slop test
+//     takes no square root; a part whose operands leave those ranges (a
+//     position pass's part, the velocity passes all) runs again with
+//     division and sincosf, so every value keeps its bits;
+//   * the group's lanes split what is independent: the two legs' contact
+//     solves and position passes, the start-of-step sin/cos, the hull's
+//     vertices;
 //   * the warp stays converged (a group past the last env runs with it, and
 //     loops run while any group needs them), so every shuffle names the
 //     whole warp and costs no check of which lanes arrived;
@@ -52,7 +60,7 @@
 
 #include "lander_solver.cuh"
 
-__global__ void __launch_bounds__(lander::kThreads)
+__global__ void __launch_bounds__(lander::kThreads, 1)
 assembly_step_kernel(lander::IO io, lander::Consts k, int n, int vel_iters, int pos_iters) {
   int i = (blockIdx.x * lander::kThreads + threadIdx.x) / lander::kGroup;
   // a group past the last env runs the last env with its warp and stores
@@ -69,6 +77,39 @@ extern "C" int assembly_step_launch(const lander::IO* io, const lander::Consts* 
     assembly_step_kernel<<<lander::blocks_for(n), lander::kThreads, 0, stream>>>(
         *io, *k, n, vel_iters, pos_iters);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A check, on no path of the program: the passes' branch-free math
+// against the card's own on every float of its range, counting the values
+// that differ in any bit: out[0] sincos_poly against sincosf (sine or
+// cosine) for every |a| < kTrigFast, out[1] divisor_of's reciprocal
+// against 1.0f / b for every kDivisorLo <= |b| <= kDivisorHi; both signs.
+__global__ void fast_math_check_kernel(unsigned long long* out) {
+  const uint32_t trig_top = __float_as_uint(lander::kTrigFast);
+  const uint32_t rcp_lo = __float_as_uint(lander::kDivisorLo);
+  const uint32_t rcp_hi = __float_as_uint(lander::kDivisorHi);
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  unsigned long long trig = 0, rcp = 0;
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < 2ull * trig_top;
+       i += stride) {
+    const float a = __uint_as_float((uint32_t)(i >> 1) | ((uint32_t)(i & 1) << 31));
+    float s, c, s2, c2;
+    sincosf(a, &s, &c);
+    lander::sincos_poly(a, &s2, &c2);
+    trig += (__float_as_uint(s) != __float_as_uint(s2)) | (__float_as_uint(c) != __float_as_uint(c2));
+  }
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
+       i < 2ull * (rcp_hi - rcp_lo + 1); i += stride) {
+    const float b = __uint_as_float((rcp_lo + (uint32_t)(i >> 1)) | ((uint32_t)(i & 1) << 31));
+    rcp += __float_as_uint(lander::divisor_of(b).y) != __float_as_uint(1.0f / b);
+  }
+  if (trig != 0) atomicAdd(&out[0], trig);
+  if (rcp != 0) atomicAdd(&out[1], rcp);
+}
+
+extern "C" int fast_math_check_launch(unsigned long long* out, cudaStream_t stream) {
+  fast_math_check_kernel<<<132 * 8, 256, 0, stream>>>(out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,13 +14,15 @@
    at ``SOLVER_SHAPES`` on states of a flight of landers, its plain version
    as a CUDA graph of one call (~56k kernels).  R1, the rigid lander's
    step, at ``RIGID_SHAPES`` (and its reset frame) on states of a flight of
-   landers, its plain version as a CUDA graph of 10 calls.  With
+   landers, its plain version as a CUDA graph of 10 calls.  J1, the
+   jointed lander's frame, at ``JOINTED_SHAPES`` (the wind off and on, and
+   the reset frame), with the slowest env's passes and the µs a pass.  With
    ``--baseline CHECKOUT``
    (another checkout of the port, e.g. an earlier commit unpacked with
-   ``git archive``), its TD kernels, its PER slot kernel and its S1 are
-   timed too, each built from that checkout's own source, in turns with
-   this tree's (baseline, tree, tree, baseline), S1 with the count of lanes
-   whose result differs from the baseline's in any bit.
+   ``git archive``), its TD kernels, its PER slot kernel, its S1 and its J1
+   are timed too, each built from that checkout's own source, in turns with
+   this tree's (baseline, tree, tree, baseline), S1 and J1 with the count
+   of lanes whose result differs from the baseline's in any bit.
    Then the kernel launches of one learner update (``torch.profiler``).
 2. One steady superstep of the preset under ``torch.profiler``: host ms by
    phase (spans wrapped around the env step, the reset pool or the cheap
@@ -188,18 +190,35 @@ def td_inputs(b: int, g: torch.Generator):
     return (q_both[:b], q_both[b:], q_nt, act, rew, boot, w)
 
 
+# ops modules a module of ops imports whose C structures it builds on
+BASELINE_DEPS = {"jointed_kernels": ("solver_kernels",)}
+
+
 @functools.cache
 def load_baseline(checkout: Path, name: str):
-    """``ops/<name>.py`` (``td_kernels``, ``sample_kernels`` or
-    ``solver_kernels``) of another checkout of the port (an earlier commit
-    unpacked with ``git archive``), with its kernels built from that
-    checkout's ``csrc/``, to time beside this one in one process."""
+    """``ops/<name>.py`` (``td_kernels``, ``sample_kernels``,
+    ``solver_kernels`` or ``jointed_kernels``) of another checkout of the
+    port (an earlier commit unpacked with ``git archive``), with its kernels
+    built from that checkout's ``csrc/``, to time beside this one in one
+    process.  The ops modules it builds its C structures on
+    (``BASELINE_DEPS``) are that checkout's too while it loads."""
+    from deep_q_learning_tpu_torch import ops
     from deep_q_learning_tpu_torch.ops import build
 
+    deps = {dep: load_baseline(checkout, dep) for dep in BASELINE_DEPS.get(name, ())}
     path = checkout / "deep_q_learning_tpu_torch" / "ops" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"baseline_{name}", path)
     module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
+    saved = {dep: importlib.import_module(f"{ops.__name__}.{dep}") for dep in deps}
+    try:
+        for dep, dep_module in deps.items():
+            sys.modules[f"{ops.__name__}.{dep}"] = dep_module
+            setattr(ops, dep, dep_module)
+        spec.loader.exec_module(module)
+    finally:
+        for dep, dep_module in saved.items():
+            sys.modules[f"{ops.__name__}.{dep}"] = dep_module
+            setattr(ops, dep, dep_module)
     module.load_library = functools.partial(
         build.load_library, csrc_dir=checkout / "deep_q_learning_tpu_torch" / "csrc")
     return module
@@ -247,7 +266,7 @@ def solver_device_times(card: str, inputs: Optional[dict] = None,
               f"counting the plain version's operations, {bound_text(plain_work, k)} [{card}]")
         if base is None:
             continue
-        differ = solver_lanes_differ(base.assembly_step_kernel(*args, **kw),
+        differ = lanes_differ(base.assembly_step_kernel(*args, **kw),
                                      solver_kernels.assembly_step_kernel(*args, **kw))
         b0, t0, t1, b1 = [
             device_us(lambda: (base if which == "baseline" else solver_kernels)
@@ -322,65 +341,98 @@ def jointed_params(enable_wind: bool = False, max_steps: Optional[int] = None):
     return params
 
 
-def jointed_device_times(card: str, inputs: Optional[dict] = None) -> dict:
+def jointed_device_times(card: str, inputs: Optional[dict] = None,
+                         baseline: Optional[Path] = None) -> dict:
     """J1 and its plain version at JOINTED_SHAPES, the wind off and on, and
     the reset frame: device µs a call of the kernel (a CUDA graph of
     GRAPH_CALLS calls) and of the plain version (a graph of one call
     replayed PLAIN_JOINTED_REPLAYS times), beside the bound of the call's
     work (``jointed_kernels.jointed_step_work`` at the position passes each
-    env ran, ``jointed_kernels.position_passes``).  ``inputs`` maps each
-    (N, wind) to ``step_env``'s ``(state, action, draws)``; by default the
-    states of a flight of landers (``envs/heuristic.py::lander_step_inputs`` with
-    the jointed engine).  The reset's plain version is the whole
-    ``reset_env_reference``, its terrain smoothing included.  Prints a line
-    a shape and returns ``{(n, kind): (kernel us, plain us, work)}``, kind
+    env ran, ``jointed_kernels.position_passes``), the slowest env's
+    velocity and position passes (every env runs ``vel_iters`` velocity
+    passes: ``vel_tol`` is 0) and the kernel's µs a pass of that env.
+    ``inputs`` maps each (N, wind) to ``step_env``'s ``(state, action,
+    draws)``; by default the states of a flight of landers
+    (``envs/heuristic.py::lander_step_inputs`` with the jointed engine).
+    The reset's plain version is the whole ``reset_env_reference``, its
+    terrain smoothing included.  With ``baseline`` (a checkout,
+    :func:`load_baseline`), that checkout's J1 is timed too, in turns with
+    this tree's (baseline, tree, tree, baseline), with the count of lanes
+    whose result differs from the baseline's in any bit.  Prints a line a
+    shape and returns ``{(n, kind): (kernel us, plain us, work)}``, kind
     ``"step"``, ``"wind"`` or ``"reset"``."""
     from deep_q_learning_tpu_torch.envs import LunarLander
     from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs
     from deep_q_learning_tpu_torch.envs.lunar_lander import sample_reset_draws, smoothed_terrain
     from deep_q_learning_tpu_torch.ops import jointed_kernels
 
+    base = load_baseline(baseline, "jointed_kernels") if baseline is not None else None
     env = LunarLander()
     g = torch.Generator(device="cuda").manual_seed(0)
-    times = {}
+    times, calls, passes = {}, {}, {}
     for n in JOINTED_SHAPES:
         for wind in (False, True):
             params = jointed_params(wind)
             state, action, draws = (inputs[n, wind] if inputs is not None
                                     else lander_step_inputs(env, params, n, g, envs=n, frames=60))
             ran = jointed_kernels.position_passes(params, state, action, draws)
+            key = n, "wind" if wind else "step"
+            calls[key] = functools.partial(_jointed_step, params, state, action, draws)
             k = device_us(lambda: jointed_kernels.jointed_step_kernel(state, action, params, draws))
             r = device_us(lambda: env.step_env_reference(None, state, action, params, draws),
                           calls=1, replays=PLAIN_JOINTED_REPLAYS)
             work = jointed_kernels.jointed_step_work(n, params.vel_iters, ran, wind)
-            times[n, "wind" if wind else "step"] = (k, r, work)
+            times[key], passes[key] = (k, r, work), (params.vel_iters, int(ran.max()))
         params = jointed_params()
         rd = sample_reset_draws(g, n)
         terrain = smoothed_terrain(rd.terrain, params)
+        calls[n, "reset"] = functools.partial(_jointed_reset, params, terrain, rd)
         k = device_us(lambda: jointed_kernels.jointed_reset_kernel(terrain, rd, params))
         r = device_us(lambda: env.reset_env_reference(None, n, params, rd), calls=1,
                       replays=PLAIN_JOINTED_REPLAYS)
         ran = jointed_kernels.position_passes(params, terrain=terrain, reset_draws=rd)
         times[n, "reset"] = (k, r, jointed_kernels.jointed_step_work(
             n, params.vel_iters, ran, reset=True))
+        passes[n, "reset"] = (params.vel_iters, int(ran.max()))
+    assert jointed_params().vel_tol == 0.0, "every env runs vel_iters velocity passes"
     for (n, kind), (k, r, work) in times.items():
+        vel, pos = passes[n, kind]
         print(f"lander_jointed_step (J1) {kind} N={n} (120, 40): device {k:.2f} us kernel, "
               f"{r:.2f} us plain (S1 inside) as a CUDA graph of one call ({r / k:.1f}x); "
-              f"{bound_text(work, k)} [{card}]")
+              f"{bound_text(work, k)}; the slowest env's passes ({vel}, {pos}), "
+              f"{k / (vel + pos):.3f} us a pass [{card}]")
+        if base is None:
+            continue
+        call = calls[n, kind]
+        differ = lanes_differ(call(base), call(jointed_kernels))
+        b0, t0, t1, b1 = [device_us(lambda: call(base if which == "baseline" else jointed_kernels))
+                          for which in ("baseline", "tree", "tree", "baseline")]
+        print(f"  N={n} {kind} lander_jointed_step (J1): baseline {b0:.2f}, {b1:.2f} us; this "
+              f"tree {t0:.2f}, {t1:.2f} us (device, in turns; x{(b0 + b1) / (t0 + t1):.2f}); "
+              f"{differ} of {n} lanes differ from the baseline's in some bit [{card}]")
     return times
 
 
-def solver_lanes_differ(a, b) -> int:
-    """Lanes of two ``assembly_step`` results that differ in any bit of any
-    field, accumulator or flag."""
+def _jointed_step(params, state, action, draws, module):
+    return module.jointed_step_kernel(state, action, params, draws)
+
+
+def _jointed_reset(params, terrain, draws, module):
+    return module.jointed_reset_kernel(terrain, draws, params)
+
+
+def lanes_differ(a, b) -> int:
+    """Lanes of two results of a lander kernel (S1's ``assembly_step``, or
+    J1's step or reset frame) that differ in any bit of any output."""
     from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
 
-    n = a[3].shape[0]
-    differ = torch.zeros(n, dtype=torch.bool, device=a[3].device)
-    for x, y in zip(tree_leaves(list(a)), tree_leaves(list(b))):
-        if x.is_floating_point():
-            x, y = x.view(torch.int32), y.view(torch.int32)
-        differ |= (x != y).reshape(n, -1).any(1)
+    x, y = tree_leaves(list(a)), tree_leaves(list(b))
+    n = x[0].shape[0]
+    differ = torch.zeros(n, dtype=torch.bool, device=x[0].device)
+    for p, q in zip(x, y):
+        if p.is_floating_point():
+            p, q = p.view(torch.int32), q.view(torch.int32)
+        differ |= (p != q).reshape(n, -1).any(1)
     return int(differ.sum())
 
 
@@ -392,7 +444,7 @@ def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
     print(f"kernel launches per steady superstep, by preset: {per_superstep}")
     solver_device_times(card, baseline=baseline)
     rigid_device_times(card)
-    jointed_device_times(card)
+    jointed_device_times(card, baseline=baseline)
     g = torch.Generator(device="cuda").manual_seed(0)
     base_sk = load_baseline(baseline, "sample_kernels") if baseline is not None else None
     for n, c, b in SLOT_SHAPES:

@@ -264,6 +264,22 @@ class IO(ctypes.Structure):
     ]
 
 
+def sqrt_threshold(slop: float) -> float:
+    """The largest float32 x whose float32 square root is at most
+    float32(slop): since a correctly rounded square root is monotone,
+    ``sqrtf(x) <= slop`` holds exactly when ``x <= sqrt_threshold(slop)``
+    (for every float32 x, NaN included), which lets the kernel's position
+    pass test its joints' errors without the square root."""
+    s = np.float32(slop)
+    up = np.float32(np.inf)
+    x = np.float32(s * s)
+    while np.sqrt(np.nextafter(x, up)) <= s:
+        x = np.nextafter(x, up)
+    while np.sqrt(x) > s:
+        x = np.nextafter(x, np.float32(0.0))
+    return float(x)
+
+
 def const_values(dt: float, gravity: float, vel_tol: float) -> dict:
     """The solver's constants as the plain version's float32 arithmetic
     meets them: each Python double (or sum or product of doubles, as the
@@ -286,6 +302,7 @@ def const_values(dt: float, gravity: float, vel_tol: float) -> dict:
         chunk_w=chunk_w, chunk_w_sq=chunk_w * chunk_w,
         total_radius=ls.TOTAL_RADIUS, linear_slop=ls.LINEAR_SLOP,
         angular_slop=ls.ANGULAR_SLOP, baumgarte=ls.BAUMGARTE,
+        linear_slop_sq=sqrt_threshold(ls.LINEAR_SLOP),
         neg_max_linear_correction=-ls.MAX_LINEAR_CORRECTION,
         max_angular_correction=ls.MAX_ANGULAR_CORRECTION,
         neg_max_angular_correction=-ls.MAX_ANGULAR_CORRECTION,
@@ -338,8 +355,36 @@ def _lib() -> ctypes.CDLL:
     lib.assembly_step_launch.restype = i32
     lib.lander_solver_sizes.argtypes = [ptr]
     lib.lander_solver_sizes.restype = i32
+    lib.fast_math_check_launch.argtypes = [ptr, ptr]
+    lib.fast_math_check_launch.restype = i32
     check_sizes(lib)
     return lib
+
+
+# floats the check below covers: every |a| < 105615 (kTrigFast) and every
+# 2^-40 <= |b| <= 2^40 (kDivisorLo, kDivisorHi), both signs
+FAST_MATH_VALUES = {
+    "sincos": 2 * int(np.array(105615.0, np.float32).view(np.uint32)),
+    "reciprocal": 2 * int(np.array(2.0**40, np.float32).view(np.uint32)
+                          - np.array(2.0**-40, np.float32).view(np.uint32) + 1),
+}
+
+
+def fast_math_mismatches(device="cuda") -> dict:
+    """For checks, not on any path of the program: the floats of each range
+    (``FAST_MATH_VALUES``) whose branch-free result in the kernels' passes
+    differs from the card's own in any bit: ``lander_solver.cuh::
+    sincos_poly`` against ``sincosf``, and ``divisor_of``'s reciprocal
+    against ``1.0f / b``.  Both must be 0 for S1 and J1 to keep their bits."""
+    if _device_kind(torch.device(device)) != "cuda":
+        raise ValueError("the check runs on the card")
+    lib = _lib()
+    out = torch.zeros((2,), dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        _launch(lib.fast_math_check_launch, out.data_ptr(), stream)
+    sincos, reciprocal = out.tolist()
+    return {"sincos": sincos, "reciprocal": reciprocal}
 
 
 # ---------------------------------------------------------------------------

@@ -1637,6 +1637,16 @@ def test_jointed_kernel_is_bitwise_stable_over_100_calls_and_a_graph_replay(cuda
             assert _same_bits(a, b)
 
 
+def test_solver_fast_math_is_the_cards_own_on_every_float(cuda):
+    """The branch-free sin/cos and reciprocal of S1's and J1's passes
+    (``lander_solver.cuh::sincos_poly``, ``divisor_of``) against the card's
+    ``sincosf`` and ``1.0f / b``: every float of their ranges, both signs,
+    bitwise equal."""
+    from deep_q_learning_tpu_torch.ops import solver_kernels
+
+    assert solver_kernels.fast_math_mismatches() == {"sincos": 0, "reciprocal": 0}
+
+
 def test_jointed_kernel_wrapper_refuses_what_it_does_not_take(cuda):
     from deep_q_learning_tpu_torch.ops.jointed_kernels import (
         jointed_reset_kernel,

@@ -66,7 +66,9 @@ def host():
     lib.lander_solver_host.argtypes = [ptr, ptr, i32, i32, i32, i32]
     lib.lander_collide_host.argtypes = [ptr] * 5 + [i32, ptr, ptr]
     lib.lander_math_host.argtypes = [ptr, ptr, i32, i32]
-    lib.lander_retrig_host.argtypes = [ptr, ptr, i32, ptr, ptr]
+    lib.lander_quot_host.argtypes = [ptr, ptr, i32, ptr, ptr]
+    lib.lander_sincos_poly_host.argtypes = [ptr, i32, ptr, ptr]
+    lib.lander_trig_fast_host.argtypes = [ptr, i32, ptr, ptr, ptr]
     lib.lander_solver_sizes.argtypes = [ptr]
     sk.check_sizes(lib)
     return lib
@@ -196,34 +198,129 @@ def test_host_body_is_the_plain_version_bitwise(host, frame_inputs, vel, pos, n)
 
 
 def test_sin_cos_reused_only_for_the_same_angle_bits(host):
-    """The body keeps an angle's sinf/cosf (``lander_solver.cuh::Trig``) and
-    takes them again only for an angle of the same bits: equal floats of
-    other bits (+0.0 and -0.0, whose sines differ in sign), neighbours, NaNs
-    of other payloads and any other angle are computed anew, bitwise the C
-    library's sinf/cosf."""
+    """No sin/cos is reused across a pass's angles any more: the position
+    pass takes ``lander_solver.cuh::trig_fast`` of every angle anew, so
+    equal floats of other bits (+0.0 and -0.0, whose sines differ in sign),
+    neighbours, NaNs of other payloads and repeated angles each get the C
+    library's sinf/cosf in the host build, bit for bit; the angles at or
+    past 105615, infinite or NaN are flagged for sincosf itself."""
     f32 = np.float32
     nan_a = np.array([0x7FC00001], np.uint32).view(np.float32)[0]
     nan_b = np.array([0x7FC00002], np.uint32).view(np.float32)[0]
     up = np.nextafter(f32(0.3), f32(1.0))
-    pairs = [  # (angle the Trig holds, angle asked for, kept)
-        (f32(0.3), f32(0.3), True), (f32(-1e5), f32(-1e5), True), (nan_a, nan_a, True),
-        (f32(np.inf), f32(np.inf), True), (f32(0.0), f32(-0.0), False),
-        (f32(-0.0), f32(0.0), False), (f32(0.3), up, False), (nan_a, nan_b, False),
-        (f32(0.3), f32(-0.3), False), (f32(2.0), f32(1e6), False),
-    ]
-    prev = torch.tensor([p for p, _, _ in pairs])
-    a = torch.tensor([x for _, x, _ in pairs])
-    kept = torch.tensor([k for _, _, k in pairs])
+    edge = np.nextafter(f32(105615.0), f32(0.0))
+    angles = [f32(0.3), f32(0.3), up, f32(-0.3), f32(0.0), f32(-0.0), f32(-1e5), f32(2.0),
+              edge, -edge, f32(105615.0), f32(-105615.0), f32(1e6), f32(np.inf), nan_a, nan_b]
+    a = torch.tensor(angles)
     c, s = torch.empty_like(a), torch.empty_like(a)
-    host.lander_retrig_host(prev.data_ptr(), a.data_ptr(), len(pairs), c.data_ptr(), s.data_ptr())
-    assert bool(((c == -2.0) & (s == -2.0) == kept).all()), (c, s)
+    fast = torch.empty(a.shape, dtype=torch.uint8)
+    host.lander_trig_fast_host(a.data_ptr(), len(angles), c.data_ptr(), s.data_ptr(),
+                               fast.data_ptr())
     want_s, want_c = torch.empty_like(a), torch.empty_like(a)
-    host.lander_math_host(a.data_ptr(), want_s.data_ptr(), len(pairs), 0)
-    host.lander_math_host(a.data_ptr(), want_c.data_ptr(), len(pairs), 1)
+    host.lander_math_host(a.data_ptr(), want_s.data_ptr(), len(angles), 0)
+    host.lander_math_host(a.data_ptr(), want_c.data_ptr(), len(angles), 1)
     bits = lambda t: t.view(torch.int32)  # noqa: E731
-    assert torch.equal(bits(s)[~kept], bits(want_s)[~kept])
-    assert torch.equal(bits(c)[~kept], bits(want_c)[~kept])
+    assert torch.equal(bits(s), bits(want_s)) and torch.equal(bits(c), bits(want_c))
+    assert fast.bool().tolist() == [True] * 10 + [False] * 6
     assert bits(s)[4] != bits(s)[5], "sin(+0.0) and sin(-0.0) differ in sign"
+
+
+# ------------------------------------------------ the velocity pass's division
+def _quot(lib, a, b):
+    a, b = np.ascontiguousarray(a, np.float32), np.ascontiguousarray(b, np.float32)
+    out, fast = np.empty_like(a), np.empty(a.shape, np.uint8)
+    lib.lander_quot_host(a.ctypes.data, b.ctypes.data, a.size, out.ctypes.data, fast.ctypes.data)
+    return out, fast.astype(bool)
+
+
+def _edge_floats():
+    """Zeros, subnormals, the range's ends and their neighbours, huge and
+    infinite values and a NaN, each with both signs."""
+    f32 = np.float32
+    tiny = np.array([1, 0x7FFFFF], np.uint32).view(np.float32)  # the least and largest subnormal
+    ends = [f32(2.0**-86), f32(2.0**86), f32(2.0**-40), f32(2.0**40)]
+    near = [np.nextafter(x, f32(d)) for x in ends for d in (0.0, np.inf)]
+    mags = [f32(0.0), *tiny, np.finfo(np.float32).tiny, f32(1.0), f32(3.0), *ends, *near,
+            np.finfo(np.float32).max, f32(np.inf), f32(np.nan)]
+    return np.array([s * m for m in mags for s in (1.0, -1.0)], np.float32)
+
+
+def test_quotient_is_the_division_bit_for_bit(host):
+    """``lander_solver.cuh::quot`` (a velocity pass's division by a frame's
+    divisor: Markstein's two corrections from the correctly rounded
+    reciprocal, plain division outside its range) against IEEE float32
+    division, bit for bit, NaNs included: over 2^22 random pairs with
+    exponents from 2^-60 to 2^60 and both signs, over every pair of the edge
+    operands, and over quotients whose operands share a mantissa or sit a
+    binade apart (exact and near-tie quotients).  The short form is taken
+    exactly where both operands are in its range."""
+    rng = np.random.default_rng(22)
+    n = 1 << 22
+    bits = lambda e: ((rng.integers(0, 2, n, dtype=np.uint32) << 31)  # noqa: E731
+                      | ((e + 127).astype(np.uint32) << 23)
+                      | rng.integers(0, 1 << 23, n, dtype=np.uint32)).view(np.float32)
+    a, b = bits(rng.integers(-60, 61, n)), bits(rng.integers(-60, 61, n))
+    edge = _edge_floats()
+    ea, eb = (x.ravel() for x in np.meshgrid(edge, edge))
+    m = (rng.integers(0, 1 << 23, 4096, dtype=np.uint32) | (127 << 23)).view(np.float32)
+    sa = np.concatenate([m, m * np.float32(2.0), np.nextafter(m, np.float32(2.0))])
+    sb = np.concatenate([m, m, m])
+    for x, y in ((a, b), (ea, eb), (sa, sb)):
+        got, fast = _quot(host, x, y)
+        with np.errstate(all="ignore"):
+            want = x / y
+        assert want.dtype == np.float32
+        differ = got.view(np.uint32) != want.view(np.uint32)
+        assert not differ.any(), (x[differ][:5], y[differ][:5], got[differ][:5], want[differ][:5])
+        ma, mb = np.abs(x), np.abs(y)
+        in_range = (((ma >= 2.0**-86) & (ma <= 2.0**86)) | (ma == 0)) & (mb >= 2.0**-40) & (mb <= 2.0**40)
+        assert np.array_equal(fast, in_range)
+    assert fast.all() and _quot(host, a, b)[1].mean() > 0.3
+
+
+def test_slop_threshold_is_the_square_root_test(host):
+    """The position pass tests ``e <= linear_slop_sq`` where the plain
+    version tests ``sqrt(e) <= LINEAR_SLOP``: over every float32 within 2^16
+    ulps of the threshold, and zero, the slop's own square, huge, infinite
+    and NaN errors, the two tests agree with the C library's sqrtf; the
+    threshold is the kernel's constant, and its next float fails."""
+    f32 = np.float32
+    t = f32(sk.sqrt_threshold(T.LINEAR_SLOP))
+    assert sk.solver_consts(1.0 / T.FPS, -10.0, 0.0).linear_slop_sq == t
+    near = (t.view(np.int32) + np.arange(-(1 << 16), (1 << 16) + 1, dtype=np.int32)).view(np.float32)
+    far = np.array([0.0, f32(T.LINEAR_SLOP) ** 2, 1e-30, 1.0, 3e38, np.inf, np.nan], np.float32)
+    x = np.concatenate([near, far])
+    root = torch.empty(x.shape[0], dtype=torch.float32)
+    host.lander_math_host(torch.from_numpy(x).data_ptr(), root.data_ptr(), x.shape[0], 3)
+    assert np.array_equal(root.numpy() <= f32(T.LINEAR_SLOP), x <= t)
+    after = np.nextafter(t, f32(np.inf))
+    assert np.sqrt(t) <= f32(T.LINEAR_SLOP) < np.sqrt(after)
+
+
+def test_sincos_poly_is_sine_and_cosine(host):
+    """``lander_solver.cuh::sincos_poly`` (the card's ``sincosf`` below
+    105615, written out without its branch; chip_smoke.py holds it to
+    ``sincosf`` on every such float) built for the host: within 2 ulps of
+    the C library's sinf and cosf over 2^20 angles across the range, the
+    quadrants' boundaries and tiny angles, and exact at zero (its sign kept
+    in the sine)."""
+    rng = np.random.default_rng(5)
+    quarter = (np.arange(-400, 401) * (np.pi / 4)).astype(np.float32)
+    a = np.concatenate([
+        rng.uniform(-105614.0, 105614.0, 1 << 19).astype(np.float32),
+        rng.uniform(-8.0, 8.0, 1 << 19).astype(np.float32),
+        quarter, np.nextafter(quarter, np.float32(np.inf)), np.nextafter(quarter, np.float32(-np.inf)),
+        np.array([0.0, -0.0, 1e-30, -1e-30, 1e-6, -1e-6], np.float32)])
+    s, c = np.empty_like(a), np.empty_like(a)
+    host.lander_sincos_poly_host(a.ctypes.data, a.size, s.ctypes.data, c.ctypes.data)
+    want_s, want_c = torch.empty(a.size), torch.empty(a.size)
+    host.lander_math_host(torch.from_numpy(a).data_ptr(), want_s.data_ptr(), a.size, 0)
+    host.lander_math_host(torch.from_numpy(a).data_ptr(), want_c.data_ptr(), a.size, 1)
+    for got, want in ((s, want_s.numpy()), (c, want_c.numpy())):
+        ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+        assert int(ulps.max()) <= 2, (a[np.argmax(ulps)], got[np.argmax(ulps)], want[np.argmax(ulps)])
+    zero = s[-6:-4].view(np.uint32)
+    assert zero[0] == 0 and zero[1] == 0x80000000 and (c[-6:-4] == 1.0).all()
 
 
 def test_vel_tol_branch_matches_jax_and_plain(host, frame_inputs, conditioning_at):  # noqa: F811
