@@ -47,8 +47,14 @@ Phases (each raises on failure, so any failure exits non-zero):
      300-frame flight of 1024 landers (``envs/heuristic.py::lander_step_inputs``:
      touchdowns, rests, hull hits, leg overloads, landers off the screen,
      truncations, all counted) and on the reset frame, one launch a call and
-     no plain call; bitwise over 100 calls and a graph replay; its device
-     time against the plain version's as CUDA graphs, beside its bound;
+     no plain call; R1's vector step (``VectorEnv._step`` with a reset
+     pool: the step, ``done``, the auto-reset's selects and the time
+     feature in one launch) against its plain composition on the card
+     (``measure.composed_rigid_lander``) bit for bit on every lane at the
+     same N, wind off and on, the time feature off and on; both bitwise
+     over 100 calls and a graph replay; their device times against the
+     plain versions' as CUDA graphs, beside their bounds, and the vector
+     step alone as a graph of one call, one kernel;
      then J1, the jointed lander's frame around S1: the kernel through
      ``step_env`` and ``reset_env`` against ``step_env_reference`` and
      ``reset_env_reference``, with the plain solver inside them and again
@@ -69,8 +75,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      check that the TD kernels ran on the device once per learner update
      and R1 once per vector step and reset pool there (counted in the
      trace: a graph's replay passes no wrapper's counter) and no plain
-     version ran, the host's launches per vector
-     step (kernels, graphs, copies and fills; at most
+     version ran, the vector step's own graph one kernel (R1's), the
+     host's launches per vector step (kernels, graphs, copies and fills; at most
      ``WHOLE_HOST_LAUNCHES``) and the device's busy share, the counters
      (the Adam count on the device equal to its mirror), the loss is finite, the online net trained, the target
      followed by Polyak averaging, peak memory under 1 GiB, and a greedy
@@ -459,7 +465,9 @@ SOLVER_KERNEL = "assembly_step_kernel"  # S1's name in the profiler's trace
 # and on: on pre-step states of a flight of RIGID_ENVS landers over
 # RIGID_FRAMES frames (envs/heuristic.py::lander_step_inputs, its episodes cut at
 # RIGID_MAX_STEPS frames so that some states truncate), bit for bit on every
-# lane, and on the reset frame likewise
+# lane, and on the reset frame likewise; its vector step (the step, the
+# auto-reset from a pool and the time feature in one launch) against its
+# plain composition at the same N, wind off and on, the feature off and on
 RIGID_SOURCE = "deep_q_learning_tpu_torch/csrc/lander_rigid.cu"
 RIGID_KERNEL = "rigid_step_kernel"  # R1's name in the profiler's trace
 RIGID_NS = (1, 128, 1024, 8192)
@@ -847,17 +855,24 @@ def check_rigid_math(torch, lander_kernels, card) -> None:
 def check_rigid_kernel(torch, lander_kernels, card):
     """Phase 3, R1: the card's math functions (:func:`check_rigid_math`);
     the kernel through ``LunarLander.step_env`` and ``reset_env`` against
-    ``step_env_reference`` and ``reset_env_reference`` on the card, bit for
-    bit on every lane at RIGID_NS with the wind off and on, one launch a
-    call and no plain call; what the states cover; bitwise over 100 calls
-    and a graph replay; its device time beside the plain version's as CUDA
-    graphs and its bound (``measure.rigid_device_times``).  Returns
-    (largest gap, ``{(n, kind): (kernel ms, plain ms, work)}``)."""
+    ``step_env_reference`` and ``reset_env_reference`` on the card, and its
+    vector step against the plain composition (:func:`rigid_vector_pair`,
+    the time feature off and on), bit for bit on every lane at RIGID_NS
+    with the wind off and on, one launch a call and no plain call; what the
+    states cover; bitwise over 100 calls and a graph replay; the device
+    times beside the plain versions' as CUDA graphs and the bounds
+    (``measure.rigid_device_times``, ``rigid_vector_times``).  Returns
+    (largest gap, ``{(n, kind): (kernel ms, plain ms, work)}``, kind
+    ``"step"``, ``"reset"`` or ``"vector"``)."""
     from deep_q_learning_tpu_torch.envs import LunarLander
     from deep_q_learning_tpu_torch.envs.graphed import tree_map
     from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs, rigid_cover
     from deep_q_learning_tpu_torch.envs.lunar_lander import sample_reset_draws
-    from deep_q_learning_tpu_torch.measure import rigid_device_times, rigid_params
+    from deep_q_learning_tpu_torch.measure import (
+        rigid_device_times,
+        rigid_params,
+        rigid_vector_times,
+    )
 
     check_rigid_math(torch, lander_kernels, card)
     env, largest, timing_inputs = LunarLander(), 0.0, {}
@@ -887,8 +902,21 @@ def check_rigid_kernel(torch, lander_kernels, card):
                 assert bool(same.all()), ("R1 differs from the plain version", kind, n, wind,
                                           int((~same).sum()), gap)
                 largest = max(largest, gap)
-            print(f"  R1 vs plain N={n} wind {'on' if wind else 'off'}: the step and the reset "
-                  f"frame bitwise equal on all {n} lanes")
+            resets = []
+            for feature in (False, True):
+                got, want, done = rigid_vector_pair(torch, lander_kernels, params, state, action,
+                                                    draws, sample_reset_draws(g, n), feature)
+                same, gap = rigid_lanes(torch, got, want)
+                assert bool(same.all()), ("R1's vector step differs from the plain composition",
+                                          n, wind, feature, int((~same).sum()), gap)
+                assert got[0].shape == (n, 8 + feature), got[0].shape
+                assert n < max(RIGID_NS) or (bool(done.any()) and not bool(done.all())), (
+                    n, wind, feature)
+                largest = max(largest, gap)
+                resets.append(int(done.sum()))
+            print(f"  R1 vs plain N={n} wind {'on' if wind else 'off'}: the step, the reset "
+                  f"frame and the vector step (time feature off, on; {resets} lanes reset) "
+                  f"bitwise equal on all {n} lanes")
             if not wind:
                 timing_inputs[n] = (state, action, draws)
 
@@ -896,10 +924,51 @@ def check_rigid_kernel(torch, lander_kernels, card):
     state, action, draws = timing_inputs[1024]
     stable_lanes(torch, lambda: env.step_env(None, state, action, params, draws),
                  RIGID_STABLE_CALLS, "R1")
-    print(f"  R1 N=1024: {RIGID_STABLE_CALLS} calls and a CUDA-graph replay bitwise equal")
+    pool_draws = sample_reset_draws(torch.Generator(device="cuda").manual_seed(9), 1024)
+    stable_lanes(torch, lambda: rigid_vector_pair(torch, lander_kernels, params, state, action,
+                                                  draws, pool_draws, True, plain=False)[0],
+                 RIGID_STABLE_CALLS, "R1's vector step")
+    print(f"  R1 N=1024: {RIGID_STABLE_CALLS} calls and a CUDA-graph replay bitwise equal, the "
+          f"step and the vector step")
     times = {key: (k_us / 1e3, p_us / 1e3, work) for key, (k_us, p_us, work)
              in rigid_device_times(card, timing_inputs).items()}
+    times.update({(n, "vector"): (k_us / 1e3, p_us / 1e3, work) for n, (k_us, p_us, work)
+                  in rigid_vector_times(card, timing_inputs).items()})
     return largest, times
+
+
+def rigid_vector_pair(torch, lander_kernels, params, state, action, draws, pool_draws,
+                      feature: bool, plain: bool = True):
+    """R1's vector step on the card: ``VectorEnv._step`` of the rigid lander
+    (in ``TimeFractionObs`` with ``feature``) with a reset pool from
+    ``pool_draws`` (R1's reset frame), one launch; and, with ``plain``, its
+    plain composition on the same inputs (``measure.composed_rigid_lander``:
+    ``step_env_reference``, ``done``, ``tree_where`` and ``_augment``).
+    Returns (the kernel's outputs, the plain version's or None, done)."""
+    from deep_q_learning_tpu_torch.envs import LunarLander, TimeFractionObs, VectorEnv
+    from deep_q_learning_tpu_torch.measure import composed_rigid_lander
+
+    n = state.x.shape[0]
+    env = TimeFractionObs(LunarLander()) if feature else LunarLander()
+    pool = env.reset_env(None, n, params, pool_draws)
+    prev = torch.zeros_like(pool[0])
+
+    def flat(out):
+        out_obs, out_state, tr = out
+        assert tr.obs is prev and tr.action is action
+        return out_obs, out_state, tr.next_obs, tr.reward, tr.terminated, tr.truncated
+
+    lander_kernels.reset_counts()
+    got = flat(VectorEnv(env, n, graphed=False)._step(None, state, action, params, prev, pool,
+                                                      draws))
+    assert lander_kernels.launches == {"rigid_step": 1}, lander_kernels.launches
+    assert lander_kernels.plain_calls == {"rigid_step": 0}, lander_kernels.plain_calls
+    want = None
+    if plain:
+        venv = VectorEnv(composed_rigid_lander(time_feature=feature), n, graphed=False)
+        want = flat(venv._step(None, state, action, params, prev, pool, draws))
+        assert lander_kernels.launches == {"rigid_step": 1}, lander_kernels.launches
+    return got, want, got[4] | got[5]
 
 
 def check_jointed_kernel(torch, jointed_kernels, solver_kernels, card):
@@ -1368,6 +1437,7 @@ def run_slice(torch, td_kernels, sample_kernels, lander_kernels, card):
     assert rigid == cfg.steps_per_superstep + 1, (rigid, cfg.steps_per_superstep)
     assert lander_kernels.plain_calls == {"rigid_step": 0}, lander_kernels.plain_calls
     assert sample_kernels.launches == {"per_slot_sample": 0}  # off in lunar_per
+    rigid_vector_graph(torch, cfg, card)
     assert td_kernels.plain_calls == {"td_loss_fwd": 0, "td_loss_bwd": 0}
     per_step = trace.host_launches / cfg.steps_per_superstep
     assert per_step <= WHOLE_HOST_LAUNCHES, (per_step, trace.launches, trace.copies)
@@ -1435,6 +1505,20 @@ def run_slice(torch, td_kernels, sample_kernels, lander_kernels, card):
               f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
     superstep_replay_ms(torch, "lunar_per", whole["graph"], card)
     return rigid
+
+
+def rigid_vector_graph(torch, cfg, card) -> None:
+    """The preset's vector step with its reset pool as ``VectorEnv`` runs it
+    in a CUDA graph (``measure.graphed_vector_step``): one kernel, R1's."""
+    from deep_q_learning_tpu_torch.envs import make_env
+    from deep_q_learning_tpu_torch.measure import graphed_vector_step
+
+    env, params = make_env(cfg.env_id, cfg.time_fraction_obs, cfg.max_steps_in_episode,
+                           param_overrides=cfg.env_param_overrides())
+    g = torch.Generator(device="cuda").manual_seed(5)
+    _, st = env.reset_env(g, cfg.num_envs, params)
+    _, nodes, kernels = graphed_vector_step(env, params, cfg.num_envs, g, st, card)
+    assert nodes == 1 and kernels["lander_rigid_step"] == 1, (nodes, kernels)
 
 
 def f5_pair(torch, graphed, metrics, card):
@@ -1573,6 +1657,7 @@ def run_scaled(torch, td_kernels, sample_kernels, lander_kernels, card):
     rigid = trace.count(RIGID_KERNEL)
     assert rigid == cfg.steps_per_superstep + 1, (rigid, cfg.steps_per_superstep)
     plain = dict(td_kernels.plain_calls, **sample_kernels.plain_calls, **lander_kernels.plain_calls)
+    rigid_vector_graph(torch, cfg, card)
 
     updates = sum(m.loss_count for m in metrics)
     steady = metrics[-1].loss_count
@@ -4285,13 +4370,15 @@ def main() -> int:
     # the 0 that phases 7 and 14 count, and "inside" names J1, whose entry
     # counts the launches that ran S1's body.  No single PyTorch call
     # computes S1 or J1 either
-    # R1: ms, bound and error at lunar_per's 128 landers (phase 3), launches
-    # from phase 4's profiled superstep; "[members]": at the population's
-    # 8 x 128 landers, one call of 1024 (phase 3), launches from phase 9's.
-    # No single PyTorch call computes R1 either
+    # R1: ms, bound and error of its vector step (the entry the main path
+    # launches at every vector step; the reset pool's frame is the 129th
+    # launch) at lunar_per's 128 landers with the time feature (phase 3),
+    # launches from phase 4's profiled superstep; "[members]": at the
+    # population's 8 x 128 landers, one call of 1024 (phase 3), launches
+    # from phase 9's.  No single PyTorch call computes R1 either
     timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]],
                  assembly_step=solver_times[128, 120, 40],
-                 lander_rigid_step=rigid_times[128, "step"],
+                 lander_rigid_step=rigid_times[128, "vector"],
                  lander_jointed_step=jointed_times[128, "step"])
     launches = dict(launches, **jointed_launches, lander_rigid_step=slice_rigid)
     for run_launches in (launches, scaled_launches):
@@ -4299,7 +4386,7 @@ def main() -> int:
     err["assembly_step"] = solver_err[128]
     err["lander_jointed_step"] = jointed_err
     err["lander_rigid_step"] = member_err["lander_rigid_step"] = rigid_err
-    member_times["lander_rigid_step"] = rigid_times[1024, "step"]
+    member_times["lander_rigid_step"] = rigid_times[1024, "vector"]
     scaled_timed = dict(times[1024], per_slot_sample=slot_times[SLOT_SHAPES[0]],
                         assembly_step=solver_times[1024, 120, 40],
                         lander_jointed_step=jointed_times[1024, "step"])

@@ -31,7 +31,8 @@
 //     each step, left to right;
 //   * clamp, clamp_min and maximum propagate NaN as PyTorch's kernels do;
 //   * sin and cos: sincosf on the card, bitwise torch.sin and torch.cos
-//     there (lander_solver.cuh::Trig); tanhf and sinf in the wind pattern
+//     there, or its branch-free transcription (lander_fast_math.cuh::Trig,
+//     sincos_poly); tanhf and sinf in the wind pattern
 //     and sqrtf in the potential, held to torch's on the card by
 //     chip_smoke.py; the C library's in the host build, which the CPU tests
 //     give the plain version too.
@@ -141,15 +142,6 @@ LF_FN float clamp_t(float v, float lo, float hi) { return v != v ? v : fminf(fma
 LF_FN float clamp_min_t(float v, float lo) { return v != v ? v : fmaxf(v, lo); }
 LF_FN float maximum_t(float a, float b) { return a != a ? a : (b != b ? b : fmaxf(a, b)); }
 
-LF_FN void sin_cos(float a, float* s, float* c) {
-#ifdef __CUDA_ARCH__
-  sincosf(a, s, c);
-#else
-  *s = sinf(a);
-  *c = cosf(a);
-#endif
-}
-
 // _wind_pattern: tanh(sin(0.02 f) + sin(pi 0.01 f)) of the float index f.
 LF_FN float wind_pattern(int32_t idx, const FrameConsts& k) {
   float f = (float)idx;
@@ -243,15 +235,23 @@ struct End {
   int32_t wind_idx, torque_idx;
 };
 
-// The sleep counter, the observation, the shaping potential, and for a step
-// the reward and the flags, of env i after its frame; stored where store
-// holds.
-LF_FN void finish(const IO& io, const FrameConsts& k, int i, const Start& s, const End& e,
-                  bool store) {
-  const int32_t sleep = e.still ? s.sleep + 1 : 0;
-  const bool rest = sleep >= k.sleep_frames;
+// What a frame's end gives env i: the sleep counter, the observation, the
+// shaping potential, and for a step (t_in and prev_shaping: the state's t
+// and potential) t, the reward and the flags; the reset frame's t is 0.
+struct Outcome {
+  float obs[kObs];
+  float shaping, reward;
+  int32_t sleep, t;
+  bool terminated, truncated;
+};
 
-  float o[kObs];
+LF_FN Outcome outcome(const FrameConsts& k, const Start& s, const End& e, int32_t t_in,
+                      float prev_shaping) {
+  Outcome r;
+  r.sleep = e.still ? s.sleep + 1 : 0;
+  const bool rest = r.sleep >= k.sleep_frames;
+
+  float* o = r.obs;
   o[0] = sdiv(e.x - k.half_w.c, k.half_w);
   o[1] = sdiv(e.y - k.pad_y, k.half_h);
   o[2] = sdiv(e.vx * k.half_w.c, k.fps);
@@ -260,16 +260,36 @@ LF_FN void finish(const IO& io, const FrameConsts& k, int i, const Start& s, con
   o[5] = sdiv(e.omega * 20.0f, k.fps);
   o[6] = e.leg1 ? 1.0f : 0.0f;
   o[7] = e.leg2 ? 1.0f : 0.0f;
-  const float shaping = ((((sqrtf(o[0] * o[0] + o[1] * o[1]) * -100.0f) -
-                           sqrtf(o[2] * o[2] + o[3] * o[3]) * 100.0f) -
-                          fabsf(o[4]) * 100.0f) +
-                         o[6] * 10.0f) +
-                        o[7] * 10.0f;
-  if (!store) return;
+  r.shaping = ((((sqrtf(o[0] * o[0] + o[1] * o[1]) * -100.0f) -
+                 sqrtf(o[2] * o[2] + o[3] * o[3]) * 100.0f) -
+                fabsf(o[4]) * 100.0f) +
+               o[6] * 10.0f) +
+              o[7] * 10.0f;
+  r.t = 0;
+  r.reward = 0.0f;
+  r.terminated = r.truncated = false;
+  if (s.reset) return r;
+  r.t = t_in + 1;
 
+  // the reward and the flags
+  const float m_power = s.action == 2 ? 1.0f : 0.0f;
+  const float s_power = (s.action == 1) | (s.action == 3) ? 1.0f : 0.0f;
+  float reward = r.shaping - prev_shaping;
+  reward = (reward - m_power * 0.3f) - s_power * 0.03f;
+  const bool out_of_bounds = fabsf(o[0]) >= 1.0f;
+  const bool crash = e.game_over | out_of_bounds;
+  r.reward = crash ? -100.0f : (rest ? 100.0f : reward);
+  r.terminated = crash | rest;
+  r.truncated = (r.t >= k.max_steps) & !r.terminated;
+  return r;
+}
+
+// Env i's frame stored through io: the observation, the state, and for a
+// step the reward and the flags.
+LF_FN void store(const IO& io, int i, const Start& s, const End& e, const Outcome& r) {
   float* obs = io.obs + (int64_t)i * kObs;
 #pragma unroll
-  for (int q = 0; q < kObs; ++q) obs[q] = o[q];
+  for (int q = 0; q < kObs; ++q) obs[q] = r.obs[q];
   io.state_out[0][i] = e.x;
   io.state_out[1][i] = e.y;
   io.state_out[2][i] = e.vx;
@@ -278,30 +298,26 @@ LF_FN void finish(const IO& io, const FrameConsts& k, int i, const Start& s, con
   io.state_out[5][i] = e.omega;
   io.leg_out[0][i] = e.leg1;
   io.leg_out[1][i] = e.leg2;
-  io.shaping_out[i] = shaping;
-  io.sleep_out[i] = sleep;
+  io.shaping_out[i] = r.shaping;
+  io.sleep_out[i] = r.sleep;
   if (io.wind_out != nullptr) {
     io.wind_out[i] = e.wind_idx;
     io.torque_out[i] = e.torque_idx;
   }
-  if (s.reset) {
-    io.t_out[i] = 0;
-    return;
-  }
-  const int32_t t = io.t[i] + 1;
-  io.t_out[i] = t;
+  io.t_out[i] = r.t;
+  if (s.reset) return;
+  io.reward[i] = r.reward;
+  io.terminated[i] = r.terminated;
+  io.truncated[i] = r.truncated;
+}
 
-  // the reward and the flags
-  const float m_power = s.action == 2 ? 1.0f : 0.0f;
-  const float s_power = (s.action == 1) | (s.action == 3) ? 1.0f : 0.0f;
-  float reward = shaping - io.prev_shaping[i];
-  reward = (reward - m_power * 0.3f) - s_power * 0.03f;
-  const bool out_of_bounds = fabsf(o[0]) >= 1.0f;
-  const bool crash = e.game_over | out_of_bounds;
-  io.reward[i] = crash ? -100.0f : (rest ? 100.0f : reward);
-  const bool terminated = crash | rest;
-  io.terminated[i] = terminated;
-  io.truncated[i] = (t >= k.max_steps) & !terminated;
+// outcome() of env i's frame, its t and potential read from io, stored
+// where store holds.
+LF_FN void finish(const IO& io, const FrameConsts& k, int i, const Start& s, const End& e,
+                  bool store_it) {
+  if (!store_it) return;
+  const bool step = !s.reset;
+  store(io, i, s, e, outcome(k, s, e, step ? io.t[i] : 0, step ? io.prev_shaping[i] : 0.0f));
 }
 
 }  // namespace frame

@@ -49,7 +49,7 @@
 // PyTorch's elementwise kernels round every product and sum, and so must
 // this code to agree with the plain version; no --use_fast_math, so that
 // sqrtf and division are the precise ones PyTorch calls (sincosf is bitwise
-// PyTorch's sin and cos on this card, lander_solver.cuh::Trig).
+// PyTorch's sin and cos on this card, lander_fast_math.cuh::Trig).
 //
 // Plain C interface (no PyTorch headers), built by nvcc and loaded with
 // ctypes (ops/build.py).  The launcher runs on the caller's stream,

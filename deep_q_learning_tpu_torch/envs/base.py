@@ -109,6 +109,21 @@ class Environment(Generic[TEnvState, TEnvParams]):
         Returns ``(obs, state, reward, terminated, truncated)``."""
         raise NotImplementedError
 
+    def fuses_vector_step(self, params, state) -> bool:
+        """Whether :meth:`vector_step` runs ``VectorEnv``'s step with a
+        reset pool for these params and this state's device as one call: a
+        matter of configuration (engine, device), never of a failure."""
+        return False
+
+    def vector_step(self, generator: torch.Generator, state, action, params, fresh, draws=None,
+                    time_feature: bool = False):
+        """The vector step with the auto-reset from the pool ``fresh`` as one
+        call, where :meth:`fuses_vector_step` holds: ``(out_obs, out_state,
+        next_obs, reward, terminated, truncated)``, what ``VectorEnv._step``
+        composes from ``step_env`` and the selects; each observation ends in
+        ``t / max_steps`` with ``time_feature`` (``TimeFractionObs``)."""
+        raise NotImplementedError
+
     # the JAX package's "jittable edges": thin calls onto the env functions
     def reset(self, generator: torch.Generator, n: int, params, draws=None):
         return self.reset_env(generator, n, params, draws)
@@ -189,17 +204,26 @@ class VectorEnv:
               reset_draws=None):
         """The vector step with auto-reset.  Random numbers come from
         ``generator`` where their draws are None; ``fresh`` None resets
-        through ``reset_batch``, or from ``reset_draws`` where given."""
-        next_obs, next_states, reward, terminated, truncated = self.env.step_env(
-            generator, states, actions, params, step_draws
-        )
-        done = terminated | truncated
-        if fresh is None:
-            fresh = (self.env.reset_batch(generator, self.num_envs, params) if reset_draws is None
-                     else self.env.reset_env(None, self.num_envs, params, reset_draws))
-        fresh_obs, fresh_states = fresh
-        out_states = tree_where(done, fresh_states, next_states)
-        out_obs = tree_where(done, fresh_obs, next_obs)
+        through ``reset_batch``, or from ``reset_draws`` where given.  With a
+        pool, an env that fuses its vector step for these params and
+        tensors (the rigid lander on the card: one kernel) runs it as one
+        call; otherwise the step, ``done`` and the selects, the plain
+        composition."""
+        if fresh is not None and self.env.fuses_vector_step(params, states):
+            out_obs, out_states, next_obs, reward, terminated, truncated = self.env.vector_step(
+                generator, states, actions, params, fresh, step_draws)
+        else:
+            next_obs, next_states, reward, terminated, truncated = self.env.step_env(
+                generator, states, actions, params, step_draws
+            )
+            done = terminated | truncated
+            if fresh is None:
+                fresh = (self.env.reset_batch(generator, self.num_envs, params)
+                         if reset_draws is None
+                         else self.env.reset_env(None, self.num_envs, params, reset_draws))
+            fresh_obs, fresh_states = fresh
+            out_states = tree_where(done, fresh_states, next_states)
+            out_obs = tree_where(done, fresh_obs, next_obs)
         transition = Transition(
             obs=prev_obs,
             action=actions,

@@ -678,6 +678,25 @@ class LunarLander(Environment):
             lander_kernels.plain_calls["rigid_step"] += 1
         return self.step_env_reference(None, state, action, params, draws)
 
+    def fuses_vector_step(self, params: LunarLanderParams, state: LunarLanderState) -> bool:
+        """The rigid engine on CUDA tensors runs the vector step with a
+        reset pool as one kernel (R1's vector entry)."""
+        return not params.jointed and state.x.device.type == "cuda"
+
+    def vector_step(self, generator, state, action, params, fresh, draws=None,
+                    time_feature: bool = False):
+        """``VectorEnv._step`` with the pool ``fresh`` in one launch of R1
+        (``ops/lander_kernels.py::rigid_vector_kernel``): the step, the
+        auto-reset's selects and, with ``time_feature``, ``TimeFractionObs``'
+        feature.  CUDA tensors of the rigid engine only (it raises
+        elsewhere); the plain version is ``VectorEnv._step``'s composition."""
+        from deep_q_learning_tpu_torch.ops import lander_kernels
+
+        if draws is None:
+            draws = sample_step_draws(generator, action.shape[0])
+        return lander_kernels.rigid_vector_kernel(state, action.to(torch.int32), params,
+                                                  draws.contiguous(), fresh, time_feature)
+
     def step_env_reference(
         self,
         generator: torch.Generator,

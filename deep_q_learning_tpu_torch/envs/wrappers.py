@@ -92,3 +92,12 @@ class TimeFractionObs(WrappedEnv):
 
     def get_obs(self, state, params):
         return self._augment(self.env.get_obs(state, params), state, params)
+
+    def fuses_vector_step(self, params, state) -> bool:
+        # the wrapped env's fused step appends this feature itself
+        return not isinstance(self.env, WrappedEnv) and self.env.fuses_vector_step(params, state)
+
+    def vector_step(self, generator, state, action, params, fresh, draws=None,
+                    time_feature: bool = False):
+        return self.env.vector_step(generator, state, action, params, fresh, draws,
+                                    time_feature=True)

@@ -14,15 +14,20 @@
    at ``SOLVER_SHAPES`` on states of a flight of landers, its plain version
    as a CUDA graph of one call (~56k kernels).  R1, the rigid lander's
    step, at ``RIGID_SHAPES`` (and its reset frame) on states of a flight of
-   landers, its plain version as a CUDA graph of 10 calls.  J1, the
+   landers, its plain version as a CUDA graph of 10 calls; R1's vector
+   step (the step, the auto-reset from a pool and the time feature, one
+   launch) at the same N against its plain composition, and alone as a
+   CUDA graph of one call (replay µs and kernels).  J1, the
    jointed lander's frame, at ``JOINTED_SHAPES`` (the wind off and on, and
    the reset frame), with the slowest env's passes and the µs a pass.  With
    ``--baseline CHECKOUT``
    (another checkout of the port, e.g. an earlier commit unpacked with
-   ``git archive``), its TD kernels, its PER slot kernel, its S1 and its J1
-   are timed too, each built from that checkout's own source, in turns with
-   this tree's (baseline, tree, tree, baseline), S1 and J1 with the count
-   of lanes whose result differs from the baseline's in any bit.
+   ``git archive``), its TD kernels, its PER slot kernel, its S1, its R1
+   (step and reset frame; its vector step is its R1 step inside the
+   composition) and its J1 are timed too, each built from that checkout's
+   own source, in turns with this tree's (baseline, tree, tree, baseline),
+   the lander kernels with the count of lanes whose result differs from
+   the baseline's in any bit.
    Then the kernel launches of one learner update (``torch.profiler``).
 2. One steady superstep of the preset under ``torch.profiler``: host ms by
    phase (spans wrapped around the env step, the reset pool or the cheap
@@ -197,10 +202,10 @@ BASELINE_DEPS = {"jointed_kernels": ("solver_kernels",)}
 @functools.cache
 def load_baseline(checkout: Path, name: str):
     """``ops/<name>.py`` (``td_kernels``, ``sample_kernels``,
-    ``solver_kernels`` or ``jointed_kernels``) of another checkout of the
-    port (an earlier commit unpacked with ``git archive``), with its kernels
-    built from that checkout's ``csrc/``, to time beside this one in one
-    process.  The ops modules it builds its C structures on
+    ``solver_kernels``, ``lander_kernels`` or ``jointed_kernels``) of
+    another checkout of the port (an earlier commit unpacked with ``git
+    archive``), with its kernels built from that checkout's ``csrc/``, to
+    time beside this one in one process.  The ops modules it builds its C structures on
     (``BASELINE_DEPS``) are that checkout's too while it loads."""
     from deep_q_learning_tpu_torch import ops
     from deep_q_learning_tpu_torch.ops import build
@@ -290,7 +295,8 @@ def rigid_params(enable_wind: bool = False, max_steps: Optional[int] = None):
     return params
 
 
-def rigid_device_times(card: str, inputs: Optional[dict] = None) -> dict:
+def rigid_device_times(card: str, inputs: Optional[dict] = None,
+                       baseline: Optional[Path] = None) -> dict:
     """R1 and its plain version at RIGID_SHAPES, and the reset frame at
     RIGID_RESET_N: device µs a call of the kernel (a CUDA graph of
     GRAPH_CALLS calls) and of the plain version (a graph of
@@ -300,19 +306,25 @@ def rigid_device_times(card: str, inputs: Optional[dict] = None) -> dict:
     default the states of a flight of landers
     (``envs/heuristic.py::lander_step_inputs``).  The reset's plain version is
     the whole ``reset_env_reference``, its terrain smoothing (a few
-    kernels) included.  Prints a line a shape and returns ``{(n, kind):
-    (kernel us, plain us, work)}``, kind ``"step"`` or ``"reset"``."""
+    kernels) included.  With ``baseline`` (a checkout,
+    :func:`load_baseline`), that checkout's R1 is timed too, in turns with
+    this tree's (baseline, tree, tree, baseline), with the count of lanes
+    whose result differs from the baseline's in any bit.  Prints a line a
+    shape and returns ``{(n, kind): (kernel us, plain us, work)}``, kind
+    ``"step"`` or ``"reset"``."""
     from deep_q_learning_tpu_torch.envs import LunarLander
     from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs
     from deep_q_learning_tpu_torch.envs.lunar_lander import sample_reset_draws, smoothed_terrain
     from deep_q_learning_tpu_torch.ops import lander_kernels
 
+    base = load_baseline(baseline, "lander_kernels") if baseline is not None else None
     env, params = LunarLander(), rigid_params()
     g = torch.Generator(device="cuda").manual_seed(0)
-    times = {}
+    times, calls = {}, {}
     for n in RIGID_SHAPES:
         state, action, draws = (inputs[n] if inputs is not None
                                 else lander_step_inputs(env, params, n, g))
+        calls[n, "step"] = functools.partial(_rigid_step, params, state, action, draws)
         k = device_us(lambda: lander_kernels.rigid_step_kernel(state, action, params, draws))
         r = device_us(lambda: env.step_env_reference(None, state, action, params, draws),
                       calls=PLAIN_RIGID_CALLS)
@@ -320,6 +332,7 @@ def rigid_device_times(card: str, inputs: Optional[dict] = None) -> dict:
     n = RIGID_RESET_N
     rd = sample_reset_draws(g, n)
     terrain = smoothed_terrain(rd.terrain, params)
+    calls[n, "reset"] = functools.partial(_rigid_reset, params, terrain, rd)
     k = device_us(lambda: lander_kernels.rigid_reset_kernel(terrain, rd.kick, rd.wind, params))
     r = device_us(lambda: env.reset_env_reference(None, n, params, rd), calls=PLAIN_RIGID_CALLS)
     times[n, "reset"] = (k, r, lander_kernels.rigid_step_work(n, reset=True))
@@ -327,6 +340,150 @@ def rigid_device_times(card: str, inputs: Optional[dict] = None) -> dict:
         print(f"lander_rigid_step (R1) {kind} N={n}: device {k:.2f} us kernel, {r:.2f} us plain "
               f"as a CUDA graph of {PLAIN_RIGID_CALLS} calls ({r / k:.0f}x); "
               f"{bound_text(work, k)} [{card}]")
+        if base is not None:
+            in_turns(f"N={n} {kind} lander_rigid_step (R1)", calls[n, kind], base,
+                     lander_kernels, n, card)
+    return times
+
+
+def _rigid_step(params, state, action, draws, module):
+    return module.rigid_step_kernel(state, action, params, draws)
+
+
+def _rigid_reset(params, terrain, draws, module):
+    return module.rigid_reset_kernel(terrain, draws.kick, draws.wind, params)
+
+
+def in_turns(label: str, call, base, module, n: int, card: str) -> None:
+    """``call(module)`` against ``call(base)`` (another checkout's ops
+    module): the lanes whose results differ in any bit, and device µs a
+    call in turns (baseline, tree, tree, baseline)."""
+    differ = lanes_differ(call(base), call(module))
+    b0, t0, t1, b1 = [device_us(lambda: call(base if which == "baseline" else module))
+                      for which in ("baseline", "tree", "tree", "baseline")]
+    print(f"  {label}: baseline {b0:.2f}, {b1:.2f} us; this tree {t0:.2f}, {t1:.2f} us "
+          f"(device, in turns; x{(b0 + b1) / (t0 + t1):.2f}); {differ} of {n} lanes differ "
+          f"from the baseline's in some bit [{card}]")
+
+
+@functools.cache
+def _composed_lander_type():
+    from deep_q_learning_tpu_torch.envs import LunarLander
+
+    class ComposedRigidLander(LunarLander):
+        """The rigid lander whose vector step composes: ``VectorEnv._step``'s
+        step, ``done`` and selects around ``step`` (by default the plain
+        ``step_env_reference`` on either device)."""
+
+        def __init__(self, step=None):
+            self.step_fn = step
+
+        def step_env(self, generator, state, action, params, draws=None):
+            if self.step_fn is None:
+                return self.step_env_reference(generator, state, action, params, draws)
+            return self.step_fn(state, action.to(torch.int32), params, draws.contiguous())
+
+        def fuses_vector_step(self, params, state) -> bool:
+            return False
+
+    return ComposedRigidLander
+
+
+def composed_rigid_lander(step: Optional[Callable] = None, time_feature: bool = True):
+    """A rigid lander (in ``TimeFractionObs`` with ``time_feature``, as the
+    lander presets run it) whose ``VectorEnv._step`` is the plain
+    composition, the step, ``done`` and the auto-reset's selects: around
+    the plain ``step_env_reference`` (R1's vector entry's plain version, on
+    either device), or around ``step`` (``(state, action, params, draws)
+    -> step_env``'s result; another checkout's ``rigid_step_kernel``: that
+    checkout's vector step)."""
+    from deep_q_learning_tpu_torch.envs import TimeFractionObs
+
+    env = _composed_lander_type()(step)
+    return TimeFractionObs(env) if time_feature else env
+
+
+def graph_replay(fn, replays: int = 4 * GRAPH_REPLAYS) -> tuple:
+    """``(device µs, kernels)`` of one replay of a CUDA graph of one call of
+    ``fn``: replays back to back between CUDA events, and the kernels of
+    the last of :data:`TRACED_REPLAYS` traced replays (which must agree
+    with the one before it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    trace = traced_kernels(lambda: [graph.replay() for _ in range(TRACED_REPLAYS)])
+    *_, before, last = trace.per_graph_launch
+    if before != last:
+        raise RuntimeError(f"the profiler recorded {trace.per_graph_launch} kernels in "
+                           f"{TRACED_REPLAYS} replays of one graph: its last two must agree")
+    return start.elapsed_time(end) * 1e3 / replays, last
+
+
+def rigid_vector_times(card: str, inputs: Optional[dict] = None,
+                       baseline: Optional[Path] = None) -> dict:
+    """R1's vector step (``VectorEnv._step`` of the lander presets' rigid
+    lander in ``TimeFractionObs`` with a reset pool: one launch) at
+    RIGID_SHAPES: device µs a call of the kernel (a CUDA graph of
+    GRAPH_CALLS calls) and of its plain composition (a graph of
+    PLAIN_RIGID_CALLS calls), beside the bound of its work; then the
+    vector step alone as a CUDA graph of one call (its replay's device µs
+    and kernels), and with ``baseline`` that checkout's vector step (its R1
+    step and the composition's selects around it) in turns (baseline, tree,
+    tree, baseline), with the lanes whose results differ in any bit.
+    ``inputs`` as :func:`rigid_device_times`'.  Prints a line a shape and
+    returns ``{n: (kernel us, plain us, work)}``."""
+    from deep_q_learning_tpu_torch.envs import LunarLander, TimeFractionObs, VectorEnv
+    from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs
+    from deep_q_learning_tpu_torch.envs.lunar_lander import sample_reset_draws
+    from deep_q_learning_tpu_torch.ops import lander_kernels
+
+    base = load_baseline(baseline, "lander_kernels") if baseline is not None else None
+    env, params = TimeFractionObs(LunarLander()), rigid_params()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    times = {}
+    for n in RIGID_SHAPES:
+        state, action, draws = (inputs[n] if inputs is not None
+                                else lander_step_inputs(env.env, params, n, g))
+        pool = env.reset_env(None, n, params, sample_reset_draws(g, n))
+        prev = torch.zeros_like(pool[0])
+        steps = {"tree": VectorEnv(env, n, graphed=False),
+                 "plain": VectorEnv(composed_rigid_lander(), n, graphed=False)}
+        if base is not None:
+            steps["baseline"] = VectorEnv(composed_rigid_lander(base.rigid_step_kernel), n,
+                                          graphed=False)
+
+        def call(which):
+            out_obs, out_state, tr = steps[which]._step(None, state, action, params, prev, pool,
+                                                        draws)
+            return (out_obs, out_state, tr.next_obs, tr.reward, tr.terminated, tr.truncated)
+
+        k = device_us(lambda: call("tree"))
+        r = device_us(lambda: call("plain"), calls=PLAIN_RIGID_CALLS)
+        work = lander_kernels.rigid_step_work(n, vector=True, time_feature=True)
+        times[n] = (k, r, work)
+        print(f"lander_rigid_step (R1) vector step N={n} (the time feature, a reset pool): device "
+              f"{k:.2f} us kernel, {r:.2f} us plain as a CUDA graph of {PLAIN_RIGID_CALLS} calls "
+              f"({r / k:.0f}x); {bound_text(work, k)} [{card}]")
+        order = ("baseline", "tree", "tree", "baseline") if base is not None else ("tree",)
+        graphs = [(which, *graph_replay(lambda: call(which))) for which in order]
+        text = "; ".join(f"{which} {us:.2f} us, {kernels} kernels" for which, us, kernels in graphs)
+        differ = (f"; {lanes_differ(call('baseline'), call('tree'))} of {n} lanes differ from the "
+                  f"baseline's in some bit" if base is not None else "")
+        print(f"  N={n} the vector step as a CUDA graph of one call, a replay on the device: "
+              f"{text}{differ} [{card}]")
     return times
 
 
@@ -401,15 +558,9 @@ def jointed_device_times(card: str, inputs: Optional[dict] = None,
               f"{r:.2f} us plain (S1 inside) as a CUDA graph of one call ({r / k:.1f}x); "
               f"{bound_text(work, k)}; the slowest env's passes ({vel}, {pos}), "
               f"{k / (vel + pos):.3f} us a pass [{card}]")
-        if base is None:
-            continue
-        call = calls[n, kind]
-        differ = lanes_differ(call(base), call(jointed_kernels))
-        b0, t0, t1, b1 = [device_us(lambda: call(base if which == "baseline" else jointed_kernels))
-                          for which in ("baseline", "tree", "tree", "baseline")]
-        print(f"  N={n} {kind} lander_jointed_step (J1): baseline {b0:.2f}, {b1:.2f} us; this "
-              f"tree {t0:.2f}, {t1:.2f} us (device, in turns; x{(b0 + b1) / (t0 + t1):.2f}); "
-              f"{differ} of {n} lanes differ from the baseline's in some bit [{card}]")
+        if base is not None:
+            in_turns(f"N={n} {kind} lander_jointed_step (J1)", calls[n, kind], base,
+                     jointed_kernels, n, card)
     return times
 
 
@@ -422,8 +573,9 @@ def _jointed_reset(params, terrain, draws, module):
 
 
 def lanes_differ(a, b) -> int:
-    """Lanes of two results of a lander kernel (S1's ``assembly_step``, or
-    J1's step or reset frame) that differ in any bit of any output."""
+    """Lanes of two results of a lander kernel (S1's ``assembly_step``, R1's
+    or J1's step, reset frame or vector step) that differ in any bit of
+    any output."""
     from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
 
     x, y = tree_leaves(list(a)), tree_leaves(list(b))
@@ -443,7 +595,8 @@ def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
     per_superstep = launches_per_superstep()
     print(f"kernel launches per steady superstep, by preset: {per_superstep}")
     solver_device_times(card, baseline=baseline)
-    rigid_device_times(card)
+    rigid_device_times(card, baseline=baseline)
+    rigid_vector_times(card, baseline=baseline)
     jointed_device_times(card, baseline=baseline)
     g = torch.Generator(device="cuda").manual_seed(0)
     base_sk = load_baseline(baseline, "sample_kernels") if baseline is not None else None
@@ -1036,16 +1189,18 @@ def env_frames(cfg, card: str) -> None:
     graphed_vector_step(env, params, n, g, st, card)
 
 
-def graphed_vector_step(env, params, n: int, g: torch.Generator, st, card: str) -> None:
+def graphed_vector_step(env, params, n: int, g: torch.Generator, st, card: str):
     """The env's vector step with its auto-reset from a reset pool as
     ``VectorEnv`` runs it in a CUDA graph (the learner's frame graph holds
     the same kernels): its replay alone (:func:`replay_ms`: device ms,
-    kernels, the host's launch) and the env kernels among its kernels."""
+    kernels, the host's launch) and the env kernels among its kernels.
+    Returns ``(device ms, kernels, {env kernel: count})``, or None for an
+    env that does not graph."""
     from deep_q_learning_tpu_torch.envs import VectorEnv
 
     venv = VectorEnv(env, n)
     if not venv.graphed:
-        return
+        return None
     pool = venv.fresh_pool(g, params)
     obs = env.get_obs(st, params)
     actions = torch.randint(0, env.num_actions, (n,), generator=g, device="cuda",
@@ -1059,6 +1214,7 @@ def graphed_vector_step(env, params, n: int, g: torch.Generator, st, card: str) 
     print(f"the vector step's graph (auto-reset from the pool included): replay {device_ms:.3f} "
           f"ms on the device, {nodes} kernels, the env's among them {kernels}, its launch "
           f"{host_ms:.3f} ms of host [{card}]")
+    return device_ms, nodes, kernels
 
 
 def main(argv=None) -> int:

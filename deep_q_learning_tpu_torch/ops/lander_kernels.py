@@ -1,7 +1,9 @@
-"""R1, one frame of the rigid lander: the CUDA kernel
-(``csrc/lander_rigid.cu``, its body ``csrc/lander_rigid.cuh``) and its
-plain PyTorch version (``envs/lunar_lander.py::LunarLander.step_env_reference``
-and ``reset_env``'s physics frame).
+"""R1, one frame of the rigid lander and the vector step around it: the
+CUDA kernel (``csrc/lander_rigid.cu``, its body ``csrc/lander_rigid.cuh``)
+and its plain PyTorch versions (``envs/lunar_lander.py::LunarLander.
+step_env_reference`` and ``reset_env``'s physics frame; for the vector
+step ``envs/base.py::VectorEnv._step``'s composition of the step, the
+auto-reset's ``tree_where`` and ``TimeFractionObs._augment``).
 
 Not a TPU kernel: the JAX package writes the rigid step as scalar code for
 one env (``deep_q_learning_tpu/envs/lunar_lander.py::step_env`` with
@@ -11,14 +13,16 @@ kernels a frame; the kernel runs the frame in one launch, one thread an
 env, and agrees with the plain version bit for bit: every value comes from
 the same operations on the same operands (see the source).
 
-:func:`rigid_step_kernel` (a step: observation, state, reward and flags)
-and :func:`rigid_reset_kernel` (reset_env's frame with the kick, from the
-smoothed terrain and the reset's draws) launch the kernel on CUDA tensors,
-or raise; ``envs/lunar_lander.py`` calls them for CUDA tensors and runs
-the plain version on CPU tensors.  ``launches`` counts kernel launches,
-``plain_calls`` calls that took the plain version, both frames alike.
-:func:`rigid_step_work` gives the bytes and operations of a call, of
-which ``ops.bound_us`` makes R1's bound.
+:func:`rigid_step_kernel` (a step: observation, state, reward and flags),
+:func:`rigid_reset_kernel` (reset_env's frame with the kick, from the
+smoothed terrain and the reset's draws) and :func:`rigid_vector_kernel`
+(the vector step with a reset pool: the step, ``done``, the selects of
+every state leaf and of the observation, and the time feature) launch the
+kernel on CUDA tensors, or raise; ``envs/lunar_lander.py`` calls them for
+CUDA tensors and runs the plain versions on CPU tensors.  ``launches``
+counts kernel launches, ``plain_calls`` calls that took the plain
+version, every entry alike.  :func:`rigid_step_work` gives the bytes and
+operations of a call, of which ``ops.bound_us`` makes R1's bound.
 """
 
 from __future__ import annotations
@@ -54,6 +58,16 @@ STEP_WRITE_BYTES = 4 * (8 + 6 + 1 + 2 + 1) + 4
 WIND_BYTES = 2 * 4 * 2
 RESET_READ_BYTES = 4 * (ll.CHUNKS + 2 + 2)
 RESET_WRITE_BYTES = 4 * (8 + 6 + 1 + 2 + 2) + 2
+# bytes an env of the vector step: the step's reads with the wind indices
+# always (the selects keep them), the pool's entry (6 state floats, 2
+# flags, 11 terrain heights, the potential, t, sleep, 2 indices and 8
+# observation floats); writes the pre-reset observation, the reward and 2
+# flags, the observation after the reset and the state after it (6 floats,
+# 2 flags, 11 heights, the potential, t, sleep, 2 indices).  The time
+# feature adds a float to each observation read or written.
+VECTOR_READ_BYTES = STEP_READ_BYTES + 4 * 2 + 4 * (6 + ll.CHUNKS + 1 + 2 + 2 + 8) + 2
+VECTOR_WRITE_BYTES = 4 * 8 + 4 + 2 + 4 * 8 + 4 * (6 + ll.CHUNKS + 1 + 2 + 2) + 2
+FEATURE_BYTES = 3 * 4
 # float32 operations an env (sin, cos, tanh, sqrt and a division count one
 # each; selects, compares and casts none): a step's dispersion, physics frame
 # without the wind, observation, potential and reward; what the wind adds;
@@ -64,6 +78,7 @@ RESET_WRITE_BYTES = 4 * (8 + 6 + 1 + 2 + 2) + 2
 STEP_OPS = 546
 WIND_OPS = 20
 RESET_OPS = 544
+FEATURE_OPS = 1  # t / max_steps
 
 
 def reset_counts() -> None:
@@ -72,16 +87,22 @@ def reset_counts() -> None:
             counts[name] = 0
 
 
-def rigid_step_work(n: int, enable_wind: bool = False, reset: bool = False) -> Tuple[int, int]:
+def rigid_step_work(n: int, enable_wind: bool = False, reset: bool = False,
+                    vector: bool = False, time_feature: bool = False) -> Tuple[int, int]:
     """``(bytes, operations)`` of a call on ``n`` envs: every input read
     once and every output written once, and the plain version's float32
-    operations (every env runs the same ones)."""
-    wind = WIND_BYTES if enable_wind else 0
+    operations (every env runs the same ones): a step, the reset frame, or
+    (``vector``) the vector step with a reset pool, with or without the
+    time feature."""
+    wind_ops = WIND_OPS if enable_wind else 0
     if reset:
-        return n * (RESET_READ_BYTES + RESET_WRITE_BYTES), n * (
-            RESET_OPS + (WIND_OPS if enable_wind else 0))
-    return n * (STEP_READ_BYTES + STEP_WRITE_BYTES + wind), n * (
-        STEP_OPS + (WIND_OPS if enable_wind else 0))
+        return n * (RESET_READ_BYTES + RESET_WRITE_BYTES), n * (RESET_OPS + wind_ops)
+    if vector:
+        feature = FEATURE_BYTES if time_feature else 0
+        return n * (VECTOR_READ_BYTES + VECTOR_WRITE_BYTES + feature), n * (
+            STEP_OPS + wind_ops + (FEATURE_OPS if time_feature else 0))
+    wind = WIND_BYTES if enable_wind else 0
+    return n * (STEP_READ_BYTES + STEP_WRITE_BYTES + wind), n * (STEP_OPS + wind_ops)
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +125,25 @@ class IO(ctypes.Structure):
         ("wind_out", _P), ("torque_out", _P), ("reward", _P), ("terminated", _P),
         ("truncated", _P),
     ]
+
+
+class Pool(ctypes.Structure):
+    _fields_ = [
+        ("state", _P * 6), ("leg", _P * 2), ("terrain", _P), ("prev_shaping", _P), ("t", _P),
+        ("sleep", _P), ("wind_idx", _P), ("torque_idx", _P), ("obs", _P),
+    ]
+
+
+class Out(ctypes.Structure):
+    _fields_ = [
+        ("obs", _P), ("state", _P * 6), ("leg", _P * 2), ("terrain", _P), ("prev_shaping", _P),
+        ("t", _P), ("sleep", _P), ("wind_idx", _P), ("torque_idx", _P),
+    ]
+
+
+class VecIO(ctypes.Structure):
+    _fields_ = [("step", IO), ("pool", Pool), ("out", Out), ("time_div", Div),
+                ("time_feature", _I)]
 
 
 DIVS = ("scale", "total_mass", "inertia", "chunk_w", "half_w", "half_h", "fps")
@@ -178,13 +218,14 @@ def rigid_consts(params) -> ctypes.Structure:
 
 
 def check_sizes(lib: ctypes.CDLL) -> None:
-    """The library's ``sizeof(IO)`` and ``sizeof(RigidConsts)`` equal these
-    structures' (a field added on one side only fails here)."""
-    sizes = (ctypes.c_int * 2)()
+    """The library's ``sizeof(IO)``, ``sizeof(RigidConsts)`` and
+    ``sizeof(VecIO)`` equal these structures' (a field added on one side
+    only fails here)."""
+    sizes = (ctypes.c_int * 3)()
     lib.lander_rigid_sizes(sizes)
-    if (sizes[0], sizes[1]) != (ctypes.sizeof(IO), ctypes.sizeof(RigidConsts)):
-        raise RuntimeError(f"lander_rigid structs differ: library {tuple(sizes)}, Python "
-                           f"{(ctypes.sizeof(IO), ctypes.sizeof(RigidConsts))}")
+    ours = (ctypes.sizeof(IO), ctypes.sizeof(RigidConsts), ctypes.sizeof(VecIO))
+    if tuple(sizes) != ours:
+        raise RuntimeError(f"lander_rigid structs differ: library {tuple(sizes)}, Python {ours}")
 
 
 @functools.cache
@@ -193,6 +234,8 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rigid_step_launch.argtypes = [ptr, ptr, i32, ptr]
     lib.rigid_step_launch.restype = i32
+    lib.rigid_vector_launch.argtypes = [ptr, ptr, i32, ptr]
+    lib.rigid_vector_launch.restype = i32
     lib.rigid_math_launch.argtypes = [ptr, ptr, i32, ptr]
     lib.rigid_math_launch.restype = i32
     lib.lander_rigid_sizes.argtypes = [ptr]
@@ -290,20 +333,85 @@ def rigid_call(launch: Callable, params, state=None, action=None, draws=None, te
     return obs, new_state, reward, terminated, truncated
 
 
-def _launch_on(device: torch.device, params, **inputs):
-    """``rigid_call`` on the card: the kernel on ``device``'s current
-    stream, no sync (so a CUDA graph can capture it)."""
+def rigid_vector_call(launch: Callable, params, state, action, draws, fresh,
+                      time_feature: bool = False):
+    """The vector step's wrapper body around ``launch(vio, consts, n)``,
+    which runs it on the pointers of the :class:`VecIO` ``vio``: the CUDA
+    launcher on the card, the host build of ``lander_rigid.cuh`` in the CPU
+    tests.  Returns ``VectorEnv._step``'s ``(out_obs, out_state)`` after the
+    auto-reset from the pool ``fresh`` (``(fresh_obs, fresh_state)``; env
+    ``i`` resets into entry ``i`` where its step ended) and its
+    transition's ``next_obs`` (before the reset), ``reward``,
+    ``terminated`` and ``truncated``; each observation ends in
+    ``t / max_steps`` with ``time_feature``.  Allocates the outputs on the
+    inputs' device; the state after the reset holds new tensors only."""
+    device, n = state.x.device, state.x.shape[0]
+    width = 8 + int(time_feature)
+    fresh_obs, fresh_state = fresh
+
+    def empty(dtype, *shape):
+        return torch.empty((n, *shape), dtype=dtype, device=device)
+
+    next_obs, out_obs = empty(torch.float32, width), empty(torch.float32, width)
+    reward, terminated, truncated = empty(torch.float32), empty(torch.bool), empty(torch.bool)
+    outs = [empty(torch.float32) for _ in STATE_FIELDS]
+    legs = [empty(torch.bool), empty(torch.bool)]
+    terrain, shaping = empty(torch.float32, ll.CHUNKS), empty(torch.float32)
+    t, sleep, wind_idx, torque_idx = (empty(torch.int32) for _ in range(4))
+
+    def ptrs(obj, fields):
+        return [getattr(obj, f).data_ptr() for f in fields]
+
+    io = IO()
+    io.state[:] = ptrs(state, STATE_FIELDS)
+    io.leg[:] = ptrs(state, ("leg1", "leg2"))
+    (io.terrain, io.prev_shaping, io.t, io.sleep, io.wind_idx, io.torque_idx) = ptrs(
+        state, ("terrain", "prev_shaping", "t", "sleep", "wind_idx", "torque_idx"))
+    io.action, io.draws, io.obs = action.data_ptr(), draws.data_ptr(), next_obs.data_ptr()
+    io.reward, io.terminated, io.truncated = (reward.data_ptr(), terminated.data_ptr(),
+                                              truncated.data_ptr())
+    pool = Pool()
+    pool.state[:] = ptrs(fresh_state, STATE_FIELDS)
+    pool.leg[:] = ptrs(fresh_state, ("leg1", "leg2"))
+    (pool.terrain, pool.prev_shaping, pool.t, pool.sleep, pool.wind_idx, pool.torque_idx) = ptrs(
+        fresh_state, ("terrain", "prev_shaping", "t", "sleep", "wind_idx", "torque_idx"))
+    pool.obs = fresh_obs.data_ptr()
+    out = Out()
+    out.obs = out_obs.data_ptr()
+    out.state[:] = [o.data_ptr() for o in outs]
+    out.leg[:] = [o.data_ptr() for o in legs]
+    (out.terrain, out.prev_shaping, out.t, out.sleep, out.wind_idx, out.torque_idx) = (
+        x.data_ptr() for x in (terrain, shaping, t, sleep, wind_idx, torque_idx))
+    steps = params.max_steps_in_episode
+    vio = VecIO(step=io, pool=pool, out=out,
+                time_div=Div(_f32(steps), float(np.float32(1.0) / np.float32(steps))),
+                time_feature=int(time_feature))
+    launch(vio, rigid_consts(params), n)
+    out_state = dataclasses.replace(
+        state, **dict(zip(STATE_FIELDS, outs)), leg1=legs[0], leg2=legs[1], terrain=terrain,
+        prev_shaping=shaping, t=t, sleep=sleep, wind_idx=wind_idx, torque_idx=torque_idx)
+    return out_obs, out_state, next_obs, reward, terminated, truncated
+
+
+def _on_card(device: torch.device, entry: str) -> Callable:
+    """The launch of the library's ``entry`` on ``device``'s current
+    stream, no sync (so a CUDA graph can capture it); raises for a device
+    that is not CUDA."""
     if _device_kind(device) != "cuda":
         raise ValueError(f"the rigid lander's kernel runs on CUDA tensors, not on {device}; the "
                          f"plain version is envs/lunar_lander.py::LunarLander.step_env_reference")
-    lib = _lib()
+    fn = getattr(_lib(), entry)
 
     def launch(io, consts, n):
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            _launch(lib.rigid_step_launch, ctypes.byref(io), ctypes.byref(consts), n, stream)
+            _launch(fn, ctypes.byref(io), ctypes.byref(consts), n, stream)
+    return launch
 
-    out = rigid_call(launch, params, **inputs)
+
+def _launch_on(device: torch.device, params, **inputs):
+    """``rigid_call`` on the card."""
+    out = rigid_call(_on_card(device, "rigid_step_launch"), params, **inputs)
     launches["rigid_step"] += 1
     return out
 
@@ -326,6 +434,34 @@ def rigid_reset_kernel(terrain: torch.Tensor, kick: torch.Tensor, wind: torch.Te
         raise ValueError("R1 steps the rigid lander; the jointed one steps through S1")
     device = _check_reset(terrain, kick, wind)
     return _launch_on(device, params, terrain=terrain, kick=kick, wind=wind)
+
+
+def _check_pool(fresh, n: int, width: int, device: torch.device) -> None:
+    fresh_obs, fresh_state = fresh
+    _check("fresh_obs", fresh_obs, torch.float32, (n, width), device)
+    for f in STATE_FIELDS + ("prev_shaping",):
+        _check(f"fresh.{f}", getattr(fresh_state, f), torch.float32, (n,), device)
+    for f in ("leg1", "leg2"):
+        _check(f"fresh.{f}", getattr(fresh_state, f), torch.bool, (n,), device)
+    for f in ("t", "sleep", "wind_idx", "torque_idx"):
+        _check(f"fresh.{f}", getattr(fresh_state, f), torch.int32, (n,), device)
+    _check("fresh.terrain", fresh_state.terrain, torch.float32, (n, ll.CHUNKS), device)
+
+
+def rigid_vector_kernel(state, action: torch.Tensor, params, draws: torch.Tensor, fresh,
+                        time_feature: bool = False):
+    """R1's vector step on CUDA tensors: ``VectorEnv._step`` of the rigid
+    lander with the reset pool ``fresh`` (``(fresh_obs, fresh_state)``),
+    one launch; :func:`rigid_vector_call` says what it returns.  Raises on
+    tensors elsewhere."""
+    if params.jointed:
+        raise ValueError("R1 steps the rigid lander; the jointed one steps through S1")
+    device = _check_step(state, action, draws, True)
+    _check_pool(fresh, state.x.shape[0], 8 + int(time_feature), device)
+    out = rigid_vector_call(_on_card(device, "rigid_vector_launch"), params, state, action,
+                            draws, fresh, time_feature)
+    launches["rigid_step"] += 1
+    return out
 
 
 def device_math(x: torch.Tensor) -> torch.Tensor:

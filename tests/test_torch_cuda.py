@@ -51,8 +51,11 @@ and a graph replay; its wrapper refuses a wrong dtype, a non-contiguous
 input and mixed devices.  R1, the rigid lander's step, against its plain
 versions through ``step_env`` and ``reset_env``: bit for bit at N = 1, 37,
 128, 129, 1024 and 8192 with the wind off and on, over a graph replay; its
-wrapper's refusals.  J1, the jointed lander's frame around S1, against its
-plain versions (S1 inside them) through ``step_env`` and ``reset_env``: bit
+wrapper's refusals; its vector step (the step, the auto-reset from a pool
+and the time feature in one launch) against the plain composition at the
+same N, the wind and the time feature off and on.  J1, the jointed
+lander's frame around S1, against its plain versions (S1 inside them)
+through ``step_env`` and ``reset_env``: bit
 for bit at N = 37, 128 and 1024 with the wind off and on, and on the reset
 frame; over 100 calls and a graph replay; its wrapper's refusals."""
 
@@ -1547,6 +1550,34 @@ def test_rigid_kernel_is_bitwise_stable_over_a_graph_replay(cuda):
             assert _same_bits(a, b)
 
 
+@pytest.mark.parametrize("feature", [False, True], ids=["obs", "time_feature"])
+@pytest.mark.parametrize("wind", [False, True], ids=["calm", "wind"])
+@pytest.mark.parametrize("n", RIGID_CASES)
+def test_rigid_vector_step_matches_its_plain_composition(cuda, n, wind, feature):
+    """R1's vector step (``VectorEnv._step`` with a reset pool, the time
+    feature off and on: one launch) against its plain composition on the
+    card (``step_env_reference``, ``done``, ``tree_where`` and
+    ``_augment``): every bit of every output."""
+    from deep_q_learning_tpu_torch.envs import TimeFractionObs, VectorEnv
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+    from deep_q_learning_tpu_torch.measure import composed_rigid_lander
+    from deep_q_learning_tpu_torch.ops import lander_kernels
+
+    env, params, (state, action, draws), g = _rigid_case(n, wind, seed=n + 1)
+    port_env = TimeFractionObs(env) if feature else env
+    pool = port_env.reset_env(None, n, params, env.reset_draws(g, n))
+    prev = torch.zeros_like(pool[0])
+    lander_kernels.reset_counts()
+    got = VectorEnv(port_env, n, graphed=False)._step(None, state, action, params, prev, pool,
+                                                      draws)
+    assert lander_kernels.launches == {"rigid_step": 1}
+    assert lander_kernels.plain_calls == {"rigid_step": 0}
+    want = VectorEnv(composed_rigid_lander(time_feature=feature), n, graphed=False)._step(
+        None, state, action, params, prev, pool, draws)
+    for i, (a, b) in enumerate(zip(tree_leaves(list(got)), tree_leaves(list(want)))):
+        assert _same_bits(a, b), i
+
+
 def test_rigid_kernel_wrapper_refuses_what_it_does_not_take(cuda):
     import dataclasses
 
@@ -1639,7 +1670,7 @@ def test_jointed_kernel_is_bitwise_stable_over_100_calls_and_a_graph_replay(cuda
 
 def test_solver_fast_math_is_the_cards_own_on_every_float(cuda):
     """The branch-free sin/cos and reciprocal of S1's and J1's passes
-    (``lander_solver.cuh::sincos_poly``, ``divisor_of``) against the card's
+    (``lander_fast_math.cuh::sincos_poly``, ``divisor_of``) against the card's
     ``sincosf`` and ``1.0f / b``: every float of their ranges, both signs,
     bitwise equal."""
     from deep_q_learning_tpu_torch.ops import solver_kernels

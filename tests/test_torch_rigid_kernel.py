@@ -22,6 +22,14 @@ sqrt's too), so the plain version runs with ``torch.sin``, ``torch.cos``,
 ``torch.tanh`` and ``torch.sqrt`` replaced by the C library's.  On the card
 the kernel calls sincosf, sinf, tanhf and sqrtf, which are PyTorch's there
 (chip_smoke.py holds them and the kernel bit for bit).
+
+The vector step's entry (``lander_rigid.cuh::rigid_vector_env``: the step,
+``done``, the auto-reset's selects from a reset pool and the time feature)
+is held on the same states, with and without ``TimeFractionObs``, against
+``VectorEnv._step``'s plain composition bit for bit, and against the JAX
+package's ``VectorEnv.step`` (its selects and ``TimeFractionObs._augment``)
+on the same states and pool: observations atol 1e-5, rewards 1e-4, the
+potentials as above, flags, counters, indices and terrain rows exact.
 """
 
 import ctypes
@@ -35,7 +43,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from deep_q_learning_tpu_torch.envs import LunarLander
+from deep_q_learning_tpu.envs.base import VectorEnv as JaxVectorEnv
+from deep_q_learning_tpu_torch.envs import LunarLander, TimeFractionObs, VectorEnv
 from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
 from deep_q_learning_tpu_torch.envs.heuristic import lander_step_inputs, rigid_cover
 from deep_q_learning_tpu_torch.envs.lunar_lander import (
@@ -73,6 +82,7 @@ def host():
     lib = ctypes.CDLL(str(build.cached_build(source, CXX_FLAGS, build.BUILD_DIR, compile_to)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lander_rigid_host.argtypes = [ptr, ptr, i32]
+    lib.lander_rigid_vector_host.argtypes = [ptr, ptr, i32]
     lib.lander_math_host.argtypes = [ptr, ptr, i32, i32]
     lib.lander_rigid_sizes.argtypes = [ptr]
     lk.check_sizes(lib)
@@ -82,6 +92,12 @@ def host():
 def _host_launch(lib):
     def launch(io, consts, n):
         lib.lander_rigid_host(ctypes.byref(io), ctypes.byref(consts), n)
+    return launch
+
+
+def _host_vector_launch(lib):
+    def launch(vio, consts, n):
+        lib.lander_rigid_vector_host(ctypes.byref(vio), ctypes.byref(consts), n)
     return launch
 
 
@@ -156,9 +172,9 @@ def _edge_states(states, keys_of, rng):
 
 @pytest.fixture(scope="module")
 def step_inputs(rollout):  # noqa: F811
-    """(wind, states, actions, draws, JAX outputs): the rollout's states
-    while each env's first episode lasts and the edge states, each stepped
-    by the JAX env at an episode limit of MAX_STEPS."""
+    """(wind, states, actions, draws, JAX outputs, JAX states): the
+    rollout's states while each env's first episode lasts and the edge
+    states, each stepped by the JAX env at an episode limit of MAX_STEPS."""
     wind, rows = rollout
     states, actions, disp, _ = _stack_alive(rows)
     keys = np.concatenate([
@@ -177,11 +193,11 @@ def step_inputs(rollout):  # noqa: F811
     p = p.replace(max_steps_in_episode=MAX_STEPS)
     out = jax.jit(jax.vmap(env.step, (0, 0, 0, None)))(keys, states, actions, p)
     return wind, state_from_numpy(states), torch.from_numpy(actions), torch.from_numpy(disp), [
-        np.asarray(out[i]) for i in range(5) if i != 1] + [out[1]]
+        np.asarray(out[i]) for i in range(5) if i != 1] + [out[1]], states
 
 
 def test_host_body_matches_jax_and_plain(host, step_inputs):
-    wind, st, actions, disp, (obs_j, rew_j, term_j, trunc_j, st_j) = step_inputs
+    wind, st, actions, disp, (obs_j, rew_j, term_j, trunc_j, st_j), _ = step_inputs
     env, p = _params(wind, max_steps_in_episode=MAX_STEPS)
     cover = {k: int(v.sum()) for k, v in rigid_cover(env, p, st, actions, disp).items()}
     assert all(v > 0 for v in cover.values()), cover
@@ -203,6 +219,85 @@ def test_host_body_matches_jax_and_plain(host, step_inputs):
     # with the wind off the step keeps the indices it was given, as the plain version
     assert (new.wind_idx is st.wind_idx) == (want[1].wind_idx is st.wind_idx) == (not wind)
     assert new.terrain is st.terrain
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["obs", "time_feature"])
+def vector_case(request, host, step_inputs):
+    """The vector step on step_inputs' states with a reset pool, the time
+    feature off or on: (time_feature, wind, the port's env and params, the
+    inputs, the host build's outputs, the JAX package's VectorEnv.step's
+    outputs).  The JAX step draws each env's dispersion from its step key;
+    the port's step takes the same uniforms as its draws, and the same pool
+    (the JAX env's fresh_pool)."""
+    feature = request.param
+    wind, st, actions, _, _, states = step_inputs
+    n = len(actions)
+    env_j, p_j = _jax_env(enable_wind=wind)
+    env_j = env_j if feature else env_j.env
+    p_j = p_j.replace(max_steps_in_episode=MAX_STEPS)
+    venv_j = JaxVectorEnv(env_j, n)
+    key = jax.random.PRNGKey(123)
+    step_key, _ = jax.random.split(key)
+    disp_of = jax.vmap(lambda k: jax.random.uniform(k, (2,), minval=-1.0, maxval=1.0))
+    disp = torch.tensor(np.asarray(disp_of(jax.random.split(step_key, n))))
+    fresh_j = jax.jit(venv_j.fresh_pool)(jax.random.PRNGKey(5), p_j)
+    out_j = jax.jit(venv_j.step)(key, states, actions.numpy(), p_j, None, fresh_j)
+    fresh = (torch.tensor(np.asarray(fresh_j[0])),
+             state_from_numpy(jax.tree.map(np.asarray, fresh_j[1])))
+    env, p = _params(wind, max_steps_in_episode=MAX_STEPS)
+    port_env = TimeFractionObs(env) if feature else env
+    got = lk.rigid_vector_call(_host_vector_launch(host), p, st, actions, disp, fresh, feature)
+    return feature, wind, port_env, p, (st, actions, disp, fresh), got, out_j
+
+
+def test_host_vector_step_is_the_plain_composition(host, vector_case):
+    """Every bit of every output on every lane: the observation and state
+    after the auto-reset, the pre-reset next_obs, the reward and the flags,
+    against VectorEnv._step's plain composition on CPU tensors; the states
+    end every way (crash, hull hit, out of bounds, rest, the episode's
+    limit) and some go on."""
+    feature, wind, port_env, p, (st, actions, disp, fresh), got, _ = vector_case
+    env = port_env.env if feature else port_env
+    cover = {k: int(v.sum()) for k, v in rigid_cover(env, p, st, actions, disp).items()}
+    assert all(v > 0 for v in cover.values()), cover
+    venv = VectorEnv(port_env, len(actions), graphed=False)
+    prev_obs = torch.zeros_like(fresh[0])
+    lk.reset_counts()
+    with _LibmMath(host):
+        out_obs, out_st, tr = venv._step(None, st, actions, p, prev_obs, fresh, disp)
+    assert lk.plain_calls == {"rigid_step": 1} and lk.launches == {"rigid_step": 0}
+    assert tr.obs is prev_obs and tr.action is actions
+    want = (out_obs, out_st, tr.next_obs, tr.reward, tr.terminated, tr.truncated)
+    same = _bitwise_lanes(got, want)
+    assert bool(same.all()), (int((~same).sum()), cover)
+    done = tr.terminated | tr.truncated
+    assert bool(done.any()) and bool((~done).any())
+    assert got[0].shape == (len(actions), 8 + feature) and got[1].leg1_body is None
+    # every leaf of the state after the reset is a tensor of its own
+    inputs = {id(t) for t in tree_leaves([st, fresh])}
+    assert not any(id(t) in inputs for t in tree_leaves(list(got)))
+
+
+def test_host_vector_step_matches_jax(vector_case):
+    """Against the JAX package's VectorEnv.step (vmapped step, jnp.where
+    selects, TimeFractionObs._augment) on the same states, draws and pool,
+    at the rigid engine's tolerances."""
+    feature, wind, _, _, (_, _, _, fresh), got, (obs_j, st_j, tr_j) = vector_case
+    out_obs, out_st, next_obs, reward, term, trunc = got
+    np.testing.assert_allclose(out_obs.numpy(), np.asarray(obs_j), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(next_obs.numpy(), np.asarray(tr_j.next_obs), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(reward.numpy(), np.asarray(tr_j.reward), atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(term.numpy(), np.asarray(tr_j.terminated))
+    np.testing.assert_array_equal(trunc.numpy(), np.asarray(tr_j.truncated))
+    np.testing.assert_allclose(out_st.prev_shaping.numpy(), np.asarray(st_j.prev_shaping),
+                               atol=1e-4, rtol=2.5e-7)
+    np.testing.assert_array_equal(out_st.terrain.numpy(), np.asarray(st_j.terrain))
+    for f in ("t", "sleep", "wind_idx", "torque_idx", "leg1", "leg2"):
+        np.testing.assert_array_equal(getattr(out_st, f).numpy(), np.asarray(getattr(st_j, f)), f)
+    done = (term | trunc).numpy()
+    # the lanes that reset hold the pool's entry bit for bit
+    np.testing.assert_array_equal(out_obs.numpy()[done], fresh[0].numpy()[done])
+    assert out_obs.shape[1] == 8 + feature and 0 < done.sum() < len(done)
 
 
 @pytest.mark.parametrize("wind", [False, True])
@@ -246,6 +341,44 @@ def test_step_and_reset_on_cpu_tensors_are_the_plain_version():
     assert lk.plain_calls == {"rigid_step": 2}
 
 
+class _FusedStub(LunarLander):
+    """A rigid lander that says it fuses its vector step and records the
+    calls instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fuses_vector_step(self, params, state):
+        return True
+
+    def vector_step(self, generator, state, action, params, fresh, draws=None,
+                    time_feature=False):
+        self.calls.append((draws, time_feature))
+        return self.step_env_reference(None, state, action, params, draws)[:1] * 6
+
+
+def test_vector_step_dispatch_is_configuration():
+    """``VectorEnv._step`` takes the fused entry where the env says so and a
+    pool is given (``TimeFractionObs`` forwarding it with its feature on),
+    and the plain composition otherwise: without a pool, on CPU tensors,
+    for the jointed engine, and under a wrapper of a wrapper."""
+    env, p = _params(False)
+    g = torch.Generator().manual_seed(3)
+    obs, st = env.reset_env(g, 4, p)
+    assert not env.fuses_vector_step(p, st)
+    assert not TimeFractionObs(env).fuses_vector_step(p, st)
+    assert not env.fuses_vector_step(dataclasses.replace(p, jointed=True), st)
+    a, d = torch.zeros(4, dtype=torch.int32), env.step_draws(g, 4)
+    for wrap, feature in ((False, False), (True, True)):
+        stub = _FusedStub()
+        venv = VectorEnv(TimeFractionObs(stub) if wrap else stub, 4, graphed=False)
+        out_obs, _, tr = venv._step(None, st, a, p, obs, (obs, st), d)
+        assert stub.calls == [(d, feature)] and tr.obs is obs and tr.action is a
+        venv._step(None, st, a, p, obs, None, d, env.reset_draws(g, 4))  # no pool
+        assert len(stub.calls) == 1
+    assert not TimeFractionObs(TimeFractionObs(_FusedStub())).fuses_vector_step(p, st)
+
+
 def test_rigid_inputs_cover_the_step():
     """``lander_step_inputs`` (the smoke's states, here at a small size on the
     CPU): the lanes' shapes, the ending steps first, and what they cover."""
@@ -260,9 +393,11 @@ def test_rigid_inputs_cover_the_step():
 
 
 def test_wrappers_check_their_inputs():
-    """The kernel's wrappers refuse CPU tensors (``step_env`` takes the
-    plain version for those), a wrong dtype, a non-contiguous input, a
-    wrong shape and the jointed engine; nothing launches."""
+    """The kernel's wrappers refuse CPU tensors (``step_env`` and
+    ``VectorEnv._step`` take the plain versions for those), a wrong dtype,
+    a non-contiguous input, a wrong shape (a pool's observation without
+    the time feature where it is asked for) and the jointed engine;
+    nothing launches."""
     env, p = _params(False)
     obs, st = env.reset_env(torch.Generator().manual_seed(0), 4, p)
     a = torch.zeros(4, dtype=torch.int32)
@@ -285,6 +420,14 @@ def test_wrappers_check_their_inputs():
         lk.rigid_reset_kernel(st.terrain, torch.zeros((4, 3)), torch.zeros((4, 2)).int(), p)
     with pytest.raises(ValueError, match="jointed"):
         lk.rigid_step_kernel(st, a, dataclasses.replace(p, jointed=True), d)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lk.rigid_vector_kernel(st, a, p, d, (obs, st))
+    with pytest.raises(ValueError, match="shape"):
+        lk.rigid_vector_kernel(st, a, p, d, (obs, st), time_feature=True)
+    with pytest.raises(TypeError, match="dtype"):
+        lk.rigid_vector_kernel(st, a, p, d, (obs, dataclasses.replace(st, t=st.t.long())))
+    with pytest.raises(ValueError, match="jointed"):
+        lk.rigid_vector_kernel(st, a, dataclasses.replace(p, jointed=True), d, (obs, st))
     assert lk.launches == {"rigid_step": 0} and lk.plain_calls == {"rigid_step": 0}
 
 
@@ -333,8 +476,9 @@ def test_work_counts_what_the_code_does(wind):
     """``rigid_step_work``: the bytes of a call's inputs read and outputs
     written, and the plain version's arithmetic less its second evaluation
     of the observation (inside ``_shaping``; the kernel computes it once),
-    for a step and for the reset frame (less the terrain's smoothing, which
-    stays plain ops)."""
+    for a step, for the reset frame (less the terrain's smoothing, which
+    stays plain ops) and for the vector step with a reset pool, the time
+    feature off and on."""
     env, p = _params(wind)
     n = 7
     g = torch.Generator().manual_seed(9)
@@ -359,3 +503,20 @@ def test_work_counts_what_the_code_does(wind):
     assert work_ops == ops - smooth_ops - obs_ops
     written = [t for t in tree_leaves([obs, fresh]) if t is not fresh.terrain]
     assert nbytes == _size([fresh.terrain, rd.kick, rd.wind]) + _size(written)
+
+    # the vector step with a reset pool (its plain composition: the step,
+    # the selects and the time feature), with and without the feature; the
+    # selects read the wind indices with the wind off too
+    for feature in (False, True):
+        port_env = TimeFractionObs(env) if feature else env
+        pool = port_env.reset_env(None, n, p, env.reset_draws(g, n))
+        prev_obs = torch.zeros_like(pool[0])
+        venv = VectorEnv(port_env, n, graphed=False)
+        ops, out = _count(lambda: venv._step(None, st, actions, p, prev_obs, pool, draws))
+        nbytes, work_ops = lk.rigid_step_work(n, wind, vector=True, time_feature=feature)
+        assert work_ops == ops - obs_ops, feature
+        out_obs, out_st, tr = out
+        read = tree_leaves([st, actions, draws, pool])
+        inputs = {id(t) for t in read + [prev_obs]}
+        written = [t for t in tree_leaves([out_obs, out_st, tr]) if id(t) not in inputs]
+        assert nbytes == _size(read) + _size(written), feature

@@ -246,7 +246,7 @@ def _edge_floats():
 
 
 def test_quotient_is_the_division_bit_for_bit(host):
-    """``lander_solver.cuh::quot`` (a velocity pass's division by a frame's
+    """``lander_fast_math.cuh::quot`` (a velocity pass's division by a frame's
     divisor: Markstein's two corrections from the correctly rounded
     reciprocal, plain division outside its range) against IEEE float32
     division, bit for bit, NaNs included: over 2^22 random pairs with
@@ -298,7 +298,7 @@ def test_slop_threshold_is_the_square_root_test(host):
 
 
 def test_sincos_poly_is_sine_and_cosine(host):
-    """``lander_solver.cuh::sincos_poly`` (the card's ``sincosf`` below
+    """``lander_fast_math.cuh::sincos_poly`` (the card's ``sincosf`` below
     105615, written out without its branch; chip_smoke.py holds it to
     ``sincosf`` on every such float) built for the host: within 2 ulps of
     the C library's sinf and cosf over 2^20 angles across the range, the
