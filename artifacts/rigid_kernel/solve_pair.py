@@ -1,16 +1,17 @@
-"""A preset's seed-0 solve on another checkout of the port (the parent
-commit) and on this tree, in turns on one card: a kernel that is bitwise
-the plain version it replaces (R1 the rigid step, J1 the jointed frame)
+"""A preset's solve from one seed (0 unless given) on another checkout of
+the port (the parent commit) and on this tree, in turns on one card: a
+kernel that is bitwise the plain version it replaces (R1 the rigid step,
+J1 the jointed frame, A1, C1 and M1 the classic envs' vector steps)
 leaves the two runs' log points and greedy evaluation equal bit for bit,
 and only their walls differ.
 
     git archive <parent> | tar -x -C build/parent
     python3 artifacts/rigid_kernel/solve_pair.py --parent build/parent \\
-        --out build/solve_pair [--preset lunar_per] [--order parent,tree] \\
+        --out build/solve_pair [--preset lunar_per] [--seed 0] [--order parent,tree] \\
         [--artifact artifacts/lunar_per_solve_torch_r1_s0.json]
 
 Each run is ``python -m deep_q_learning_tpu_torch.solves --preset
-PRESET --seeds 0 --out OUT/<i>_<which>`` from that checkout (its kernels
+PRESET --seeds SEED --out OUT/<i>_<which>`` from that checkout (its kernels
 built from its own ``csrc/``), then ``--artifact`` of it.  Compared: every
 field of every log point but its timing (``steps_per_s``, ``wall_s``), the
 solve's env steps, episodes and updates, and the greedy evaluation.
@@ -39,11 +40,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def run(checkout: Path, out: Path, preset: str) -> dict:
-    """One solve of ``preset`` from ``checkout``, and its record."""
+def run(checkout: Path, out: Path, preset: str, seed: int) -> dict:
+    """One solve of ``preset`` from ``seed`` and ``checkout``, and its record."""
     env = dict(os.environ, PYTHONPATH=str(checkout))
     base = [sys.executable, "-m", "deep_q_learning_tpu_torch.solves", "--preset", preset,
-            "--seeds", "0", "--out", str(out.resolve())]
+            "--seeds", str(seed), "--out", str(out.resolve())]
     subprocess.run(base, cwd=checkout, env=env, check=True)
     record = out / "record.json"
     subprocess.run(base + ["--artifact", str(record.resolve())], cwd=checkout, env=env, check=True)
@@ -60,6 +61,7 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--out", type=Path, required=True)
     ap.add_argument("--preset", default="lunar_per")
+    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--order", default="parent,tree")
     ap.add_argument("--artifact", type=Path, default=None)
     args = ap.parse_args()
@@ -67,7 +69,7 @@ def main() -> int:
     runs = []
     for i, which in enumerate(args.order.split(",")):
         checkout = args.parent.resolve() if which == "parent" else ROOT
-        rec = run(checkout, args.out / f"{i}_{which}", args.preset)
+        rec = run(checkout, args.out / f"{i}_{which}", args.preset, args.seed)
         runs.append((which, rec))
         print(json.dumps({"run": i, "which": which, "wall_time_s": rec["wall_time_s"],
                           "solve_env_steps": rec["solve_env_steps"], "card": card}), flush=True)
@@ -76,8 +78,9 @@ def main() -> int:
     tree = next(rec for which, rec in runs if which == "tree")
     out = {
         "source": "python3 artifacts/rigid_kernel/solve_pair.py --parent build/parent --out "
-                  f"{args.out} --preset {args.preset} --order {args.order} (each run: python -m "
-                  f"deep_q_learning_tpu_torch.solves --preset {args.preset} --seeds 0, then "
+                  f"{args.out} --preset {args.preset} --seed {args.seed} --order {args.order} "
+                  f"(each run: python -m deep_q_learning_tpu_torch.solves --preset {args.preset} "
+                  f"--seeds {args.seed}, then "
                   "--artifact)",
         "card": card,
         "parent": "the parent commit, unpacked with git archive into build/parent",

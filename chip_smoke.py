@@ -64,7 +64,17 @@ Phases (each raises on failure, so any failure exits non-zero):
      counted) and on the reset frame, one launch a call, no plain call and
      no S1 launch; bitwise over 100 calls and a graph replay, the step and
      the reset frame; its device time against the plain version's as CUDA
-     graphs, beside its bound;
+     graphs, beside its bound; then A1, C1 and M1, the classic envs'
+     kernels: each through ``step_env`` and through ``VectorEnv._step``
+     without a pool (the resets from their draws, the time feature off and
+     on) against ``step_env_reference`` and the plain composition
+     (``measure.composed_classic``) bit for bit on every lane at N = 1,
+     128, 4096 and 8192, on states of a flight (``measure.
+     classic_step_inputs``: terminations, truncations and steps that go
+     on, counted), one launch a call and no plain call; bitwise over 100
+     calls and a graph replay; the vector step's device time against the
+     plain composition's as CUDA graphs, beside its bound, and the two
+     alone as graphs of one call, in turns;
   4. run the ``lunar_per`` slice at full width through ``Trainer``
      (``algos/superstep.py::GraphedLearner``): 5 supersteps (640 vector
      steps of 128 envs), the first three frame by frame as CUDA graph
@@ -153,16 +163,21 @@ Phases (each raises on failure, so any failure exits non-zero):
      the steady superstep's graph (P2g); the counters (env steps,
      updates equal to the trained frames times ``updates_per_step``, the
      replay's and Adam's device counters equal to their mirrors), a finite
-     loss, completed episodes, the online net trained, no kernel (all four
-     run the plain TD loss, ``use_pallas=False``), the resets as each env
-     draws them (a classic env's every frame, the lander's pool once a
-     superstep, the superstep graph's at its capture); ``whole_vs_frames``
+     loss, completed episodes, the online net trained, no TD or sampler
+     kernel (all four run the plain TD loss, ``use_pallas=False``), the
+     resets as each env draws them (a classic env's every frame, the
+     lander's pool once a superstep, the superstep graph's at its capture);
+     in the traced replay of a steady superstep the env's kernel once a
+     vector step (A1, C1 or M1; the lander's J1, and once for the pool) and
+     no plain call of any env, a classic env's vector step alone one kernel
+     in its CUDA graph; ``whole_vs_frames``
      (the host's launches per vector step of a steady superstep as one
      replay, at most ``WHOLE_SUPERSTEP_LAUNCHES`` a superstep, and frame by
      frame, at most ``CLASSIC_HOST_LAUNCHES``); env-steps/s graphed and
      eager, each
-     graph's replay on the device; then one vector step of each classic env
-     on the card against the same step on the CPU, from the same states;
+     graph's replay on the device; then one step of each classic env on
+     the card (its kernel's step entry) against the same step on the CPU
+     (the plain version), from the same states;
      the evaluator's check on ``cartpole_vector``;
   9. a population at full width: ``lunar_per`` with 8 members of 128 rigid
      landers, dueling (256, 256), PER (128, 4096) a member, batch 256 and
@@ -275,7 +290,7 @@ Phases (each raises on failure, so any failure exits non-zero):
 Where every traced attempt of phase 13's or 14's profiled superstep lost
 kernel records, that phase runs again, whole, in a process of its own
 (``phase_anew``). Then print the kernels' record as one JSON line (K1,
-K2, K3, S1, R1 and J1, with each kernel's bound, ``bound_ms``; S1's
+K2, K3, S1, R1, J1, A1, C1 and M1, with each kernel's bound, ``bound_ms``; S1's
 entries on the jointed paths count its own launches there, none, and
 name J1, which runs its body, under ``inside``), then the result line.
 
@@ -492,6 +507,24 @@ JOINTED_KERNEL = "jointed_step_kernel"  # J1's name in the profiler's trace
 J1_NS = (1, 37, 128, 1024)
 J1_ENVS, J1_FRAMES, J1_MAX_STEPS = 1024, 300, 200
 J1_STABLE_CALLS = 100
+# A1, C1 and M1, the classic envs' kernels, against their plain versions on
+# the card (step_env_reference, and VectorEnv._step's plain composition
+# without a pool, the time feature off and on), at N of the host env (1),
+# acrobot_vector and mountain_car_vector (128), cartpole_vector (4096) and
+# 8192: on pre-step states of a flight (measure.classic_step_inputs: half
+# the envs on an energy-pumping policy, half random, episodes cut at
+# measure.CLASSIC_MAX_STEPS frames; up to half the lanes end their episode),
+# bit for bit on every lane
+CLASSIC_SOURCE = "deep_q_learning_tpu_torch/csrc/classic_envs.cu"
+CLASSIC_NS = (1, 128, 4096, 8192)
+CLASSIC_STABLE_CALLS = 100
+# each kernel's name in the profiler's trace, the JAX step it replaces, and
+# the N of the preset that runs it
+CLASSIC_KERNELS = {
+    "acrobot": ("acrobot_kernel", "deep_q_learning_tpu/envs/acrobot.py:121", 128),
+    "cartpole": ("cartpole_kernel", "deep_q_learning_tpu/envs/cartpole.py:92", 4096),
+    "mountain_car": ("mountain_car_kernel", "deep_q_learning_tpu/envs/mountain_car.py:70", 128),
+}
 # the jointed step graph's replay with the plain solver in it, 128 landers at
 # (120, 40) (NVIDIA H100 80GB HBM3): every kernel the eager step launched
 PLAIN_STEP_REPLAY_KERNELS = 55_935
@@ -969,6 +1002,112 @@ def rigid_vector_pair(torch, lander_kernels, params, state, action, draws, pool_
         want = flat(venv._step(None, state, action, params, prev, pool, draws))
         assert lander_kernels.launches == {"rigid_step": 1}, lander_kernels.launches
     return got, want, got[4] | got[5]
+
+
+def classic_vector_pair(torch, classic_kernels, env, params, state, action, draws,
+                        feature: bool, plain: bool = True):
+    """A classic env's vector step on the card: ``VectorEnv._step`` (in
+    ``TimeFractionObs`` with ``feature``) without a pool, the resets from
+    ``draws``, one launch of its kernel; and, with ``plain``, its plain
+    composition on the same inputs (``measure.composed_classic``:
+    ``step_env_reference``, ``done``, ``reset_env``, ``tree_where`` and
+    ``_augment``).  Returns (the kernel's outputs, the plain version's or
+    None, done)."""
+    from deep_q_learning_tpu_torch.envs import TimeFractionObs, VectorEnv
+    from deep_q_learning_tpu_torch.measure import composed_classic
+
+    n = action.shape[0]
+    port_env = TimeFractionObs(env) if feature else env
+    prev = torch.zeros((n, env.obs_shape(params)[0] + feature), device="cuda")
+    one = {key: int(key == env.kernel) for key in classic_kernels.launches}
+
+    def flat(out):
+        out_obs, out_state, tr = out
+        assert tr.obs is prev and tr.action is action
+        return out_obs, out_state, tr.next_obs, tr.reward, tr.terminated, tr.truncated
+
+    classic_kernels.reset_counts()
+    got = flat(VectorEnv(port_env, n, graphed=False)._step(None, state, action, params, prev,
+                                                           None, None, draws))
+    assert classic_kernels.launches == one, classic_kernels.launches
+    assert not any(classic_kernels.plain_calls.values()), classic_kernels.plain_calls
+    want = None
+    if plain:
+        venv = VectorEnv(composed_classic(env, feature), n, graphed=False)
+        want = flat(venv._step(None, state, action, params, prev, None, None, draws))
+        assert classic_kernels.launches == one, classic_kernels.launches
+    return got, want, got[4] | got[5]
+
+
+def check_classic_kernel(torch, classic_kernels, card):
+    """Phase 3, A1, C1 and M1: each classic env's kernel through
+    ``step_env`` and through ``VectorEnv._step`` without a pool (the resets
+    from their draws; the time feature off and on) against
+    ``step_env_reference`` and the plain composition
+    (:func:`classic_vector_pair`), bit for bit on every lane at
+    CLASSIC_NS, one launch a call and no plain call, on states of a flight
+    (``measure.classic_step_inputs``), what they cover counted; bitwise
+    over 100 calls and a graph replay at N = 4096, the step and the vector
+    step; the device times of the vector step against the plain
+    composition's as CUDA graphs, beside the bounds
+    (``measure.classic_device_times``).  Returns ``{env: (kernel ms, plain
+    ms, work)}`` at the N of the preset that runs each."""
+    from deep_q_learning_tpu_torch.envs import make_env
+    from deep_q_learning_tpu_torch.envs.graphed import tree_map
+    from deep_q_learning_tpu_torch.measure import (
+        classic_device_times,
+        classic_params,
+        classic_step_inputs,
+    )
+
+    timing_inputs = {}
+    for key, spec in classic_kernels.SPECS.items():
+        env, _ = make_env(spec.env_id)
+        params = classic_params(env)
+        g = torch.Generator(device="cuda").manual_seed(30 + spec.index)
+        t0 = time.perf_counter()
+        states, actions, ends = classic_step_inputs(env, params, max(CLASSIC_NS), g)
+        cover = {"terminated": int(ends[:, 0].sum()), "truncated": int(ends[:, 1].sum()),
+                 "going on": int((~ends.any(1)).sum())}
+        assert all(cover.values()), (key, cover)
+        print(f"  {key} states (N={max(CLASSIC_NS)} of a flight, made in "
+              f"{time.perf_counter() - t0:.1f} s): {cover}")
+        one = {k: int(k == key) for k in classic_kernels.launches}
+        for n in CLASSIC_NS:
+            state, action = tree_map(lambda t: t[:n].contiguous(), (states, actions))
+            draws = env.reset_draws(g, n)
+            classic_kernels.reset_counts()
+            got = env.step_env(None, state, action, params)
+            assert classic_kernels.launches == one, classic_kernels.launches
+            assert not any(classic_kernels.plain_calls.values()), classic_kernels.plain_calls
+            same, gap = rigid_lanes(torch, got, env.step_env_reference(None, state, action,
+                                                                       params))
+            assert bool(same.all()), (f"{key}'s kernel differs from the plain step", n,
+                                      int((~same).sum()), gap)
+            resets = []
+            for feature in (False, True):
+                got, want, done = classic_vector_pair(torch, classic_kernels, env, params, state,
+                                                      action, draws, feature)
+                same, gap = rigid_lanes(torch, got, want)
+                assert bool(same.all()), (f"{key}'s vector step differs from the plain "
+                                          "composition", n, feature, int((~same).sum()), gap)
+                assert n < 128 or (bool(done.any()) and not bool(done.all())), (key, n, feature)
+                resets.append(int(done.sum()))
+            print(f"  {key} vs plain N={n}: the step and the vector step (time feature off, on; "
+                  f"{resets} lanes reset) bitwise equal on all {n} lanes")
+            timing_inputs[key, n] = (state, action)
+        state, action = timing_inputs[key, 4096]
+        draws = env.reset_draws(g, 4096)
+        stable_lanes(torch, lambda: env.step_env(None, state, action, params),
+                     CLASSIC_STABLE_CALLS, f"{key}'s step")
+        stable_lanes(torch, lambda: classic_vector_pair(torch, classic_kernels, env, params, state,
+                                                        action, draws, True, plain=False)[0],
+                     CLASSIC_STABLE_CALLS, f"{key}'s vector step")
+        print(f"  {key} N=4096: {CLASSIC_STABLE_CALLS} calls and a CUDA-graph replay bitwise "
+              f"equal, the step and the vector step")
+    times = classic_device_times(card, timing_inputs)
+    return {key: (times[key, n][0] / 1e3, times[key, n][1] / 1e3, times[key, n][2])
+            for key, (_, _, n) in CLASSIC_KERNELS.items()}
 
 
 def check_jointed_kernel(torch, jointed_kernels, solver_kernels, card):
@@ -2494,12 +2633,19 @@ def run_classic(torch, td_kernels, sample_kernels, preset, card):
     each frame as CUDA graph launches (``GraphedLearner``), superstep by
     superstep in turns with the eager learner (``graphed_learner=False``)
     from the same seed: metrics and runners bitwise equal after each, the
-    counters exact, no kernel launched (``use_pallas=False``), the resets
-    drawn as the env draws them (the classic envs' every frame, the
-    lander's pool once a superstep), the host's launches per vector step of
-    a steady superstep at most ``CLASSIC_HOST_LAUNCHES``; env-steps/s of
-    both, and each graph's replay on the device."""
+    counters exact, no TD or sampler kernel launched (``use_pallas=False``),
+    the resets drawn as the env draws them (the classic envs' every frame,
+    the lander's pool once a superstep), the host's launches per vector step
+    of a steady superstep at most ``CLASSIC_HOST_LAUNCHES``; in the traced
+    replay of the steady superstep the env's kernel once a vector step (a
+    classic env's A1, C1 or M1; the lander's J1, and once for the pool)
+    and no plain call of any env; a classic env's vector step alone one
+    kernel in its CUDA graph; env-steps/s of both, and each graph's replay
+    on the device.  Returns the trainer and the env kernel's launches in
+    the traced superstep."""
     import dataclasses
+
+    from deep_q_learning_tpu_torch.ops import classic_kernels, jointed_kernels, lander_kernels
 
     from deep_q_learning_tpu_torch.algos.superstep import GraphedLearner
     from deep_q_learning_tpu_torch.config import PRESETS
@@ -2522,8 +2668,9 @@ def run_classic(torch, td_kernels, sample_kernels, preset, card):
     online0 = [p.detach().clone() for p in trainer.runner.train.online.parameters()]
     torch.cuda.synchronize()
 
-    td_kernels.reset_counts()
-    sample_kernels.reset_counts()
+    env_modules = (classic_kernels, jointed_kernels, lander_kernels)
+    for module in (td_kernels, sample_kernels, *env_modules):
+        module.reset_counts()
     metrics, eager_metrics, rates = [], [], {"graphed": [], "eager": []}
     for i in range(supersteps):
         for name, t, out in (("graphed", trainer, metrics), ("eager", eager, eager_metrics)):
@@ -2567,6 +2714,27 @@ def run_classic(torch, td_kernels, sample_kernels, preset, card):
                             cfg.steps_per_superstep, cfg.num_envs, card)
     per_step = whole["per_step"]["frames"]
     assert per_step <= CLASSIC_HOST_LAUNCHES, (preset, per_step)
+    # the env's kernel once a vector step in the traced replay (the lander's
+    # once more, for the superstep's reset pool), and no env's plain call
+    cheap = trainer.env.batch_reset_cheap
+    env_kernel = (CLASSIC_KERNELS[trainer.env.kernel][0] if cheap
+                  else JOINTED_KERNEL if cfg.lander_engine == "jointed" else RIGID_KERNEL)
+    env_launches = whole["trace"].count(env_kernel)
+    assert env_launches == cfg.steps_per_superstep + (0 if cheap else 1), (
+        preset, env_kernel, env_launches)
+    plain_env = [m.plain_calls for m in env_modules]
+    assert not any(v for counts in plain_env for v in counts.values()), (preset, plain_env)
+    if cheap:  # the vector step alone in its CUDA graph: one kernel, the env's
+        from deep_q_learning_tpu_torch.measure import graphed_vector_step
+
+        g = torch.Generator(device="cuda").manual_seed(5)
+        _, st = trainer.env.reset_env(g, cfg.num_envs, trainer.env_params)
+        _, nodes, kernels = graphed_vector_step(trainer.env, trainer.env_params, cfg.num_envs,
+                                                g, st, card)
+        assert nodes == 1 and kernels[f"{trainer.env.kernel}_step"] == 1, (nodes, kernels)
+    print(f"  {preset}: in the traced replay of a steady superstep {env_kernel} "
+          f"{env_launches} times ({cfg.steps_per_superstep} vector steps"
+          f"{'' if cheap else ' and the reset pool'}), no plain call of any env [{card}]")
     print(f"  supersteps: {[(m.env_steps, m.loss_count, round(m.loss_sum / max(m.loss_count, 1), 5)) for m in metrics]}")
     print(f"  {preset} x{cfg.num_envs} envs: {vector_steps * cfg.num_envs} env steps a run, "
           f"{updates} updates, {metrics[-1].episodes} episodes, window "
@@ -2586,12 +2754,13 @@ def run_classic(torch, td_kernels, sample_kernels, preset, card):
               f"{nodes} kernels, its launch {host_ms:.3f} ms of host; captured in "
               f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s eager call [{card}]")
     superstep_replay_ms(torch, preset, whole["graph"], card)
-    return trainer
+    return trainer, env_launches
 
 
 def check_classic_step(torch, trainer, card):
-    """Phase 8: one vector step of the trainer's env on the card against the
-    same step on the CPU, from the trainer's states and random actions."""
+    """Phase 8: one step of the trainer's env on the card (its kernel's step
+    entry) against the same step on the CPU (the plain version), from the
+    trainer's states and random actions."""
     env, params = trainer.env, trainer.env_params
     st = trainer.runner.env_states
     n = trainer.cfg.num_envs
@@ -4220,6 +4389,7 @@ def main() -> int:
     from deep_q_learning_tpu_torch import native
     from deep_q_learning_tpu_torch.ops import (
         build,
+        classic_kernels,
         jointed_kernels,
         lander_kernels,
         sample_kernels,
@@ -4230,15 +4400,16 @@ def main() -> int:
     print("phase 2: build")
     t0 = time.perf_counter()
     # one nvcc per source and g++ for the host replay buffer, together
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         futures = [pool.submit(td_kernels._lib), pool.submit(sample_kernels._lib),
                    pool.submit(solver_kernels._lib), pool.submit(lander_kernels._lib),
-                   pool.submit(jointed_kernels._lib), pool.submit(native.load_library)]
+                   pool.submit(jointed_kernels._lib), pool.submit(classic_kernels._lib),
+                   pool.submit(native.load_library)]
         for fut in futures:
             fut.result()
     print(f"  native/replay_buffer.cc: g++ into {native.build_library().relative_to(REPO)}")
     for source in ("td_loss.cu", "per_sample.cu", "lander_solver.cu", "lander_rigid.cu",
-                   "lander_jointed.cu"):
+                   "lander_jointed.cu", "classic_envs.cu"):
         print(f"  {source}: nvcc {build.build_seconds.get(source, 0.0):.2f} s (0 = reused a build)")
         for kernel, use in build.ptxas_summary(build.ptxas_reports.get(source, "")).items():
             print(f"    {kernel}: {use['registers']} registers, {use['smem']} B shared, "
@@ -4262,6 +4433,7 @@ def main() -> int:
         torch, solver_kernels, card)
     rigid_err, rigid_times = check_rigid_kernel(torch, lander_kernels, card)
     jointed_err, jointed_times = check_jointed_kernel(torch, jointed_kernels, solver_kernels, card)
+    classic_times = check_classic_kernel(torch, classic_kernels, card)
 
     print("phase 4: lunar_per slice")
     slice_rigid = run_slice(torch, td_kernels, sample_kernels, lander_kernels, card)
@@ -4286,9 +4458,12 @@ def main() -> int:
 
     print("phase 8: the uniform replay and classic control on the card, graphed")
     t0 = time.perf_counter()
+    classic_launches = {}
     for preset in CLASSIC_RUNS:
         t1 = time.perf_counter()
-        trainer = run_classic(torch, td_kernels, sample_kernels, preset, card)
+        trainer, env_launches = run_classic(torch, td_kernels, sample_kernels, preset, card)
+        if trainer.env.batch_reset_cheap:
+            classic_launches[f"{trainer.env.kernel}_step"] = env_launches
         if trainer.cfg.env_id in CLASSIC_TOL:  # the lander's step: phases 3, 4 and 7
             check_classic_step(torch, trainer, card)
         if preset == "cartpole_vector":
@@ -4376,16 +4551,23 @@ def main() -> int:
     # launches from phase 4's profiled superstep; "[members]": at the
     # population's 8 x 128 landers, one call of 1024 (phase 3), launches
     # from phase 9's.  No single PyTorch call computes R1 either
+    # A1, C1, M1: ms, bound and error of the vector entry (what the preset
+    # launches at every vector step) at the preset's N (phase 3), launches
+    # from phase 8's traced steady superstep of the preset.  No single
+    # PyTorch call computes an env's step either
     timed = dict(times[256], per_slot_sample=slot_times[SLOT_SHAPES[0]],
                  assembly_step=solver_times[128, 120, 40],
                  lander_rigid_step=rigid_times[128, "vector"],
-                 lander_jointed_step=jointed_times[128, "step"])
-    launches = dict(launches, **jointed_launches, lander_rigid_step=slice_rigid)
+                 lander_jointed_step=jointed_times[128, "step"],
+                 **{f"{key}_step": t for key, t in classic_times.items()})
+    launches = dict(launches, **jointed_launches, lander_rigid_step=slice_rigid,
+                    **classic_launches)
     for run_launches in (launches, scaled_launches):
         assert run_launches["assembly_step"] == 0, run_launches
     err["assembly_step"] = solver_err[128]
     err["lander_jointed_step"] = jointed_err
     err["lander_rigid_step"] = member_err["lander_rigid_step"] = rigid_err
+    err.update({f"{key}_step": 0.0 for key in CLASSIC_KERNELS})  # bitwise at every N
     member_times["lander_rigid_step"] = rigid_times[1024, "vector"]
     scaled_timed = dict(times[1024], per_slot_sample=slot_times[SLOT_SHAPES[0]],
                         assembly_step=solver_times[1024, 120, 40],
@@ -4398,6 +4580,8 @@ def main() -> int:
         "assembly_step": (SOLVER_SOURCE, "deep_q_learning_tpu/envs/lander_solver.py:305"),
         "lander_rigid_step": (RIGID_SOURCE, "deep_q_learning_tpu/envs/lunar_lander.py:630"),
         "lander_jointed_step": (JOINTED_SOURCE, "deep_q_learning_tpu/envs/lunar_lander.py:521"),
+        **{f"{key}_step": (CLASSIC_SOURCE, replaces)
+           for key, (_, replaces, _) in CLASSIC_KERNELS.items()},
     }
     tpu_kernels = ("td_loss_fwd", "td_loss_bwd", "per_slot_sample")
     lander = ("td_loss_fwd", "td_loss_bwd", "per_slot_sample", "lander_rigid_step")

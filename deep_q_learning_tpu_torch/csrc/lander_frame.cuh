@@ -20,8 +20,8 @@
 //   * every +, -, * and / rounds once: build with contraction off (nvcc
 //     --fmad=false, g++ -ffp-contract=off) and without fast math;
 //   * a tensor divided by a Python float (x / SCALE, the observation's
-//     scalings) is, on the card, a multiply by the float32 reciprocal of the
-//     float32 constant, and on the CPU a true division: sdiv() below does
+//     scalings) is, on the card, a multiply by the float32 of the double
+//     reciprocal 1 / c, and on the CPU a true division: sdiv() below does
 //     what each device does (ROADMAP F5);
 //   * Python folds constant expressions in double and rounds the result
 //     once to float32 where it meets a tensor (HELIPAD_Y + LEG_DOWN,
@@ -54,8 +54,9 @@ namespace frame {
 constexpr int kChunks = 11;  // terrain heights per env
 constexpr int kObs = 8;
 
-// A Python float that a tensor is divided by: the float32 constant and its
-// float32 reciprocal (1.0f / c, as PyTorch's CUDA division takes it).
+// A Python float that a tensor is divided by: the float32 constant and the
+// float32 of its double reciprocal, float32(1 / c), as PyTorch's CUDA
+// division takes it (ops/lander_kernels.py::card_div).
 struct Div {
   float c, inv;
 };

@@ -8,7 +8,10 @@ limit, reset uniform on (-0.1, 0.1).  The formulas keep the JAX module's
 order of operations and its Python-float constants, so both evaluate the
 same float32 expressions (XLA may still fuse multiply-adds, PyTorch does
 not).  The reset's four numbers per env come from one bulk draw, or from
-``draws`` (an ``(N, 4)`` tensor already on (-0.1, 0.1)).
+``draws`` (an ``(N, 4)`` tensor already on (-0.1, 0.1)).  On CUDA tensors
+the step, and the vector step with its auto-reset, run as one launch of the
+kernel A1 (``ops/classic_kernels.py``); ``step_env_reference`` is the plain
+version.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from deep_q_learning_tpu_torch.envs.base import EnvParams, Environment, uniform
+from deep_q_learning_tpu_torch.envs.base import ClassicControl, EnvParams, uniform
 
 # published physical constants (link masses/lengths = 1, com at 0.5, I = 1)
 L1 = 1.0
@@ -87,14 +90,10 @@ def _wrap(x, low: float, high: float):
     return low + torch.remainder(x - low, high - low)
 
 
-class Acrobot(Environment):
+class Acrobot(ClassicControl):
     """Batched Acrobot-v1."""
 
-    # the reset is one bulk draw: auto-reset runs it every frame
-    batch_reset_cheap = True
-    # the reset's draw can be taken first and injected, so VectorEnv runs
-    # the step with auto-reset as a CUDA graph (envs/graphed.py)
-    injects_draws = True
+    kernel = "acrobot"  # ops/classic_kernels.py
 
     def default_params(self) -> AcrobotParams:
         return AcrobotParams()
@@ -105,9 +104,6 @@ class Acrobot(Environment):
 
     def obs_shape(self, params) -> Tuple[int, ...]:
         return (6,)
-
-    def step_draws(self, generator, n):
-        return None  # a step draws nothing
 
     def reset_draws(self, generator, n):
         return uniform(generator, (n, 4), -0.1, 0.1)
@@ -136,7 +132,7 @@ class Acrobot(Environment):
             dim=-1,
         )
 
-    def step_env(self, generator, state: AcrobotState, action, params, draws=None):
+    def step_env_reference(self, generator, state: AcrobotState, action, params, draws=None):
         torque = (action - 1).to(torch.float32)
         s = (state.theta1, state.theta2, state.dtheta1, state.dtheta2)
         ns = _rk4_step(s, torque, DT)

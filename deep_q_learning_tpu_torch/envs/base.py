@@ -109,19 +109,22 @@ class Environment(Generic[TEnvState, TEnvParams]):
         Returns ``(obs, state, reward, terminated, truncated)``."""
         raise NotImplementedError
 
-    def fuses_vector_step(self, params, state) -> bool:
-        """Whether :meth:`vector_step` runs ``VectorEnv``'s step with a
-        reset pool for these params and this state's device as one call: a
-        matter of configuration (engine, device), never of a failure."""
+    def fuses_vector_step(self, params, state, fresh) -> bool:
+        """Whether :meth:`vector_step` runs ``VectorEnv``'s step as one call
+        for these params, this state's device and the reset pool ``fresh``
+        (or None, the resets from the reset's draws): a matter of
+        configuration (engine, device, pool), never of a failure."""
         return False
 
     def vector_step(self, generator: torch.Generator, state, action, params, fresh, draws=None,
-                    time_feature: bool = False):
-        """The vector step with the auto-reset from the pool ``fresh`` as one
-        call, where :meth:`fuses_vector_step` holds: ``(out_obs, out_state,
-        next_obs, reward, terminated, truncated)``, what ``VectorEnv._step``
-        composes from ``step_env`` and the selects; each observation ends in
-        ``t / max_steps`` with ``time_feature`` (``TimeFractionObs``)."""
+                    reset_draws=None, time_feature: bool = False):
+        """The vector step with the auto-reset as one call, where
+        :meth:`fuses_vector_step` holds: from the pool ``fresh``, or where it
+        is None from ``reset_draws`` (``reset_draws``' draws); returns
+        ``(out_obs, out_state, next_obs, reward, terminated, truncated)``,
+        what ``VectorEnv._step`` composes from ``step_env``, the reset and
+        the selects; each observation ends in ``t / max_steps`` with
+        ``time_feature`` (``TimeFractionObs``)."""
         raise NotImplementedError
 
     # the JAX package's "jittable edges": thin calls onto the env functions
@@ -130,6 +133,62 @@ class Environment(Generic[TEnvState, TEnvParams]):
 
     def step(self, generator: torch.Generator, state, action, params, draws=None):
         return self.step_env(generator, state, action, params, draws)
+
+
+class ClassicControl(Environment):
+    """A classic-control env (CartPole, Acrobot, MountainCar): its reset is
+    one bulk draw of the caller's generator, cheap enough to run every frame
+    and taken first where it is injected (``reset_draws``); a step draws
+    nothing.  On CUDA tensors its step, and its vector step without a pool,
+    run as one launch of its kernel (``ops/classic_kernels.py``, the env
+    named by ``kernel``); on CPU tensors the plain version,
+    :meth:`step_env_reference`, and ``VectorEnv._step``'s composition."""
+
+    # the reset is one bulk draw: auto-reset runs it every frame
+    batch_reset_cheap = True
+    # the reset's draw can be taken first and injected, so VectorEnv runs
+    # the step with auto-reset as a CUDA graph (envs/graphed.py)
+    injects_draws = True
+    kernel: str = ""  # the env's key in ops/classic_kernels.py::SPECS
+
+    def step_draws(self, generator, n):
+        return None  # a step draws nothing
+
+    def step_env(self, generator, state, action, params, draws=None):
+        """One transition, ``(obs, state, reward, terminated, truncated)``:
+        the kernel's step entry on CUDA tensors (it launches or raises),
+        :meth:`step_env_reference` on CPU tensors."""
+        from deep_q_learning_tpu_torch.ops import classic_kernels
+
+        if state.t.device.type != "cpu":
+            return classic_kernels.classic_step_kernel(self.kernel, state,
+                                                       action.to(torch.int32), params)
+        classic_kernels.plain_calls[self.kernel] += 1
+        return self.step_env_reference(generator, state, action, params, draws)
+
+    def step_env_reference(self, generator, state, action, params, draws=None):
+        """The plain version of :meth:`step_env`, on either device."""
+        raise NotImplementedError
+
+    def fuses_vector_step(self, params, state, fresh) -> bool:
+        """Without a pool, on CUDA tensors: the kernel's vector entry."""
+        return fresh is None and state.t.device.type == "cuda"
+
+    def vector_step(self, generator, state, action, params, fresh, draws=None, reset_draws=None,
+                    time_feature: bool = False):
+        """``VectorEnv._step`` without a pool in one launch of the env's
+        kernel (``ops/classic_kernels.py::classic_vector_kernel``): the step,
+        ``done``, the reset from ``reset_draws`` (drawn here where None),
+        the auto-reset's selects and, with ``time_feature``,
+        ``TimeFractionObs``' feature.  CUDA tensors only (it raises
+        elsewhere); the plain version is ``VectorEnv._step``'s composition."""
+        from deep_q_learning_tpu_torch.ops import classic_kernels
+
+        if reset_draws is None:
+            reset_draws = self.reset_draws(generator, action.shape[0])
+        return classic_kernels.classic_vector_kernel(
+            self.kernel, state, action.to(torch.int32), params, reset_draws.contiguous(),
+            time_feature)
 
 
 @dataclasses.dataclass
@@ -204,14 +263,19 @@ class VectorEnv:
               reset_draws=None):
         """The vector step with auto-reset.  Random numbers come from
         ``generator`` where their draws are None; ``fresh`` None resets
-        through ``reset_batch``, or from ``reset_draws`` where given.  With a
-        pool, an env that fuses its vector step for these params and
-        tensors (the rigid lander on the card: one kernel) runs it as one
-        call; otherwise the step, ``done`` and the selects, the plain
+        through ``reset_batch``, or from ``reset_draws`` where given.  An
+        env that fuses its vector step for these params, tensors and pool
+        runs it as one call: the rigid lander on the card with a pool, a
+        classic env on the card without one (one kernel each); otherwise
+        the step, ``done``, the reset and the selects, the plain
         composition."""
-        if fresh is not None and self.env.fuses_vector_step(params, states):
+        if self.env.fuses_vector_step(params, states, fresh):
+            if fresh is None and reset_draws is None:
+                # reset_batch's draw, in the eager order: a step that fuses
+                # without a pool draws nothing
+                reset_draws = self.env.reset_draws(generator, self.num_envs)
             out_obs, out_states, next_obs, reward, terminated, truncated = self.env.vector_step(
-                generator, states, actions, params, fresh, step_draws)
+                generator, states, actions, params, fresh, step_draws, reset_draws)
         else:
             next_obs, next_states, reward, terminated, truncated = self.env.step_env(
                 generator, states, actions, params, step_draws

@@ -6,7 +6,9 @@ limit, termination at |x| > 2.4 or |theta| > 12 degrees, reset uniform in
 (-0.05, 0.05).  Every state field has a leading ``N`` axis.  The reset's
 four numbers per env come from the caller's generator in one bulk draw,
 or are injected through ``draws`` (an ``(N, 4)`` tensor already on
-(-0.05, 0.05)).  A step draws nothing.
+(-0.05, 0.05)).  A step draws nothing.  On CUDA tensors the step, and the
+vector step with its auto-reset, run as one launch of the kernel C1
+(``ops/classic_kernels.py``); ``step_env_reference`` is the plain version.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from deep_q_learning_tpu_torch.envs.base import EnvParams, Environment, uniform
+from deep_q_learning_tpu_torch.envs.base import ClassicControl, EnvParams, uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,14 +44,10 @@ class CartPoleParams(EnvParams):
     max_steps_in_episode: int = 500
 
 
-class CartPole(Environment):
+class CartPole(ClassicControl):
     """Batched CartPole-v1; Euler integrator, float32."""
 
-    # the reset is one bulk draw: auto-reset runs it every frame
-    batch_reset_cheap = True
-    # the reset's draw can be taken first and injected, so VectorEnv runs
-    # the step with auto-reset as a CUDA graph (envs/graphed.py)
-    injects_draws = True
+    kernel = "cartpole"  # ops/classic_kernels.py
 
     def default_params(self) -> CartPoleParams:
         return CartPoleParams()
@@ -60,9 +58,6 @@ class CartPole(Environment):
 
     def obs_shape(self, params) -> Tuple[int, ...]:
         return (4,)
-
-    def step_draws(self, generator, n):
-        return None  # a step draws nothing
 
     def reset_draws(self, generator, n):
         return uniform(generator, (n, 4), -0.05, 0.05)
@@ -81,7 +76,8 @@ class CartPole(Environment):
     def get_obs(self, state: CartPoleState, params) -> torch.Tensor:
         return torch.stack([state.x, state.x_dot, state.theta, state.theta_dot], dim=-1)
 
-    def step_env(self, generator, state: CartPoleState, action, params: CartPoleParams, draws=None):
+    def step_env_reference(self, generator, state: CartPoleState, action,
+                           params: CartPoleParams, draws=None):
         force = torch.where(action == 1, params.force_mag, -params.force_mag)
         costheta = torch.cos(state.theta)
         sintheta = torch.sin(state.theta)

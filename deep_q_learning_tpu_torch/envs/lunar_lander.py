@@ -678,12 +678,13 @@ class LunarLander(Environment):
             lander_kernels.plain_calls["rigid_step"] += 1
         return self.step_env_reference(None, state, action, params, draws)
 
-    def fuses_vector_step(self, params: LunarLanderParams, state: LunarLanderState) -> bool:
+    def fuses_vector_step(self, params: LunarLanderParams, state: LunarLanderState,
+                          fresh) -> bool:
         """The rigid engine on CUDA tensors runs the vector step with a
         reset pool as one kernel (R1's vector entry)."""
-        return not params.jointed and state.x.device.type == "cuda"
+        return fresh is not None and not params.jointed and state.x.device.type == "cuda"
 
-    def vector_step(self, generator, state, action, params, fresh, draws=None,
+    def vector_step(self, generator, state, action, params, fresh, draws=None, reset_draws=None,
                     time_feature: bool = False):
         """``VectorEnv._step`` with the pool ``fresh`` in one launch of R1
         (``ops/lander_kernels.py::rigid_vector_kernel``): the step, the

@@ -5,7 +5,9 @@ The published classic-control task (Moore 1990): force 0.001, gravity
 inelastic left wall, goal at 0.5, reward -1 per step, a 200-step limit,
 reset uniform on [-0.6, -0.4) at rest.  The reset's one number per env
 comes from one bulk draw, or from ``draws`` (an ``(N,)`` tensor already on
-[-0.6, -0.4)).
+[-0.6, -0.4)).  On CUDA tensors the step, and the vector step with its
+auto-reset, run as one launch of the kernel M1 (``ops/classic_kernels.py``);
+``step_env_reference`` is the plain version.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from deep_q_learning_tpu_torch.envs.base import EnvParams, Environment, uniform
+from deep_q_learning_tpu_torch.envs.base import ClassicControl, EnvParams, uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,14 +38,10 @@ class MountainCarParams(EnvParams):
     max_steps_in_episode: int = 200
 
 
-class MountainCar(Environment):
+class MountainCar(ClassicControl):
     """Batched MountainCar-v0."""
 
-    # the reset is one bulk draw: auto-reset runs it every frame
-    batch_reset_cheap = True
-    # the reset's draw can be taken first and injected, so VectorEnv runs
-    # the step with auto-reset as a CUDA graph (envs/graphed.py)
-    injects_draws = True
+    kernel = "mountain_car"  # ops/classic_kernels.py
 
     def default_params(self) -> MountainCarParams:
         return MountainCarParams()
@@ -54,9 +52,6 @@ class MountainCar(Environment):
 
     def obs_shape(self, params) -> Tuple[int, ...]:
         return (2,)
-
-    def step_draws(self, generator, n):
-        return None  # a step draws nothing
 
     def reset_draws(self, generator, n):
         return uniform(generator, (n,), -0.6, -0.4)
@@ -73,7 +68,7 @@ class MountainCar(Environment):
     def get_obs(self, state: MountainCarState, params) -> torch.Tensor:
         return torch.stack([state.position, state.velocity], dim=-1)
 
-    def step_env(self, generator, state: MountainCarState, action, params, draws=None):
+    def step_env_reference(self, generator, state: MountainCarState, action, params, draws=None):
         # (action - 1) * force in float32, as JAX promotes int32 by a weak float
         push = (action - 1).to(torch.float32) * params.force
         velocity = state.velocity + push + torch.cos(3.0 * state.position) * (-params.gravity)

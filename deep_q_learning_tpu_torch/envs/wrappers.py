@@ -93,11 +93,12 @@ class TimeFractionObs(WrappedEnv):
     def get_obs(self, state, params):
         return self._augment(self.env.get_obs(state, params), state, params)
 
-    def fuses_vector_step(self, params, state) -> bool:
+    def fuses_vector_step(self, params, state, fresh) -> bool:
         # the wrapped env's fused step appends this feature itself
-        return not isinstance(self.env, WrappedEnv) and self.env.fuses_vector_step(params, state)
+        return (not isinstance(self.env, WrappedEnv)
+                and self.env.fuses_vector_step(params, state, fresh))
 
-    def vector_step(self, generator, state, action, params, fresh, draws=None,
+    def vector_step(self, generator, state, action, params, fresh, draws=None, reset_draws=None,
                     time_feature: bool = False):
-        return self.env.vector_step(generator, state, action, params, fresh, draws,
+        return self.env.vector_step(generator, state, action, params, fresh, draws, reset_draws,
                                     time_feature=True)

@@ -123,6 +123,16 @@ PLAIN_RIGID_CALLS = 10
 # replayed PLAIN_JOINTED_REPLAYS times
 JOINTED_SHAPES = (128, 1024)
 PLAIN_JOINTED_REPLAYS = 20
+# A1, C1 and M1, the classic envs' vector steps without a pool, as their
+# presets run them: N of the host env (1), acrobot_vector and
+# mountain_car_vector (128), cartpole_vector (4096) and 8192.  The plain
+# composition (~265, ~50 and ~33 kernels a vector step) is timed as a CUDA
+# graph of PLAIN_CLASSIC_CALLS calls; the states come from a flight of
+# CLASSIC_ENVS envs over CLASSIC_FRAMES frames with episodes cut at
+# CLASSIC_MAX_STEPS, so that some steps truncate
+CLASSIC_SHAPES = (1, 128, 4096, 8192)
+PLAIN_CLASSIC_CALLS = 10
+CLASSIC_ENVS, CLASSIC_FRAMES, CLASSIC_MAX_STEPS = 1024, 300, 200
 
 
 def card_line() -> str:
@@ -383,7 +393,7 @@ def _composed_lander_type():
                 return self.step_env_reference(generator, state, action, params, draws)
             return self.step_fn(state, action.to(torch.int32), params, draws.contiguous())
 
-        def fuses_vector_step(self, params, state) -> bool:
+        def fuses_vector_step(self, params, state, fresh) -> bool:
             return False
 
     return ComposedRigidLander
@@ -484,6 +494,137 @@ def rigid_vector_times(card: str, inputs: Optional[dict] = None,
                   f"baseline's in some bit" if base is not None else "")
         print(f"  N={n} the vector step as a CUDA graph of one call, a replay on the device: "
               f"{text}{differ} [{card}]")
+    return times
+
+
+def classic_pump(kernel: str, state) -> torch.Tensor:
+    """The energy-pumping policies of tests/test_torch_envs_classic.py:
+    CartPole balanced (push toward the pole's lean), Acrobot's torque along
+    the second joint's rate, MountainCar's push along the velocity."""
+    if kernel == "cartpole":
+        return (state.theta + 0.5 * state.theta_dot > 0).to(torch.int32)
+    if kernel == "acrobot":
+        return torch.where(state.dtheta2 > 0, 2, 0).to(torch.int32)
+    return torch.where(state.velocity >= 0, 2, 0).to(torch.int32)
+
+
+@functools.cache
+def _composed_classic_type(cls):
+    class Composed(cls):
+        """The env whose vector step composes: ``step_env_reference``,
+        ``done``, ``reset_env`` and the selects, on either device."""
+
+        def step_env(self, generator, state, action, params, draws=None):
+            return self.step_env_reference(generator, state, action, params, draws)
+
+        def fuses_vector_step(self, params, state, fresh) -> bool:
+            return False
+
+    Composed.__name__ = f"Composed{cls.__name__}"
+    return Composed
+
+
+def composed_classic(env, time_feature: bool = False):
+    """A classic env of ``env``'s class (in ``TimeFractionObs`` with
+    ``time_feature``) whose ``VectorEnv._step`` is the plain composition
+    around ``step_env_reference``: the plain version of its kernel's
+    vector entry, on either device."""
+    from deep_q_learning_tpu_torch.envs import TimeFractionObs
+
+    env = _composed_classic_type(type(env))()
+    return TimeFractionObs(env) if time_feature else env
+
+
+def classic_step_inputs(env, params, n: int, g: torch.Generator, envs: int = CLASSIC_ENVS,
+                        frames: int = CLASSIC_FRAMES):
+    """``(state, action, ends)`` of ``n`` lanes: pre-step states of a flight
+    of ``envs`` envs over ``frames`` frames on ``g``'s device (half on
+    :func:`classic_pump`, half on random actions, auto-reset by the plain
+    composition), up to half of them lanes whose step ends the episode and
+    the rest lanes that go on, in random order; ``ends`` the flight's
+    terminated and truncated flags of each lane."""
+    from deep_q_learning_tpu_torch.envs import VectorEnv
+    from deep_q_learning_tpu_torch.envs.graphed import tree_map
+
+    device = g.device
+    plain = VectorEnv(composed_classic(env), envs, graphed=False)
+    obs, st = env.reset_env(g, envs, params)
+    half = torch.arange(envs, device=device) % 2 == 0
+    states, actions, ends = [], [], []
+    for _ in range(frames):
+        rand = torch.randint(0, env.num_actions, (envs,), generator=g, device=device)
+        action = torch.where(half, classic_pump(env.kernel, st), rand).to(torch.int32)
+        states.append(tree_map(lambda t: t.contiguous(), st))
+        actions.append(action)
+        obs, st, tr = plain._step(g, st, action, params, obs, None)
+        ends.append(torch.stack([tr.terminated, tr.truncated], 1))
+    state = type(st)(**{f.name: torch.cat([getattr(x, f.name) for x in states])
+                        for f in dataclasses.fields(st)})
+    action, ends = torch.cat(actions), torch.cat(ends)
+    ending = ends.any(1)
+    pick = lambda idx: idx[torch.randperm(len(idx), generator=g, device=device)]  # noqa: E731
+    ended, going = pick(ending.nonzero()[:, 0]), pick((~ending).nonzero()[:, 0])
+    k = min(len(ended), n // 2)
+    idx = torch.cat([ended[:k], going[:n - k]])
+    idx = idx[torch.randperm(n, generator=g, device=device)]
+    return tree_map(lambda t: t[idx].contiguous(), state), action[idx], ends[idx]
+
+
+def classic_params(env, max_steps: Optional[int] = CLASSIC_MAX_STEPS):
+    """The env's params with episodes cut at ``max_steps`` (the flights and
+    checks of the classic kernels)."""
+    params = env.default_params()
+    return params if max_steps is None else dataclasses.replace(
+        params, max_steps_in_episode=max_steps)
+
+
+def classic_device_times(card: str, inputs: Optional[dict] = None) -> dict:
+    """A1, C1 and M1's vector entries (``VectorEnv._step`` without a pool,
+    one launch) at CLASSIC_SHAPES against the plain composition
+    (:func:`composed_classic`; the parent commit's vector step): device µs
+    a call of the kernel (a CUDA graph of GRAPH_CALLS calls) and of the
+    plain version (a graph of PLAIN_CLASSIC_CALLS calls), beside the bound
+    of the call's work (``classic_kernels.classic_step_work``); then the
+    vector step alone as a CUDA graph of one call (the frame graph's env
+    part), replayed in turns (plain, kernel, kernel, plain), with its
+    kernels.  ``inputs`` maps ``(env, n)`` to ``(state, action)``; by
+    default the states of a flight (:func:`classic_step_inputs`).  Prints a
+    line a shape and returns ``{(env, n): (kernel us, plain us, work)}``,
+    env the kernel's key (``classic_kernels.SPECS``)."""
+    from deep_q_learning_tpu_torch.envs import VectorEnv, make_env
+    from deep_q_learning_tpu_torch.ops import classic_kernels as ck
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    times = {}
+    for key, spec in ck.SPECS.items():
+        env, _ = make_env(spec.env_id)
+        params = classic_params(env)
+        for n in CLASSIC_SHAPES:
+            state, action = (inputs[key, n] if inputs is not None
+                             else classic_step_inputs(env, params, n, g)[:2])
+            draws = env.reset_draws(g, n)
+            prev = torch.zeros((n, spec.obs), device="cuda")
+            steps = {"kernel": VectorEnv(env, n, graphed=False),
+                     "plain": VectorEnv(composed_classic(env), n, graphed=False)}
+
+            def call(which):
+                out_obs, out_state, tr = steps[which]._step(None, state, action, params, prev,
+                                                            None, None, draws)
+                return out_obs, out_state, tr.next_obs, tr.reward, tr.terminated, tr.truncated
+
+            k = device_us(lambda: call("kernel"))
+            r = device_us(lambda: call("plain"), calls=PLAIN_CLASSIC_CALLS)
+            work = ck.classic_step_work(key, n, vector=True)
+            times[key, n] = (k, r, work)
+            print(f"{key}_step vector step N={n} (the resets from their draws, no pool): device "
+                  f"{k:.2f} us kernel, {r:.2f} us plain as a CUDA graph of {PLAIN_CLASSIC_CALLS} "
+                  f"calls ({r / k:.0f}x); {bound_text(work, k)} [{card}]")
+            graphs = [(which, *graph_replay(lambda: call(which)))
+                      for which in ("plain", "kernel", "kernel", "plain")]
+            text = "; ".join(f"{which} {us:.2f} us, {kernels} kernels"
+                             for which, us, kernels in graphs)
+            print(f"  N={n} the vector step as a CUDA graph of one call, a replay on the device, "
+                  f"in turns: {text} [{card}]")
     return times
 
 
@@ -598,6 +739,7 @@ def kernel_device_times(card: str, baseline: Optional[Path] = None) -> None:
     rigid_device_times(card, baseline=baseline)
     rigid_vector_times(card, baseline=baseline)
     jointed_device_times(card, baseline=baseline)
+    classic_device_times(card)
     g = torch.Generator(device="cuda").manual_seed(0)
     base_sk = load_baseline(baseline, "sample_kernels") if baseline is not None else None
     for n, c, b in SLOT_SHAPES:
@@ -776,11 +918,13 @@ def _span(fn, name):
 LEARNER_KERNELS = {"td_loss_fwd": ("td_loss_fwd_kernel",), "td_loss_bwd": ("td_loss_bwd_kernel",),
                    "per_slot_sample": ("slot_warp_kernel", "slot_block_kernel")}
 # the envs' kernels by their names in the profiler's trace: R1 (the rigid
-# lander's step), J1 (the jointed lander's) and S1 (the jointed solver's
-# alone, which J1 runs inside it)
+# lander's step), J1 (the jointed lander's), S1 (the jointed solver's
+# alone, which J1 runs inside it), and A1, C1 and M1 (the classic envs')
 ENV_KERNELS = {"lander_rigid_step": ("rigid_step_kernel",),
                "lander_jointed_step": ("jointed_step_kernel",),
-               "assembly_step": ("assembly_step_kernel",)}
+               "assembly_step": ("assembly_step_kernel",),
+               "acrobot_step": ("acrobot_kernel",), "cartpole_step": ("cartpole_kernel",),
+               "mountain_car_step": ("mountain_car_kernel",)}
 # the host's calls that put work on the card one by one
 HOST_LAUNCHES = {"kernels": ("cudaLaunchKernel", "cuLaunchKernel"), "graphs": ("cudaGraphLaunch",),
                  "copies and fills": ("cudaMemcpyAsync", "cudaMemsetAsync")}
@@ -1190,28 +1334,32 @@ def env_frames(cfg, card: str) -> None:
 
 
 def graphed_vector_step(env, params, n: int, g: torch.Generator, st, card: str):
-    """The env's vector step with its auto-reset from a reset pool as
-    ``VectorEnv`` runs it in a CUDA graph (the learner's frame graph holds
-    the same kernels): its replay alone (:func:`replay_ms`: device ms,
-    kernels, the host's launch) and the env kernels among its kernels.
-    Returns ``(device ms, kernels, {env kernel: count})``, or None for an
-    env that does not graph."""
+    """The env's vector step with its auto-reset as ``VectorEnv`` runs it
+    in a CUDA graph (the learner's frame graph holds the same kernels), from
+    a reset pool where the env's reset is not cheap (the lander) and from
+    the reset's draws, taken before the graph, where it is (the classic
+    envs): its replay alone (:func:`replay_ms`: device ms, kernels, the
+    host's launch) and the env kernels among its kernels.  Returns
+    ``(device ms, kernels, {env kernel: count})``, or None for an env that
+    does not graph."""
     from deep_q_learning_tpu_torch.envs import VectorEnv
 
     venv = VectorEnv(env, n)
     if not venv.graphed:
         return None
-    pool = venv.fresh_pool(g, params)
+    pool = None if env.batch_reset_cheap else venv.fresh_pool(g, params)
     obs = env.get_obs(st, params)
     actions = torch.randint(0, env.num_actions, (n,), generator=g, device="cuda",
                             dtype=torch.int32)
     for _ in range(2):  # the capture, then a replay
         obs, st, _ = venv.step(g, st, actions, params, prev_obs=obs, fresh=pool)
-    step = next(graph for (kind, *_), graph in venv._graphs.items() if kind == "step")
+    kind = "step" if pool is not None else "step with resets"
+    step = next(graph for (k, *_), graph in venv._graphs.items() if k == kind)
     host_ms, device_ms, nodes = replay_ms(step)
     trace = traced_kernels(step.graph.replay)
     kernels = {name: sum(trace.count(k) for k in names) for name, names in ENV_KERNELS.items()}
-    print(f"the vector step's graph (auto-reset from the pool included): replay {device_ms:.3f} "
+    reset = "from the pool" if pool is not None else "from the reset's draws"
+    print(f"the vector step's graph (auto-reset {reset} included): replay {device_ms:.3f} "
           f"ms on the device, {nodes} kernels, the env's among them {kernels}, its launch "
           f"{host_ms:.3f} ms of host [{card}]")
     return device_ms, nodes, kernels

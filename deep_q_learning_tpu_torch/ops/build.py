@@ -30,10 +30,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the landers' steps round every product and sum, as PyTorch's elementwise
-# kernels do (csrc/lander_solver.cu, csrc/lander_rigid.cu, csrc/lander_jointed.cu)
+# the envs' steps round every product and sum, as PyTorch's elementwise
+# kernels do (csrc/lander_solver.cu, csrc/lander_rigid.cu, csrc/lander_jointed.cu,
+# csrc/classic_envs.cu)
 SOURCE_FLAGS = {"lander_solver.cu": ("--fmad=false",), "lander_rigid.cu": ("--fmad=false",),
-                "lander_jointed.cu": ("--fmad=false",)}
+                "lander_jointed.cu": ("--fmad=false",), "classic_envs.cu": ("--fmad=false",)}
 
 # seconds spent in nvcc by this process, and ptxas's report, by source file name
 build_seconds: dict = {}

@@ -192,12 +192,23 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def card_div(c: float) -> Div:
+    """The :class:`Div` of a Python number ``c`` that a tensor is divided
+    by: ``float32(c)`` and the float32 of the double ``1 / c``, by which
+    PyTorch's CUDA division by a Python number multiplies (on the H100 with
+    torch 2.11, ``x / 1.1`` is ``x * float32(1 / 1.1)``; ``x * (1.0f /
+    float32(1.1))`` differs from it on 79 % of 2^20 floats; the two
+    reciprocals agree for R1's divisors and the presets' episode limits;
+    ``artifacts/rigid_kernel/scalar_division.py``)."""
+    return Div(_f32(c), _f32(1.0 / c))
+
+
 @functools.lru_cache(maxsize=64)
 def _consts_of(key: tuple) -> ctypes.Structure:
     k = RigidConsts()
     for name, value in key:
         if name in DIVS:
-            setattr(k, name, Div(_f32(value), float(np.float32(1.0) / np.float32(value))))
+            setattr(k, name, card_div(value))
         elif name in INTS:
             setattr(k, name, value)
         elif isinstance(value, tuple):
@@ -209,9 +220,9 @@ def _consts_of(key: tuple) -> ctypes.Structure:
 
 def rigid_consts(params) -> ctypes.Structure:
     """:class:`RigidConsts` for ``params``, every float float32 (ctypes
-    rounds a double to the nearest float32 once) and every divisor's
-    reciprocal the float32 ``1 / float32(c)``, as PyTorch's CUDA division
-    by a Python float takes it."""
+    rounds a double to the nearest float32 once) and every divisor with
+    its reciprocal as PyTorch's CUDA division by a Python float takes it
+    (:func:`card_div`)."""
     key = tuple((name, tuple(v) if isinstance(v, list) else v)
                 for name, v in const_values(params).items())
     return _consts_of(key)
@@ -384,7 +395,7 @@ def rigid_vector_call(launch: Callable, params, state, action, draws, fresh,
         x.data_ptr() for x in (terrain, shaping, t, sleep, wind_idx, torque_idx))
     steps = params.max_steps_in_episode
     vio = VecIO(step=io, pool=pool, out=out,
-                time_div=Div(_f32(steps), float(np.float32(1.0) / np.float32(steps))),
+                time_div=card_div(steps),
                 time_feature=int(time_feature))
     launch(vio, rigid_consts(params), n)
     out_state = dataclasses.replace(

@@ -57,7 +57,11 @@ same N, the wind and the time feature off and on.  J1, the jointed
 lander's frame around S1, against its plain versions (S1 inside them)
 through ``step_env`` and ``reset_env``: bit
 for bit at N = 37, 128 and 1024 with the wind off and on, and on the reset
-frame; over 100 calls and a graph replay; its wrapper's refusals."""
+frame; over 100 calls and a graph replay; its wrapper's refusals.  A1, C1
+and M1, the classic envs' kernels, against their plain versions through
+``step_env`` and through ``VectorEnv._step`` without a pool (the time
+feature off and on): bit for bit at N = 1, 128, 4096 and 8192 on states of
+a flight; over 100 calls and a graph replay; their wrapper's refusals."""
 
 import dataclasses
 
@@ -1697,3 +1701,107 @@ def test_jointed_kernel_wrapper_refuses_what_it_does_not_take(cuda):
         jointed_reset_kernel(state.terrain, dataclasses.replace(rd, kick=rd.kick.cpu()), params)
     with pytest.raises(ValueError, match="rigid"):
         jointed_step_kernel(state, action, dataclasses.replace(params, jointed=False), draws)
+
+
+# A1, C1 and M1, the classic envs' kernels: N of the host env (1),
+# acrobot_vector and mountain_car_vector (128), cartpole_vector (4096), 8192
+CLASSIC_CASES = [1, 128, 4096, 8192]
+CLASSIC_KEYS = ["acrobot", "cartpole", "mountain_car"]
+
+
+def _classic_case(key, n, seed):
+    from deep_q_learning_tpu_torch.envs import make_env
+    from deep_q_learning_tpu_torch.measure import classic_params, classic_step_inputs
+    from deep_q_learning_tpu_torch.ops import classic_kernels
+
+    env, _ = make_env(classic_kernels.SPECS[key].env_id)
+    params = classic_params(env)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    state, action, _ = classic_step_inputs(env, params, n, g, envs=256, frames=150)
+    return env, params, state, action, g
+
+
+def _classic_vector(env, params, state, action, draws, feature, composed=False):
+    from deep_q_learning_tpu_torch.envs import TimeFractionObs, VectorEnv
+    from deep_q_learning_tpu_torch.measure import composed_classic
+
+    n = action.shape[0]
+    port_env = (composed_classic(env, feature) if composed
+                else TimeFractionObs(env) if feature else env)
+    prev = torch.zeros((n, env.obs_shape(params)[0] + feature), device="cuda")
+    out_obs, out_state, tr = VectorEnv(port_env, n, graphed=False)._step(
+        None, state, action, params, prev, None, None, draws)
+    return out_obs, out_state, tr.next_obs, tr.reward, tr.terminated, tr.truncated
+
+
+@pytest.mark.parametrize("feature", [False, True], ids=["obs", "time_feature"])
+@pytest.mark.parametrize("n", CLASSIC_CASES)
+@pytest.mark.parametrize("key", CLASSIC_KEYS)
+def test_classic_kernel_matches_plain(cuda, key, n, feature):
+    """A classic env's kernel through ``step_env`` and through
+    ``VectorEnv._step`` without a pool (the resets from their draws) against
+    ``step_env_reference`` and the plain composition on the card, from a
+    flight (terminations, truncations, steps that go on): every bit of
+    every output, one launch a call and no plain call."""
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+    from deep_q_learning_tpu_torch.ops import classic_kernels
+
+    env, params, state, action, g = _classic_case(key, n, seed=n)
+    draws = env.reset_draws(g, n)
+    classic_kernels.reset_counts()
+    got = env.step_env(None, state, action, params)
+    got_vector = _classic_vector(env, params, state, action, draws, feature)
+    assert classic_kernels.launches == {k: 2 * (k == key) for k in CLASSIC_KEYS}
+    assert not any(classic_kernels.plain_calls.values())
+    want = env.step_env_reference(None, state, action, params)
+    want_vector = _classic_vector(env, params, state, action, draws, feature, composed=True)
+    assert classic_kernels.launches == {k: 2 * (k == key) for k in CLASSIC_KEYS}
+    for i, (a, b) in enumerate(zip(tree_leaves([got, got_vector]),
+                                   tree_leaves([want, want_vector]))):
+        assert _same_bits(a, b), i
+
+
+@pytest.mark.parametrize("key", CLASSIC_KEYS)
+def test_classic_kernel_is_bitwise_stable_over_100_calls_and_a_graph_replay(cuda, key):
+    from deep_q_learning_tpu_torch.envs.graphed import tree_leaves
+
+    env, params, state, action, g = _classic_case(key, 4096, seed=3)
+    draws = env.reset_draws(g, 4096)
+    call = lambda: _classic_vector(env, params, state, action, draws, True)  # noqa: E731
+    first = call()
+    for _ in range(99):
+        for a, b in zip(tree_leaves(list(first)), tree_leaves(list(call()))):
+            assert _same_bits(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(tree_leaves(list(first)), tree_leaves(list(captured))):
+            assert _same_bits(a, b)
+
+
+def test_classic_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    from deep_q_learning_tpu_torch.ops.classic_kernels import (
+        classic_step_kernel,
+        classic_vector_kernel,
+    )
+
+    env, params, state, action, g = _classic_case("acrobot", 16, seed=6)
+    draws = env.reset_draws(g, 16)
+    with pytest.raises(TypeError, match="dtype"):
+        classic_step_kernel("acrobot", state, action.long(), params)
+    with pytest.raises(ValueError, match="contiguous"):
+        classic_vector_kernel("acrobot", state, action, params,
+                              torch.zeros((4, 16), device=cuda).t())
+    with pytest.raises(ValueError, match="is on cpu"):
+        classic_vector_kernel("acrobot", state, action, params, draws.cpu())
+    with pytest.raises(ValueError, match="is on cpu"):
+        classic_step_kernel("acrobot", dataclasses.replace(state, theta2=state.theta2.cpu()),
+                            action, params)

@@ -342,16 +342,16 @@ def test_step_and_reset_on_cpu_tensors_are_the_plain_version():
 
 
 class _FusedStub(LunarLander):
-    """A rigid lander that says it fuses its vector step and records the
-    calls instead of launching."""
+    """A rigid lander that says it fuses its vector step with a pool and
+    records the calls instead of launching."""
 
     def __init__(self):
         self.calls = []
 
-    def fuses_vector_step(self, params, state):
-        return True
+    def fuses_vector_step(self, params, state, fresh):
+        return fresh is not None
 
-    def vector_step(self, generator, state, action, params, fresh, draws=None,
+    def vector_step(self, generator, state, action, params, fresh, draws=None, reset_draws=None,
                     time_feature=False):
         self.calls.append((draws, time_feature))
         return self.step_env_reference(None, state, action, params, draws)[:1] * 6
@@ -365,9 +365,10 @@ def test_vector_step_dispatch_is_configuration():
     env, p = _params(False)
     g = torch.Generator().manual_seed(3)
     obs, st = env.reset_env(g, 4, p)
-    assert not env.fuses_vector_step(p, st)
-    assert not TimeFractionObs(env).fuses_vector_step(p, st)
-    assert not env.fuses_vector_step(dataclasses.replace(p, jointed=True), st)
+    pool = (obs, st)
+    assert not env.fuses_vector_step(p, st, pool)
+    assert not TimeFractionObs(env).fuses_vector_step(p, st, pool)
+    assert not env.fuses_vector_step(dataclasses.replace(p, jointed=True), st, pool)
     a, d = torch.zeros(4, dtype=torch.int32), env.step_draws(g, 4)
     for wrap, feature in ((False, False), (True, True)):
         stub = _FusedStub()
@@ -376,7 +377,7 @@ def test_vector_step_dispatch_is_configuration():
         assert stub.calls == [(d, feature)] and tr.obs is obs and tr.action is a
         venv._step(None, st, a, p, obs, None, d, env.reset_draws(g, 4))  # no pool
         assert len(stub.calls) == 1
-    assert not TimeFractionObs(TimeFractionObs(_FusedStub())).fuses_vector_step(p, st)
+    assert not TimeFractionObs(TimeFractionObs(_FusedStub())).fuses_vector_step(p, st, pool)
 
 
 def test_rigid_inputs_cover_the_step():
